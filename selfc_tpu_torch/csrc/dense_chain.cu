@@ -1,0 +1,398 @@
+// Dense-chain forward for Hopper (sm_90a): the D2DT chain of the SelfC nets.
+//
+// Replaces selfc_tpu/ops/pallas_chain.py:_chain_kernel_v2 (forward, all seven
+// coupling epilogues). The function:
+//
+//   x1..x4 : four 3x3 SAME convs over the growing concat [x | x1 .. x_{k-1}],
+//            each + bias + LeakyReLU(0.2), 32 output channels each;
+//   y5     : a (3,1,1) temporal conv over [x | x1..x4], zero padded in T, + bias;
+//   out    : the coupling epilogue applied to y5 in fp32 (see EpMode).
+//
+// What bounds it: arithmetic. One output pixel of a 64->64 chain costs about
+// 331k fp32 operations but moves under 1 KB through device memory even when
+// x1..x4 are written out, so the chain sits far above the card's fp32
+// operations-per-byte line. The design therefore spends device memory to save
+// arithmetic: the chain is five launches (four spatial layers, then conv5 with
+// the epilogue) that write x1..x4 into channel slices of ONE preallocated
+// (frames, H, W, 128) buffer, so no tile ever recomputes a halo and the
+// [x | x1..x4] concat is never assembled. Inside a launch a block stages a
+// 16-channel slab of its input tile and of the weights in shared memory as
+// fp32, and every thread keeps an 8 pixel x 8 channel accumulator tile in
+// registers (one 16-byte shared load per ~20 FMAs). Staging costs as much as
+// the FMAs when it is done element by element, so slabs are staged with
+// 16-byte loads wherever a pixel's channels start on a 4-element boundary
+// (everything but a 3-channel x). All products are plain fp32 FMAs: no tensor
+// cores, no TF32. bf16 tensors are widened on the way in and rounded once on
+// the way out.
+//
+// Plain C interface (loaded with ctypes); the caller owns every buffer.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int GC = 32;              // growth channels of every spatial conv
+constexpr int FEAT_C = 4 * GC;      // channels of the x1..x4 buffer
+constexpr int KC = 16;              // input channels staged per step
+constexpr int TILE = 16;            // spatial layers: TILE x TILE output pixels a block
+constexpr int HALO = TILE + 2;      // staged input tile edge
+constexpr int NTHREADS = 128;       // threads of a spatial-layer block
+constexpr int PIX5 = 256;           // conv5: most pixels a block handles
+constexpr int CO5 = 64;             // conv5: most output channels a block handles
+constexpr float SLOPE = 0.2f;
+
+enum EpMode {
+  EP_NONE = 0,         // y
+  EP_ADD = 1,          // a + y
+  EP_SUB_FROM = 2,     // a - y
+  EP_SIG_EXP = 3,      // exp(+clamp * (2 sigmoid(y) - 1))
+  EP_SIG_EXP_NEG = 4,  // exp(-clamp * (2 sigmoid(y) - 1))
+  EP_MUL_ADD = 5,      // a * m + y
+  EP_SUB_MUL = 6       // (a - y) * m
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void from_f(float v, float* dst) { *dst = v; }
+__device__ __forceinline__ void from_f(float v, __nv_bfloat16* dst) { *dst = __float2bfloat16(v); }
+
+// Four consecutive elements as fp32; p is aligned to the four elements.
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);  // bf16 -> fp32 is a 16-bit shift
+  return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u), __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+}
+
+// One spatial layer: feats[..., 32*layer : 32*layer+32] =
+//   lrelu(conv3x3([x | feats[..., :32*layer]], w) + b).
+// The layer reads channels below 32*layer of `feats` and writes the 32 above
+// them, so reading and writing the one buffer from many blocks is race free.
+// grid = (ceil(W/16), ceil(H/16), frames), block = 128 threads.
+// Thread (pg, cg): output row pg%16 of the tile, columns 8*(pg/16) .. +7,
+// output channels 8*cg .. +7.
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS, 3) spatial_layer_kernel(const T* x, T* feats, const T* w, const T* b, int H, int W, int C, int layer) {
+  __shared__ float4 in_s[KC / 4][HALO * HALO];
+  __shared__ __align__(16) float w_s[9][KC][GC];
+
+  const int tid = threadIdx.x;
+  const int cg = tid & 3;
+  const int pg = tid >> 2;
+  const int row = pg & 15;
+  const int cb = (pg >> 4) * 8;
+  const int tx0 = blockIdx.x * TILE;
+  const int ty0 = blockIdx.y * TILE;
+  const size_t frame = blockIdx.z;
+  const T* xf = x + frame * H * W * C;
+  T* ff = feats + frame * H * W * FEAT_C;
+  const int cin = C + GC * layer;
+
+  float acc[8][8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const float bias = to_f(b[cg * 8 + q]);
+#pragma unroll
+    for (int p = 0; p < 8; ++p) acc[p][q] = bias;
+  }
+
+  for (int src = 0; src < 2; ++src) {
+    const int nsrc = src == 0 ? C : GC * layer;
+    const T* base = src == 0 ? xf : ff;
+    const int stride = src == 0 ? C : FEAT_C;
+    const int coff = src == 0 ? 0 : C;  // offset of this source on the weight's Cin axis
+    const bool vec = (stride & 3) == 0;  // every pixel's channels start on a 4-element boundary
+    for (int c0 = 0; c0 < nsrc; c0 += KC) {
+      const int kc = min(KC, nsrc - c0);
+      const int kc4 = (kc + 3) >> 2;
+      __syncthreads();  // the previous slab is consumed before it is overwritten
+      if (vec) {  // 16-byte loads: four channels of a pixel at once
+        for (int idx = tid; idx < HALO * HALO * (KC / 4); idx += NTHREADS) {
+          const int c4 = idx & (KC / 4 - 1);
+          const int pix = idx / (KC / 4);
+          if (c4 >= kc4) continue;
+          const int iy = ty0 - 1 + pix / HALO;
+          const int ix = tx0 - 1 + pix % HALO;
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (iy >= 0 && iy < H && ix >= 0 && ix < W) v = load4(base + ((size_t)iy * W + ix) * stride + c0 + c4 * 4);
+          in_s[c4][pix] = v;
+        }
+      } else {
+        for (int idx = tid; idx < HALO * HALO * KC; idx += NTHREADS) {
+          const int c = idx & (KC - 1);
+          const int pix = idx / KC;
+          if (c >= kc4 * 4) continue;
+          const int iy = ty0 - 1 + pix / HALO;
+          const int ix = tx0 - 1 + pix % HALO;
+          float v = 0.f;
+          if (c < kc && iy >= 0 && iy < H && ix >= 0 && ix < W) v = to_f(base[((size_t)iy * W + ix) * stride + c0 + c]);
+          reinterpret_cast<float*>(&in_s[c >> 2][pix])[c & 3] = v;
+        }
+      }
+      // a weight row (32 output channels of one tap and input channel) is contiguous
+      for (int idx = tid; idx < 9 * KC * (GC / 4); idx += NTHREADS) {
+        const int co4 = idx & (GC / 4 - 1);
+        const int c = (idx / (GC / 4)) & (KC - 1);
+        const int tap = idx / (GC / 4 * KC);
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (c < kc) v = load4(w + ((size_t)tap * cin + coff + c0 + c) * GC + co4 * 4);
+        *reinterpret_cast<float4*>(&w_s[tap][c][co4 * 4]) = v;
+      }
+      __syncthreads();
+
+      for (int dy = 0; dy < 3; ++dy) {
+        for (int c4 = 0; c4 < kc4; ++c4) {
+          float in[10][4];
+          const float4* rowp = &in_s[c4][(row + dy) * HALO + cb];
+#pragma unroll
+          for (int j = 0; j < 10; ++j) {
+            const float4 t = rowp[j];
+            in[j][0] = t.x;
+            in[j][1] = t.y;
+            in[j][2] = t.z;
+            in[j][3] = t.w;
+          }
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc) {
+              const float4 wa = *reinterpret_cast<const float4*>(&w_s[dy * 3 + dx][c4 * 4 + cc][cg * 8]);
+              const float4 wb = *reinterpret_cast<const float4*>(&w_s[dy * 3 + dx][c4 * 4 + cc][cg * 8 + 4]);
+#pragma unroll
+              for (int p = 0; p < 8; ++p) {
+                const float v = in[p + dx][cc];
+                acc[p][0] = fmaf(v, wa.x, acc[p][0]);
+                acc[p][1] = fmaf(v, wa.y, acc[p][1]);
+                acc[p][2] = fmaf(v, wa.z, acc[p][2]);
+                acc[p][3] = fmaf(v, wa.w, acc[p][3]);
+                acc[p][4] = fmaf(v, wb.x, acc[p][4]);
+                acc[p][5] = fmaf(v, wb.y, acc[p][5]);
+                acc[p][6] = fmaf(v, wb.z, acc[p][6]);
+                acc[p][7] = fmaf(v, wb.w, acc[p][7]);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+
+  const int oy = ty0 + row;
+  if (oy >= H) return;
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int ox = tx0 + cb + p;
+    if (ox < W) {
+      T* o = ff + ((size_t)oy * W + ox) * FEAT_C + GC * layer + cg * 8;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float v = acc[p][q];
+        from_f(v >= 0.f ? v : SLOPE * v, o + q);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float ep_apply(float y, int mode, float clamp, float a, float m) {
+  switch (mode) {
+    case EP_ADD:
+      return a + y;
+    case EP_SUB_FROM:
+      return a - y;
+    case EP_SIG_EXP:
+      return expf(clamp * (2.f / (1.f + expf(-y)) - 1.f));
+    case EP_SIG_EXP_NEG:
+      return expf(-clamp * (2.f / (1.f + expf(-y)) - 1.f));
+    case EP_MUL_ADD:
+      return a * m + y;
+    case EP_SUB_MUL:
+      return (a - y) * m;
+    default:
+      return y;
+  }
+}
+
+// conv5 + epilogue: out = ep(b5 + sum_dt [x | feats](t + dt - 1) @ w5[dt]).
+// grid = (ceil(HW / (P*npg)), ceil(c_out / 64), frames), block = npg*ng threads,
+// ng = channel groups of 8 in a block (<= 8), npg = pixel groups, P = pixels a
+// thread (P*npg <= 256). Thread (pg, cg): pixels pg + j*npg (j < P) of the
+// block's run of pixels, output channels co_base + 8*cg .. +7. A tap whose
+// frame lies outside the clip is skipped by the whole block (zero padding in
+// T). With one channel group (c_out <= 8) the layer only streams its input, so
+// it runs with P = 2: a full block of threads to keep loads in flight.
+template <typename T, int P>
+__global__ void __launch_bounds__(NTHREADS) conv5_ep_kernel(const T* x, const T* feats, const T* w5, const T* b5, const T* a, const T* m, T* out, int Tn, int HW, int C, int c_out, int ng, int npg, int mode, float clamp) {
+  __shared__ float4 in_s[KC / 4][PIX5];
+  __shared__ __align__(16) float w_s[KC][CO5];
+
+  const int tid = threadIdx.x;
+  const int nthreads = ng * npg;
+  const int cg = tid % ng;
+  const int pg = tid / ng;
+  const int mt = npg * P;
+  const int pix0 = blockIdx.x * mt;
+  const int co_base = blockIdx.y * CO5;
+  const int nco = ng * 8;
+  const size_t frame = blockIdx.z;
+  const int t = (int)(frame % Tn);
+  const int ctot = C + FEAT_C;
+
+  float acc[P][8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int co = co_base + cg * 8 + q;
+    const float bias = co < c_out ? to_f(b5[co]) : 0.f;
+#pragma unroll
+    for (int j = 0; j < P; ++j) acc[j][q] = bias;
+  }
+
+  for (int dt = 0; dt < 3; ++dt) {
+    const int tt = t + dt - 1;
+    if (tt < 0 || tt >= Tn) continue;  // same for every thread of the block
+    const size_t fsrc = frame + dt - 1;
+    for (int src = 0; src < 2; ++src) {
+      const int nsrc = src == 0 ? C : FEAT_C;
+      const int stride = nsrc;
+      const T* base = src == 0 ? x + fsrc * HW * C : feats + fsrc * HW * FEAT_C;
+      const int coff = src == 0 ? 0 : C;
+      for (int c0 = 0; c0 < nsrc; c0 += KC) {
+        const int kc = min(KC, nsrc - c0);
+        const int kc4 = (kc + 3) >> 2;
+        __syncthreads();
+        if ((stride & 3) == 0) {
+          for (int idx = tid; idx < mt * (KC / 4); idx += nthreads) {
+            const int c4 = idx & (KC / 4 - 1);
+            const int lp = idx / (KC / 4);
+            if (c4 >= kc4) continue;
+            const int gp = pix0 + lp;
+            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (gp < HW) v = load4(base + (size_t)gp * stride + c0 + c4 * 4);
+            in_s[c4][lp] = v;
+          }
+        } else {
+          for (int idx = tid; idx < mt * KC; idx += nthreads) {
+            const int c = idx & (KC - 1);
+            const int lp = idx / KC;
+            if (c >= kc4 * 4) continue;
+            const int gp = pix0 + lp;
+            float v = 0.f;
+            if (c < kc && gp < HW) v = to_f(base[(size_t)gp * stride + c0 + c]);
+            reinterpret_cast<float*>(&in_s[c >> 2][lp])[c & 3] = v;
+          }
+        }
+        if ((c_out & 3) == 0) {
+          const int nco4 = nco / 4;
+          for (int idx = tid; idx < KC * nco4; idx += nthreads) {
+            const int col = (idx % nco4) * 4;
+            const int c = idx / nco4;
+            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (c < kc && co_base + col < c_out) v = load4(w5 + ((size_t)dt * ctot + coff + c0 + c) * c_out + co_base + col);
+            *reinterpret_cast<float4*>(&w_s[c][col]) = v;
+          }
+        } else {
+          for (int idx = tid; idx < KC * nco; idx += nthreads) {
+            const int col = idx % nco;
+            const int c = idx / nco;
+            const int co = co_base + col;
+            float v = 0.f;
+            if (c < kc && co < c_out) v = to_f(w5[((size_t)dt * ctot + coff + c0 + c) * c_out + co]);
+            w_s[c][col] = v;
+          }
+        }
+        __syncthreads();
+
+        for (int c4 = 0; c4 < kc4; ++c4) {
+          float in[P][4];
+#pragma unroll
+          for (int j = 0; j < P; ++j) {
+            const float4 v4 = in_s[c4][pg + j * npg];
+            in[j][0] = v4.x;
+            in[j][1] = v4.y;
+            in[j][2] = v4.z;
+            in[j][3] = v4.w;
+          }
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            const float4 wa = *reinterpret_cast<const float4*>(&w_s[c4 * 4 + cc][cg * 8]);
+            const float4 wb = *reinterpret_cast<const float4*>(&w_s[c4 * 4 + cc][cg * 8 + 4]);
+#pragma unroll
+            for (int j = 0; j < P; ++j) {
+              const float v = in[j][cc];
+              acc[j][0] = fmaf(v, wa.x, acc[j][0]);
+              acc[j][1] = fmaf(v, wa.y, acc[j][1]);
+              acc[j][2] = fmaf(v, wa.z, acc[j][2]);
+              acc[j][3] = fmaf(v, wa.w, acc[j][3]);
+              acc[j][4] = fmaf(v, wb.x, acc[j][4]);
+              acc[j][5] = fmaf(v, wb.y, acc[j][5]);
+              acc[j][6] = fmaf(v, wb.z, acc[j][6]);
+              acc[j][7] = fmaf(v, wb.w, acc[j][7]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // the epilogue runs here, on the fp32 accumulator, with a and m read as fp32
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int gp = pix0 + pg + j * npg;
+    if (gp < HW) {
+      const size_t o = (frame * HW + gp) * c_out;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int co = co_base + cg * 8 + q;
+        if (co < c_out) {
+          const float av = a != nullptr ? to_f(a[o + co]) : 0.f;
+          const float mv = m != nullptr ? to_f(m[o + co]) : 0.f;
+          from_f(ep_apply(acc[j][q], mode, clamp, av, mv), out + o + co);
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+int chain_forward(const void* x, void* feats, const void* const* ws, const void* const* bs, const void* w5, const void* b5, const void* a, const void* m, void* out, int frames, int Tn, int H, int W, int C, int c_out, int mode, float clamp, cudaStream_t stream) {
+  const dim3 grid_s((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, frames);
+  for (int layer = 0; layer < 4; ++layer) {
+    spatial_layer_kernel<T><<<grid_s, NTHREADS, 0, stream>>>((const T*)x, (T*)feats, (const T*)ws[layer], (const T*)bs[layer], H, W, C, layer);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int co_blk = c_out < CO5 ? c_out : CO5;
+  const int ng = (co_blk + 7) / 8;
+  const int HW = H * W;
+  const int gy = (c_out + CO5 - 1) / CO5;
+  if (ng == 1) {
+    const int npg = NTHREADS;
+    const dim3 grid_5((HW + npg * 2 - 1) / (npg * 2), gy, frames);
+    conv5_ep_kernel<T, 2><<<grid_5, npg, 0, stream>>>((const T*)x, (const T*)feats, (const T*)w5, (const T*)b5, (const T*)a, (const T*)m, (T*)out, Tn, HW, C, c_out, ng, npg, mode, clamp);
+  } else {
+    int npg = NTHREADS / ng;
+    if (npg > PIX5 / 8) npg = PIX5 / 8;
+    const dim3 grid_5((HW + npg * 8 - 1) / (npg * 8), gy, frames);
+    conv5_ep_kernel<T, 8><<<grid_5, ng * npg, 0, stream>>>((const T*)x, (const T*)feats, (const T*)w5, (const T*)b5, (const T*)a, (const T*)m, (T*)out, Tn, HW, C, c_out, ng, npg, mode, clamp);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (every tensor of one call has the same type).
+// Every pointer is aligned to 16 bytes.
+// x (frames,H,W,C); feats (frames,H,W,128) scratch, written; w1..w4 (3,3,C+32k,32);
+// b1..b4 (32); w5 (3,C+128,c_out); b5 (c_out); a, m (frames,H,W,c_out) or null;
+// out (frames,H,W,c_out). frames = B*T with T = frames_per_clip.
+// Returns the first cudaError_t a launch reports, 0 when all five were accepted.
+extern "C" int selfc_dense_chain_forward(const void* x, void* feats, const void* w1, const void* w2, const void* w3, const void* w4, const void* b1, const void* b2, const void* b3, const void* b4, const void* w5, const void* b5, const void* a, const void* m, void* out, int frames, int frames_per_clip, int H, int W, int C, int c_out, int mode, float clamp, int dtype, void* stream) {
+  const void* ws[4] = {w1, w2, w3, w4};
+  const void* bs[4] = {b1, b2, b3, b4};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return chain_forward<float>(x, feats, ws, bs, w5, b5, a, m, out, frames, frames_per_clip, H, W, C, c_out, mode, clamp, s);
+  if (dtype == 1) return chain_forward<__nv_bfloat16>(x, feats, ws, bs, w5, b5, a, m, out, frames, frames_per_clip, H, W, C, c_out, mode, clamp, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* selfc_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

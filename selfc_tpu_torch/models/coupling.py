@@ -1,0 +1,48 @@
+"""Affine coupling block (the INN workhorse).
+
+  forward: y1 = x1 + F(x2);  s = clamp*(2*sigmoid(H(y1)) - 1)
+           y2 = x2 * exp(s) + G(y1)
+  reverse: s = clamp*(2*sigmoid(H(x1)) - 1)
+           y2 = (x2 - G(x1)) * exp(-s);  y1 = x1 - F(y2)
+  log-jac: +-sum(s) / (B*T)
+
+The block carries the ``(x1, x2)`` pair (x1 = the 3 LR channels, x2 = the
+high-frequency rest) and never concatenates it. The coupling arithmetic
+rides the dense chains as fused epilogues: H emits exp(+-s) directly, the
+y1/y2 combines happen on conv5's accumulator, and the log-jacobian is
+recovered as sum(log(exp(+-s))).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+
+class InvBlockExp(nn.Module):
+    def __init__(self, channel_num, channel_split_num, subnet_ctor,
+                 clamp: float = 1.0, generator=None):
+        super().__init__()
+        s1 = channel_split_num
+        s2 = channel_num - s1
+        self.split = (s1, s2)
+        self.clamp = clamp
+        # creation order F, G, H matches the JAX package's
+        self.F = subnet_ctor(s2, s1, generator=generator)
+        self.G = subnet_ctor(s1, s2, generator=generator)
+        self.H = subnet_ctor(s1, s2, generator=generator)
+
+    def forward(self, pair, rev: bool = False):
+        """pair: (x1 (B,T,H,W,s1), x2 (B,T,H,W,s2)), both contiguous.
+        Returns ((y1, y2), log_jac)."""
+        x1, x2 = pair
+        if not rev:
+            y1 = self.F(x2, ep=("add", 1.0, x1, None))
+            s_exp = self.H(y1, ep=("sig_exp", self.clamp, None, None))
+            y2 = self.G(y1, ep=("mul_add", 1.0, x2, s_exp))
+        else:
+            s_exp = self.H(x1, ep=("sig_exp_neg", self.clamp, None, None))
+            y2 = self.G(x1, ep=("sub_mul", 1.0, x2, s_exp))
+            y1 = self.F(y2, ep=("sub_from", 1.0, x1, None))
+        jac = torch.sum(torch.log(s_exp.float())) / (x1.shape[0] * x1.shape[1])
+        return (y1, y2), jac

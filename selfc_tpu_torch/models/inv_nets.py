@@ -1,0 +1,144 @@
+"""Invertible rescaling networks.
+
+``SelfCNetGMM`` — the 4x rescaling net: frequency split (k=4) + 8 coupling
+blocks + the STPNet (GMM) prior. Takes channels-last video
+``(B, T, H, W, C)``. Methods:
+
+  encode(x)              -> (latent, log_jac)
+  prior_params(lr)       -> raw GMM parameters of the prior
+  decode_with_hf(lr, hf) -> (hr, latent)
+  decode(lr, eps=None, generator=None) -> (hr, sampled_hf)
+  nll(lr, hf)            -> conditional NLL of hf under the prior
+  roundtrip(x, ...)      -> encode -> STE-quantize LR -> decode
+  forward(x, rev)        -> (latent, loss_c) or decode(x)
+
+Randomness is explicit: ``decode`` takes the standard-normal noise ``eps``
+of shape ``(B,T,h,w,hf_dim,gmm_k)``, or a ``torch.Generator`` to draw it.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+from .. import resolve_device
+from ..ops.freq import freq_forward, freq_inverse
+from ..ops.gmm import gmm_neg_log_likelihood, gmm_sample, split_params
+from ..ops.quantize import quantize_ste
+from .blocks import subnet
+from .coupling import InvBlockExp
+from .stp import STPNet
+
+
+class SelfCNetGMM(nn.Module):
+    """Flagship rescaling net (model type 'SelfC_GMM')."""
+
+    def __init__(self, scale: int = 4, block_num: Sequence[int] = (4, 4),
+                 subnet_type: str = "D2DTNet", init_mode: str = "xavier",
+                 stp_blk_num: int = 6, fh_loss: str = "gmm", gmm_k: int = 5,
+                 global_module: str = "nonlocal", nll_enabled: bool = False,
+                 device=None, generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.scale = scale
+        self.block_num = tuple(block_num)
+        self.fh_loss = fh_loss
+        self.gmm_k = gmm_k
+        # the forward conditional NLL is off by default, as in the trained
+        # snapshot; set True to restore the loss_c term
+        self.nll_enabled = nll_enabled
+        self.latent_channels = 3 * (scale * scale + 1)
+        self.hf_dim = 3 * scale * scale
+        self.n_blocks = sum(self.block_num)
+        ctor = subnet(subnet_type, init_mode)
+        for i in range(self.n_blocks):
+            self.add_module(
+                f"inv_blocks_{i}",
+                InvBlockExp(self.latent_channels, 3, ctor, generator=generator),
+            )
+        self.stp_net = STPNet(
+            scale=scale, stp_blk_num=stp_blk_num, fh_loss=fh_loss,
+            gmm_k=gmm_k, global_module=global_module, generator=generator,
+        )
+        self.to(device)
+
+    def _blocks(self, rev: bool):
+        order = range(self.n_blocks)
+        return [getattr(self, f"inv_blocks_{i}")
+                for i in (reversed(order) if rev else order)]
+
+    def _chain(self, pair, rev: bool):
+        jac = 0.0
+        for blk in self._blocks(rev):
+            pair, j = blk(pair, rev)
+            jac = jac + j
+        return pair, jac
+
+    def encode(self, x):
+        """HR (B,T,H,W,3) -> latent (B,T,H/s,W/s,3*(s^2+1)), log_jac."""
+        y = freq_forward(x, self.scale)
+        # the (LR, HF) pair is carried through the chain; the 51-channel
+        # tensor is assembled once at the end, not per block
+        pair, jac = self._chain(
+            (y[..., :3].contiguous(), y[..., 3:].contiguous()), False)
+        return torch.cat(pair, dim=-1), jac
+
+    def prior_params(self, lr):
+        return self.stp_net(lr.contiguous())
+
+    def eps_shape(self, lr_shape):
+        """Shape of the noise ``decode`` consumes for an LR of this shape."""
+        return tuple(lr_shape[:-1]) + (self.hf_dim, self.gmm_k)
+
+    def _sample_hf(self, params, eps, generator):
+        if self.fh_loss == "l2":
+            return params
+        p = split_params(params, self.hf_dim, self.gmm_k)
+        if eps is None:
+            if generator is None:
+                raise ValueError("decode needs the noise eps or a torch.Generator")
+            eps = torch.randn(p.shape[:-1], generator=generator,
+                              device=p.device, dtype=torch.float32)
+        return gmm_sample(p, eps)
+
+    def decode(self, lr, eps=None, generator=None):
+        """LR (B,T,h,w,3) -> (HR (B,T,H,W,3), sampled hf)."""
+        params = self.prior_params(lr)
+        hf = self._sample_hf(params, eps, generator)
+        return self.decode_with_hf(lr, hf)[0], hf
+
+    def decode_with_hf(self, lr, hf):
+        """Invert the coupling chain with given HF latents (the exact
+        inverse of encode up to the frequency split's fixed shuffle
+        asymmetry)."""
+        pair, _ = self._chain((lr.contiguous(), hf.contiguous()), True)
+        y = torch.cat(pair, dim=-1)
+        return freq_inverse(y, self.scale), y
+
+    def nll(self, lr, hf):
+        """Conditional NLL of true HF latents under the prior (loss_c)."""
+        params = self.prior_params(lr)
+        if self.fh_loss == "l2":
+            return torch.mean((hf - params) ** 2)
+        return gmm_neg_log_likelihood(
+            split_params(params, self.hf_dim, self.gmm_k), hf)
+
+    def roundtrip(self, x, eps=None, generator=None):
+        """encode -> split -> STE-quantize LR -> decode."""
+        y, _ = self.encode(x)
+        lr_pre_quant = y[..., :3]
+        hf_true = y[..., 3:]
+        loss_c = (self.nll(lr_pre_quant, hf_true) if self.nll_enabled
+                  else torch.zeros((), device=x.device))
+        lr = quantize_ste(lr_pre_quant.contiguous())
+        hr, _ = self.decode(lr, eps=eps, generator=generator)
+        return {"lr_pre_quant": lr_pre_quant, "lr": lr, "hr": hr,
+                "loss_c": loss_c}
+
+    def forward(self, x, rev: bool = False, eps=None, generator=None):
+        if not rev:
+            y, _ = self.encode(x)
+            return y, torch.mean(y) * 0.0  # the forward NLL is disabled
+        return self.decode(x, eps=eps, generator=generator)

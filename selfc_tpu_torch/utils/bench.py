@@ -1,0 +1,86 @@
+"""Measuring helpers for the GPU: CUDA-event timing, seeded dense-chain
+inputs at the serving shapes, and the dense chain's cost model (operations
+and bytes from shapes) with the card's published peaks, for a roofline
+bound."""
+
+from __future__ import annotations
+
+import statistics
+
+import numpy as np
+import torch
+
+# NVIDIA H100 SXM data sheet, dense rates
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_BYTES_PER_S = 3.35e12
+
+# every (C, c_out) the SelfC_GMM 4x net launches: coupling H/G, coupling F,
+# the prior's body, the prior's head
+PATH_WIDTHS = ((3, 48), (48, 3), (64, 64), (3, 64))
+CLIP_HW = (576, 704)                                     # the Vid4 frame size
+SERVE_SHAPE = (1, 7, CLIP_HW[0] // 4, CLIP_HW[1] // 4)   # one GOP of its latent
+
+
+def time_cuda(fn, iters: int = 20, warmup: int = 3) -> dict:
+    """Milliseconds of ``fn()`` on the current CUDA stream: ``iters`` calls
+    after ``warmup`` calls, each between its own pair of events. Returns
+    their ``median``, ``min`` and ``mean``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        pairs.append((t0, t1))
+    torch.cuda.synchronize()
+    ms = [t0.elapsed_time(t1) for t0, t1 in pairs]
+    return {"median": statistics.median(ms), "min": min(ms),
+            "mean": statistics.fmean(ms)}
+
+
+def make_chain(rng, C, c_out, shape, device, dtype=torch.float32):
+    """Seeded chain parameters, input and epilogue operands for a
+    ``shape = (B,T,H,W)`` clip: every conv non-zero, fan-in scaled so
+    activations stay of order one. Returns (x, ws, bs, w5, b5, a, m)."""
+    def mk(s, std=1.0):
+        t = torch.from_numpy(rng.normal(0, std, s).astype(np.float32))
+        return t.to(device=device, dtype=dtype)
+
+    ws = [mk((3, 3, C + 32 * k, 32), (9 * (C + 32 * k)) ** -0.5) for k in range(4)]
+    bs = [mk((32,), 0.1) for _ in range(4)]
+    w5 = mk((3, C + 128, c_out), (3 * (C + 128)) ** -0.5)
+    b5 = mk((c_out,), 0.1)
+    return (mk(shape + (C,)), ws, bs, w5, b5,
+            mk(shape + (c_out,)), mk(shape + (c_out,)))
+
+
+def chain_cost(B, T, H, W, C, c_out, n_aux, itemsize, gc=32):
+    """(operations, bytes) one dense-chain call needs. Operations: two for
+    each multiply-add whose tap falls inside the clip; the taps that meet
+    the zero padding are not counted: (3H-2)(3W-2) of 9HW for the four
+    spatial convs, 3T-2 of 3T for conv5. Bytes: x, the parameters and the
+    epilogue operands read once, the output written once."""
+    px = B * T * H * W
+    inside_hw = (3 * H - 2) * (3 * W - 2) / (9 * H * W)
+    inside_t = (3 * T - 2) / (3 * T)
+    spatial = sum(9 * (C + gc * k) * gc for k in range(4)) * inside_hw
+    conv5 = 3 * (C + 4 * gc) * c_out * inside_t
+    ops = 2.0 * px * (spatial + conv5)
+    n_params = (sum(9 * (C + gc * k) * gc + gc for k in range(4))
+                + 3 * (C + 4 * gc) * c_out + c_out)
+    nbytes = itemsize * (px * (C + (1 + n_aux) * c_out) + n_params)
+    return ops, float(nbytes)
+
+
+def chain_bound_ms(B, T, H, W, C, c_out, n_aux, dtype=torch.float32):
+    """(bound_ms, 'operations' | 'bytes'): the least time the card could
+    take for one chain call."""
+    ops, nbytes = chain_cost(B, T, H, W, C, c_out, n_aux,
+                             torch.empty((), dtype=dtype).element_size())
+    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
