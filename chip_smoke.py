@@ -3,12 +3,19 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, then serves a synthetic
-10-frame clip at the Vid4 size through the full-width SelfC_GMM 4x net
-(``RescaleModel``: feed_data -> test(gop=7), then downscale / upscale) and
-times the kernels beside their roofline bound. Prints one JSON line per
-phase; any failure exits non-zero. There is no CPU fallback: without a CUDA
-device the script fails at once.
+against its plain PyTorch version on the card, then drives the two main
+paths at full width and depth: it serves a synthetic 10-frame clip at the
+Vid4 size through the SelfC_GMM 4x net (``RescaleModel``: feed_data ->
+test(gop=7), then downscale / upscale), and it trains the same net for a
+few steps at the batch of the published training config
+(``optimize_parameters`` on 8 clips of 7 frames, 144 x 144). It times the
+kernels beside their roofline bound. Prints one JSON line per phase; any
+failure exits non-zero. There is no CPU fallback: without a CUDA device the
+script fails at once.
+
+``--phases serve,train`` (the default) picks the paths; ``--phases
+kernels`` only builds the kernels and checks them against their plain
+versions.
 
 Last lines of the output: a ``{"kernels": [...]}`` object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -16,6 +23,7 @@ and power limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import subprocess
@@ -31,7 +39,8 @@ from selfc_tpu_torch.kernels import build
 from selfc_tpu_torch.ops import dense_chain as dc
 from selfc_tpu_torch.train.rescale_model import RescaleModel
 from selfc_tpu_torch.utils.bench import (
-    CLIP_HW, PATH_WIDTHS, SERVE_SHAPE, chain_bound_ms, make_chain, time_cuda)
+    CLIP_HW, PATH_WIDTHS, SERVE_SHAPE, TRAIN_SHAPE, chain_bound_ms, chain_bwd_bound_ms,
+    chain_feats_bound_ms, make_chain, time_cuda)
 from selfc_tpu_torch.utils.metrics import psnr
 
 CHECK_WIDTHS = ((3, 48), (48, 3), (64, 64))           # coupling F/H/G and the prior
@@ -41,6 +50,31 @@ FP32_LIMIT = 1e-4                # different summation order of the same fp32 pr
 BF16_REL_LIMIT = 3e-2            # relative to max |ref|: bf16 keeps 8 bits of mantissa
 HR_LIMIT = 1e-3                  # kernel path against plain path through 16 coupling blocks
 REPLACES = "selfc_tpu/ops/pallas_chain.py:386"
+REPLACES_BWD = "selfc_tpu/ops/pallas_chain.py:2012"
+REPLACES_FEATS = "selfc_tpu/ops/pallas_chain.py:2106"
+SOURCE = "selfc_tpu_torch/csrc/dense_chain.cu"
+SOURCE_BWD = "selfc_tpu_torch/csrc/dense_chain_bwd.cu"
+CHAIN_C = (3, 48, 64)            # the input widths of the net's chains: the adjoint's work depends on C only
+GRAD_SHAPE = (2, 3, 20, 26)      # two clips: a conv5 tap must not cross from one into the next
+# dx, dW and db are sums of up to 72,576 * 9 fp32 products taken in another
+# order than the plain version's, so they are compared relative to max |ref|
+BWD_FP32_REL_LIMIT = 1e-4
+# bf16: both sides widen to fp32 and round once at the end (8 bits of mantissa)
+BWD_BF16_REL_LIMIT = 1e-2
+# one chain call under autograd, kernels against autograd through the plain chain
+GRAD_REL_LIMIT = 1e-4
+N_TRAIN_STEPS = 3
+# first train step, kernel path against plain path, same parameters and noise:
+# 54 chains forward and back, each within the limits above
+TRAIN_LOSS_REL_LIMIT = 1e-4
+TRAIN_GRAD_L2_LIMIT = 1e-4       # the whole gradient: |g - ref|_2 / |ref|_2
+# each parameter's gradient, relative to its own max |ref|; a parameter whose
+# gradient is zero by construction (the bias of the attention's key projection:
+# softmax does not see it) holds rounding noise only and is left out
+TRAIN_GRAD_REL_LIMIT = 2e-3
+TRAIN_GRAD_ZERO = 1e-6           # "zero": max |ref| below this share of the largest gradient
+# Adam's first step moves an element by at most lr, whatever its gradient
+TRAIN_PARAM_LIMIT = 2.0 * 1e-4
 
 
 def check(ok, what):
@@ -72,7 +106,7 @@ def to_library_layout(x, ws, bs, w5, b5, a, m):
 def plain_chain_on_card():
     """Route the models' chain calls to the plain version, for comparison."""
     kernel = dc.dense_chain_t_ep
-    dc.dense_chain_t_ep = dc.dense_chain_t_ep_plain
+    dc.dense_chain_t_ep = lambda *a, save_feats=True, **kw: dc.dense_chain_t_ep_plain(*a, **kw)
     try:
         yield
     finally:
@@ -125,11 +159,12 @@ def phase_kernels(device):
     for fault, error, kw in (
         ("strided a", ValueError, dict(a=torch.cat([a, a], -1)[..., :3], m=m)),
         ("float64 x", TypeError, dict(x=x.double(), a=a, m=m)),
-        ("requires grad", NotImplementedError, dict(x=x.clone().requires_grad_(True), a=a, m=m)),
+        ("growth width 12", ValueError, dict(ws=[w[..., :12].contiguous() for w in ws],
+                                             bs=[b[:12].contiguous() for b in bs], a=a, m=m)),
     ):
         try:
-            with torch.enable_grad():
-                dc.dense_chain_t_ep(kw.get("x", x), ws, bs, w5, b5, "mul_add", 1.0, kw["a"], kw["m"])
+            dc.dense_chain_t_ep(kw.get("x", x), kw.get("ws", ws), kw.get("bs", bs), w5, b5,
+                                "mul_add", 1.0, kw["a"], kw["m"])
         except error:
             refused.append(fault)
     check(len(refused) == 3 and dc.launches == before, f"the wrapper refuses bad CUDA arguments: {refused}")
@@ -138,12 +173,27 @@ def phase_kernels(device):
     return worst
 
 
+NETWORK_G = {"which_model_G": {"subnet_type": "D2DTNet"}, "block_num": BLOCK_NUM,
+             "scale": 4, "init": "xavier", "global_module": "nonlocal",
+             "stp_blk_num": STP_BLK_NUM, "fh_loss": "gmm", "gmm_k": 5}
+
+
 def serve_options(**val):
+    return dict_to_nonedict({"model": "SelfC_GMM", "scale": 4, "val": val, "network_G": NETWORK_G})
+
+
+def train_options(**train):
+    """The options of the published training config
+    (selfc_tpu/configs/train/train_rescaling_selfc_large.yml), built here."""
     return dict_to_nonedict({
-        "model": "SelfC_GMM", "scale": 4, "val": val,
-        "network_G": {"which_model_G": {"subnet_type": "D2DTNet"}, "block_num": BLOCK_NUM,
-                      "scale": 4, "init": "xavier", "global_module": "nonlocal",
-                      "stp_blk_num": STP_BLK_NUM, "fh_loss": "gmm", "gmm_k": 5},
+        "model": "SelfC_GMM", "scale": 4, "distortion": "sr_bd", "is_train": True,
+        "datasets": {"train": {"video_len": 7, "batch_size": 8, "GT_size": 144}},
+        "network_G": NETWORK_G,
+        "train": {"lr_G": 1e-4, "beta1": 0.9, "beta2": 0.999, "warmup_iter": -1,
+                  "lr_scheme": "MultiStepLR", "lr_steps": [100000, 200000, 300000], "lr_gamma": 0.5,
+                  "pixel_criterion_forw": "l2", "pixel_criterion_back": "l1",
+                  "lambda_cond_prob": 0, "lambda_fit_forw": 1, "lambda_rec_back": 1,
+                  "weight_decay_G": 1e-14, "gradient_clipping": 10, **train},
     })
 
 
@@ -164,8 +214,7 @@ def phase_roundtrip(device):
     n_params = sum(p.numel() for p in model.net.parameters())
 
     # ---- the main path: counts set to 0 just before, read just after ----
-    dc.launches = 0
-    dc.launches_by_width.clear()
+    dc.reset_launch_counts()
     model.generator.manual_seed(5)
     t0 = time.time()
     check(model.feed_data({"GT": clip}) == 10, "feed_data returns the clip length")
@@ -316,7 +365,331 @@ def phase_timing(device, model, counts, worst):
     return kernels
 
 
+def rel_err(got, want):
+    """max |got - want| relative to max |want|, in fp32."""
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def phase_kernels_bwd(device):
+    """The spatial-only forward and the chain adjoint against their plain
+    versions, at an odd shape and at the training shape."""
+    rng = np.random.default_rng(10)
+    cases, worst = [], {"feats": {C: 0.0 for C in CHAIN_C}, "bwd": {C: 0.0 for C in CHAIN_C}}
+    for shape in (CHECK_SHAPE, TRAIN_SHAPE):
+        for dtype in (torch.float32, torch.bfloat16):
+            fp32 = dtype == torch.float32
+            for C in CHAIN_C:
+                x, ws, bs, *_ = make_chain(rng, C, 3, shape, device, dtype)
+                want_f = dc.chain_feats_plain(x, ws, bs)
+                got_f = dc.chain_feats(x, ws, bs)
+                e_f = (got_f.float() - want_f.float()).abs().max().item()
+                ok = e_f <= (FP32_LIMIT if fp32 else BF16_REL_LIMIT * want_f.float().abs().max().item())
+                # some saved outputs of exactly 0: they take the 0.2 slope on both sides
+                feats = want_f.clone()
+                feats[torch.from_numpy(rng.random(feats.shape) < 0.02).to(device)] = 0
+                g = torch.from_numpy(rng.normal(0, 1, feats.shape).astype(np.float32)).to(device, dtype)
+                dx0 = torch.from_numpy(rng.normal(0, 1, x.shape).astype(np.float32)).to(device)
+                want = dc.chain_spatial_bwd_plain(x, ws, bs, feats, g, dx0)
+                got = dc.chain_spatial_bwd(x, ws, bs, feats, g, dx0)
+                again = dc.chain_spatial_bwd(x, ws, bs, feats, g, dx0)
+                torch.cuda.synchronize()
+                flat = lambda r: [r[0], *r[1], *r[2]]  # noqa: E731
+                e_dx, *e_p = [rel_err(u, v) for u, v in zip(flat(got), flat(want))]
+                same_bits = all(torch.equal(u, v) for u, v in zip(flat(got), flat(again)))
+                limit = BWD_FP32_REL_LIMIT if fp32 else BWD_BF16_REL_LIMIT
+                ok = ok and max(e_dx, *e_p) <= limit and same_bits
+                if fp32:
+                    worst["feats"][C] = max(worst["feats"][C], e_f)
+                    worst["bwd"][C] = max(worst["bwd"][C], (got[0] - want[0]).abs().max().item())
+                cases.append({"shape": shape, "dtype": str(dtype).split(".")[-1], "C": C,
+                              "feats_max_abs_err": e_f, "dx_rel_err": e_dx, "dw_db_rel_err": max(e_p),
+                              "same_bits_twice": same_bits, "ok": ok})
+                check(ok and np.isfinite(e_f + e_dx + max(e_p)),
+                      f"backward kernels agree with their plain versions: {cases[-1]}")
+    emit("kernels_bwd", kernels=["chain_feats", "chain_spatial_bwd"], n_cases=len(cases),
+         fp32_limit=FP32_LIMIT, bf16_rel_limit=BF16_REL_LIMIT, bwd_fp32_rel_limit=BWD_FP32_REL_LIMIT,
+         bwd_bf16_rel_limit=BWD_BF16_REL_LIMIT, cases=cases)
+    return worst
+
+
+def phase_grad(device):
+    """``dense_chain_t_ep`` under autograd on the card (kernels forward and
+    backward) against autograd through the plain chain: every epilogue,
+    gradients of x, the ten parameters, a and m; saved features and
+    recomputed features give the same bits."""
+    rng = np.random.default_rng(11)
+    cases = []
+    for C, c_out in CHECK_WIDTHS:
+        for mode, n_aux in dc.EP_AUX.items():
+            x, ws, bs, w5, b5, a, m = make_chain(rng, C, c_out, GRAD_SHAPE, device)
+            leaves = [x, *ws, *bs, w5, b5, *(a, m)[:n_aux]]
+            for t in leaves:
+                t.requires_grad_(True)
+            aa, mm = (a if n_aux >= 1 else None), (m if n_aux >= 2 else None)
+            gout = torch.from_numpy(rng.normal(0, 1, GRAD_SHAPE + (c_out,)).astype(np.float32)).to(device)
+            want = torch.autograd.grad(
+                dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, mode, 0.8, aa, mm), leaves, gout)
+            before = (dc.launches, dc.launches_bwd, dc.launches_feats)
+            got = torch.autograd.grad(
+                dc.dense_chain_t_ep(x, ws, bs, w5, b5, mode, 0.8, aa, mm), leaves, gout)
+            mid = (dc.launches, dc.launches_bwd, dc.launches_feats)
+            got_nf = torch.autograd.grad(
+                dc.dense_chain_t_ep(x, ws, bs, w5, b5, mode, 0.8, aa, mm, save_feats=False), leaves, gout)
+            after = (dc.launches, dc.launches_bwd, dc.launches_feats)
+            torch.cuda.synchronize()
+            errs = [rel_err(u, v) for u, v in zip(got, want)]
+            same = all(torch.equal(u, v) for u, v in zip(got, got_nf))
+            counted = (tuple(np.subtract(mid, before)) == (1, 1, 0)
+                       and tuple(np.subtract(after, mid)) == (1, 1, 1))
+            cases.append({"C": C, "c_out": c_out, "mode": mode, "max_rel_err": max(errs),
+                          "saved_equals_recomputed": same, "launches_counted": counted})
+            check(max(errs) <= GRAD_REL_LIMIT and same and counted,
+                  f"chain gradient on the card against autograd through the plain chain: {cases[-1]}")
+    emit("grad", shape=GRAD_SHAPE, n_cases=len(cases), rel_limit=GRAD_REL_LIMIT, cases=cases)
+
+
+def train_batch(seed=20):
+    """A smooth synthetic batch in [0,1] of the training config's shape."""
+    rng = np.random.default_rng(seed)
+    B, T, S = TRAIN_SHAPE[0], TRAIN_SHAPE[1], 4 * TRAIN_SHAPE[2]
+    yy, xx = np.meshgrid(np.linspace(0, 1, S), np.linspace(0, 1, S), indexing="ij")
+    ph = rng.uniform(0, 6, (B, 1, 1, 1, 3))
+    t = np.arange(T).reshape(1, T, 1, 1, 1)
+    base = 0.5 + 0.3 * np.sin(7 * xx[None, None, :, :, None] + 0.3 * t + ph) * np.cos(5 * yy[None, None, :, :, None] + ph)
+    return np.clip(base + rng.normal(0, 0.02, (B, T, S, S, 3)), 0, 1).astype(np.float32)
+
+
+def new_trainer(device, tree, batch, **train):
+    model = RescaleModel(train_options(**train), device=device, rng_seed=0)
+    model.load_jax_params(tree)
+    check(model.feed_data({"GT": batch}) == TRAIN_SHAPE[1], "feed_data returns the clip length")
+    return model
+
+
+def grads_of(model):
+    return {k: p.grad.detach().clone() for k, p in model.net.named_parameters()}
+
+
+def params_of(model):
+    return {k: p.detach().clone() for k, p in model.net.named_parameters()}
+
+
+def phase_train(device):
+    """Three training steps of the full-width net at the published batch,
+    then one step with ``save_chain_feats: false``; the launch counts of
+    exactly these four steps are kept."""
+    batch = train_batch()
+    rng = np.random.default_rng(21)
+    lat = TRAIN_SHAPE + (3,)
+    n_chain = 6 * sum(BLOCK_NUM) + STP_BLK_NUM   # 3 a block each way, and the prior's
+    probe = RescaleModel(train_options(), device=device, rng_seed=0)
+    tree = seeded_tree(probe.net, 2)
+    eps = [rng.normal(0, 1, probe.net.eps_shape(lat)).astype(np.float32) for _ in range(N_TRAIN_STEPS)]
+    del probe
+    model = new_trainer(device, tree, batch)
+    start = params_of(model)
+
+    # ---- the main path: counts set to 0 just before, read just after ----
+    dc.reset_launch_counts()
+    logs, per_step, seen = [], [], (0, 0, 0)
+    t0 = time.time()
+    for step in range(N_TRAIN_STEPS):
+        model.optimize_parameters(step, eps=eps[step])
+        logs.append(dict(model.get_current_log()))
+        now = (dc.launches, dc.launches_bwd, dc.launches_feats)
+        per_step.append(tuple(int(v) for v in np.subtract(now, seen)))
+        seen = now
+        if step == 0:
+            after_1, grads_1, norm_1 = params_of(model), grads_of(model), float(model.grad_norm)
+    recompute = new_trainer(device, tree, batch, save_chain_feats=False)
+    recompute.optimize_parameters(0, eps=eps[0])
+    log_r, norm_r = dict(recompute.get_current_log()), float(recompute.grad_norm)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    now = (dc.launches, dc.launches_bwd, dc.launches_feats)
+    per_step.append(tuple(int(v) for v in np.subtract(now, seen)))
+    counts = {"forward": dict(dc.launches_by_width), "backward": dict(dc.launches_bwd_by_width),
+              "feats": dict(dc.launches_feats_by_width)}
+    # ---------------------------------------------------------------------
+
+    check(per_step == [(n_chain, n_chain, 0)] * N_TRAIN_STEPS + [(n_chain, n_chain, n_chain)],
+          f"chain launches (forward, backward, feats) of each step: {per_step}")
+    for lg in logs + [log_r]:
+        check(all(np.isfinite(v) for v in lg.values()) and lg["skipped_nonfinite"] == 0.0,
+              f"the step's losses are finite and it was not skipped: {lg}")
+    unchanged = [k for k, p in model.net.named_parameters() if torch.equal(p.detach(), start[k])]
+    check(not unchanged, f"every parameter changed: {unchanged[:5]}")
+    # recomputed features: the same forward, and a backward on the same bits
+    check(log_r["loss"] == logs[0]["loss"] and abs(norm_r - norm_1) <= 1e-6 * norm_1,
+          f"save_chain_feats false gives the same loss and gradient norm: {(log_r['loss'], logs[0]['loss'], norm_r, norm_1)}")
+
+    # the same first step through the plain chain, on the card
+    plain = new_trainer(device, tree, batch)
+    with plain_chain_on_card():
+        before = (dc.launches, dc.launches_bwd, dc.launches_feats)
+        plain.optimize_parameters(0, eps=eps[0])
+        check((dc.launches, dc.launches_bwd, dc.launches_feats) == before, "the plain path launches no kernel")
+    log_p, grads_p, after_p = dict(plain.get_current_log()), grads_of(plain), params_of(plain)
+    loss_rel = abs(logs[0]["loss"] - log_p["loss"]) / abs(log_p["loss"])
+    top = max(g.abs().max().item() for g in grads_p.values())
+    live = [k for k, g in grads_p.items() if g.abs().max().item() >= TRAIN_GRAD_ZERO * top]
+    grad_rel = max(rel_err(grads_1[k], grads_p[k]) for k in live)
+    grad_l2 = (sum((grads_1[k] - g).pow(2).sum().item() for k, g in grads_p.items())
+               / sum(g.pow(2).sum().item() for g in grads_p.values())) ** 0.5
+    param_err = max((after_1[k] - after_p[k]).abs().max().item() for k in after_p)
+    moved = sum(((after_1[k] - after_p[k]).abs() > 1e-5).sum().item() for k in after_p)
+    n_params = sum(p.numel() for p in after_p.values())
+    check(loss_rel <= TRAIN_LOSS_REL_LIMIT, f"first step's loss, kernel path vs plain path: {loss_rel}")
+    check(grad_l2 <= TRAIN_GRAD_L2_LIMIT and grad_rel <= TRAIN_GRAD_REL_LIMIT,
+          f"first step's gradients, kernel path vs plain path: {(grad_l2, grad_rel)}")
+    check(param_err <= TRAIN_PARAM_LIMIT, f"parameters after the first step, kernel path vs plain path: {param_err}")
+    n_zero = len(grads_p) - len(live)
+    del plain, grads_p
+
+    # the first step again from the same parameters and noise: the same bits
+    again = new_trainer(device, tree, batch)
+    again.optimize_parameters(0, eps=eps[0])
+    differ = [k for k, p in again.net.named_parameters() if not torch.equal(p.detach(), after_1[k])]
+    check(not differ, f"a repeated first step gives bit-identical parameters: {differ[:5]}")
+
+    emit("train", batch=batch.shape, n_params=n_params, steps=N_TRAIN_STEPS, train_s=train_s,
+         launches_per_step=per_step, logs=logs, grad_norm_step0=norm_1,
+         loss_rel_err_kernel_vs_plain=loss_rel, loss_rel_limit=TRAIN_LOSS_REL_LIMIT,
+         grad_l2_rel_err_kernel_vs_plain=grad_l2, grad_l2_limit=TRAIN_GRAD_L2_LIMIT,
+         grad_max_rel_err_kernel_vs_plain=grad_rel, grad_rel_limit=TRAIN_GRAD_REL_LIMIT,
+         grads_compared=len(live), grads_zero_by_construction=n_zero,
+         param_max_abs_err_kernel_vs_plain=param_err, param_limit=TRAIN_PARAM_LIMIT,
+         params_differing_by_over_1e_5=moved, repeat_bit_identical=True,
+         recompute_same_loss=True, recompute_grad_norm=norm_r)
+    return model, recompute, counts, eps[0]
+
+
+def library_feats(x, ws, bs):
+    """[x1 | .. | x4] through PyTorch's library convolutions on NCDHW
+    tensors: the yardstick, never called by the port."""
+    feats = x
+    for w, b in zip(ws, bs):
+        feats = torch.cat([feats, F.leaky_relu(F.conv3d(feats, w, b, padding=(0, 1, 1)), 0.2)], 1)
+    return feats[:, x.shape[1]:]
+
+
+def phase_timing_train(device, model, recompute, counts, worst, eps):
+    rng = np.random.default_rng(22)
+    kernels = []
+    for C, c_out in PATH_WIDTHS:   # the forward chain at the training shape
+        args = make_chain(rng, C, c_out, TRAIN_SHAPE, device)
+        x, ws, bs, w5, b5, a, m = args
+        err = max(chain_error(args, mode) for mode in dc.EP_AUX)
+        check(err <= FP32_LIMIT, f"kernel vs plain at the training shape: {(C, c_out, err)}")
+        lib_args = to_library_layout(*args)
+        ms = time_cuda(lambda: dc.dense_chain_t_ep(x, ws, bs, w5, b5, "mul_add", 1.0, a, m))
+        plain = time_cuda(lambda: dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, "mul_add", 1.0, a, m))
+        library = time_cuda(lambda: library_chain(*lib_args))
+        bound, by = chain_bound_ms(*TRAIN_SHAPE, C, c_out, 2)
+        kernels.append({
+            "name": f"dense_chain_t_ep[{C}->{c_out}]@train", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES, "launches": counts["forward"].get((C, c_out), 0),
+            "max_abs_err": err, "ms": ms["median"], "plain_ms": plain["median"],
+            "bound_ms": bound, "bound_by": by, "library_ms": library["median"],
+            "ms_min": ms["min"], "plain_ms_min": plain["min"], "library_ms_min": library["min"],
+            "shape": list(TRAIN_SHAPE) + [C], "mode": "mul_add"})
+    for C in CHAIN_C:              # the adjoint and the spatial-only forward
+        x, ws, bs, *_ = make_chain(rng, C, 3, TRAIN_SHAPE, device)
+        feats = dc.chain_feats(x, ws, bs)
+        g = torch.from_numpy(rng.normal(0, 1, feats.shape).astype(np.float32)).to(device)
+        # the library's copies, in its layout, as leaves of a graph of their own
+        leaves = [x.permute(0, 4, 1, 2, 3).contiguous(),
+                  *(w.permute(3, 2, 0, 1)[:, :, None].contiguous() for w in ws), *(b.clone() for b in bs)]
+        for t in leaves:
+            t.requires_grad_(True)
+        lx, lws, lbs = leaves[0], leaves[1:5], leaves[5:]
+        lg = g.permute(0, 4, 1, 2, 3).contiguous()
+        lfeats = library_feats(lx, lws, lbs)
+        check((lfeats.detach().permute(0, 2, 3, 4, 1) - feats).abs().max().item() <= 1e-3,
+              "library spatial chain computes the same function")
+        with torch.no_grad():
+            f_ms = time_cuda(lambda: dc.chain_feats(x, ws, bs))
+            f_plain = time_cuda(lambda: dc.chain_feats_plain(x, ws, bs))
+            f_lib = time_cuda(lambda: library_feats(lx, lws, lbs))
+        f_bound, f_by = chain_feats_bound_ms(*TRAIN_SHAPE, C)
+        kernels.append({
+            "name": f"chain_feats[{C}]@train", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES_FEATS, "launches": counts["feats"].get(C, 0),
+            "max_abs_err": worst["feats"][C], "ms": f_ms["median"], "plain_ms": f_plain["median"],
+            "bound_ms": f_bound, "bound_by": f_by, "library_ms": f_lib["median"],
+            "ms_min": f_ms["min"], "plain_ms_min": f_plain["min"], "library_ms_min": f_lib["min"],
+            "shape": list(TRAIN_SHAPE) + [C]})
+        b_ms = time_cuda(lambda: dc.chain_spatial_bwd(x, ws, bs, feats, g))
+        b_plain = time_cuda(lambda: dc.chain_spatial_bwd_plain(x, ws, bs, feats, g))
+        b_lib = time_cuda(lambda: torch.autograd.grad(lfeats, leaves, lg, retain_graph=True))
+        b_bound, b_by = chain_bwd_bound_ms(*TRAIN_SHAPE, C)
+        kernels.append({
+            "name": f"chain_spatial_bwd[{C}]@train", "route": "cuda", "source": SOURCE_BWD,
+            "replaces": REPLACES_BWD, "launches": counts["backward"].get(C, 0),
+            "max_abs_err": worst["bwd"][C], "ms": b_ms["median"], "plain_ms": b_plain["median"],
+            "bound_ms": b_bound, "bound_by": b_by, "library_ms": b_lib["median"],
+            "ms_min": b_ms["min"], "plain_ms_min": b_plain["min"], "library_ms_min": b_lib["min"],
+            "shape": list(TRAIN_SHAPE) + [C]})
+        del lfeats
+
+    # one whole step, and its three parts (forward with the losses, backward,
+    # clip + Adam), each between CUDA events
+    def step_of(mdl):
+        return lambda: mdl.optimize_parameters(N_TRAIN_STEPS, eps=eps)
+
+    def parts(mdl):
+        hr = mdl.real_H
+        eps_t = torch.as_tensor(eps, device=device)
+        with torch.no_grad():
+            ref_l = mdl.degrade(hr)
+        held = {}
+
+        def fwd():
+            mdl.optimizer.zero_grad(set_to_none=True)
+            held["loss"] = mdl._pixel_losses(hr, ref_l, eps_t)[0]
+
+        def opt():
+            from selfc_tpu_torch.train.rescale_model import clip_by_global_norm_
+            clip_by_global_norm_(list(mdl.net.parameters()), 10.0)
+            mdl.optimizer.step()
+
+        out = {"forward": [], "backward": [], "optimizer": []}
+        for _ in range(5):
+            out["forward"].append(time_cuda(fwd, iters=1, warmup=0)["median"])
+            out["backward"].append(time_cuda(lambda: held["loss"].backward(), iters=1, warmup=0)["median"])
+            out["optimizer"].append(time_cuda(opt, iters=1, warmup=0)["median"])
+        return {k: float(np.median(v)) for k, v in out.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    step = time_cuda(step_of(model), iters=10, warmup=1)
+    peak_saved = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = parts(model)
+    torch.cuda.reset_peak_memory_stats()
+    step_r = time_cuda(step_of(recompute), iters=10, warmup=1)
+    peak_recompute = torch.cuda.max_memory_allocated() / 2 ** 30
+    with plain_chain_on_card():
+        step_p = time_cuda(step_of(model), iters=10, warmup=1)
+    by_name = {k["name"]: k for k in kernels}
+    n_fwd = sum(by_name[f"dense_chain_t_ep[{C}->{co}]@train"]["ms"] * counts["forward"].get((C, co), 0)
+                for C, co in PATH_WIDTHS) / (N_TRAIN_STEPS + 1)
+    n_bwd = sum(by_name[f"chain_spatial_bwd[{C}]@train"]["ms"] * counts["backward"].get(C, 0)
+                for C in CHAIN_C) / (N_TRAIN_STEPS + 1)
+    emit("timing_train", shape=TRAIN_SHAPE, step_ms=step["median"], step_ms_min=step["min"],
+         step_recompute_feats_ms=step_r["median"], step_recompute_feats_ms_min=step_r["min"],
+         step_plain_ms=step_p["median"], step_plain_ms_min=step_p["min"],
+         forward_ms=split["forward"], backward_ms=split["backward"], optimizer_ms=split["optimizer"],
+         forward_chain_kernels_ms_per_step=n_fwd, backward_chain_kernels_ms_per_step=n_bwd,
+         clips_per_s=TRAIN_SHAPE[0] * 1e3 / step["median"],
+         peak_device_memory_gib_saved_feats=peak_saved, peak_device_memory_gib_recomputed_feats=peak_recompute)
+    return kernels
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="serve,train",
+                    help="comma-separated: kernels (build and check only), serve, train")
+    want = set(ap.parse_args().phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
@@ -338,15 +711,27 @@ def main():
              for ln in build.build_log(name).splitlines() if "registers" in ln]
     emit("build", seconds=time.time() - t0, libraries=build.kernel_names(), ptxas=ptxas)
 
+    kernels = []
     with torch.no_grad():
         worst = phase_kernels(device)
-        model, counts = phase_roundtrip(device)
-        kernels = phase_timing(device, model, counts, worst)
+        worst_bwd = phase_kernels_bwd(device)
+    phase_grad(device)
+    if "serve" in want:
+        with torch.no_grad():
+            model, counts = phase_roundtrip(device)
+            kernels += phase_timing(device, model, counts, worst)
+        del model
+    if "train" in want:
+        trainer, recompute, counts, eps = phase_train(device)
+        kernels += phase_timing_train(device, trainer, recompute, counts, worst_bwd, eps)
 
     for k in kernels:
         check(k["launches"] >= 1, f"the main path launched {k['name']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
+    if want != {"serve", "train"}:
+        print(f"chip_smoke: partial run ({sorted(want)}): no result line", file=sys.stderr)
+        return 3
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

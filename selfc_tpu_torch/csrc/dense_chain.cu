@@ -1,7 +1,9 @@
 // Dense-chain forward for Hopper (sm_90a): the D2DT chain of the SelfC nets.
 //
 // Replaces selfc_tpu/ops/pallas_chain.py:_chain_kernel_v2 (forward, all seven
-// coupling epilogues). The function:
+// coupling epilogues; its emit_feats output is the feats buffer below, which
+// the caller may keep for the backward) and, through the entry
+// selfc_dense_chain_feats, :_pallas_feats (x1..x4 alone). The function:
 //
 //   x1..x4 : four 3x3 SAME convs over the growing concat [x | x1 .. x_{k-1}],
 //            each + bias + LeakyReLU(0.2), 32 output channels each;
@@ -353,14 +355,22 @@ __global__ void __launch_bounds__(NTHREADS) conv5_ep_kernel(const T* x, const T*
   }
 }
 
+// The four spatial layers, in order: layer k reads what layers < k wrote.
 template <typename T>
-int chain_forward(const void* x, void* feats, const void* const* ws, const void* const* bs, const void* w5, const void* b5, const void* a, const void* m, void* out, int frames, int Tn, int H, int W, int C, int c_out, int mode, float clamp, cudaStream_t stream) {
+int spatial_layers(const void* x, void* feats, const void* const* ws, const void* const* bs, int frames, int H, int W, int C, cudaStream_t stream) {
   const dim3 grid_s((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, frames);
   for (int layer = 0; layer < 4; ++layer) {
     spatial_layer_kernel<T><<<grid_s, NTHREADS, 0, stream>>>((const T*)x, (T*)feats, (const T*)ws[layer], (const T*)bs[layer], H, W, C, layer);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  return 0;
+}
+
+template <typename T>
+int chain_forward(const void* x, void* feats, const void* const* ws, const void* const* bs, const void* w5, const void* b5, const void* a, const void* m, void* out, int frames, int Tn, int H, int W, int C, int c_out, int mode, float clamp, cudaStream_t stream) {
+  const int err = spatial_layers<T>(x, feats, ws, bs, frames, H, W, C, stream);
+  if (err != 0) return err;
   const int co_blk = c_out < CO5 ? c_out : CO5;
   const int ng = (co_blk + 7) / 8;
   const int HW = H * W;
@@ -392,6 +402,19 @@ extern "C" int selfc_dense_chain_forward(const void* x, void* feats, const void*
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return chain_forward<float>(x, feats, ws, bs, w5, b5, a, m, out, frames, frames_per_clip, H, W, C, c_out, mode, clamp, s);
   if (dtype == 1) return chain_forward<__nv_bfloat16>(x, feats, ws, bs, w5, b5, a, m, out, frames, frames_per_clip, H, W, C, c_out, mode, clamp, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The spatial half alone (replaces selfc_tpu/ops/pallas_chain.py:_pallas_feats):
+// feats (frames,H,W,128), written, = [x1 | x2 | x3 | x4]. The backward of the
+// chain calls it when the forward did not keep its feats buffer. Same
+// arguments and return value as above, without conv5 and the epilogue.
+extern "C" int selfc_dense_chain_feats(const void* x, void* feats, const void* w1, const void* w2, const void* w3, const void* w4, const void* b1, const void* b2, const void* b3, const void* b4, int frames, int H, int W, int C, int dtype, void* stream) {
+  const void* ws[4] = {w1, w2, w3, w4};
+  const void* bs[4] = {b1, b2, b3, b4};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return spatial_layers<float>(x, feats, ws, bs, frames, H, W, C, s);
+  if (dtype == 1) return spatial_layers<__nv_bfloat16>(x, feats, ws, bs, frames, H, W, C, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -51,11 +51,17 @@ class _ConvP(nn.Module):
 
 
 class DenseChain(nn.Module):
-    """The 5-conv growing-dense chain with k1='s' and k5='t'."""
+    """The 5-conv growing-dense chain with k1='s' and k5='t'.
+
+    ``save_feats`` (an attribute, default true): keep the chain's
+    ``(B,T,H,W,128)`` features from the forward for the backward; false
+    makes the backward recompute them. ``SelfCNetGMM`` sets it on all its
+    chains from ``train.save_chain_feats``."""
 
     def __init__(self, c_in, c_out, gc=32, init_mode="inn_xavier",
                  generator=None):
         super().__init__()
+        self.save_feats = True
         grow = _w_init(init_mode, "grow")
         proj = _w_init(init_mode, "proj")
         for i in range(4):
@@ -71,6 +77,7 @@ class DenseChain(nn.Module):
         return _dc.dense_chain_t_ep(
             x, [c.weight for c in convs], [c.bias for c in convs],
             self.conv5.weight, self.conv5.bias, mode, clamp, a, m,
+            save_feats=self.save_feats,
         )
 
 

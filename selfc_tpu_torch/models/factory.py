@@ -30,6 +30,7 @@ def define_G(opt, device=None, generator=None):
                 "Set network_G.nll_enabled: true to activate it.", lam_cond,
             )
         gm = net.get("global_module") or "nonlocal"
+        save_feats = (opt.get("train") or {}).get("save_chain_feats")
         return SelfCNetGMM(
             scale=net.get("scale") or opt["scale"],
             block_num=tuple(net.get("block_num") or (4, 4)),
@@ -40,6 +41,7 @@ def define_G(opt, device=None, generator=None):
             gmm_k=net.get("gmm_k") or 5,
             global_module=gm,
             nll_enabled=nll_enabled,
+            save_chain_feats=True if save_feats is None else bool(save_feats),
             device=device,
             generator=generator,
         )

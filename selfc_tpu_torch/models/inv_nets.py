@@ -27,7 +27,7 @@ from .. import resolve_device
 from ..ops.freq import freq_forward, freq_inverse
 from ..ops.gmm import gmm_neg_log_likelihood, gmm_sample, split_params
 from ..ops.quantize import quantize_ste
-from .blocks import subnet
+from .blocks import DenseChain, subnet
 from .coupling import InvBlockExp
 from .stp import STPNet
 
@@ -39,7 +39,7 @@ class SelfCNetGMM(nn.Module):
                  subnet_type: str = "D2DTNet", init_mode: str = "xavier",
                  stp_blk_num: int = 6, fh_loss: str = "gmm", gmm_k: int = 5,
                  global_module: str = "nonlocal", nll_enabled: bool = False,
-                 device=None, generator=None):
+                 save_chain_feats: bool = True, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
         self.scale = scale
@@ -62,6 +62,10 @@ class SelfCNetGMM(nn.Module):
             scale=scale, stp_blk_num=stp_blk_num, fh_loss=fh_loss,
             gmm_k=gmm_k, global_module=global_module, generator=generator,
         )
+        # training memory against backward time: see blocks.DenseChain
+        for mod in self.modules():
+            if isinstance(mod, DenseChain):
+                mod.save_feats = bool(save_chain_feats)
         self.to(device)
 
     def _blocks(self, rev: bool):

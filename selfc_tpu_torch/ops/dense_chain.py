@@ -1,7 +1,10 @@
-"""The D2DT dense chain with a fused coupling epilogue.
+"""The D2DT dense chain with a fused coupling epilogue, and its gradient.
 
-Replaces ``selfc_tpu/ops/pallas_chain.py:_chain_kernel_v2`` (reached there
-through ``fused_dense_chain_t`` / ``fused_dense_chain_t_ep``). Forward only.
+Replaces, of ``selfc_tpu/ops/pallas_chain.py``: ``_chain_kernel_v2`` (the
+forward, reached there through ``fused_dense_chain_t_ep``; its ``emit_feats``
+output is the feats buffer kept here for the backward), ``_pallas_feats``
+(the spatial-only forward) and ``_chain_bwd_kernel`` (the adjoint of the four
+spatial convs, reached through ``_pallas_bwd``).
 
 The function, on a channels-last video ``x (B,T,H,W,C)``:
 
@@ -10,21 +13,28 @@ The function, on a channels-last video ``x (B,T,H,W,C)``:
   out = ep_apply(y5, mode, clamp, a, m)                  (in fp32)
 
 with ``w_k (3,3,C+32(k-1),32)``, ``w5 (3,C+128,c_out)`` and the epilogue
-operands ``a``, ``m`` of the output's shape.
+operands ``a``, ``m`` of the output's shape. ``feats`` below is the concat
+``[x_1 | .. | x_4]`` of shape ``(B,T,H,W,128)``.
 
 On a CUDA tensor the work is done by the hand-written kernels of
-``csrc/dense_chain.cu``. The chain is bound by arithmetic on the card, not
-by bytes (a 64->64 chain does ~331k fp32 operations for each pixel and
-moves under 1 KB of it), so the kernels trade device memory for arithmetic:
-five launches write x_1..x_4 into channel slices of one preallocated
-``(B,T,H,W,128)`` buffer (the concat is never assembled and no halo is
-recomputed), each thread keeps an 8x8 register tile of plain fp32 FMAs fed
-from a 16-channel slab in shared memory, and the epilogue is applied where
-conv5's accumulator lives. No tensor cores and no TF32: fp32 stays fp32;
-bf16 tensors are widened on load and rounded once on store.
+``csrc/dense_chain.cu`` (forward, spatial-only forward) and
+``csrc/dense_chain_bwd.cu`` (adjoint). The chain is bound by arithmetic on
+the card, not by bytes (a 64->64 chain does ~331k fp32 operations for each
+pixel and moves under 1 KB of it), so the kernels trade device memory for
+arithmetic: five launches write x_1..x_4 into channel slices of one
+preallocated ``(B,T,H,W,128)`` buffer (the concat is never assembled and no
+halo is recomputed), each thread keeps an 8x8 register tile of plain fp32
+FMAs fed from a 16-channel slab in shared memory, and the epilogue is
+applied where conv5's accumulator lives. The adjoint keeps the same layout:
+the running gradient is an fp32 ``dx (…,C)`` / ``dfeats (…,128)`` pair in
+device memory, swept k = 4..1 by one data-gradient and one weight-gradient
+launch a layer, the latter reduced over blocks in a fixed order (the same
+bits on every run). No tensor cores and no TF32: fp32 stays fp32; bf16
+tensors are widened on load and rounded once on store.
 
-On a CPU tensor, and only there, the wrapper takes the plain PyTorch
-version below.
+``dense_chain_t_ep`` is differentiable on both devices through one
+``torch.autograd.Function``: the kernels on a CUDA tensor, the plain
+PyTorch versions below on a CPU tensor, and only there.
 """
 
 from __future__ import annotations
@@ -33,11 +43,12 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from ..kernels import build
 from .conv import temporal_conv3
 
-GC = 32  # growth channels the CUDA kernel is written for
+GC = 32  # growth channels the CUDA kernels are written for
 
 # number of auxiliary operands of each epilogue
 #   add          y = a + y5            (fwd y1 = x1 + F(x2))
@@ -51,12 +62,28 @@ EP_AUX = {"none": 0, "sig_exp": 0, "sig_exp_neg": 0, "add": 1,
 _EP_CODE = {"none": 0, "add": 1, "sub_from": 2, "sig_exp": 3,
             "sig_exp_neg": 4, "mul_add": 5, "sub_mul": 6}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# blocks that share the pixels of one weight-gradient launch, each with a
+# partial sum of its own: two for each of the card's 132 multiprocessors
+BWD_GROUPS = 264
 
-# calls of dense_chain_t_ep that went to the CUDA kernels (one per call,
-# whatever number of launches the call makes inside), in all and by
-# (C, c_out)
+# calls that went to the CUDA kernels (one per call, whatever number of
+# launches the call makes inside), in all and by width: the forward chain by
+# (C, c_out); the chain adjoint and the spatial-only forward, whose work does
+# not depend on c_out, by C
 launches = 0
 launches_by_width: dict = {}
+launches_bwd = 0
+launches_bwd_by_width: dict = {}
+launches_feats = 0
+launches_feats_by_width: dict = {}
+
+
+def reset_launch_counts():
+    global launches, launches_bwd, launches_feats
+    launches = launches_bwd = launches_feats = 0
+    launches_by_width.clear()
+    launches_bwd_by_width.clear()
+    launches_feats_by_width.clear()
 
 
 def ep_apply(y, mode, clamp, a=None, m=None):
@@ -77,43 +104,125 @@ def ep_apply(y, mode, clamp, a=None, m=None):
     raise ValueError(mode)
 
 
-def dense_chain_t_ep_plain(x, ws, bs, w5, b5, mode="none", clamp=1.0,
-                           a=None, m=None):
-    """Plain PyTorch version of the chain (any growth width). The epilogue
-    runs in fp32 and the result returns in x's dtype, as in the kernel."""
+def _acc_dtype(t):
+    """The type sums and the epilogue run in: fp32 (fp64 for fp64 input)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (any growth width)
+# ---------------------------------------------------------------------------
+
+
+def chain_feats_plain(x, ws, bs):
+    """Plain version of the spatial-only forward: ``[x_1 | .. | x_4]``."""
     B, T, H, W, C = x.shape
     feats = x.reshape(B * T, H, W, C).permute(0, 3, 1, 2)
     for w, b in zip(ws, bs):
         y = F.conv2d(feats, w.to(x.dtype).permute(3, 2, 0, 1),
                      b.to(x.dtype), padding=1)
         feats = torch.cat([feats, F.leaky_relu(y, 0.2)], dim=1)
-    cat = feats.permute(0, 2, 3, 1).reshape(B, T, H, W, -1)
-    y5 = temporal_conv3(cat, w5.to(x.dtype), b5.to(x.dtype)).float()
+    return feats[:, C:].permute(0, 2, 3, 1).reshape(B, T, H, W, -1).contiguous()
+
+
+def _conv5_ep_plain(x, feats, w5, b5, mode, clamp, a, m):
+    """conv5 over ``[x | feats]`` and the epilogue, in fp32, rounded to
+    x's dtype."""
+    acc = _acc_dtype(x)
+    y5 = temporal_conv3(torch.cat([x, feats], dim=-1), w5.to(x.dtype),
+                        b5.to(x.dtype)).to(acc)
     n_aux = EP_AUX[mode]
-    aa = a.float() if n_aux >= 1 else None
-    mm = m.float() if n_aux >= 2 else None
+    aa = a.to(acc) if n_aux >= 1 else None
+    mm = m.to(acc) if n_aux >= 2 else None
     return ep_apply(y5, mode, clamp, aa, mm).to(x.dtype)
 
 
-def _library():
-    """The dense-chain library, its C signatures set at the first call."""
-    lib = build.load("dense_chain")
-    fn = lib.selfc_dense_chain_forward
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.selfc_cuda_error_string.argtypes = [ctypes.c_int]
+def dense_chain_t_ep_plain(x, ws, bs, w5, b5, mode="none", clamp=1.0,
+                           a=None, m=None):
+    """Plain PyTorch version of the chain, differentiable by autograd. The
+    epilogue runs in fp32 and the result returns in x's dtype, as in the
+    kernel."""
+    return _conv5_ep_plain(x, chain_feats_plain(x, ws, bs), w5, b5, mode,
+                           clamp, a, m)
+
+
+def chain_spatial_bwd_plain(x, ws, bs, feats, g, dx0=None):
+    """Plain version of the chain adjoint, written as the explicit sweep and
+    not as autograd of the forward. ``g (B,T,H,W,128)`` is the gradient that
+    reaches ``feats`` directly, ``dx0`` (optional) the one that reaches
+    ``x`` directly. Returns ``(dx, dws, dbs)`` in the types of ``x``,
+    ``ws``, ``bs``. The running gradient is fp32 whatever the inputs are,
+    and so are the products (bf16 inputs are widened first)."""
+    B, T, H, W, C = x.shape
+    N, acc = B * T, _acc_dtype(x)
+    gc = ws[0].shape[-1]
+    nchw = lambda t: t.reshape(N, H, W, -1).permute(0, 3, 1, 2).to(acc)  # noqa: E731
+    work = torch.cat([nchw(x), nchw(feats)], dim=1)
+    dx = torch.zeros_like(work[:, :C]) if dx0 is None else nchw(dx0)
+    dwork = torch.cat([dx, nchw(g)], dim=1)
+    dws, dbs = [None] * 4, [None] * 4
+    for k in (3, 2, 1, 0):
+        kin = C + gc * k
+        out, dout = work[:, kin:kin + gc], dwork[:, kin:kin + gc]
+        # the slope is chosen by the sign of the saved output; 0 -> 0.2
+        dacc = torch.where(out > 0, dout, 0.2 * dout)
+        dbs[k] = dacc.sum(dim=(0, 2, 3)).to(bs[k].dtype)
+        # dW[dy,dx] = shifted(input)^T @ dacc, zero outside the image
+        src = F.pad(work[:, :kin], (1, 1, 1, 1)).permute(0, 2, 3, 1)
+        d2 = dacc.permute(0, 2, 3, 1).reshape(-1, gc)
+        dw = torch.stack([
+            torch.stack([src[:, dy:dy + H, dx_:dx_ + W].reshape(-1, kin).t() @ d2
+                         for dx_ in range(3)]) for dy in range(3)])
+        dws[k] = dw.to(ws[k].dtype)
+        # the conv's adjoint: conv_transpose2d takes (Cout, Cin, kh, kw)
+        dwork[:, :kin] += F.conv_transpose2d(
+            dacc, ws[k].to(acc).permute(3, 2, 0, 1), padding=1)
+    dx = dwork[:, :C].permute(0, 2, 3, 1).reshape(x.shape).to(x.dtype)
+    return dx, dws, dbs
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+def _library(name):
+    """A kernel library, its C signatures set at the first call."""
+    lib = build.load(name)
+    if name == "dense_chain" and lib.selfc_dense_chain_forward.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.selfc_dense_chain_forward.argtypes = [P] * 15 + [I] * 7 + [ctypes.c_float, I, P]
+        lib.selfc_dense_chain_forward.restype = I
+        lib.selfc_dense_chain_feats.argtypes = [P] * 10 + [I] * 5 + [P]
+        lib.selfc_dense_chain_feats.restype = I
+        lib.selfc_cuda_error_string.argtypes = [I]
         lib.selfc_cuda_error_string.restype = ctypes.c_char_p
+    if name == "dense_chain_bwd" and lib.selfc_dense_chain_spatial_backward.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.selfc_dense_chain_spatial_backward.argtypes = [P] * 17 + [I] * 7 + [P]
+        lib.selfc_dense_chain_spatial_backward.restype = I
+        lib.selfc_bwd_cuda_error_string.argtypes = [I]
+        lib.selfc_bwd_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(name, t, shape, like):
+def _stream(x):
+    """PyTorch's current stream on x's device, as an integer handle."""
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _raise_on(err, what, error_string):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: {error_string(err).decode()} ({err})")
+
+
+def _check(name, t, shape, like, dtype=None):
+    dtype = like.dtype if dtype is None else dtype
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.device != like.device or t.dtype != like.dtype:
+    if t.device != like.device or t.dtype != dtype:
         raise ValueError(
-            f"{name}: {t.dtype} on {t.device}, expected {like.dtype} on "
+            f"{name}: {t.dtype} on {t.device}, expected {dtype} on "
             f"{like.device}"
         )
     if tuple(t.shape) != tuple(shape):
@@ -124,39 +233,39 @@ def _check(name, t, shape, like):
         raise ValueError(f"{name}: must be aligned to 16 bytes (the kernels use vector loads)")
 
 
-def _validate(x, ws, bs, w5, b5, mode, a, m):
-    """Raise on anything the CUDA kernels do not take. Every tensor must be
-    of x's dtype, on x's device, contiguous and aligned to 16 bytes."""
+def _validate_spatial(x, ws, bs):
+    """Raise on anything the spatial kernels do not take. Every tensor must
+    be of x's dtype, on x's device, contiguous and aligned to 16 bytes."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"dense chain kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 5:
         raise ValueError(f"x: expected (B,T,H,W,C), got shape {tuple(x.shape)}")
     if len(ws) != 4 or len(bs) != 4:
         raise ValueError("the chain has four spatial convs")
-    n_aux = EP_AUX[mode]
-    aux = [t for t in (a, m)[:n_aux]]
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x, *ws, *bs, w5, b5, *aux) if isinstance(t, torch.Tensor)
-    ):
-        raise NotImplementedError(
-            "the CUDA dense chain is forward-only: its backward kernels are "
-            "ROADMAP items B2/B3; call it under torch.no_grad()"
-        )
     B, T, H, W, C = x.shape
-    c_out = w5.shape[-1]
     _check("x", x, x.shape, x)
     for k in range(4):
         _check(f"w{k + 1}", ws[k], (3, 3, C + GC * k, GC), x)
         _check(f"b{k + 1}", bs[k], (GC,), x)
-    _check("w5", w5, (3, C + 4 * GC, c_out), x)
-    _check("b5", b5, (c_out,), x)
-    for name, t in zip("am", aux):
-        _check(name, t, (B, T, H, W, c_out), x)
     if B * T > 65535:
         raise ValueError(f"B*T = {B * T} exceeds the kernel's grid limit 65535")
 
 
+def _validate(x, ws, bs, w5, b5, mode, a, m):
+    """Raise on anything the forward kernels do not take. Tensors that
+    require grad are fine: the gradient has kernels of its own."""
+    _validate_spatial(x, ws, bs)
+    B, T, H, W, C = x.shape
+    c_out = w5.shape[-1]
+    _check("w5", w5, (3, C + 4 * GC, c_out), x)
+    _check("b5", b5, (c_out,), x)
+    for name, t in zip("am", (a, m)[:EP_AUX[mode]]):
+        _check(name, t, (B, T, H, W, c_out), x)
+
+
 def _chain_cuda(x, ws, bs, w5, b5, mode, clamp, a, m):
+    """The forward kernels: ``(out, feats)``, feats being the buffer the
+    spatial layers wrote (a new one each call, so the caller may keep it)."""
     global launches
     _validate(x, ws, bs, w5, b5, mode, a, m)
     B, T, H, W, C = x.shape
@@ -164,38 +273,219 @@ def _chain_cuda(x, ws, bs, w5, b5, mode, clamp, a, m):
     n_aux = EP_AUX[mode]
     feats = torch.empty((B, T, H, W, 4 * GC), dtype=x.dtype, device=x.device)
     out = torch.empty((B, T, H, W, c_out), dtype=x.dtype, device=x.device)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.selfc_dense_chain_forward(
-            x.data_ptr(), feats.data_ptr(),
-            *(w.data_ptr() for w in ws), *(b.data_ptr() for b in bs),
-            w5.data_ptr(), b5.data_ptr(),
-            a.data_ptr() if n_aux >= 1 else None,
-            m.data_ptr() if n_aux >= 2 else None,
-            out.data_ptr(), B * T, T, H, W, C, c_out, _EP_CODE[mode],
-            float(clamp), _DTYPE_CODE[x.dtype], stream,
-        )
-    if err != 0:
-        msg = lib.selfc_cuda_error_string(err).decode()
-        raise RuntimeError(f"dense chain kernel launch failed: {msg} ({err})")
+    lib = _library("dense_chain")
+    err = lib.selfc_dense_chain_forward(
+        x.data_ptr(), feats.data_ptr(),
+        *(w.data_ptr() for w in ws), *(b.data_ptr() for b in bs),
+        w5.data_ptr(), b5.data_ptr(),
+        a.data_ptr() if n_aux >= 1 else None,
+        m.data_ptr() if n_aux >= 2 else None,
+        out.data_ptr(), B * T, T, H, W, C, c_out, _EP_CODE[mode],
+        float(clamp), _DTYPE_CODE[x.dtype], _stream(x),
+    )
+    _raise_on(err, "dense chain", lib.selfc_cuda_error_string)
     launches += 1
     launches_by_width[(C, c_out)] = launches_by_width.get((C, c_out), 0) + 1
-    return out
+    return out, feats
+
+
+def _feats_cuda(x, ws, bs):
+    global launches_feats
+    _validate_spatial(x, ws, bs)
+    B, T, H, W, C = x.shape
+    feats = torch.empty((B, T, H, W, 4 * GC), dtype=x.dtype, device=x.device)
+    lib = _library("dense_chain")
+    err = lib.selfc_dense_chain_feats(
+        x.data_ptr(), feats.data_ptr(),
+        *(w.data_ptr() for w in ws), *(b.data_ptr() for b in bs),
+        B * T, H, W, C, _DTYPE_CODE[x.dtype], _stream(x),
+    )
+    _raise_on(err, "dense chain feats", lib.selfc_cuda_error_string)
+    launches_feats += 1
+    launches_feats_by_width[C] = launches_feats_by_width.get(C, 0) + 1
+    return feats
+
+
+def _bwd_cuda(x, ws, bs, feats, dfeats, dx):
+    """The adjoint kernels. ``dfeats (B,T,H,W,128)`` and ``dx (B,T,H,W,C)``
+    are fp32 and hold, on entry, the gradients that reach feats and x
+    directly; both are updated in place and dx ends as the whole gradient
+    (``dx=None``: not wanted). Returns ``(dws, dbs)`` in the weights'
+    dtype."""
+    global launches_bwd
+    _validate_spatial(x, ws, bs)
+    B, T, H, W, C = x.shape
+    _check("feats", feats, (B, T, H, W, 4 * GC), x)
+    _check("dfeats", dfeats, (B, T, H, W, 4 * GC), x, torch.float32)
+    if dx is not None:
+        _check("dx", dx, x.shape, x, torch.float32)
+    dws = [torch.empty_like(w) for w in ws]
+    dbs = [torch.empty_like(b) for b in bs]
+    groups = max(1, min(BWD_GROUPS, B * T * H * W // 128))
+    partial = torch.empty(groups * (9 * (C + 3 * GC) * GC + GC), dtype=torch.float32,
+                          device=x.device)
+    lib = _library("dense_chain_bwd")
+    err = lib.selfc_dense_chain_spatial_backward(
+        x.data_ptr(), feats.data_ptr(), *(w.data_ptr() for w in ws),
+        dfeats.data_ptr(), dx.data_ptr() if dx is not None else None,
+        *(t.data_ptr() for t in dws), *(t.data_ptr() for t in dbs),
+        partial.data_ptr(), groups, B * T, H, W, C, int(dx is not None),
+        _DTYPE_CODE[x.dtype], _stream(x),
+    )
+    _raise_on(err, "dense chain backward", lib.selfc_bwd_cuda_error_string)
+    launches_bwd += 1
+    launches_bwd_by_width[C] = launches_bwd_by_width.get(C, 0) + 1
+    return dws, dbs
+
+
+# ---------------------------------------------------------------------------
+# wrappers: a CUDA tensor goes to the kernels or raises, a CPU tensor to the
+# plain version
+# ---------------------------------------------------------------------------
+
+
+def chain_feats(x, ws, bs):
+    """The spatial-only forward ``[x_1 | .. | x_4]`` (not differentiable:
+    it serves the backward of ``dense_chain_t_ep``)."""
+    if not x.is_cuda:
+        return chain_feats_plain(x, ws, bs)
+    return _feats_cuda(x, ws, bs)
+
+
+def chain_spatial_bwd(x, ws, bs, feats, g, dx0=None):
+    """The adjoint of the four spatial convs; arguments and result as
+    ``chain_spatial_bwd_plain``."""
+    if not x.is_cuda:
+        return chain_spatial_bwd_plain(x, ws, bs, feats, g, dx0)
+    dfeats = g.to(torch.float32, copy=True)  # the kernels update both in place
+    dx = (torch.zeros(x.shape, dtype=torch.float32, device=x.device) if dx0 is None
+          else dx0.to(torch.float32, copy=True))
+    dws, dbs = _bwd_cuda(x, ws, bs, feats, dfeats, dx)
+    return dx.to(x.dtype), dws, dbs
+
+
+def _conv5_adjoint(x, feats, w5, dy5, need_dx):
+    """Adjoint of conv5 (a (3,1,1) conv, zero padded in T) over the two
+    sources x and feats, as plain products in fp32: ``(dw5, db5, dfeats,
+    dx)``. The three taps are folded into one contraction: with
+    ``S = [dy5(t+1) | dy5(t) | dy5(t-1)]`` (zero outside the clip),
+    ``d[x|feats] = S @ [w5[0] | w5[1] | w5[2]]^T`` and
+    ``dw5 = [x|feats]^T @ S``."""
+    B, T, H, W, C = x.shape
+    c_out, acc = w5.shape[-1], dy5.dtype
+    dyp = F.pad(dy5, (0, 0, 0, 0, 0, 0, 1, 1))
+    S = torch.cat([dyp[:, 2 - dt:2 - dt + T] for dt in range(3)], dim=-1)
+    S2 = S.reshape(-1, 3 * c_out)
+    wt = w5.to(acc).permute(0, 2, 1).reshape(3 * c_out, C + feats.shape[-1])
+    dfeats = (S2 @ wt[:, C:]).reshape(feats.shape)
+    dx = (S2 @ wt[:, :C]).reshape(x.shape) if need_dx else None
+    dw5 = torch.cat([x.reshape(-1, C).to(acc).t() @ S2,
+                     feats.reshape(-1, feats.shape[-1]).to(acc).t() @ S2])
+    dw5 = dw5.reshape(-1, 3, c_out).permute(1, 0, 2)
+    return dw5, dy5.sum(dim=(0, 1, 2, 3)), dfeats, dx
+
+
+class _DenseChainEp(torch.autograd.Function):
+    """``dense_chain_t_ep`` on tensors already cast to x's dtype. The
+    backward: (1) feats, saved by the forward or recomputed by the
+    spatial-only forward; (2) the epilogue's adjoint, elementwise in fp32;
+    (3) conv5's adjoint as plain products (it is outside the kernels on the
+    JAX side too), written into the fp32 ``dx`` / ``dfeats`` pair; (4) the
+    chain adjoint, in place on that pair; (5) dx rounded to x's dtype."""
+
+    @staticmethod
+    def forward(ctx, mode, clamp, save_feats, x, w5, b5, a, m, *wbs):
+        ws, bs = list(wbs[:4]), list(wbs[4:])
+        if x.is_cuda:
+            out, feats = _chain_cuda(x, ws, bs, w5, b5, mode, clamp, a, m)
+        else:
+            feats = chain_feats_plain(x, ws, bs)
+            out = _conv5_ep_plain(x, feats, w5, b5, mode, clamp, a, m)
+        ctx.mode, ctx.clamp = mode, clamp
+        ctx.has_feats = bool(save_feats)
+        n_aux = EP_AUX[mode]
+        # the epilogue's derivative needs: out for the two exp modes, a and
+        # m for the products
+        keep_out = out if mode in ("sig_exp", "sig_exp_neg") else None
+        keep_a = a if n_aux >= 2 else None
+        keep_m = m if n_aux >= 2 else None
+        ctx.save_for_backward(x, w5, b5, keep_out, keep_a, keep_m,
+                              feats if save_feats else None, *wbs)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w5, b5, out, a, m, feats, *wbs = ctx.saved_tensors
+        ws, bs = list(wbs[:4]), list(wbs[4:])
+        mode, clamp = ctx.mode, ctx.clamp
+        need = ctx.needs_input_grad  # (mode, clamp, save_feats, x, w5, b5, a, m, *wbs)
+        need_x, need_a, need_m = need[3], need[6], need[7]
+        acc = _acc_dtype(x)
+        if feats is None:
+            feats = chain_feats(x, ws, bs)
+        C = x.shape[-1]
+
+        # (2) the epilogue
+        g = g.to(acc)
+        da = dm = None
+        if mode == "none":
+            dy5 = g
+        elif mode == "add":
+            dy5, da = g, g
+        elif mode == "sub_from":
+            dy5, da = -g, g
+        elif mode in ("sig_exp", "sig_exp_neg"):
+            # out = exp(+-c t), t = 2 sigmoid(y5) - 1 = +-log(out)/c and
+            # dt/dy5 = (1 - t^2)/2
+            o = out.to(acc)
+            sign = 1.0 if mode == "sig_exp" else -1.0
+            dy5 = g * o * (sign * clamp * 0.5) * (1.0 - (torch.log(o) / clamp) ** 2)
+        elif mode == "mul_add":
+            dy5 = g
+            da = g * m.to(acc) if need_a else None
+            dm = g * a.to(acc) if need_m else None
+        else:  # sub_mul: out = (a - y5) * m
+            gm = g * m.to(acc)
+            dy5, da = -gm, gm
+            if need_m:
+                y5 = temporal_conv3(torch.cat([x, feats], dim=-1), w5, b5).to(acc)
+                dm = g * (a.to(acc) - y5)
+        dy5 = dy5.contiguous()
+
+        # (3) conv5
+        dw5, db5, dfeats, dx = _conv5_adjoint(x, feats, w5, dy5, need_x)
+
+        # (4) the four spatial convs
+        if x.is_cuda:
+            dws, dbs = _bwd_cuda(x, ws, bs, feats, dfeats, dx)
+        else:
+            dx, dws, dbs = chain_spatial_bwd_plain(x, ws, bs, feats, dfeats, dx)
+        return (None, None, None,
+                dx.to(x.dtype) if need_x else None,
+                dw5.to(w5.dtype), db5.to(b5.dtype),
+                da.to(x.dtype) if da is not None and need_a else None,
+                dm.to(x.dtype) if dm is not None and need_m else None,
+                *dws, *dbs)
 
 
 def dense_chain_t_ep(x, ws, bs, w5, b5, mode="none", clamp=1.0, a=None,
-                     m=None):
-    """The chain with its epilogue. A CUDA tensor goes to the kernels (or
-    raises on what they do not take); a CPU tensor to the plain version.
-    Parameters are cast to x's dtype first (bf16 activations with fp32
-    master parameters)."""
+                     m=None, save_feats=True):
+    """The chain with its epilogue, differentiable. A CUDA tensor goes to
+    the kernels (or raises on what they do not take); a CPU tensor to the
+    plain versions. Parameters are cast to x's dtype first, outside the
+    autograd function, so that under bf16 activations the gradients reach
+    fp32 master parameters through the cast.
+
+    ``save_feats``: keep the forward's ``(B,T,H,W,128)`` feats buffer for
+    the backward (the default); false frees it and makes the backward
+    recompute it with the spatial-only forward."""
     if mode not in EP_AUX:
         raise ValueError(mode)
-    if not x.is_cuda:
-        return dense_chain_t_ep_plain(x, ws, bs, w5, b5, mode, clamp, a, m)
     dt = x.dtype
-    return _chain_cuda(
-        x, [w.to(dt) for w in ws], [b.to(dt) for b in bs], w5.to(dt),
-        b5.to(dt), mode, clamp, a, m,
+    n_aux = EP_AUX[mode]
+    return _DenseChainEp.apply(
+        mode, float(clamp), bool(save_feats), x, w5.to(dt), b5.to(dt),
+        a if n_aux >= 1 else None, m if n_aux >= 2 else None,
+        *(w.to(dt) for w in ws), *(b.to(dt) for b in bs),
     )

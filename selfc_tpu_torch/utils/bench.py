@@ -1,7 +1,7 @@
 """Measuring helpers for the GPU: CUDA-event timing, seeded dense-chain
-inputs at the serving shapes, and the dense chain's cost model (operations
-and bytes from shapes) with the card's published peaks, for a roofline
-bound."""
+inputs at the serving and training shapes, and the cost models of the dense
+chain's kernels (operations and bytes from shapes) with the card's
+published peaks, for a roofline bound."""
 
 from __future__ import annotations
 
@@ -19,6 +19,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PATH_WIDTHS = ((3, 48), (48, 3), (64, 64), (3, 64))
 CLIP_HW = (576, 704)                                     # the Vid4 frame size
 SERVE_SHAPE = (1, 7, CLIP_HW[0] // 4, CLIP_HW[1] // 4)   # one GOP of its latent
+# the latent of one batch of the published training config: 8 clips of 7
+# frames, 144 x 144 crops
+TRAIN_SHAPE = (8, 7, 36, 36)
 
 
 def time_cuda(fn, iters: int = 20, warmup: int = 3) -> dict:
@@ -65,22 +68,63 @@ def chain_cost(B, T, H, W, C, c_out, n_aux, itemsize, gc=32):
     spatial convs, 3T-2 of 3T for conv5. Bytes: x, the parameters and the
     epilogue operands read once, the output written once."""
     px = B * T * H * W
-    inside_hw = (3 * H - 2) * (3 * W - 2) / (9 * H * W)
     inside_t = (3 * T - 2) / (3 * T)
-    spatial = sum(9 * (C + gc * k) * gc for k in range(4)) * inside_hw
-    conv5 = 3 * (C + 4 * gc) * c_out * inside_t
-    ops = 2.0 * px * (spatial + conv5)
+    conv5 = px * 3 * (C + 4 * gc) * c_out * inside_t
+    ops = 2.0 * (_spatial_macs(B, T, H, W, C, gc) + conv5)
     n_params = (sum(9 * (C + gc * k) * gc + gc for k in range(4))
                 + 3 * (C + 4 * gc) * c_out + c_out)
     nbytes = itemsize * (px * (C + (1 + n_aux) * c_out) + n_params)
     return ops, float(nbytes)
 
 
-def chain_bound_ms(B, T, H, W, C, c_out, n_aux, dtype=torch.float32):
+def _spatial_macs(B, T, H, W, C, gc=32):
+    """Multiply-adds of the four spatial convs whose tap falls inside the
+    image."""
+    inside_hw = (3 * H - 2) * (3 * W - 2) / (9 * H * W)
+    return B * T * H * W * sum(9 * (C + gc * k) * gc for k in range(4)) * inside_hw
+
+
+def chain_feats_cost(B, T, H, W, C, itemsize, gc=32):
+    """(operations, bytes) of the spatial-only forward: x and the spatial
+    parameters read once, the four feature slots written once."""
+    n_params = sum(9 * (C + gc * k) * gc + gc for k in range(4))
+    nbytes = itemsize * (B * T * H * W * (C + 4 * gc) + n_params)
+    return 2.0 * _spatial_macs(B, T, H, W, C, gc), float(nbytes)
+
+
+def chain_bwd_cost(B, T, H, W, C, itemsize, gc=32):
+    """(operations, bytes) of the chain adjoint. Operations: the data
+    gradient and the weight gradient of a layer each repeat the layer's
+    forward products, with the same taps inside the image. Bytes: x, the
+    saved features and the weights read once (``itemsize`` each), the fp32
+    gradients that reach features and x read once, the fp32 gradient of x
+    written once, the weight and bias gradients written once."""
+    px = B * T * H * W
+    n_params = sum(9 * (C + gc * k) * gc + gc for k in range(4))
+    nbytes = (itemsize * (px * (C + 4 * gc) + 2 * n_params)
+              + 4 * px * (4 * gc + 2 * C))
+    return 4.0 * _spatial_macs(B, T, H, W, C, gc), float(nbytes)
+
+
+def bound_ms(ops, nbytes, dtype=torch.float32):
     """(bound_ms, 'operations' | 'bytes'): the least time the card could
-    take for one chain call."""
-    ops, nbytes = chain_cost(B, T, H, W, C, c_out, n_aux,
-                             torch.empty((), dtype=dtype).element_size())
+    take for this work."""
     t_ops = ops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _itemsize(dtype):
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def chain_bound_ms(B, T, H, W, C, c_out, n_aux, dtype=torch.float32):
+    return bound_ms(*chain_cost(B, T, H, W, C, c_out, n_aux, _itemsize(dtype)), dtype)
+
+
+def chain_feats_bound_ms(B, T, H, W, C, dtype=torch.float32):
+    return bound_ms(*chain_feats_cost(B, T, H, W, C, _itemsize(dtype)), dtype)
+
+
+def chain_bwd_bound_ms(B, T, H, W, C, dtype=torch.float32):
+    return bound_ms(*chain_bwd_cost(B, T, H, W, C, _itemsize(dtype)), dtype)

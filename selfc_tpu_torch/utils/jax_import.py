@@ -1,10 +1,13 @@
-"""Load parameters that come from the JAX package into the port.
+"""Carry parameters between the JAX package's tree and the port.
 
 The port stores every parameter in the JAX package's layout and under its
 tree names, so the bridge is a strict, rename-free copy: a nested (or flat,
 dot-joined) dict of numpy arrays in the flax tree's shape goes into the
 module's parameters. Reading the checkpoint file itself (flax msgpack) is
 the caller's business — this module imports neither jax nor flax.
+``export_jax_params`` / ``export_jax_grads`` go the other way: the
+module's parameters, or their gradients, as a nested numpy tree under the
+JAX names, so the two stacks can be compared leaf by leaf.
 """
 
 from __future__ import annotations
@@ -50,3 +53,29 @@ def load_jax_params(module: torch.nn.Module, tree) -> None:
     with torch.no_grad():
         for k, p in params.items():
             p.copy_(torch.tensor(arrays[k]).to(p.dtype))
+
+
+def _nest(flat: dict) -> dict:
+    tree: dict = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
+
+
+def export_jax_params(module: torch.nn.Module) -> dict:
+    """The module's parameters as a nested dict of fp32 numpy arrays
+    (copies: a later step does not change them)."""
+    return _nest({k: p.detach().float().cpu().numpy().copy()
+                  for k, p in module.named_parameters()})
+
+
+def export_jax_grads(module: torch.nn.Module) -> dict:
+    """The parameters' ``.grad`` in the same tree (zeros where there is
+    none)."""
+    return _nest({k: (torch.zeros_like(p) if p.grad is None else p.grad)
+                  .detach().float().cpu().numpy().copy()
+                  for k, p in module.named_parameters()})

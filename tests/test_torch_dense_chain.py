@@ -16,6 +16,17 @@ from selfc_tpu.ops.pallas_chain import _pallas_impl_v2, _xla_impl_v2_ep
 from selfc_tpu_torch.ops import dense_chain as dc
 from selfc_tpu_torch.utils.bench import chain_cost
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tests run in several worker processes side by side, on tensors
+    far too small to share out: a thread pool as wide as the machine in
+    each worker only makes the workers wait for one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 MODES = ("none", "add", "sub_from", "sig_exp", "sig_exp_neg", "mul_add", "sub_mul")
 WIDTHS = ((3, 48), (48, 3), (64, 64))
 # atol as tests/test_pallas_chain.py uses for kernel-vs-XLA: the three
@@ -143,12 +154,18 @@ def test_kernel_argument_checks_reject(fault, error):
 
 
 def test_kernel_path_is_forward_only():
+    """No longer forward-only: the argument checks accept tensors that
+    require grad (the gradient has kernels of its own), and the wrapper's
+    result carries a ``grad_fn``."""
     x, ws, bs, w5, b5, mode, a, m = _valid_args()
     ws[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="B2/B3"):
-        dc._validate(x, ws, bs, w5, b5, mode, a, m)
+    dc._validate(x, ws, bs, w5, b5, mode, a, m)
+    y = dc.dense_chain_t_ep(x, ws, bs, w5, b5, mode, 1.0, a, m)
+    assert y.grad_fn is not None and y.requires_grad
+    y.sum().backward()
+    assert ws[0].grad is not None and ws[0].grad.shape == ws[0].shape
     with torch.no_grad():
-        dc._validate(x, ws, bs, w5, b5, mode, a, m)
+        assert dc.dense_chain_t_ep(x, ws, bs, w5, b5, mode, 1.0, a, m).grad_fn is None
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1, 1), (2, 3, 5, 4), (1, 7, 9, 11)])

@@ -28,6 +28,17 @@ from selfc_tpu_torch.models.stp import STPNet
 from selfc_tpu_torch.utils.jax_import import load_jax_params
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tests run in several worker processes side by side, on tensors
+    far too small to share out: a thread pool as wide as the machine in
+    each worker only makes the workers wait for one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rand(seed, shape, scale=1.0):
     return np.random.default_rng(seed).normal(0, scale, shape).astype(np.float32)
 

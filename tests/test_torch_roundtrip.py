@@ -29,6 +29,17 @@ from selfc_tpu_torch.train.rescale_model import RescaleModel
 from selfc_tpu_torch.utils.jax_import import load_jax_params
 from test_torch_models import seeded_tree
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tests run in several worker processes side by side, on tensors
+    far too small to share out: a thread pool as wide as the machine in
+    each worker only makes the workers wait for one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(scale=4, block_num=(1, 1), stp_blk_num=2, gmm_k=5)
 
@@ -152,7 +163,8 @@ def test_rescale_model_test_equals_roundtrip_loop(stacks, gop_batch):
     np.testing.assert_allclose(model.fake_H, torch.cat(hr, 1).numpy(), atol=1e-5)
     np.testing.assert_allclose(model.forw_L, torch.cat(lr, 1).numpy(), atol=1e-7)
     vis = model.get_current_visuals()
-    assert set(vis) == {"SR", "LR", "GT", "forw_H"}
+    assert set(vis) == {"SR", "LR", "LR_ref", "GT", "forw_H"}
+    assert vis["LR_ref"].shape == vis["LR"].shape
     assert vis["SR"].shape == clip.shape and vis["LR"].shape == (1, 10, 8, 8, 3)
     assert vis["forw_H"].shape == (1, 10, 8, 8, 48)
     assert model.sample_H.shape == (1, 10, 8, 8, 48)
