@@ -3,17 +3,19 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, then drives the two main
-paths at full width and depth: it serves a synthetic 10-frame clip at the
-Vid4 size through the SelfC_GMM 4x net (``RescaleModel``: feed_data ->
-test(gop=7), then downscale / upscale), and it trains the same net for a
-few steps at the batch of the published training config
-(``optimize_parameters`` on 8 clips of 7 frames, 144 x 144). It times the
-kernels beside their roofline bound. Prints one JSON line per phase; any
-failure exits non-zero. There is no CPU fallback: without a CUDA device the
-script fails at once.
+against its plain PyTorch version on the card, then drives the three main
+paths at full width: it serves a synthetic 10-frame clip at the Vid4 size
+through the SelfC_GMM 4x net (``RescaleModel``: feed_data -> test(gop=7),
+then downscale / upscale), it trains the same net for a few steps at the
+batch of the published training config (``optimize_parameters`` on 8 clips
+of 7 frames, 144 x 144), and it runs the compression eval of the published
+SelfC_GMM_Codec net (``CodecModel``: feed_data -> test() on a synthetic
+13-frame clip at the UVG size 1080 x 1920, through the host's x265 or the
+zlib stand-in). It times the kernels beside their roofline bound. Prints one
+JSON line per phase; any failure exits non-zero. There is no CPU fallback:
+without a CUDA device the script fails at once.
 
-``--phases serve,train`` (the default) picks the paths; ``--phases
+``--phases serve,train,codec`` (the default) picks the paths; ``--phases
 kernels`` only builds the kernels and checks them against their plain
 versions.
 
@@ -34,13 +36,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from selfc_tpu_torch.codec import h265
+from selfc_tpu_torch.codec.pipeline import seg_add_pad
 from selfc_tpu_torch.config import dict_to_nonedict
 from selfc_tpu_torch.kernels import build
 from selfc_tpu_torch.ops import dense_chain as dc
+from selfc_tpu_torch.train.codec_model import CodecModel
 from selfc_tpu_torch.train.rescale_model import RescaleModel
 from selfc_tpu_torch.utils.bench import (
-    CLIP_HW, PATH_WIDTHS, SERVE_SHAPE, TRAIN_SHAPE, chain_bound_ms, chain_bwd_bound_ms,
-    chain_feats_bound_ms, make_chain, time_cuda)
+    CLIP_HW, CODEC_DEC_SHAPE, CODEC_ENC_SHAPE, CODEC_WIDTHS, PATH_WIDTHS, SERVE_SHAPE,
+    TRAIN_SHAPE, UVG_HW, chain_bound_ms, chain_bwd_bound_ms, chain_feats_bound_ms, make_chain,
+    time_cuda)
 from selfc_tpu_torch.utils.metrics import psnr
 
 CHECK_WIDTHS = ((3, 48), (48, 3), (64, 64))           # coupling F/H/G and the prior
@@ -75,6 +81,18 @@ TRAIN_GRAD_REL_LIMIT = 2e-3
 TRAIN_GRAD_ZERO = 1e-6           # "zero": max |ref| below this share of the largest gradient
 # Adam's first step moves an element by at most lr, whatever its gradient
 TRAIN_PARAM_LIMIT = 2.0 * 1e-4
+# B1 at the codec's widths: growth 12 and 24 (the kernels pad to 16 / 32
+# lanes) with no epilogue, as the prior calls them; growth 32 at the
+# coupling's 12->3 and 3->12 with every epilogue
+GC_CHECKS = tuple((C, c_out, gc, ("none",)) for gc in (12, 24) for C, c_out in ((3, 24), (24, 24))) + (
+    (12, 3, 32, tuple(dc.EP_AUX)), (3, 12, 32, tuple(dc.EP_AUX)))
+CODEC_T = 13                     # frames of the synthetic UVG clip: 5 segments, 2 groups of 4
+# chain launches of one test() on that clip: 2 encode calls x 4 blocks x 3
+# chains; 2 decode calls x (4 blocks x 3 + the prior's 4 at growth 12)
+CODEC_LAUNCHES = {"encode": {(12, 3, 32): 8, (3, 12, 32): 16},
+                  "decode": {(12, 3, 32): 8, (3, 12, 32): 16, (3, 24, 12): 2, (24, 24, 12): 6}}
+# kernel path against plain path through 4 coupling blocks (+ the prior)
+CODEC_LIMIT = 1e-3
 
 
 def check(ok, what):
@@ -83,23 +101,30 @@ def check(ok, what):
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+_T0 = time.time()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the script's wall seconds when it ended."""
+    print(json.dumps({"phase": phase, **kw, "at_s": time.time() - _T0}), flush=True)
 
 
-def library_chain(x, ws, bs, w5, b5, a, m):
-    """The same chain (mul_add epilogue) through PyTorch's library
-    convolutions on NCDHW tensors: the yardstick, never called by the port."""
+def library_chain(x, ws, bs, w5, b5, a=None, m=None):
+    """The same chain (mul_add epilogue, or none without ``a``) through
+    PyTorch's library convolutions on NCDHW tensors: the yardstick, never
+    called by the port."""
     feats = x
     for w, b in zip(ws, bs):
         feats = torch.cat([feats, F.leaky_relu(F.conv3d(feats, w, b, padding=(0, 1, 1)), 0.2)], 1)
-    return a * m + F.conv3d(feats, w5, b5, padding=(1, 0, 0))
+    y5 = F.conv3d(feats, w5, b5, padding=(1, 0, 0))
+    return y5 if a is None else a * m + y5
 
 
 def to_library_layout(x, ws, bs, w5, b5, a, m):
     ncdhw = lambda t: t.permute(0, 4, 1, 2, 3).contiguous()  # noqa: E731
     return (ncdhw(x), [w.permute(3, 2, 0, 1)[:, :, None].contiguous() for w in ws], bs,
-            w5.permute(2, 1, 0)[..., None, None].contiguous(), b5, ncdhw(a), ncdhw(m))
+            w5.permute(2, 1, 0)[..., None, None].contiguous(), b5,
+            *(None if t is None else ncdhw(t) for t in (a, m)))
 
 
 @contextlib.contextmanager
@@ -154,20 +179,27 @@ def phase_kernels(device):
                 check(ok and np.isfinite(err), f"kernel agrees with its plain version: {cases[-1]}")
     # on a CUDA tensor the wrapper launches or raises: it never takes the plain version
     x, ws, bs, w5, b5, a, m = make_chain(rng, 48, 3, CHECK_SHAPE, device)
-    before = dc.launches
+    wide = make_chain(rng, 48, 3, CHECK_SHAPE, device, gc=48)
+    before = (dc.launches, dc.launches_feats)
     refused = []
     for fault, error, kw in (
         ("strided a", ValueError, dict(a=torch.cat([a, a], -1)[..., :3], m=m)),
         ("float64 x", TypeError, dict(x=x.double(), a=a, m=m)),
-        ("growth width 12", ValueError, dict(ws=[w[..., :12].contiguous() for w in ws],
-                                             bs=[b[:12].contiguous() for b in bs], a=a, m=m)),
+        ("growth width 48", ValueError, dict(ws=wide[1], bs=wide[2], w5=wide[3], a=a, m=m)),
     ):
         try:
-            dc.dense_chain_t_ep(kw.get("x", x), kw.get("ws", ws), kw.get("bs", bs), w5, b5,
-                                "mul_add", 1.0, kw["a"], kw["m"])
+            dc.dense_chain_t_ep(kw.get("x", x), kw.get("ws", ws), kw.get("bs", bs), kw.get("w5", w5),
+                                b5, "mul_add", 1.0, kw["a"], kw["m"])
         except error:
             refused.append(fault)
-    check(len(refused) == 3 and dc.launches == before, f"the wrapper refuses bad CUDA arguments: {refused}")
+    # the spatial-only forward (and the adjoint) take growth 32 only
+    x12, ws12, bs12, *_ = make_chain(rng, 24, 24, CHECK_SHAPE, device, gc=12)
+    try:
+        dc.chain_feats(x12, ws12, bs12)
+    except NotImplementedError:
+        refused.append("spatial-only forward at growth width 12")
+    check(len(refused) == 4 and (dc.launches, dc.launches_feats) == before,
+          f"the wrappers refuse bad CUDA arguments: {refused}")
     emit("kernels", kernels=["dense_chain_t_ep"], shape=CHECK_SHAPE, n_cases=len(cases), refused=refused,
          fp32_limit=FP32_LIMIT, bf16_rel_limit=BF16_REL_LIMIT, cases=cases)
     return worst
@@ -325,7 +357,7 @@ def phase_timing(device, model, counts, worst):
         kernels.append({
             "name": f"dense_chain_t_ep[{C}->{c_out}]", "route": "cuda",
             "source": "selfc_tpu_torch/csrc/dense_chain.cu", "replaces": REPLACES,
-            "launches": counts["by_width"].get((C, c_out), 0),
+            "launches": counts["by_width"].get((C, c_out, 32), 0),
             "max_abs_err": err, "ms": ms["median"], "plain_ms": plain["median"],
             "bound_ms": bound, "bound_by": by, "library_ms": library["median"],
             "ms_min": ms["min"], "plain_ms_min": plain["min"], "library_ms_min": library["min"],
@@ -589,7 +621,7 @@ def phase_timing_train(device, model, recompute, counts, worst, eps):
         bound, by = chain_bound_ms(*TRAIN_SHAPE, C, c_out, 2)
         kernels.append({
             "name": f"dense_chain_t_ep[{C}->{c_out}]@train", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES, "launches": counts["forward"].get((C, c_out), 0),
+            "replaces": REPLACES, "launches": counts["forward"].get((C, c_out, 32), 0),
             "max_abs_err": err, "ms": ms["median"], "plain_ms": plain["median"],
             "bound_ms": bound, "bound_by": by, "library_ms": library["median"],
             "ms_min": ms["min"], "plain_ms_min": plain["min"], "library_ms_min": library["min"],
@@ -671,7 +703,7 @@ def phase_timing_train(device, model, recompute, counts, worst, eps):
     with plain_chain_on_card():
         step_p = time_cuda(step_of(model), iters=10, warmup=1)
     by_name = {k["name"]: k for k in kernels}
-    n_fwd = sum(by_name[f"dense_chain_t_ep[{C}->{co}]@train"]["ms"] * counts["forward"].get((C, co), 0)
+    n_fwd = sum(by_name[f"dense_chain_t_ep[{C}->{co}]@train"]["ms"] * counts["forward"].get((C, co, 32), 0)
                 for C, co in PATH_WIDTHS) / (N_TRAIN_STEPS + 1)
     n_bwd = sum(by_name[f"chain_spatial_bwd[{C}]@train"]["ms"] * counts["backward"].get(C, 0)
                 for C in CHAIN_C) / (N_TRAIN_STEPS + 1)
@@ -685,10 +717,257 @@ def phase_timing_train(device, model, recompute, counts, worst, eps):
     return kernels
 
 
+def phase_kernels_gc(device):
+    """B1 at the codec's widths against its plain version: growth 12 and
+    24 (16- and 32-lane segments in the kernels) and the coupling's
+    12->3 / 3->12 at growth 32."""
+    rng = np.random.default_rng(30)
+    worst, cases = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        for C, c_out, gc, modes in GC_CHECKS:
+            for mode in modes:
+                x, ws, bs, w5, b5, a, m = make_chain(rng, C, c_out, CHECK_SHAPE, device, dtype, gc)
+                n_aux = dc.EP_AUX[mode]
+                aa, mm = (a if n_aux >= 1 else None), (m if n_aux >= 2 else None)
+                got = dc.dense_chain_t_ep(x, ws, bs, w5, b5, mode, 0.8, aa, mm)
+                want = dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, mode, 0.8, aa, mm)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                ref = want.float().abs().max().item()
+                if dtype == torch.float32:
+                    ok = err <= FP32_LIMIT
+                    worst[(C, c_out, gc)] = max(worst.get((C, c_out, gc), 0.0), err)
+                else:
+                    ok = err <= BF16_REL_LIMIT * ref
+                cases.append({"dtype": str(dtype).split(".")[-1], "C": C, "c_out": c_out, "gc": gc,
+                              "mode": mode, "max_abs_err": err, "max_abs_ref": ref, "ok": ok})
+                check(ok and np.isfinite(err), f"kernel agrees with its plain version: {cases[-1]}")
+    emit("kernels_gc", shape=CHECK_SHAPE, n_cases=len(cases), fp32_limit=FP32_LIMIT,
+         bf16_rel_limit=BF16_REL_LIMIT, cases=cases)
+    return worst
+
+
+def codec_options():
+    """The network of the published selfc_tpu/configs/test/test_codec_uvg_bf.yml
+    (random weights instead of its .pth), built here."""
+    return dict_to_nonedict({
+        "model": "SelfC_GMM_Codec", "distortion": "sr_bd", "scale": 2,
+        "network_G": {"which_model_G": {"subnet_type": "D2DTNet"}, "in_nc": 3, "out_nc": 3,
+                      "block_num": [4], "scale": 2, "init": "xavier", "global_module": "nonlocal",
+                      "stp_blk_num": 4, "h265_deart": False, "h265_q": 9, "h265_keyint": -1,
+                      "h265_all_default": True, "fh_loss": "l2", "stp_hidden_c": 24,
+                      "stp_denseblock_innerc": 12},
+    })
+
+
+def uvg_clip(seed=40):
+    """A synthetic (1,13,1080,1920,3) clip in [0,1]: a smooth moving pattern
+    plus noise, so the codec's rate is neither trivial nor saturated."""
+    rng = np.random.default_rng(seed)
+    H, W = UVG_HW
+    y = np.linspace(0, 1, H, dtype=np.float32)[:, None, None]
+    x = np.linspace(0, 1, W, dtype=np.float32)[None, :, None]
+    tint = np.array([1.0, 0.8, 0.6], np.float32)
+    frames = np.empty((1, CODEC_T, H, W, 3), np.float32)
+    for t in range(CODEC_T):
+        frames[0, t] = 0.5 + 0.3 * np.sin(9 * x + 0.2 * t) * np.cos(5 * y + 0.1 * t) * tint
+    frames += 0.02 * rng.standard_normal(frames.shape, dtype=np.float32)
+    return np.clip(frames, 0, 1, out=frames)
+
+
+def first_group(segments, tiles):
+    """The first call's input the pipeline builds at seg_batch 4: 4 segments
+    x the 2 width halves (encode) or the 2x2 tiles (decode), on the batch
+    axis."""
+    H, W = segments.shape[3:5]
+    if tiles == 2:
+        parts = [segments[:, si, :, :, i * W // 2:(i + 1) * W // 2] for si in range(4) for i in range(2)]
+    else:
+        parts = [segments[:, si, :, ti * H // 2:(ti + 1) * H // 2, tj * W // 2:(tj + 1) * W // 2]
+                 for si in range(4) for ti in range(2) for tj in range(2)]
+    return np.concatenate(parts, axis=0)
+
+
+def phase_codec(device):
+    """The compression eval at the UVG size through ``CodecModel.test``;
+    the launch counts of exactly that call are kept, by encode and decode."""
+    clip = uvg_clip()
+    model = CodecModel(codec_options(), device=device, rng_seed=0)
+    tree = seeded_tree(model.net, 41)
+    model.load_jax_params(tree)
+    n_params = sum(p.numel() for p in model.net.parameters())
+    # count the chain launches of the encode and the decode calls apart,
+    # and any call of the plain versions
+    split = {"encode": {}, "decode": {}}
+    plain_calls = [0]
+
+    def counted(fn, part):
+        def wrapped(*a, **kw):
+            before = dict(dc.launches_by_width)
+            out = fn(*a, **kw)
+            for k, v in dc.launches_by_width.items():
+                split[part][k] = split[part].get(k, 0) + v - before.get(k, 0)
+            return out
+        return wrapped
+
+    def plain_counted(fn):
+        def wrapped(*a, **kw):
+            plain_calls[0] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    plain = (dc.dense_chain_t_ep_plain, dc.chain_feats_plain, dc._conv5_ep_plain)
+    model._encode, model._decode = counted(model._encode, "encode"), counted(model._decode, "decode")
+    dc.dense_chain_t_ep_plain, dc.chain_feats_plain, dc._conv5_ep_plain = map(plain_counted, plain)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        # ---- the main path: counts set to 0 just before, read just after ----
+        dc.reset_launch_counts()
+        t0 = time.time()
+        check(model.feed_data({"GT": clip}) == CODEC_T, "feed_data returns the clip length")
+        model.test()
+        torch.cuda.synchronize()
+        test_s = time.time() - t0
+        counts = {"total": dc.launches, "by_width": dict(dc.launches_by_width)}
+        # ---------------------------------------------------------------------
+    finally:
+        dc.dense_chain_t_ep_plain, dc.chain_feats_plain, dc._conv5_ep_plain = plain
+        del model._encode, model._decode
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(split == CODEC_LAUNCHES and counts["total"] == 56 and plain_calls[0] == 0,
+          f"chain launches of test(): {split}, total {counts['total']}, plain calls {plain_calls[0]}")
+    n_gc12 = sum(v for (C, co, gc), v in counts["by_width"].items() if gc == 12)
+    check(n_gc12 == 8, f"launches at growth 12: {n_gc12}")
+
+    vis, met = model.get_current_visuals(), model.get_current_metrics()
+    lat = (UVG_HW[0] // 2, UVG_HW[1] // 2)
+    check(vis["SR"].shape == clip.shape and vis["LR"].shape == (1, CODEC_T, *lat, 3),
+          f"SR / LR shapes {vis['SR'].shape} {vis['LR'].shape}")
+    for name in ("SR", "LR", "LR_ref"):
+        check(np.isfinite(vis[name]).all(), f"{name} is finite")
+    bpp = met["video_bpp"]
+    check(0.01 < bpp < 6.0, f"bpp {bpp}: neither trivial nor saturated (raw 8-bit LR is 6)")
+
+    with torch.no_grad():
+        # encode latents, kernel path against plain path, from one input
+        x_enc = model._on_device(first_group(seg_add_pad(clip, 3)[0], 2))
+        check(tuple(x_enc.shape[:4]) == CODEC_ENC_SHAPE[:2] + UVG_HW[:1] + (UVG_HW[1] // 2,),
+              f"encode call input {tuple(x_enc.shape)}")
+        y_k = model.net.encode(x_enc)[0]
+        with plain_chain_on_card():
+            y_p = model.net.encode(x_enc)[0]
+        enc_err = (y_k - y_p).abs().max().item()
+        del y_k, y_p
+        # hr from ONE shared decoded LR (the codec's output), both paths
+        lr_dec = model._on_device(first_group(seg_add_pad(vis["LR"], 3)[0], 4))
+        check(tuple(lr_dec.shape[:4]) == CODEC_DEC_SHAPE, f"decode call input {tuple(lr_dec.shape)}")
+        hr_k = model.net.decode(lr_dec)[0]
+        with plain_chain_on_card():
+            hr_p = model.net.decode(lr_dec)[0]
+        dec_err = (hr_k - hr_p).abs().max().item()
+        # the pipeline stitched these tiles into the clip's first 12 frames
+        hh, ww = UVG_HW[0] // 2, UVG_HW[1] // 2
+        tiles = hr_k.reshape(4, 2, 2, 3, hh, ww, 3).cpu().numpy()
+        del hr_k, hr_p
+    frames = np.concatenate([np.concatenate([np.concatenate(list(tiles[g, ti]), axis=2) for ti in range(2)],
+                                            axis=1) for g in range(4)], axis=0)
+    stitch_err = float(np.abs(frames - vis["SR"][0, :12]).max())
+    del tiles, frames
+    check(enc_err <= CODEC_LIMIT, f"encode latents: kernel path within {CODEC_LIMIT} of plain, got {enc_err}")
+    check(dec_err <= CODEC_LIMIT, f"hr from a shared LR: kernel path within {CODEC_LIMIT} of plain, got {dec_err}")
+    check(stitch_err <= 1e-6, f"test()'s frames are its decode calls' tiles: {stitch_err}")
+    emit("codec", clip=clip.shape, n_params=n_params, backend=h265.codec_backend(),
+         rate_source=model.rate_source, video_bpp=bpp, test_s=test_s,
+         launches={p: {str(k): v for k, v in d.items()} for p, d in split.items()},
+         launches_gc12=n_gc12, plain_calls=plain_calls[0],
+         latent_max_abs_err_kernel_vs_plain=enc_err, hr_max_abs_err_kernel_vs_plain=dec_err,
+         limit=CODEC_LIMIT, tiles_vs_test_max_abs=stitch_err, peak_device_memory_gib=peak_gib)
+    return model, split, x_enc, lr_dec, test_s, peak_gib
+
+
+def phase_timing_codec(device, model, split, x_enc, lr_dec, test_s, peak_gib, worst_gc):
+    """One encode and one decode call, the chains at the codec's shapes,
+    the host codec alone, and the whole test(). A chain is timed at the
+    decode call's shape: the encode call's latent has as many pixels
+    (6,220,800) and the coupling chains run alike in both, so a growth-32
+    row's launches are those of encode and decode together (the kernel is
+    held to its plain version at the encode shape by the latent check of
+    the codec phase)."""
+    rng = np.random.default_rng(42)
+    gen = torch.Generator(device=device).manual_seed(42)
+    kernels = []
+    shape = CODEC_DEC_SHAPE
+    check(np.prod(CODEC_ENC_SHAPE) == np.prod(shape), "the codec's two chain shapes hold as many pixels")
+    for C, c_out, gc in CODEC_WIDTHS:
+        coupling = gc == 32            # the coupling chains carry an epilogue, the prior's none
+        mode = "mul_add" if coupling else "none"
+        # make_chain's parameters; the activations, up to 450 M values a
+        # width, drawn on the card (numpy would take tens of seconds for them)
+        _, ws, bs, w5, b5, _, _ = make_chain(rng, C, c_out, (1, 1, 1, 1), device, gc=gc)
+        act = lambda c: torch.randn(shape + (c,), generator=gen, device=device)  # noqa: E731
+        x = act(C)
+        a, m = (act(c_out), act(c_out)) if coupling else (None, None)
+        args = (x, ws, bs, w5, b5, a, m)
+        err = max(chain_error(args, md) for md in ((mode, "sub_mul") if coupling else (mode,)))
+        check(err <= FP32_LIMIT, f"kernel vs plain at the codec shape: {(C, c_out, gc, err)}")
+        err = max(err, worst_gc.get((C, c_out, gc), 0.0))
+        lib_args = to_library_layout(*args)
+        lib = library_chain(*lib_args).permute(0, 2, 3, 4, 1)
+        want = dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, mode, 1.0, a, m)
+        check((lib - want).abs().max().item() <= 1e-3, "library chain computes the same function")
+        del lib, want
+        ms = time_cuda(lambda: dc.dense_chain_t_ep(x, ws, bs, w5, b5, mode, 1.0, a, m), iters=10)
+        plain = time_cuda(lambda: dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, mode, 1.0, a, m), iters=10)
+        library = time_cuda(lambda: library_chain(*lib_args), iters=10)
+        bound, by = chain_bound_ms(*shape, C, c_out, dc.EP_AUX[mode], gc=gc)
+        kernels.append({
+            "name": f"dense_chain_t_ep[{C}->{c_out},gc{gc}]@codec", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES,
+            "launches": sum(split[part].get((C, c_out, gc), 0) for part in split),
+            "max_abs_err": err, "ms": ms["median"], "plain_ms": plain["median"],
+            "bound_ms": bound, "bound_by": by, "library_ms": library["median"],
+            "ms_min": ms["min"], "plain_ms_min": plain["min"], "library_ms_min": library["min"],
+            "shape": list(shape) + [C], "gc": gc, "mode": mode})
+        del args, x, ws, bs, w5, b5, a, m, lib_args
+
+    # the two device calls of the pipeline, kernel path and plain path (the
+    # plain path is a yardstick: three calls, warmed by the codec phase's)
+    with torch.no_grad():
+        enc = time_cuda(lambda: model._encode(x_enc), iters=10, warmup=1)
+        dec = time_cuda(lambda: model._decode(lr_dec), iters=10, warmup=1)
+        with plain_chain_on_card():
+            enc_p = time_cuda(lambda: model._encode(x_enc), iters=3, warmup=0)
+            dec_p = time_cuda(lambda: model._decode(lr_dec), iters=3, warmup=0)
+    # the host codec alone, on the decoded LR of the run (write, close, read back)
+    lr = model.get_current_visuals()["LR"]
+    t0 = time.time()
+    stream = h265.make_stream(model.q, model.keyint, model.scale, model.h265_all_default)
+    stream.open_writer(lr.shape[3], lr.shape[2])
+    stream.write_multi_frames(lr[0])
+    stream.close_writer()
+    stream.open_reader()
+    back = stream.read_multi_frames(lr.shape[1])
+    stream.close_reader()
+    codec_s = time.time() - t0
+    check(back.shape == lr[0].shape, "the host codec reads back every frame")
+    by_name = {k["name"]: k for k in kernels}
+    chains_ms = {part: sum(by_name[f"dense_chain_t_ep[{C}->{co},gc{gc}]@codec"]["ms"] * n
+                           for (C, co, gc), n in split[part].items()) / 2
+                 for part in ("encode", "decode")}
+    emit("timing_codec", encode_call_ms=enc["median"], encode_call_ms_min=enc["min"],
+         encode_call_plain_ms=enc_p["median"], encode_call_plain_ms_min=enc_p["min"],
+         decode_call_ms=dec["median"], decode_call_ms_min=dec["min"],
+         decode_call_plain_ms=dec_p["median"], decode_call_plain_ms_min=dec_p["min"],
+         chains_ms_per_encode_call=chains_ms["encode"], chains_ms_per_decode_call=chains_ms["decode"],
+         host_codec_s=codec_s, host_codec=h265.codec_backend() or model.rate_source,
+         test_s=test_s, frames_per_s=CODEC_T / test_s, peak_device_memory_gib=peak_gib)
+    return kernels
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="serve,train",
-                    help="comma-separated: kernels (build and check only), serve, train")
+    ap.add_argument("--phases", default="serve,train,codec",
+                    help="comma-separated: kernels (build and check only), serve, train, codec")
     want = set(ap.parse_args().phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -714,6 +993,7 @@ def main():
     kernels = []
     with torch.no_grad():
         worst = phase_kernels(device)
+        worst_gc = phase_kernels_gc(device)
         worst_bwd = phase_kernels_bwd(device)
     phase_grad(device)
     if "serve" in want:
@@ -724,12 +1004,18 @@ def main():
     if "train" in want:
         trainer, recompute, counts, eps = phase_train(device)
         kernels += phase_timing_train(device, trainer, recompute, counts, worst_bwd, eps)
+        del trainer, recompute
+    if "codec" in want:
+        codec = phase_codec(device)
+        with torch.no_grad():
+            kernels += phase_timing_codec(device, *codec, worst_gc)
+        del codec
 
     for k in kernels:
         check(k["launches"] >= 1, f"the main path launched {k['name']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
-    if want != {"serve", "train"}:
+    if want != {"serve", "train", "codec"}:
         print(f"chip_smoke: partial run ({sorted(want)}): no result line", file=sys.stderr)
         return 3
     print(json.dumps({"ok": True, "device": {

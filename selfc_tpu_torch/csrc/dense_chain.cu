@@ -6,7 +6,9 @@
 // selfc_dense_chain_feats, :_pallas_feats (x1..x4 alone). The function:
 //
 //   x1..x4 : four 3x3 SAME convs over the growing concat [x | x1 .. x_{k-1}],
-//            each + bias + LeakyReLU(0.2), 32 output channels each;
+//            each + bias + LeakyReLU(0.2), gc output channels each
+//            (gc in 1..32: 32 in the coupling and the 4x prior, 12 in the
+//            codec's prior);
 //   y5     : a (3,1,1) temporal conv over [x | x1..x4], zero padded in T, + bias;
 //   out    : the coupling epilogue applied to y5 in fp32 (see EpMode).
 //
@@ -16,8 +18,9 @@
 // operations-per-byte line. The design therefore spends device memory to save
 // arithmetic: the chain is five launches (four spatial layers, then conv5 with
 // the epilogue) that write x1..x4 into channel slices of ONE preallocated
-// (frames, H, W, 128) buffer, so no tile ever recomputes a halo and the
-// [x | x1..x4] concat is never assembled. Inside a launch a block stages a
+// (frames, H, W, 4*GCP) buffer (128 channels at gc 32), so no tile ever
+// recomputes a halo and the [x | x1..x4] concat is never assembled. Inside a
+// launch a block stages a
 // 16-channel slab of its input tile and of the weights in shared memory as
 // fp32, and every thread keeps an 8 pixel x 8 channel accumulator tile in
 // registers (one 16-byte shared load per ~20 FMAs). Staging costs as much as
@@ -27,6 +30,21 @@
 // cores, no TF32. bf16 tensors are widened on the way in and rounded once on
 // the way out.
 //
+// Growth width below 32 (the TPU kernel zero-pads the weights to 32 lanes
+// per segment in selfc_tpu/ops/pallas_chain.py:pad_gc_params, which costs its
+// MXU nothing). Here a pad lane costs real FMAs (a 24->24 chain at gc 12 does
+// ~18k spatial multiply-adds a pixel, ~83k padded to 32), so gc is only
+// rounded up to GCP = 16 (gc <= 16: ~28k, and a 64-thread spatial block whose
+// threads keep the 8x8 register tile) or 32. The buffer is
+// (frames, H, W, 4*GCP); segment j of it holds x_{j+1} in channels
+// GCP*j .. GCP*j+gc-1 and zeros above. The
+// weights are read in their own layout (w_k (3,3,C+gc(k-1),gc), w5
+// (3,C+4gc,c_out)) and remapped while they are staged: buffer channel
+// GCP*j + l is weight row C + gc*j + l for l < gc and a zero row otherwise,
+// output lanes >= gc get zero weights and bias, so they hold lrelu(0) = 0.
+// No padded weight copy is made. The 16-lane rounding also keeps every
+// segment 16-byte aligned in fp32 and bf16, so the 16-byte loads stay.
+//
 // Plain C interface (loaded with ctypes); the caller owns every buffer.
 
 #include <cuda_bf16.h>
@@ -35,12 +53,11 @@
 
 namespace {
 
-constexpr int GC = 32;              // growth channels of every spatial conv
-constexpr int FEAT_C = 4 * GC;      // channels of the x1..x4 buffer
-constexpr int KC = 16;              // input channels staged per step
+constexpr int GC_MAX = 32;          // widest growth the kernels take
+constexpr int KC = 16;              // input channels staged per step (divides GCP)
 constexpr int TILE = 16;            // spatial layers: TILE x TILE output pixels a block
 constexpr int HALO = TILE + 2;      // staged input tile edge
-constexpr int NTHREADS = 128;       // threads of a spatial-layer block
+constexpr int NTHREADS = 128;       // threads of a conv5 block (and of a spatial block at GCP 32)
 constexpr int PIX5 = 256;           // conv5: most pixels a block handles
 constexpr int CO5 = 64;             // conv5: most output channels a block handles
 constexpr float SLOPE = 0.2f;
@@ -67,50 +84,81 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u), __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
 }
 
-// One spatial layer: feats[..., 32*layer : 32*layer+32] =
-//   lrelu(conv3x3([x | feats[..., :32*layer]], w) + b).
-// The layer reads channels below 32*layer of `feats` and writes the 32 above
-// them, so reading and writing the one buffer from many blocks is race free.
-// grid = (ceil(W/16), ceil(H/16), frames), block = 128 threads.
-// Thread (pg, cg): output row pg%16 of the tile, columns 8*(pg/16) .. +7,
-// output channels 8*cg .. +7.
+// A slab of staged channels c0 .. c0+kc-1 of source src (0: x, 1: feats)
+// lies in x or inside one growth segment of feats (KC divides gcp). Its
+// channel c0 + c meets weight row row0 + c for c < nreal; the channels from
+// nreal on are pad lanes and meet zeros (see the note at the top).
+struct SlabRows {
+  int row0, nreal;
+};
+__device__ __forceinline__ SlabRows slab_rows(int src, int c0, int kc, int C, int gc, int gcp) {
+  if (src == 0) return {c0, kc};
+  const int lane0 = c0 % gcp;
+  return {C + gc * (c0 / gcp) + lane0, min(kc, gc - lane0)};
+}
+
+// Four consecutive output channels co..co+3 of weight row `row` (gc or c_out
+// of them a row), zero from n on; 16-byte loads when the rows allow them.
 template <typename T>
-__global__ void __launch_bounds__(NTHREADS, 3) spatial_layer_kernel(const T* x, T* feats, const T* w, const T* b, int H, int W, int C, int layer) {
+__device__ __forceinline__ float4 weight4(const T* w, size_t row, int n, int co) {
+  const T* p = w + row * n + co;
+  if ((n & 3) == 0) return co < n ? load4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+  return make_float4(co < n ? to_f(p[0]) : 0.f, co + 1 < n ? to_f(p[1]) : 0.f,
+                     co + 2 < n ? to_f(p[2]) : 0.f, co + 3 < n ? to_f(p[3]) : 0.f);
+}
+
+// One spatial layer at padded growth GCP (16 or 32; gc <= GCP channels are
+// real): feats[..., GCP*layer : GCP*layer+GCP] =
+//   lrelu(conv3x3([x | feats[..., :GCP*layer]], w) + b), zero in lanes >= gc.
+// FULL (gc == GCP == 32, the coupling's and the 4x prior's) fixes gc at compile
+// time, so the remap folds away and the weights are staged as in a kernel
+// written for that one width.
+// The layer reads channels below GCP*layer of `feats` and writes the GCP above
+// them, so reading and writing the one buffer from many blocks is race free.
+// grid = (ceil(W/16), ceil(H/16), frames), block = 4*GCP threads.
+// Thread (pg, cg): output row pg%16 of the tile, columns 8*(pg/16) .. +7,
+// output channels 8*cg .. +7 (pg < 32, cg < GCP/8).
+template <typename T, int GCP, bool FULL>
+__global__ void __launch_bounds__(4 * GCP, 96 / GCP) spatial_layer_kernel(const T* x, T* feats, const T* w, const T* b, int H, int W, int C, int gc_arg, int layer) {
+  const int gc = FULL ? GCP : gc_arg;
+  constexpr int NT = 4 * GCP;
+  constexpr int NCG = GCP / 8;
+  constexpr int FC = 4 * GCP;
   __shared__ float4 in_s[KC / 4][HALO * HALO];
-  __shared__ __align__(16) float w_s[9][KC][GC];
+  __shared__ __align__(16) float w_s[9][KC][GCP];
 
   const int tid = threadIdx.x;
-  const int cg = tid & 3;
-  const int pg = tid >> 2;
+  const int cg = tid % NCG;
+  const int pg = tid / NCG;
   const int row = pg & 15;
   const int cb = (pg >> 4) * 8;
   const int tx0 = blockIdx.x * TILE;
   const int ty0 = blockIdx.y * TILE;
   const size_t frame = blockIdx.z;
   const T* xf = x + frame * H * W * C;
-  T* ff = feats + frame * H * W * FEAT_C;
-  const int cin = C + GC * layer;
+  T* ff = feats + frame * H * W * FC;
+  const int cin = C + gc * layer;  // rows of w
 
   float acc[8][8];
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
-    const float bias = to_f(b[cg * 8 + q]);
+    const int co = cg * 8 + q;
+    const float bias = co < gc ? to_f(b[co]) : 0.f;
 #pragma unroll
     for (int p = 0; p < 8; ++p) acc[p][q] = bias;
   }
 
   for (int src = 0; src < 2; ++src) {
-    const int nsrc = src == 0 ? C : GC * layer;
+    const int nsrc = src == 0 ? C : GCP * layer;
     const T* base = src == 0 ? xf : ff;
-    const int stride = src == 0 ? C : FEAT_C;
-    const int coff = src == 0 ? 0 : C;  // offset of this source on the weight's Cin axis
+    const int stride = src == 0 ? C : FC;
     const bool vec = (stride & 3) == 0;  // every pixel's channels start on a 4-element boundary
     for (int c0 = 0; c0 < nsrc; c0 += KC) {
       const int kc = min(KC, nsrc - c0);
       const int kc4 = (kc + 3) >> 2;
       __syncthreads();  // the previous slab is consumed before it is overwritten
       if (vec) {  // 16-byte loads: four channels of a pixel at once
-        for (int idx = tid; idx < HALO * HALO * (KC / 4); idx += NTHREADS) {
+        for (int idx = tid; idx < HALO * HALO * (KC / 4); idx += NT) {
           const int c4 = idx & (KC / 4 - 1);
           const int pix = idx / (KC / 4);
           if (c4 >= kc4) continue;
@@ -121,7 +169,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) spatial_layer_kernel(const T* x, 
           in_s[c4][pix] = v;
         }
       } else {
-        for (int idx = tid; idx < HALO * HALO * KC; idx += NTHREADS) {
+        for (int idx = tid; idx < HALO * HALO * KC; idx += NT) {
           const int c = idx & (KC - 1);
           const int pix = idx / KC;
           if (c >= kc4 * 4) continue;
@@ -132,13 +180,15 @@ __global__ void __launch_bounds__(NTHREADS, 3) spatial_layer_kernel(const T* x, 
           reinterpret_cast<float*>(&in_s[c >> 2][pix])[c & 3] = v;
         }
       }
-      // a weight row (32 output channels of one tap and input channel) is contiguous
-      for (int idx = tid; idx < 9 * KC * (GC / 4); idx += NTHREADS) {
-        const int co4 = idx & (GC / 4 - 1);
-        const int c = (idx / (GC / 4)) & (KC - 1);
-        const int tap = idx / (GC / 4 * KC);
+      // a weight row (gc output channels of one tap and input channel) is
+      // contiguous; a pad lane's row, and its columns >= gc, stage as zeros
+      const SlabRows sr = slab_rows(src, c0, kc, C, gc, GCP);
+      for (int idx = tid; idx < 9 * KC * (GCP / 4); idx += NT) {
+        const int co4 = idx % (GCP / 4);
+        const int c = (idx / (GCP / 4)) % KC;
+        const int tap = idx / (GCP / 4 * KC);
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (c < kc) v = load4(w + ((size_t)tap * cin + coff + c0 + c) * GC + co4 * 4);
+        if (c < sr.nreal) v = weight4(w, (size_t)tap * cin + sr.row0 + c, gc, co4 * 4);
         *reinterpret_cast<float4*>(&w_s[tap][c][co4 * 4]) = v;
       }
       __syncthreads();
@@ -186,7 +236,7 @@ __global__ void __launch_bounds__(NTHREADS, 3) spatial_layer_kernel(const T* x, 
   for (int p = 0; p < 8; ++p) {
     const int ox = tx0 + cb + p;
     if (ox < W) {
-      T* o = ff + ((size_t)oy * W + ox) * FEAT_C + GC * layer + cg * 8;
+      T* o = ff + ((size_t)oy * W + ox) * FC + GCP * layer + cg * 8;
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
         const float v = acc[p][q];
@@ -215,7 +265,8 @@ __device__ __forceinline__ float ep_apply(float y, int mode, float clamp, float 
   }
 }
 
-// conv5 + epilogue: out = ep(b5 + sum_dt [x | feats](t + dt - 1) @ w5[dt]).
+// conv5 + epilogue: out = ep(b5 + sum_dt [x | feats](t + dt - 1) @ w5[dt]),
+// feats of 4*gcp channels with gc real ones a segment (w5 rows remapped).
 // grid = (ceil(HW / (P*npg)), ceil(c_out / 64), frames), block = npg*ng threads,
 // ng = channel groups of 8 in a block (<= 8), npg = pixel groups, P = pixels a
 // thread (P*npg <= 256). Thread (pg, cg): pixels pg + j*npg (j < P) of the
@@ -224,7 +275,7 @@ __device__ __forceinline__ float ep_apply(float y, int mode, float clamp, float 
 // T). With one channel group (c_out <= 8) the layer only streams its input, so
 // it runs with P = 2: a full block of threads to keep loads in flight.
 template <typename T, int P>
-__global__ void __launch_bounds__(NTHREADS) conv5_ep_kernel(const T* x, const T* feats, const T* w5, const T* b5, const T* a, const T* m, T* out, int Tn, int HW, int C, int c_out, int ng, int npg, int mode, float clamp) {
+__global__ void __launch_bounds__(NTHREADS) conv5_ep_kernel(const T* x, const T* feats, const T* w5, const T* b5, const T* a, const T* m, T* out, int Tn, int HW, int C, int gc, int gcp, int c_out, int ng, int npg, int mode, float clamp) {
   __shared__ float4 in_s[KC / 4][PIX5];
   __shared__ __align__(16) float w_s[KC][CO5];
 
@@ -238,7 +289,8 @@ __global__ void __launch_bounds__(NTHREADS) conv5_ep_kernel(const T* x, const T*
   const int nco = ng * 8;
   const size_t frame = blockIdx.z;
   const int t = (int)(frame % Tn);
-  const int ctot = C + FEAT_C;
+  const int fc = 4 * gcp;
+  const int ctot = C + 4 * gc;  // rows of w5
 
   float acc[P][8];
 #pragma unroll
@@ -254,10 +306,9 @@ __global__ void __launch_bounds__(NTHREADS) conv5_ep_kernel(const T* x, const T*
     if (tt < 0 || tt >= Tn) continue;  // same for every thread of the block
     const size_t fsrc = frame + dt - 1;
     for (int src = 0; src < 2; ++src) {
-      const int nsrc = src == 0 ? C : FEAT_C;
+      const int nsrc = src == 0 ? C : fc;
       const int stride = nsrc;
-      const T* base = src == 0 ? x + fsrc * HW * C : feats + fsrc * HW * FEAT_C;
-      const int coff = src == 0 ? 0 : C;
+      const T* base = src == 0 ? x + fsrc * HW * C : feats + fsrc * HW * fc;
       for (int c0 = 0; c0 < nsrc; c0 += KC) {
         const int kc = min(KC, nsrc - c0);
         const int kc4 = (kc + 3) >> 2;
@@ -283,13 +334,14 @@ __global__ void __launch_bounds__(NTHREADS) conv5_ep_kernel(const T* x, const T*
             reinterpret_cast<float*>(&in_s[c >> 2][lp])[c & 3] = v;
           }
         }
+        const SlabRows sr = slab_rows(src, c0, kc, C, gc, gcp);
         if ((c_out & 3) == 0) {
           const int nco4 = nco / 4;
           for (int idx = tid; idx < KC * nco4; idx += nthreads) {
             const int col = (idx % nco4) * 4;
             const int c = idx / nco4;
             float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (c < kc && co_base + col < c_out) v = load4(w5 + ((size_t)dt * ctot + coff + c0 + c) * c_out + co_base + col);
+            if (c < sr.nreal && co_base + col < c_out) v = load4(w5 + ((size_t)dt * ctot + sr.row0 + c) * c_out + co_base + col);
             *reinterpret_cast<float4*>(&w_s[c][col]) = v;
           }
         } else {
@@ -298,7 +350,7 @@ __global__ void __launch_bounds__(NTHREADS) conv5_ep_kernel(const T* x, const T*
             const int c = idx / nco;
             const int co = co_base + col;
             float v = 0.f;
-            if (c < kc && co < c_out) v = to_f(w5[((size_t)dt * ctot + coff + c0 + c) * c_out + co]);
+            if (c < sr.nreal && co < c_out) v = to_f(w5[((size_t)dt * ctot + sr.row0 + c) * c_out + co]);
             w_s[c][col] = v;
           }
         }
@@ -355,12 +407,15 @@ __global__ void __launch_bounds__(NTHREADS) conv5_ep_kernel(const T* x, const T*
   }
 }
 
+// The padded growth width of the feats buffer for growth width gc.
+inline int padded_gc(int gc) { return gc <= 16 ? 16 : GC_MAX; }
+
 // The four spatial layers, in order: layer k reads what layers < k wrote.
-template <typename T>
-int spatial_layers(const void* x, void* feats, const void* const* ws, const void* const* bs, int frames, int H, int W, int C, cudaStream_t stream) {
+template <typename T, int GCP, bool FULL>
+int spatial_layers_at(const void* x, void* feats, const void* const* ws, const void* const* bs, int frames, int H, int W, int C, int gc, cudaStream_t stream) {
   const dim3 grid_s((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, frames);
   for (int layer = 0; layer < 4; ++layer) {
-    spatial_layer_kernel<T><<<grid_s, NTHREADS, 0, stream>>>((const T*)x, (T*)feats, (const T*)ws[layer], (const T*)bs[layer], H, W, C, layer);
+    spatial_layer_kernel<T, GCP, FULL><<<grid_s, 4 * GCP, 0, stream>>>((const T*)x, (T*)feats, (const T*)ws[layer], (const T*)bs[layer], H, W, C, gc, layer);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -368,9 +423,18 @@ int spatial_layers(const void* x, void* feats, const void* const* ws, const void
 }
 
 template <typename T>
-int chain_forward(const void* x, void* feats, const void* const* ws, const void* const* bs, const void* w5, const void* b5, const void* a, const void* m, void* out, int frames, int Tn, int H, int W, int C, int c_out, int mode, float clamp, cudaStream_t stream) {
-  const int err = spatial_layers<T>(x, feats, ws, bs, frames, H, W, C, stream);
+int spatial_layers(const void* x, void* feats, const void* const* ws, const void* const* bs, int frames, int H, int W, int C, int gc, cudaStream_t stream) {
+  if (gc < 1 || gc > GC_MAX) return (int)cudaErrorInvalidValue;
+  if (gc == GC_MAX) return spatial_layers_at<T, GC_MAX, true>(x, feats, ws, bs, frames, H, W, C, gc, stream);
+  if (gc <= 16) return spatial_layers_at<T, 16, false>(x, feats, ws, bs, frames, H, W, C, gc, stream);
+  return spatial_layers_at<T, GC_MAX, false>(x, feats, ws, bs, frames, H, W, C, gc, stream);
+}
+
+template <typename T>
+int chain_forward(const void* x, void* feats, const void* const* ws, const void* const* bs, const void* w5, const void* b5, const void* a, const void* m, void* out, int frames, int Tn, int H, int W, int C, int gc, int c_out, int mode, float clamp, cudaStream_t stream) {
+  const int err = spatial_layers<T>(x, feats, ws, bs, frames, H, W, C, gc, stream);
   if (err != 0) return err;
+  const int gcp = padded_gc(gc);
   const int co_blk = c_out < CO5 ? c_out : CO5;
   const int ng = (co_blk + 7) / 8;
   const int HW = H * W;
@@ -378,12 +442,12 @@ int chain_forward(const void* x, void* feats, const void* const* ws, const void*
   if (ng == 1) {
     const int npg = NTHREADS;
     const dim3 grid_5((HW + npg * 2 - 1) / (npg * 2), gy, frames);
-    conv5_ep_kernel<T, 2><<<grid_5, npg, 0, stream>>>((const T*)x, (const T*)feats, (const T*)w5, (const T*)b5, (const T*)a, (const T*)m, (T*)out, Tn, HW, C, c_out, ng, npg, mode, clamp);
+    conv5_ep_kernel<T, 2><<<grid_5, npg, 0, stream>>>((const T*)x, (const T*)feats, (const T*)w5, (const T*)b5, (const T*)a, (const T*)m, (T*)out, Tn, HW, C, gc, gcp, c_out, ng, npg, mode, clamp);
   } else {
     int npg = NTHREADS / ng;
     if (npg > PIX5 / 8) npg = PIX5 / 8;
     const dim3 grid_5((HW + npg * 8 - 1) / (npg * 8), gy, frames);
-    conv5_ep_kernel<T, 8><<<grid_5, ng * npg, 0, stream>>>((const T*)x, (const T*)feats, (const T*)w5, (const T*)b5, (const T*)a, (const T*)m, (T*)out, Tn, HW, C, c_out, ng, npg, mode, clamp);
+    conv5_ep_kernel<T, 8><<<grid_5, ng * npg, 0, stream>>>((const T*)x, (const T*)feats, (const T*)w5, (const T*)b5, (const T*)a, (const T*)m, (T*)out, Tn, HW, C, gc, gcp, c_out, ng, npg, mode, clamp);
   }
   return (int)cudaGetLastError();
 }
@@ -392,30 +456,37 @@ int chain_forward(const void* x, void* feats, const void* const* ws, const void*
 
 // dtype: 0 = float32, 1 = bfloat16 (every tensor of one call has the same type).
 // Every pointer is aligned to 16 bytes.
-// x (frames,H,W,C); feats (frames,H,W,128) scratch, written; w1..w4 (3,3,C+32k,32);
-// b1..b4 (32); w5 (3,C+128,c_out); b5 (c_out); a, m (frames,H,W,c_out) or null;
-// out (frames,H,W,c_out). frames = B*T with T = frames_per_clip.
-// Returns the first cudaError_t a launch reports, 0 when all five were accepted.
-extern "C" int selfc_dense_chain_forward(const void* x, void* feats, const void* w1, const void* w2, const void* w3, const void* w4, const void* b1, const void* b2, const void* b3, const void* b4, const void* w5, const void* b5, const void* a, const void* m, void* out, int frames, int frames_per_clip, int H, int W, int C, int c_out, int mode, float clamp, int dtype, void* stream) {
+// x (frames,H,W,C); feats (frames,H,W,4*GCP) scratch, written (GCP = 16 for
+// gc <= 16, else 32; lanes >= gc of each segment are written as zeros);
+// w1..w4 (3,3,C+gc*k,gc); b1..b4 (gc); w5 (3,C+4*gc,c_out); b5 (c_out);
+// a, m (frames,H,W,c_out) or null; out (frames,H,W,c_out). frames = B*T with
+// T = frames_per_clip; 1 <= gc <= 32. Returns the first cudaError_t a launch
+// reports, 0 when all five were accepted.
+extern "C" int selfc_dense_chain_forward(const void* x, void* feats, const void* w1, const void* w2, const void* w3, const void* w4, const void* b1, const void* b2, const void* b3, const void* b4, const void* w5, const void* b5, const void* a, const void* m, void* out, int frames, int frames_per_clip, int H, int W, int C, int gc, int c_out, int mode, float clamp, int dtype, void* stream) {
   const void* ws[4] = {w1, w2, w3, w4};
   const void* bs[4] = {b1, b2, b3, b4};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return chain_forward<float>(x, feats, ws, bs, w5, b5, a, m, out, frames, frames_per_clip, H, W, C, c_out, mode, clamp, s);
-  if (dtype == 1) return chain_forward<__nv_bfloat16>(x, feats, ws, bs, w5, b5, a, m, out, frames, frames_per_clip, H, W, C, c_out, mode, clamp, s);
+  if (dtype == 0) return chain_forward<float>(x, feats, ws, bs, w5, b5, a, m, out, frames, frames_per_clip, H, W, C, gc, c_out, mode, clamp, s);
+  if (dtype == 1) return chain_forward<__nv_bfloat16>(x, feats, ws, bs, w5, b5, a, m, out, frames, frames_per_clip, H, W, C, gc, c_out, mode, clamp, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // The spatial half alone (replaces selfc_tpu/ops/pallas_chain.py:_pallas_feats):
-// feats (frames,H,W,128), written, = [x1 | x2 | x3 | x4]. The backward of the
-// chain calls it when the forward did not keep its feats buffer. Same
-// arguments and return value as above, without conv5 and the epilogue.
+// feats (frames,H,W,128), written, = [x1 | x2 | x3 | x4], gc = 32 (the
+// backward it serves takes gc = 32 only). The backward of the chain calls it
+// when the forward did not keep its feats buffer. Same arguments and return
+// value as above, without conv5 and the epilogue.
 extern "C" int selfc_dense_chain_feats(const void* x, void* feats, const void* w1, const void* w2, const void* w3, const void* w4, const void* b1, const void* b2, const void* b3, const void* b4, int frames, int H, int W, int C, int dtype, void* stream) {
   const void* ws[4] = {w1, w2, w3, w4};
   const void* bs[4] = {b1, b2, b3, b4};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return spatial_layers<float>(x, feats, ws, bs, frames, H, W, C, s);
-  if (dtype == 1) return spatial_layers<__nv_bfloat16>(x, feats, ws, bs, frames, H, W, C, s);
+  if (dtype == 0) return spatial_layers<float>(x, feats, ws, bs, frames, H, W, C, GC_MAX, s);
+  if (dtype == 1) return spatial_layers<__nv_bfloat16>(x, feats, ws, bs, frames, H, W, C, GC_MAX, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// The per-segment width of the feats buffer that selfc_dense_chain_forward
+// writes for growth width gc: the caller sizes the buffer with it.
+extern "C" int selfc_dense_chain_padded_gc(int gc) { return padded_gc(gc); }
 
 extern "C" const char* selfc_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

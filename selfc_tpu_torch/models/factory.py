@@ -5,13 +5,12 @@ from __future__ import annotations
 
 import logging
 
-from .inv_nets import SelfCNetGMM
+from .inv_nets import SelfCNetCodec, SelfCNetGMM
 
 logger = logging.getLogger("base")
 
 _NOT_PORTED = {
     "IRN": "A22", "IRN_Contra_UP": "A22", "SelfC": "A22", "SelfC_shell": "A22",
-    "SelfC_GMM_Codec": "A12",
 }
 
 
@@ -42,6 +41,26 @@ def define_G(opt, device=None, generator=None):
             global_module=gm,
             nll_enabled=nll_enabled,
             save_chain_feats=True if save_feats is None else bool(save_feats),
+            device=device,
+            generator=generator,
+        )
+    if model_type == "SelfC_GMM_Codec":
+        if net.get("deart_net") or net.get("h265_deart"):
+            raise NotImplementedError(
+                "the codec's de-artifact net (deart_net / h265_deart) needs the "
+                "deformable convolution, which is not ported yet (ROADMAP A24; the "
+                "rest of A12 is ported)")
+        return SelfCNetCodec(
+            scale=net.get("scale") or opt["scale"],
+            block_num=tuple(net.get("block_num") or (4,)),
+            subnet_type=which.get("subnet_type", "D2DTNet"),
+            init_mode=net.get("init") or "xavier",
+            stp_blk_num=net.get("stp_blk_num") or 4,
+            fh_loss=net.get("fh_loss") or "l2",
+            gmm_k=net.get("gmm_k") or 5,
+            global_module=net.get("global_module") or "nonlocal",
+            stp_hidden_c=net.get("stp_hidden_c") or 24,
+            stp_denseblock_innerc=net.get("stp_denseblock_innerc") or 12,
             device=device,
             generator=generator,
         )

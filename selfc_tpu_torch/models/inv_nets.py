@@ -1,16 +1,21 @@
-"""Invertible rescaling networks.
+"""Invertible rescaling / compression networks.
 
 ``SelfCNetGMM`` — the 4x rescaling net: frequency split (k=4) + 8 coupling
-blocks + the STPNet (GMM) prior. Takes channels-last video
-``(B, T, H, W, C)``. Methods:
+blocks + the STPNet (GMM) prior.
+``SelfCNetCodec`` — the compression net (model type 'SelfC_GMM_Codec'):
+frequency split (k=2) + 4 coupling blocks + the codec's STPNet (hidden 24,
+growth 12, an l2 tail by default); the H.265 span between its encode and its
+decode is ``codec/pipeline.py``'s.
+
+Both take channels-last video ``(B, T, H, W, C)``. Methods:
 
   encode(x)              -> (latent, log_jac)
   prior_params(lr)       -> raw GMM parameters of the prior
   decode_with_hf(lr, hf) -> (hr, latent)
   decode(lr, eps=None, generator=None) -> (hr, sampled_hf)
-  nll(lr, hf)            -> conditional NLL of hf under the prior
+  nll(lr, hf)            -> conditional NLL of hf under the prior (GMM net)
   roundtrip(x, ...)      -> encode -> STE-quantize LR -> decode
-  forward(x, rev)        -> (latent, loss_c) or decode(x)
+  forward(x, rev)        -> (latent, loss_c) or decode(x)   (GMM net)
 
 Randomness is explicit: ``decode`` takes the standard-normal noise ``eps``
 of shape ``(B,T,h,w,hf_dim,gmm_k)``, or a ``torch.Generator`` to draw it.
@@ -32,23 +37,20 @@ from .coupling import InvBlockExp
 from .stp import STPNet
 
 
-class SelfCNetGMM(nn.Module):
-    """Flagship rescaling net (model type 'SelfC_GMM')."""
+class _CouplingNet(nn.Module):
+    """What the two nets share: the frequency split, the chain of coupling
+    blocks (``inv_blocks_{i}``), the STPNet prior (``stp_net``) and the
+    sampling of the HF latents from it."""
 
-    def __init__(self, scale: int = 4, block_num: Sequence[int] = (4, 4),
-                 subnet_type: str = "D2DTNet", init_mode: str = "xavier",
-                 stp_blk_num: int = 6, fh_loss: str = "gmm", gmm_k: int = 5,
-                 global_module: str = "nonlocal", nll_enabled: bool = False,
-                 save_chain_feats: bool = True, device=None, generator=None):
+    def __init__(self, scale, block_num, subnet_type, init_mode, stp_blk_num,
+                 fh_loss, gmm_k, global_module, stp_hidden_c, stp_gc,
+                 save_chain_feats, device, generator):
         super().__init__()
         device = resolve_device(device)
         self.scale = scale
         self.block_num = tuple(block_num)
         self.fh_loss = fh_loss
         self.gmm_k = gmm_k
-        # the forward conditional NLL is off by default, as in the trained
-        # snapshot; set True to restore the loss_c term
-        self.nll_enabled = nll_enabled
         self.latent_channels = 3 * (scale * scale + 1)
         self.hf_dim = 3 * scale * scale
         self.n_blocks = sum(self.block_num)
@@ -60,7 +62,8 @@ class SelfCNetGMM(nn.Module):
             )
         self.stp_net = STPNet(
             scale=scale, stp_blk_num=stp_blk_num, fh_loss=fh_loss,
-            gmm_k=gmm_k, global_module=global_module, generator=generator,
+            gmm_k=gmm_k, global_module=global_module, hidden_c=stp_hidden_c,
+            gc=stp_gc, generator=generator,
         )
         # training memory against backward time: see blocks.DenseChain
         for mod in self.modules():
@@ -83,8 +86,8 @@ class SelfCNetGMM(nn.Module):
     def encode(self, x):
         """HR (B,T,H,W,3) -> latent (B,T,H/s,W/s,3*(s^2+1)), log_jac."""
         y = freq_forward(x, self.scale)
-        # the (LR, HF) pair is carried through the chain; the 51-channel
-        # tensor is assembled once at the end, not per block
+        # the (LR, HF) pair is carried through the chain; the whole latent
+        # is assembled once at the end, not per block
         pair, jac = self._chain(
             (y[..., :3].contiguous(), y[..., 3:].contiguous()), False)
         return torch.cat(pair, dim=-1), jac
@@ -108,7 +111,8 @@ class SelfCNetGMM(nn.Module):
         return gmm_sample(p, eps)
 
     def decode(self, lr, eps=None, generator=None):
-        """LR (B,T,h,w,3) -> (HR (B,T,H,W,3), sampled hf)."""
+        """LR (B,T,h,w,3) -> (HR (B,T,H,W,3), hf): sampled from the prior's
+        GMM, or with fh_loss 'l2' the prior's output itself."""
         params = self.prior_params(lr)
         hf = self._sample_hf(params, eps, generator)
         return self.decode_with_hf(lr, hf)[0], hf
@@ -120,6 +124,22 @@ class SelfCNetGMM(nn.Module):
         pair, _ = self._chain((lr.contiguous(), hf.contiguous()), True)
         y = torch.cat(pair, dim=-1)
         return freq_inverse(y, self.scale), y
+
+
+class SelfCNetGMM(_CouplingNet):
+    """Flagship rescaling net (model type 'SelfC_GMM')."""
+
+    def __init__(self, scale: int = 4, block_num: Sequence[int] = (4, 4),
+                 subnet_type: str = "D2DTNet", init_mode: str = "xavier",
+                 stp_blk_num: int = 6, fh_loss: str = "gmm", gmm_k: int = 5,
+                 global_module: str = "nonlocal", nll_enabled: bool = False,
+                 save_chain_feats: bool = True, device=None, generator=None):
+        super().__init__(scale, block_num, subnet_type, init_mode, stp_blk_num,
+                         fh_loss, gmm_k, global_module, 64, 32,
+                         save_chain_feats, device, generator)
+        # the forward conditional NLL is off by default, as in the trained
+        # snapshot; set True to restore the loss_c term
+        self.nll_enabled = nll_enabled
 
     def nll(self, lr, hf):
         """Conditional NLL of true HF latents under the prior (loss_c)."""
@@ -146,3 +166,34 @@ class SelfCNetGMM(nn.Module):
             y, _ = self.encode(x)
             return y, torch.mean(y) * 0.0  # the forward NLL is disabled
         return self.decode(x, eps=eps, generator=generator)
+
+
+class SelfCNetCodec(_CouplingNet):
+    """Compression net (model type 'SelfC_GMM_Codec'); the JAX package's
+    ``models/inv_nets.py:SelfCNetCodec``. The de-artifact net
+    (``deart_net``) needs the deformable convolution, which is not ported
+    yet."""
+
+    def __init__(self, scale: int = 2, block_num: Sequence[int] = (4,),
+                 subnet_type: str = "D2DTNet", init_mode: str = "xavier",
+                 stp_blk_num: int = 4, fh_loss: str = "l2", gmm_k: int = 5,
+                 global_module: str = "nonlocal", stp_hidden_c: int = 24,
+                 stp_denseblock_innerc: int = 12, deart_net: bool = False,
+                 save_chain_feats: bool = True, device=None, generator=None):
+        if deart_net:
+            raise NotImplementedError(
+                "deart_net needs the deformable convolution, which is not "
+                "ported yet (ROADMAP A24)")
+        super().__init__(scale, block_num, subnet_type, init_mode, stp_blk_num,
+                         fh_loss, gmm_k, global_module, stp_hidden_c,
+                         stp_denseblock_innerc, save_chain_feats, device,
+                         generator)
+
+    def roundtrip(self, x, eps=None, generator=None):
+        """The codec-free roundtrip: encode -> STE-quantize LR -> decode
+        (the codec span is inserted by ``train/codec_model.py``)."""
+        y, _ = self.encode(x)
+        lr = quantize_ste(y[..., :3].contiguous())
+        hr, _ = self.decode(lr, eps=eps, generator=generator)
+        return {"lr_pre_quant": y[..., :3], "lr": lr, "hr": hr,
+                "loss_c": torch.zeros((), device=x.device)}

@@ -12,9 +12,10 @@ The function, on a channels-last video ``x (B,T,H,W,C)``:
   y5  = temporal_conv3([x | x_1..x_4], w5) + b5          (zero pad in T)
   out = ep_apply(y5, mode, clamp, a, m)                  (in fp32)
 
-with ``w_k (3,3,C+32(k-1),32)``, ``w5 (3,C+128,c_out)`` and the epilogue
-operands ``a``, ``m`` of the output's shape. ``feats`` below is the concat
-``[x_1 | .. | x_4]`` of shape ``(B,T,H,W,128)``.
+with ``w_k (3,3,C+gc(k-1),gc)``, ``w5 (3,C+4gc,c_out)`` and the epilogue
+operands ``a``, ``m`` of the output's shape; the growth width ``gc`` is 32
+in the coupling and the 4x prior, 12 in the codec's prior. ``feats`` below is
+the concat ``[x_1 | .. | x_4]`` of shape ``(B,T,H,W,4gc)``.
 
 On a CUDA tensor the work is done by the hand-written kernels of
 ``csrc/dense_chain.cu`` (forward, spatial-only forward) and
@@ -22,10 +23,15 @@ On a CUDA tensor the work is done by the hand-written kernels of
 the card, not by bytes (a 64->64 chain does ~331k fp32 operations for each
 pixel and moves under 1 KB of it), so the kernels trade device memory for
 arithmetic: five launches write x_1..x_4 into channel slices of one
-preallocated ``(B,T,H,W,128)`` buffer (the concat is never assembled and no
-halo is recomputed), each thread keeps an 8x8 register tile of plain fp32
+preallocated ``(B,T,H,W,4*GCP)`` buffer (the concat is never assembled and
+no halo is recomputed), each thread keeps an 8x8 register tile of plain fp32
 FMAs fed from a 16-channel slab in shared memory, and the epilogue is
-applied where conv5's accumulator lives. The adjoint keeps the same layout:
+applied where conv5's accumulator lives. ``GCP = padded_gc(gc)`` is gc
+rounded up to 16 or 32: the forward takes any gc in 1..32 and remaps the
+weights while staging them (a growth segment's pad lanes meet zero
+weights), without a padded weight copy. The adjoint and the spatial-only
+forward take gc = 32 only; gc < 32 on a CUDA tensor raises there (the
+codec's training is a later slice). The adjoint keeps the same layout:
 the running gradient is an fp32 ``dx (…,C)`` / ``dfeats (…,128)`` pair in
 device memory, swept k = 4..1 by one data-gradient and one weight-gradient
 launch a layer, the latter reduced over blocks in a fixed order (the same
@@ -48,7 +54,7 @@ from torch.autograd.function import once_differentiable
 from ..kernels import build
 from .conv import temporal_conv3
 
-GC = 32  # growth channels the CUDA kernels are written for
+GC_MAX = 32  # the widest growth the CUDA kernels take (and the only one of the adjoint)
 
 # number of auxiliary operands of each epilogue
 #   add          y = a + y5            (fwd y1 = x1 + F(x2))
@@ -68,8 +74,8 @@ BWD_GROUPS = 264
 
 # calls that went to the CUDA kernels (one per call, whatever number of
 # launches the call makes inside), in all and by width: the forward chain by
-# (C, c_out); the chain adjoint and the spatial-only forward, whose work does
-# not depend on c_out, by C
+# (C, c_out, gc); the chain adjoint and the spatial-only forward, whose work
+# does not depend on c_out, by C
 launches = 0
 launches_by_width: dict = {}
 launches_bwd = 0
@@ -102,6 +108,12 @@ def ep_apply(y, mode, clamp, a=None, m=None):
     if mode == "sub_mul":
         return (a - y) * m
     raise ValueError(mode)
+
+
+def padded_gc(gc):
+    """Channels a growth segment takes in the kernels' feats buffer, as the
+    forward kernel's library reports it (the one place the rule lives)."""
+    return _library("dense_chain").selfc_dense_chain_padded_gc(gc)
 
 
 def _acc_dtype(t):
@@ -148,7 +160,7 @@ def dense_chain_t_ep_plain(x, ws, bs, w5, b5, mode="none", clamp=1.0,
 
 def chain_spatial_bwd_plain(x, ws, bs, feats, g, dx0=None):
     """Plain version of the chain adjoint, written as the explicit sweep and
-    not as autograd of the forward. ``g (B,T,H,W,128)`` is the gradient that
+    not as autograd of the forward. ``g (B,T,H,W,4gc)`` is the gradient that
     reaches ``feats`` directly, ``dx0`` (optional) the one that reaches
     ``x`` directly. Returns ``(dx, dws, dbs)`` in the types of ``x``,
     ``ws``, ``bs``. The running gradient is fp32 whatever the inputs are,
@@ -191,10 +203,12 @@ def _library(name):
     lib = build.load(name)
     if name == "dense_chain" and lib.selfc_dense_chain_forward.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.selfc_dense_chain_forward.argtypes = [P] * 15 + [I] * 7 + [ctypes.c_float, I, P]
+        lib.selfc_dense_chain_forward.argtypes = [P] * 15 + [I] * 8 + [ctypes.c_float, I, P]
         lib.selfc_dense_chain_forward.restype = I
         lib.selfc_dense_chain_feats.argtypes = [P] * 10 + [I] * 5 + [P]
         lib.selfc_dense_chain_feats.restype = I
+        lib.selfc_dense_chain_padded_gc.argtypes = [I]
+        lib.selfc_dense_chain_padded_gc.restype = I
         lib.selfc_cuda_error_string.argtypes = [I]
         lib.selfc_cuda_error_string.restype = ctypes.c_char_p
     if name == "dense_chain_bwd" and lib.selfc_dense_chain_spatial_backward.argtypes is None:
@@ -233,9 +247,11 @@ def _check(name, t, shape, like, dtype=None):
         raise ValueError(f"{name}: must be aligned to 16 bytes (the kernels use vector loads)")
 
 
-def _validate_spatial(x, ws, bs):
+def _validate_spatial(x, ws, bs, backward=False):
     """Raise on anything the spatial kernels do not take. Every tensor must
-    be of x's dtype, on x's device, contiguous and aligned to 16 bytes."""
+    be of x's dtype, on x's device, contiguous and aligned to 16 bytes; the
+    growth width gc (the weights' last axis) in 1..32, and 32 for the
+    adjoint and the spatial-only forward (``backward``)."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"dense chain kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 5:
@@ -243,10 +259,18 @@ def _validate_spatial(x, ws, bs):
     if len(ws) != 4 or len(bs) != 4:
         raise ValueError("the chain has four spatial convs")
     B, T, H, W, C = x.shape
+    gc = ws[0].shape[-1]
+    if not 1 <= gc <= GC_MAX:
+        raise ValueError(f"growth width {gc}: the kernels take 1..{GC_MAX}")
     _check("x", x, x.shape, x)
     for k in range(4):
-        _check(f"w{k + 1}", ws[k], (3, 3, C + GC * k, GC), x)
-        _check(f"b{k + 1}", bs[k], (GC,), x)
+        _check(f"w{k + 1}", ws[k], (3, 3, C + gc * k, gc), x)
+        _check(f"b{k + 1}", bs[k], (gc,), x)
+    if backward and gc != GC_MAX:
+        raise NotImplementedError(
+            f"growth width {gc}: the chain's adjoint and spatial-only forward "
+            f"kernels take {GC_MAX} only; gc < {GC_MAX} on the card comes with "
+            "the codec's training slice (ROADMAP, B2 at gc < 32)")
     if B * T > 65535:
         raise ValueError(f"B*T = {B * T} exceeds the kernel's grid limit 65535")
 
@@ -257,7 +281,7 @@ def _validate(x, ws, bs, w5, b5, mode, a, m):
     _validate_spatial(x, ws, bs)
     B, T, H, W, C = x.shape
     c_out = w5.shape[-1]
-    _check("w5", w5, (3, C + 4 * GC, c_out), x)
+    _check("w5", w5, (3, C + 4 * ws[0].shape[-1], c_out), x)
     _check("b5", b5, (c_out,), x)
     for name, t in zip("am", (a, m)[:EP_AUX[mode]]):
         _check(name, t, (B, T, H, W, c_out), x)
@@ -265,35 +289,38 @@ def _validate(x, ws, bs, w5, b5, mode, a, m):
 
 def _chain_cuda(x, ws, bs, w5, b5, mode, clamp, a, m):
     """The forward kernels: ``(out, feats)``, feats being the buffer the
-    spatial layers wrote (a new one each call, so the caller may keep it)."""
+    spatial layers wrote (a new one each call, so the caller may keep it),
+    ``(B,T,H,W,4*padded_gc(gc))`` with zeros in each segment's pad lanes."""
     global launches
     _validate(x, ws, bs, w5, b5, mode, a, m)
     B, T, H, W, C = x.shape
-    c_out = w5.shape[-1]
+    c_out, gc = w5.shape[-1], ws[0].shape[-1]
     n_aux = EP_AUX[mode]
-    feats = torch.empty((B, T, H, W, 4 * GC), dtype=x.dtype, device=x.device)
-    out = torch.empty((B, T, H, W, c_out), dtype=x.dtype, device=x.device)
     lib = _library("dense_chain")
+    feats = torch.empty((B, T, H, W, 4 * lib.selfc_dense_chain_padded_gc(gc)),
+                        dtype=x.dtype, device=x.device)
+    out = torch.empty((B, T, H, W, c_out), dtype=x.dtype, device=x.device)
     err = lib.selfc_dense_chain_forward(
         x.data_ptr(), feats.data_ptr(),
         *(w.data_ptr() for w in ws), *(b.data_ptr() for b in bs),
         w5.data_ptr(), b5.data_ptr(),
         a.data_ptr() if n_aux >= 1 else None,
         m.data_ptr() if n_aux >= 2 else None,
-        out.data_ptr(), B * T, T, H, W, C, c_out, _EP_CODE[mode],
+        out.data_ptr(), B * T, T, H, W, C, gc, c_out, _EP_CODE[mode],
         float(clamp), _DTYPE_CODE[x.dtype], _stream(x),
     )
     _raise_on(err, "dense chain", lib.selfc_cuda_error_string)
     launches += 1
-    launches_by_width[(C, c_out)] = launches_by_width.get((C, c_out), 0) + 1
+    key = (C, c_out, gc)
+    launches_by_width[key] = launches_by_width.get(key, 0) + 1
     return out, feats
 
 
 def _feats_cuda(x, ws, bs):
     global launches_feats
-    _validate_spatial(x, ws, bs)
+    _validate_spatial(x, ws, bs, backward=True)
     B, T, H, W, C = x.shape
-    feats = torch.empty((B, T, H, W, 4 * GC), dtype=x.dtype, device=x.device)
+    feats = torch.empty((B, T, H, W, 4 * GC_MAX), dtype=x.dtype, device=x.device)
     lib = _library("dense_chain")
     err = lib.selfc_dense_chain_feats(
         x.data_ptr(), feats.data_ptr(),
@@ -313,8 +340,9 @@ def _bwd_cuda(x, ws, bs, feats, dfeats, dx):
     (``dx=None``: not wanted). Returns ``(dws, dbs)`` in the weights'
     dtype."""
     global launches_bwd
-    _validate_spatial(x, ws, bs)
+    _validate_spatial(x, ws, bs, backward=True)
     B, T, H, W, C = x.shape
+    GC = GC_MAX
     _check("feats", feats, (B, T, H, W, 4 * GC), x)
     _check("dfeats", dfeats, (B, T, H, W, 4 * GC), x, torch.float32)
     if dx is not None:
@@ -422,6 +450,8 @@ class _DenseChainEp(torch.autograd.Function):
         need = ctx.needs_input_grad  # (mode, clamp, save_feats, x, w5, b5, a, m, *wbs)
         need_x, need_a, need_m = need[3], need[6], need[7]
         acc = _acc_dtype(x)
+        if x.is_cuda:  # before any work: the adjoint kernels take gc = 32 only
+            _validate_spatial(x, ws, bs, backward=True)
         if feats is None:
             feats = chain_feats(x, ws, bs)
         C = x.shape[-1]
@@ -477,7 +507,7 @@ def dense_chain_t_ep(x, ws, bs, w5, b5, mode="none", clamp=1.0, a=None,
     autograd function, so that under bf16 activations the gradients reach
     fp32 master parameters through the cast.
 
-    ``save_feats``: keep the forward's ``(B,T,H,W,128)`` feats buffer for
+    ``save_feats``: keep the forward's ``(B,T,H,W,4*GCP)`` feats buffer for
     the backward (the default); false frees it and makes the backward
     recompute it with the spatial-only forward."""
     if mode not in EP_AUX:

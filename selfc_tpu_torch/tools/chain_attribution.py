@@ -28,7 +28,7 @@ from selfc_tpu_torch.ops import dense_chain as dc
 from selfc_tpu_torch.utils.bench import PATH_WIDTHS, SERVE_SHAPE, make_chain, time_cuda
 
 STAGE_IN = "      if (vec) {  //"
-STAGE_W = "      for (int idx = tid; idx < 9 * KC * (GC / 4); idx += NTHREADS) {"
+STAGE_W = "      for (int idx = tid; idx < 9 * KC * (GCP / 4); idx += NT) {"
 COMPUTE = ("      for (int dy = 0; dy < 3; ++dy) {\n"
            "        for (int c4 = 0; c4 < kc4; ++c4) {\n          float in[10][4];")
 

@@ -1,7 +1,7 @@
 """Measuring helpers for the GPU: CUDA-event timing, seeded dense-chain
-inputs at the serving and training shapes, and the cost models of the dense
-chain's kernels (operations and bytes from shapes) with the card's
-published peaks, for a roofline bound."""
+inputs at the serving, training and codec shapes, and the cost models of the
+dense chain's kernels (operations and bytes from shapes, at the chain's true
+growth width) with the card's published peaks, for a roofline bound."""
 
 from __future__ import annotations
 
@@ -22,6 +22,17 @@ SERVE_SHAPE = (1, 7, CLIP_HW[0] // 4, CLIP_HW[1] // 4)   # one GOP of its latent
 # the latent of one batch of the published training config: 8 clips of 7
 # frames, 144 x 144 crops
 TRAIN_SHAPE = (8, 7, 36, 36)
+
+# the SelfC_GMM_Codec eval at the UVG frame size 1080 x 1920 (scale 2, Seg_Len
+# 3, val.seg_batch 4 with batch_tiles): one encode call takes 4 segments x 2
+# width halves of the HR clip, (8,3,1080,960), latent (8,3,540,480); one
+# decode call takes 4 segments x 2x2 tiles of the 540 x 960 LR, (16,3,270,480)
+UVG_HW = (1080, 1920)
+CODEC_ENC_SHAPE = (8, 3, 540, 480)
+CODEC_DEC_SHAPE = (16, 3, 270, 480)
+# (C, c_out, gc) of the codec's chains: coupling F, H/G (12 = 3 * 2^2 HF
+# channels); the prior's head and body (hidden 24, gc 12)
+CODEC_WIDTHS = ((12, 3, 32), (3, 12, 32), (3, 24, 12), (24, 24, 12))
 
 
 def time_cuda(fn, iters: int = 20, warmup: int = 3) -> dict:
@@ -45,17 +56,18 @@ def time_cuda(fn, iters: int = 20, warmup: int = 3) -> dict:
             "mean": statistics.fmean(ms)}
 
 
-def make_chain(rng, C, c_out, shape, device, dtype=torch.float32):
+def make_chain(rng, C, c_out, shape, device, dtype=torch.float32, gc=32):
     """Seeded chain parameters, input and epilogue operands for a
-    ``shape = (B,T,H,W)`` clip: every conv non-zero, fan-in scaled so
-    activations stay of order one. Returns (x, ws, bs, w5, b5, a, m)."""
+    ``shape = (B,T,H,W)`` clip at growth width ``gc``: every conv non-zero,
+    fan-in scaled so activations stay of order one. Returns
+    (x, ws, bs, w5, b5, a, m)."""
     def mk(s, std=1.0):
         t = torch.from_numpy(rng.normal(0, std, s).astype(np.float32))
         return t.to(device=device, dtype=dtype)
 
-    ws = [mk((3, 3, C + 32 * k, 32), (9 * (C + 32 * k)) ** -0.5) for k in range(4)]
-    bs = [mk((32,), 0.1) for _ in range(4)]
-    w5 = mk((3, C + 128, c_out), (3 * (C + 128)) ** -0.5)
+    ws = [mk((3, 3, C + gc * k, gc), (9 * (C + gc * k)) ** -0.5) for k in range(4)]
+    bs = [mk((gc,), 0.1) for _ in range(4)]
+    w5 = mk((3, C + 4 * gc, c_out), (3 * (C + 4 * gc)) ** -0.5)
     b5 = mk((c_out,), 0.1)
     return (mk(shape + (C,)), ws, bs, w5, b5,
             mk(shape + (c_out,)), mk(shape + (c_out,)))
@@ -118,8 +130,10 @@ def _itemsize(dtype):
     return torch.empty((), dtype=dtype).element_size()
 
 
-def chain_bound_ms(B, T, H, W, C, c_out, n_aux, dtype=torch.float32):
-    return bound_ms(*chain_cost(B, T, H, W, C, c_out, n_aux, _itemsize(dtype)), dtype)
+def chain_bound_ms(B, T, H, W, C, c_out, n_aux, dtype=torch.float32, gc=32):
+    """The bound at the chain's true growth width: the kernels' pad lanes
+    are work the function does not need."""
+    return bound_ms(*chain_cost(B, T, H, W, C, c_out, n_aux, _itemsize(dtype), gc), dtype)
 
 
 def chain_feats_bound_ms(B, T, H, W, C, dtype=torch.float32):

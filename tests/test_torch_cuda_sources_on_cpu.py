@@ -62,6 +62,33 @@ def test_cuda_sources_match_plain_fp32(cpu_built, C, c_out, modes):
     assert all(v <= 1e-5 for v in errs.values()), errs
 
 
+@pytest.mark.parametrize("C,c_out,gc,modes", [
+    # the codec's prior (gc 12: 16-lane segments) and its coupling (gc 32)
+    (3, 24, 12, ("none",)), (24, 24, 12, ("none", "mul_add")),
+    (12, 3, 32, ("add",)), (3, 12, 32, ("sub_mul",)),
+    # gc 24 pads to 32 lanes; gc 13 and 20 are not multiples of 4, so the
+    # weights are staged element by element
+    (24, 24, 24, ("none",)), (5, 7, 13, ("sub_mul",)), (6, 5, 20, ("add",)),
+    # gc 16 fills its 16-lane segments: a full segment through the remap path
+    (8, 6, 16, ("mul_add",)),
+])
+def test_cuda_sources_small_growth_width_fp32(cpu_built, C, c_out, gc, modes):
+    """gc < 32: the forward gives what the plain version gives at the true
+    gc, its feats buffer holds the plain features with zero pad lanes, and
+    the adjoint and the spatial-only forward refuse the call."""
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse(SHAPE, ((C, c_out, gc),), (torch.float32,), modes)
+    errs = _errors(rec)
+    assert "forward_feats" in errs and all(v <= 1e-5 for v in errs.values()), errs
+    assert rec.get("backward_refused", True), rec
+
+
+def test_cuda_sources_small_growth_width_bf16(cpu_built):
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse(SHAPE, ((24, 24, 12),), (torch.bfloat16,), ("none", "mul_add"))
+    assert all(v <= 3e-2 for v in _errors(rec).values()) and rec["backward_refused"], rec
+
+
 def test_cuda_sources_match_plain_bf16(cpu_built):
     with torch.no_grad():
         (rec,) = cpu_rehearsal.rehearse(SHAPE, ((3, 48),), (torch.bfloat16,), ("none", "sig_exp_neg"))

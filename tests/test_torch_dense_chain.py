@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from selfc_tpu.ops.pallas_chain import _pallas_impl_v2, _xla_impl_v2_ep
+from selfc_tpu.ops.pallas_chain import _pallas_impl_v2, _xla_impl_v2_ep, pad_gc_params
 from selfc_tpu_torch.ops import dense_chain as dc
 from selfc_tpu_torch.utils.bench import chain_cost
 
@@ -97,6 +97,50 @@ def test_small_growth_width_runs_plain():
     assert y.shape == (1, 2, 6, 6, c_out) and torch.isfinite(y).all()
 
 
+def _chain_gc(seed, C, gc, c_out, shape):
+    """The inputs of tests/test_pallas_chain.py::test_small_gc_chain_matches_xla
+    (N(0, 0.1) parameters, N(0, 1) input) with epilogue operands."""
+    rng = np.random.default_rng(seed)
+    f = lambda s, sc=0.1: rng.normal(0, sc, s).astype(np.float32)  # noqa: E731
+    ws = [f((3, 3, C + gc * k, gc)) for k in range(4)]
+    bs = [f((gc,)) for _ in range(4)]
+    w5, b5 = f((3, C + 4 * gc, c_out)), f((c_out,))
+    x = f(shape + (C,), 1.0)
+    a, m = f(shape + (c_out,), 1.0), f(shape + (c_out,), 1.0)
+    return x, ws, bs, w5, b5, a, m
+
+
+# the cases of tests/test_pallas_chain.py::test_small_gc_chain_matches_xla
+SMALL_GC = ((12, 3, 12), (12, 12, 3), (24, 24, 24))
+
+
+@pytest.mark.parametrize("gc,C,c_out", SMALL_GC)
+@pytest.mark.parametrize("mode", ("none", "sub_mul"))
+def test_small_gc_plain_matches_xla_oracle(mode, gc, C, c_out):
+    """The plain chain at the true growth width (the codec prior's gc 12,
+    and 24) against the XLA formulation, atol 2e-5 as the gc = 32 cases."""
+    x, ws, bs, w5, b5, a, m = _chain_gc(21, C, gc, c_out, (1, 3, 12, 16))
+    aux = [jnp.asarray(v) for v in (a, m)[:dc.EP_AUX[mode]]]
+    want = _xla_impl_v2_ep(
+        mode, 0.8, jnp.asarray(x), tuple(map(jnp.asarray, ws)),
+        tuple(map(jnp.asarray, bs)), jnp.asarray(w5), jnp.asarray(b5), *aux)
+    got = _torch_out(dc.dense_chain_t_ep, x, ws, bs, w5, b5, mode, 0.8, a, m)
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("gc,C,c_out", SMALL_GC[1:2])
+def test_small_gc_plain_matches_padded_pallas_interpret(gc, C, c_out):
+    """What the TPU runs at gc < 32: the parameters zero-padded to 32-lane
+    growth segments (``pad_gc_params``) through the interpret-mode kernel;
+    the port's plain chain at the true gc gives the same, atol 2e-5."""
+    x, ws, bs, w5, b5, *_ = _chain_gc(22, C, gc, c_out, (1, 3, 12, 16))
+    pws, pbs, pw5 = pad_gc_params(tuple(map(jnp.asarray, ws)),
+                                  tuple(map(jnp.asarray, bs)), jnp.asarray(w5))
+    want = _pallas_impl_v2(jnp.asarray(x), tuple(pws), tuple(pbs), pw5, jnp.asarray(b5))
+    got = _torch_out(dc.dense_chain_t_ep, x, ws, bs, w5, b5, "none", 1.0, None, None)
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
+
+
 def test_unknown_mode_raises():
     x, ws, bs, w5, b5, a, m = _chain(4, 3, 48, (1, 1, 4, 4))
     t = torch.from_numpy
@@ -120,6 +164,34 @@ def _valid_args(C=8, c_out=6, shape=(1, 2, 4, 5)):
 
 def test_kernel_argument_checks_accept_valid_arguments():
     dc._validate(*_valid_args())
+
+
+@pytest.mark.parametrize("gc", [12, 1, 13, 24])
+def test_kernel_argument_checks_accept_small_growth_width(gc):
+    """The forward kernels take any growth width in 1..32."""
+    t = torch.from_numpy
+    x, ws, bs, w5, b5, a, m = _chain_gc(6, 8, gc, 6, (1, 2, 4, 5))
+    dc._validate(t(x), [t(w) for w in ws], [t(b) for b in bs], t(w5), t(b5), "mul_add", t(a), t(m))
+
+
+def test_kernel_argument_checks_reject_growth_width_over_32():
+    t = torch.from_numpy
+    x, ws, bs, w5, b5, a, m = _chain_gc(6, 8, 48, 6, (1, 2, 4, 5))
+    with pytest.raises(ValueError, match="growth width 48"):
+        dc._validate(t(x), [t(w) for w in ws], [t(b) for b in bs], t(w5), t(b5), "mul_add", t(a), t(m))
+
+
+def test_small_growth_width_backward_refused_on_the_card():
+    """The adjoint and the spatial-only forward kernels take gc = 32 only:
+    the validator that ``_DenseChainEp.backward``, ``chain_feats`` and
+    ``chain_spatial_bwd`` run on a CUDA tensor refuses gc 12 before any
+    launch, naming the codec's training slice; gc 32 passes it."""
+    t = torch.from_numpy
+    x, ws, bs, *_ = _chain_gc(7, 24, 12, 24, (1, 2, 4, 5))
+    with pytest.raises(NotImplementedError, match="codec's training"):
+        dc._validate_spatial(t(x), [t(w) for w in ws], [t(b) for b in bs], backward=True)
+    x, ws, bs, *_ = _valid_args()
+    dc._validate_spatial(x, ws, bs, backward=True)
 
 
 @pytest.mark.parametrize("fault,error", [
@@ -184,3 +256,17 @@ def test_cost_model_counts_only_taps_inside_the_clip(C, c_out, shape):
     assert ops == pytest.approx(2 * macs, rel=1e-12)
     n_params = sum(9 * (C + 32 * k) * 32 + 32 for k in range(4)) + 3 * (C + 128) * c_out + c_out
     assert nbytes == 4 * (B * T * H * W * (C + 3 * c_out) + n_params)
+
+
+@pytest.mark.parametrize("gc", [12, 24])
+def test_cost_model_counts_the_true_growth_width(gc):
+    """At gc < 32 the bound counts the chain's own channels, not the
+    kernels' pad lanes: the same count as above with gc for 32."""
+    B, T, H, W, C, c_out = 2, 3, 5, 4, 24, 24
+    taps_hw = (3 * H - 2) * (3 * W - 2) * B * T
+    taps_t = (3 * T - 2) * B * H * W
+    macs = taps_hw * sum((C + gc * k) * gc for k in range(4)) + taps_t * (C + 4 * gc) * c_out
+    ops, nbytes = chain_cost(B, T, H, W, C, c_out, 0, 4, gc)
+    assert ops == pytest.approx(2 * macs, rel=1e-12)
+    n_params = sum(9 * (C + gc * k) * gc + gc for k in range(4)) + 3 * (C + 4 * gc) * c_out + c_out
+    assert nbytes == 4 * (B * T * H * W * (C + c_out) + n_params)

@@ -123,12 +123,15 @@ def test_inv_block_reverse_inverts_forward():
     assert abs(jf.item() + jr.item()) < 1e-3
 
 
-@pytest.mark.parametrize("hw", [(40, 36), (8, 12)])
-def test_global_agg_matches_jax(hw):
-    x = _rand(3, (2, 3) + hw + (16,))
-    jm = JGlobalAgg(16)
+# the codec prior's GlobalAgg(24), at a decode tile's 270 x 240 cut to a
+# size that is not a multiple of the 32 x 32 pool either
+@pytest.mark.parametrize("hw,c", [((40, 36), 16), ((8, 12), 16), ((34, 30), 24)],
+                         ids=["hw0", "hw1", "codec24"])
+def test_global_agg_matches_jax(hw, c):
+    x = _rand(3, (2, 3) + hw + (c,))
+    jm = JGlobalAgg(c)
     tree = seeded_tree(jm, 0, jnp.asarray(x))
-    tm = GlobalAgg(16)
+    tm = GlobalAgg(c)
     load_jax_params(tm, tree)
     with torch.no_grad():
         got = tm(torch.from_numpy(x))
@@ -136,13 +139,20 @@ def test_global_agg_matches_jax(hw):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("fh_loss,global_module", [("gmm", "nonlocal"),
-                                                   ("gmm_thin", "nonlocal"),
-                                                   ("l2", "none")])
-def test_stp_net_matches_jax(fh_loss, global_module):
+# the codec's prior (model SelfC_GMM_Codec): scale 2, hidden 24, growth 12
+CODEC_STP = dict(scale=2, hidden_c=24, gc=12)
+
+
+@pytest.mark.parametrize("fh_loss,global_module,extra", [("gmm", "nonlocal", {}),
+                                                         ("gmm_thin", "nonlocal", {}),
+                                                         ("l2", "none", {}),
+                                                         ("l2", "nonlocal", CODEC_STP)],
+                         ids=["gmm-nonlocal", "gmm_thin-nonlocal", "l2-none", "codec"])
+def test_stp_net_matches_jax(fh_loss, global_module, extra):
     lr = _rand(4, (1, 3, 8, 12, 3), 0.3) + 0.5
     kw = dict(scale=4, stp_blk_num=3, fh_loss=fh_loss, gmm_k=5,
               global_module=global_module)
+    kw.update(extra)
     jm = JSTPNet(**kw)
     tree = seeded_tree(jm, 0, jnp.asarray(lr))
     tm = STPNet(**kw)
