@@ -42,11 +42,11 @@ from selfc_tpu_torch.config import dict_to_nonedict
 from selfc_tpu_torch.kernels import build
 from selfc_tpu_torch.ops import dense_chain as dc
 from selfc_tpu_torch.train.codec_model import CodecModel
-from selfc_tpu_torch.train.rescale_model import RescaleModel
+from selfc_tpu_torch.train.rescale_model import RescaleModel, clip_by_global_norm_
 from selfc_tpu_torch.utils.bench import (
-    CLIP_HW, CODEC_DEC_SHAPE, CODEC_ENC_SHAPE, CODEC_WIDTHS, PATH_WIDTHS, SERVE_SHAPE,
-    TRAIN_SHAPE, UVG_HW, chain_bound_ms, chain_bwd_bound_ms, chain_feats_bound_ms, make_chain,
-    time_cuda)
+    CLIP_HW, CODEC_DEC_SHAPE, CODEC_ENC_SHAPE, CODEC_TRAIN_LAT, CODEC_TRAIN_SHAPE, CODEC_WIDTHS,
+    PATH_WIDTHS, SERVE_SHAPE, SURROGATE_C, TRAIN_SHAPE, UVG_HW, chain_bound_ms, chain_bwd_bound_ms,
+    chain_feats_bound_ms, make_chain, time_cuda)
 from selfc_tpu_torch.utils.metrics import psnr
 
 CHECK_WIDTHS = ((3, 48), (48, 3), (64, 64))           # coupling F/H/G and the prior
@@ -93,6 +93,20 @@ CODEC_LAUNCHES = {"encode": {(12, 3, 32): 8, (3, 12, 32): 16},
                   "decode": {(12, 3, 32): 8, (3, 12, 32): 16, (3, 24, 12): 2, (24, 24, 12): 6}}
 # kernel path against plain path through 4 coupling blocks (+ the prior)
 CODEC_LIMIT = 1e-3
+REPLACES_SPATIAL = "selfc_tpu/ops/pallas_chain.py:192"
+# B2 and B3 below growth 32: (C, gc) at an odd shape, and the codec prior's
+# chains at the codec's training latent
+GC_BWD_CHECKS = tuple((C, gc, CHECK_SHAPE) for gc in (12, 24) for C in (3, 24)) + tuple(
+    (C, 12, CODEC_TRAIN_LAT) for C in (3, 24))
+# the v1 spatial chain: forward within this of its plain version (abs), its
+# gradient within this of max |ref| (the adjoint's limit)
+SPATIAL_LIMIT = 1e-4
+N_CODEC_STEPS = 3
+# chain calls of one codec training step, each way: the encode's 4 blocks x 3
+# coupling chains, the decode's 12 and the prior's 4 at growth 12 (one 3->24,
+# three 24->24); the surrogate's 4 v1 spatial chains
+CODEC_TRAIN_FWD = {(12, 3, 32): 8, (3, 12, 32): 16, (3, 24, 12): 1, (24, 24, 12): 3}
+CODEC_TRAIN_SPATIAL = {(4, 32): 1, (24, 32): 3}
 
 
 def check(ok, what):
@@ -129,13 +143,15 @@ def to_library_layout(x, ws, bs, w5, b5, a, m):
 
 @contextlib.contextmanager
 def plain_chain_on_card():
-    """Route the models' chain calls to the plain version, for comparison."""
-    kernel = dc.dense_chain_t_ep
+    """Route the models' chain calls (the whole chain and the v1 spatial
+    chain) to the plain versions, for comparison."""
+    kernels = dc.dense_chain_t_ep, dc.fused_dense_spatial
     dc.dense_chain_t_ep = lambda *a, save_feats=True, **kw: dc.dense_chain_t_ep_plain(*a, **kw)
+    dc.fused_dense_spatial = dc.fused_dense_spatial_plain
     try:
         yield
     finally:
-        dc.dense_chain_t_ep = kernel
+        dc.dense_chain_t_ep, dc.fused_dense_spatial = kernels
 
 
 def seeded_tree(net, seed):
@@ -180,7 +196,7 @@ def phase_kernels(device):
     # on a CUDA tensor the wrapper launches or raises: it never takes the plain version
     x, ws, bs, w5, b5, a, m = make_chain(rng, 48, 3, CHECK_SHAPE, device)
     wide = make_chain(rng, 48, 3, CHECK_SHAPE, device, gc=48)
-    before = (dc.launches, dc.launches_feats)
+    before = (dc.launches, dc.launches_feats, dc.launches_bwd)
     refused = []
     for fault, error, kw in (
         ("strided a", ValueError, dict(a=torch.cat([a, a], -1)[..., :3], m=m)),
@@ -192,13 +208,15 @@ def phase_kernels(device):
                                 b5, "mul_add", 1.0, kw["a"], kw["m"])
         except error:
             refused.append(fault)
-    # the spatial-only forward (and the adjoint) take growth 32 only
+    # the adjoint takes the kernels' feats layout (16-lane segments at
+    # growth 12), not the plain version's
     x12, ws12, bs12, *_ = make_chain(rng, 24, 24, CHECK_SHAPE, device, gc=12)
+    feats12 = dc.chain_feats_plain(x12, ws12, bs12)
     try:
-        dc.chain_feats(x12, ws12, bs12)
-    except NotImplementedError:
-        refused.append("spatial-only forward at growth width 12")
-    check(len(refused) == 4 and (dc.launches, dc.launches_feats) == before,
+        dc.chain_spatial_bwd(x12, ws12, bs12, feats12, feats12)
+    except ValueError:
+        refused.append("adjoint given growth-12 features in the plain layout")
+    check(len(refused) == 4 and (dc.launches, dc.launches_feats, dc.launches_bwd) == before,
           f"the wrappers refuse bad CUDA arguments: {refused}")
     emit("kernels", kernels=["dense_chain_t_ep"], shape=CHECK_SHAPE, n_cases=len(cases), refused=refused,
          fp32_limit=FP32_LIMIT, bf16_rel_limit=BF16_REL_LIMIT, cases=cases)
@@ -647,7 +665,7 @@ def phase_timing_train(device, model, recompute, counts, worst, eps):
         f_bound, f_by = chain_feats_bound_ms(*TRAIN_SHAPE, C)
         kernels.append({
             "name": f"chain_feats[{C}]@train", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES_FEATS, "launches": counts["feats"].get(C, 0),
+            "replaces": REPLACES_FEATS, "launches": counts["feats"].get((C, 32), 0),
             "max_abs_err": worst["feats"][C], "ms": f_ms["median"], "plain_ms": f_plain["median"],
             "bound_ms": f_bound, "bound_by": f_by, "library_ms": f_lib["median"],
             "ms_min": f_ms["min"], "plain_ms_min": f_plain["min"], "library_ms_min": f_lib["min"],
@@ -658,7 +676,7 @@ def phase_timing_train(device, model, recompute, counts, worst, eps):
         b_bound, b_by = chain_bwd_bound_ms(*TRAIN_SHAPE, C)
         kernels.append({
             "name": f"chain_spatial_bwd[{C}]@train", "route": "cuda", "source": SOURCE_BWD,
-            "replaces": REPLACES_BWD, "launches": counts["backward"].get(C, 0),
+            "replaces": REPLACES_BWD, "launches": counts["backward"].get((C, 32), 0),
             "max_abs_err": worst["bwd"][C], "ms": b_ms["median"], "plain_ms": b_plain["median"],
             "bound_ms": b_bound, "bound_by": b_by, "library_ms": b_lib["median"],
             "ms_min": b_ms["min"], "plain_ms_min": b_plain["min"], "library_ms_min": b_lib["min"],
@@ -705,7 +723,7 @@ def phase_timing_train(device, model, recompute, counts, worst, eps):
     by_name = {k["name"]: k for k in kernels}
     n_fwd = sum(by_name[f"dense_chain_t_ep[{C}->{co}]@train"]["ms"] * counts["forward"].get((C, co, 32), 0)
                 for C, co in PATH_WIDTHS) / (N_TRAIN_STEPS + 1)
-    n_bwd = sum(by_name[f"chain_spatial_bwd[{C}]@train"]["ms"] * counts["backward"].get(C, 0)
+    n_bwd = sum(by_name[f"chain_spatial_bwd[{C}]@train"]["ms"] * counts["backward"].get((C, 32), 0)
                 for C in CHAIN_C) / (N_TRAIN_STEPS + 1)
     emit("timing_train", shape=TRAIN_SHAPE, step_ms=step["median"], step_ms_min=step["min"],
          step_recompute_feats_ms=step_r["median"], step_recompute_feats_ms_min=step_r["min"],
@@ -964,10 +982,387 @@ def phase_timing_codec(device, model, split, x_enc, lr_dec, test_s, peak_gib, wo
     return kernels
 
 
+def library_feats2d(x, ws, bs):
+    """[x1 | .. | x4] of a (N,C,H,W) batch through PyTorch's library 2-D
+    convolutions: the yardstick of the v1 spatial chain, never called by the
+    port."""
+    feats = x
+    for w, b in zip(ws, bs):
+        feats = torch.cat([feats, F.leaky_relu(F.conv2d(feats, w, b, padding=1), 0.2)], 1)
+    return feats[:, x.shape[1]:]
+
+
+def seeded_grads(rng, like, device, dtype=torch.float32):
+    return torch.from_numpy(rng.normal(0, 1, tuple(like.shape)).astype(np.float32)).to(device, dtype)
+
+
+def phase_kernels_gc_bwd(device):
+    """B2 and B3 below growth 32 against their plain versions (the features
+    and the gradient in the kernels' layout, the gradient's pad lanes
+    holding noise that must not reach a result), fp32 and bf16, the same
+    bits twice; B4 forward and gradient against its plain version at the
+    surrogate's widths on the codec's training latent."""
+    rng = np.random.default_rng(60)
+    cases, worst = [], {"feats": {}, "bwd": {}, "spatial": {}, "spatial_bwd": {}}
+    for C, gc, shape in GC_BWD_CHECKS:
+        gcp = dc.padded_gc(gc)
+        for dtype in (torch.float32, torch.bfloat16):
+            fp32 = dtype == torch.float32
+            x, ws, bs, *_ = make_chain(rng, C, 3, shape, device, dtype, gc)
+            want_f = dc.padded_width(dc.chain_feats_plain(x, ws, bs), gc, gcp)
+            got_f = dc.chain_feats(x, ws, bs)
+            e_f = rel_err(got_f, want_f)
+            feats = want_f.clone()
+            real = dc.true_width(feats, gc)
+            real[torch.from_numpy(rng.random(real.shape) < 0.02).to(device)] = 0
+            feats = dc.padded_width(real, gc, gcp)
+            g = seeded_grads(rng, feats, device, dtype)       # noise in the pad lanes too
+            dx0 = seeded_grads(rng, x, device)
+            want = dc.chain_spatial_bwd_plain(x, ws, bs, feats, g, dx0)
+            got = dc.chain_spatial_bwd(x, ws, bs, feats, g, dx0)
+            again = dc.chain_spatial_bwd(x, ws, bs, feats, g, dx0)
+            torch.cuda.synchronize()
+            flat = lambda r: [r[0], *r[1], *r[2]]  # noqa: E731
+            e_dx, *e_p = [rel_err(u, v) for u, v in zip(flat(got), flat(want))]
+            same_bits = all(torch.equal(u, v) for u, v in zip(flat(got), flat(again)))
+            limit = BWD_FP32_REL_LIMIT if fp32 else BWD_BF16_REL_LIMIT
+            ok = (e_f <= (BWD_FP32_REL_LIMIT if fp32 else BF16_REL_LIMIT)
+                  and max(e_dx, *e_p) <= limit and same_bits)
+            if fp32 and shape == CODEC_TRAIN_LAT:
+                worst["feats"][(C, gc)] = (got_f.float() - want_f.float()).abs().max().item()
+                worst["bwd"][(C, gc)] = (got[0] - want[0]).abs().max().item()
+            cases.append({"kernel": "B2/B3", "shape": shape, "dtype": str(dtype).split(".")[-1], "C": C,
+                          "gc": gc, "feats_rel_err": e_f, "dx_rel_err": e_dx, "dw_db_rel_err": max(e_p),
+                          "same_bits_twice": same_bits, "ok": ok})
+            check(ok and np.isfinite(e_f + e_dx + max(e_p)),
+                  f"the adjoint and spatial-only forward below growth 32 agree with their plain versions: {cases[-1]}")
+    for C in SURROGATE_C:
+        x, ws, bs, *_ = make_chain(rng, C, 3, CODEC_TRAIN_LAT, device)
+        leaves = [x, *ws, *bs]
+        for t in leaves:
+            t.requires_grad_(True)
+        want = dc.fused_dense_spatial_plain(x, ws, bs)
+        before = (dc.launches_spatial, dc.launches_spatial_bwd)
+        got = dc.fused_dense_spatial(x, ws, bs)
+        gout = seeded_grads(rng, want, device)
+        g_got = torch.autograd.grad(got, leaves, gout)
+        g_again = torch.autograd.grad(dc.fused_dense_spatial(x, ws, bs), leaves, gout)
+        # the gradient's reference is the plain adjoint at the features the
+        # kernel's forward saved: LeakyReLU's slope switches at 0, so where
+        # the two forwards put an output within their ~1e-6 of each other on
+        # the two sides of 0 (a few hundred of the 24 M outputs here), the
+        # gradients of the two whole paths differ by the switch itself
+        g_want = dc.chain_spatial_bwd_plain(x.detach(), [w.detach() for w in ws],
+                                            [b.detach() for b in bs], got.detach(), gout)
+        g_want = [g_want[0], *g_want[1], *g_want[2]]
+        g_auto = torch.autograd.grad(want, leaves, gout)   # autograd through the plain forward, reported
+        torch.cuda.synchronize()
+        counted = (dc.launches_spatial - before[0], dc.launches_spatial_bwd - before[1]) == (2, 2)
+        e_fwd = (got - want).abs().max().item()
+        e_grad = max(rel_err(u, v) for u, v in zip(g_got, g_want))
+        l2_auto = (sum((u - v).pow(2).sum().item() for u, v in zip(g_got, g_auto))
+                   / sum(v.pow(2).sum().item() for v in g_auto)) ** 0.5
+        same_bits = all(torch.equal(u, v) for u, v in zip(g_got, g_again))
+        worst["spatial"][C] = e_fwd
+        worst["spatial_bwd"][C] = max((u - v).abs().max().item() for u, v in zip(g_got, g_want))
+        cases.append({"kernel": "B4", "shape": CODEC_TRAIN_LAT, "C": C, "forward_max_abs_err": e_fwd,
+                      "grad_rel_err": e_grad, "grad_l2_rel_err_vs_autograd_of_plain": l2_auto,
+                      "same_bits_twice": same_bits, "launches_counted": counted})
+        check(e_fwd <= SPATIAL_LIMIT and e_grad <= SPATIAL_LIMIT and same_bits and counted,
+              f"the v1 spatial chain agrees with its plain version: {cases[-1]}")
+        del x, ws, bs, leaves, want, got, g_want, g_got, g_again, g_auto
+    emit("kernels_gc_bwd", n_cases=len(cases), bwd_fp32_rel_limit=BWD_FP32_REL_LIMIT,
+         bwd_bf16_rel_limit=BWD_BF16_REL_LIMIT, spatial_limit=SPATIAL_LIMIT, cases=cases)
+    return worst
+
+
+def codec_train_options(**train):
+    """The options of the published selfc_tpu/configs/train/train_compression.yml,
+    built here: the whole batch of 12 on one card."""
+    return dict_to_nonedict({
+        "model": "SelfC_GMM_Codec", "distortion": "sr_bd", "scale": 2, "is_train": True,
+        "datasets": {"train": {"video_len": 3, "batch_size": 12, "GT_size": 144}},
+        "network_G": {"which_model_G": {"subnet_type": "D2DTNet"}, "in_nc": 3, "out_nc": 3,
+                      "block_num": [4], "scale": 2, "init": "xavier", "global_module": "nonlocal",
+                      "stp_blk_num": 4, "fh_loss": "l2", "h265_deart": False, "h265_q": 16,
+                      "lambda_corr": 1e-5, "stp_hidden_c": 24, "stp_denseblock_innerc": 12},
+        "train": {"lr_G": 1e-4, "beta1": 0.9, "beta2": 0.999, "niter": 1000000, "warmup_iter": -1,
+                  "lr_scheme": "MultiStepLR", "lr_steps": [300000, 400000, 500000, 600000],
+                  "lr_gamma": 0.5, "pixel_criterion_forw": "l2", "pixel_criterion_back": "l1",
+                  "lambda_cond_prob": 0, "lambda_gaussian_reg": 0, "lambda_distor_loss": 0,
+                  "noise_type": "h265", "h265_sug": True, "lambda_fit_forw": 1,
+                  "lambda_rec_back": 0.1, "lambda_mimick_loss": 4, "loss_multiplier": 1000,
+                  "weight_decay_G": None, "gradient_clipping": 0.5, **train},
+    })
+
+
+def codec_train_batch(seed=50):
+    """A smooth synthetic batch in [0,1] of the codec training config's shape."""
+    rng = np.random.default_rng(seed)
+    B, T, S = CODEC_TRAIN_SHAPE[:3]
+    yy, xx = np.meshgrid(np.linspace(0, 1, S), np.linspace(0, 1, S), indexing="ij")
+    ph = rng.uniform(0, 6, (B, 1, 1, 1, 3))
+    t = np.arange(T).reshape(1, T, 1, 1, 1)
+    base = 0.5 + 0.3 * np.sin(7 * xx[None, None, :, :, None] + 0.3 * t + ph) * np.cos(5 * yy[None, None, :, :, None] + ph)
+    return np.clip(base + rng.normal(0, 0.02, CODEC_TRAIN_SHAPE), 0, 1).astype(np.float32)
+
+
+def codec_tree(model, seed):
+    """Random {net, surrogate} parameters from a numpy seed."""
+    return {"net": seeded_tree(model.net, seed), "surrogate": seeded_tree(model.surrogate, seed + 1)}
+
+
+def new_codec_trainer(device, tree, batch, **train):
+    model = CodecModel(codec_train_options(**train), device=device, rng_seed=0)
+    model.load_jax_params(tree)
+    check(model.feed_data({"GT": batch}) == CODEC_TRAIN_SHAPE[1], "feed_data returns the clip length")
+    return model
+
+
+def all_grads(model):
+    return {k: p.grad.detach().clone() for k, p in model.params.named_parameters()}
+
+
+def codec_counts():
+    return {"forward": dict(dc.launches_by_width), "backward": dict(dc.launches_bwd_by_width),
+            "feats": dict(dc.launches_feats_by_width), "spatial": dict(dc.launches_spatial_by_width),
+            "spatial_bwd": dict(dc.launches_spatial_bwd_by_width)}
+
+
+def phase_codec_train(device):
+    """Three training steps of the published codec net with its surrogate
+    at the published batch, through the host codec, then one step with
+    ``save_chain_feats: false``; the launch counts of exactly these four
+    steps are kept. Then one step's whole gradient, kernel path against
+    plain path, from one shared codec output."""
+    batch = codec_train_batch()
+    probe = CodecModel(codec_train_options(), device=device, rng_seed=0)
+    tree = codec_tree(probe, 51)
+    n_params = {k: sum(p.numel() for p in m.parameters()) for k, m in probe.params.items()}
+    del probe
+    model = new_codec_trainer(device, tree, batch)
+    start = {k: p.detach().clone() for k, p in model.params.named_parameters()}
+
+    # ---- the main path: counts set to 0 just before, read just after ----
+    dc.reset_launch_counts()
+    logs, per_step, codec_s = [], [], []
+    t0 = time.time()
+    for step in range(N_CODEC_STEPS):
+        before = codec_counts()
+        model.optimize_parameters(step)
+        logs.append(dict(model.get_current_log()))
+        codec_s.append(model.last_codec_host_seconds)
+        per_step.append({k: {w: n - before[k].get(w, 0) for w, n in d.items()}
+                         for k, d in codec_counts().items()})
+        if step == 0:
+            grads_1 = all_grads(model)
+    recompute = new_codec_trainer(device, tree, batch, save_chain_feats=False)
+    before = codec_counts()
+    recompute.optimize_parameters(0)
+    log_r = dict(recompute.get_current_log())
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    per_step.append({k: {w: n - before[k].get(w, 0) for w, n in d.items()} for k, d in codec_counts().items()})
+    counts = codec_counts()
+    # ---------------------------------------------------------------------
+
+    # the adjoint by (C, gc): one a chain, and one a v1 spatial chain, whose
+    # forward is a spatial-only forward launch (their widths do not meet)
+    adjoint = dict(CODEC_TRAIN_SPATIAL)
+    for (C, _, gc), n in CODEC_TRAIN_FWD.items():
+        adjoint[(C, gc)] = adjoint.get((C, gc), 0) + n
+    want = {"forward": CODEC_TRAIN_FWD, "backward": adjoint, "feats": CODEC_TRAIN_SPATIAL,
+            "spatial": CODEC_TRAIN_SPATIAL, "spatial_bwd": CODEC_TRAIN_SPATIAL}
+    # the recomputing step also runs the spatial-only forward once a chain
+    want_r = dict(want, feats=adjoint)
+    got = [{k: {w: n for w, n in d.items() if n} for k, d in st.items()} for st in per_step]
+    check(got == [want] * N_CODEC_STEPS + [want_r],
+          f"kernel launches of each codec training step: {got} (expected {want}, then {want_r})")
+    n_gc12 = sum(n for (C, gc), n in got[0]["backward"].items() if gc == 12)
+    check(n_gc12 == 4, f"adjoint launches at growth 12 a step: {n_gc12}")
+    for lg in logs + [log_r]:
+        check(all(np.isfinite(v) for k, v in lg.items() if k != "rate_source")
+              and lg["skipped_nonfinite"] == 0.0, f"the step's losses are finite and it was not skipped: {lg}")
+    check(log_r["loss"] == logs[0]["loss"], f"save_chain_feats false gives the same loss: {(log_r['loss'], logs[0]['loss'])}")
+    top = max(g.abs().max().item() for g in grads_1.values())
+    unchanged = [k for k, p in model.params.named_parameters() if torch.equal(p.detach(), start[k])]
+    check(all(grads_1[k].abs().max().item() < TRAIN_GRAD_ZERO * top for k in unchanged),
+          f"every parameter with a gradient changed: {unchanged[:5]}")
+    del model, recompute
+
+    # one step from one shared codec output: kernel path against plain path
+    kern = new_codec_trainer(device, tree, batch)
+    with torch.no_grad():
+        shared, _ = kern.codec_span(kern._encode_lf(kern._hr), kern.q)
+    kern.optimize_parameters(0, codec_out=shared)
+    log_k, grads_k = dict(kern.get_current_log()), all_grads(kern)
+    del kern
+    plain = new_codec_trainer(device, tree, batch)
+    with plain_chain_on_card():
+        before = codec_counts()
+        plain.optimize_parameters(0, codec_out=shared)
+        check(codec_counts() == before, "the plain path launches no kernel")
+    log_p, grads_p = dict(plain.get_current_log()), all_grads(plain)
+    del plain
+    loss_rel = abs(log_k["loss"] - log_p["loss"]) / abs(log_p["loss"])
+    grad_l2 = (sum((grads_k[k] - g).pow(2).sum().item() for k, g in grads_p.items())
+               / sum(g.pow(2).sum().item() for g in grads_p.values())) ** 0.5
+    check(np.isfinite(log_k["loss"]) and loss_rel <= TRAIN_LOSS_REL_LIMIT,
+          f"codec step's loss, kernel path vs plain path: {(log_k['loss'], log_p['loss'])}")
+    check(grad_l2 <= TRAIN_GRAD_L2_LIMIT, f"codec step's whole gradient, kernel path vs plain path: {grad_l2}")
+    emit("codec_train", batch=batch.shape, n_params=n_params, steps=N_CODEC_STEPS, train_s=train_s,
+         host_codec=h265.codec_backend() or "stand-in", rate_source=logs[0]["rate_source"],
+         host_codec_s_per_step=codec_s,
+         launches_per_step={k: {str(w): n for w, n in d.items()} for k, d in got[0].items()},
+         launches_adjoint_gc12_per_step=n_gc12, logs=logs,
+         loss_rel_err_kernel_vs_plain=loss_rel, loss_rel_limit=TRAIN_LOSS_REL_LIMIT,
+         grad_l2_rel_err_kernel_vs_plain=grad_l2, grad_l2_limit=TRAIN_GRAD_L2_LIMIT,
+         recompute_same_loss=True)
+    return tree, batch, counts
+
+
+def phase_timing_codec_train(device, tree, batch, counts, worst):
+    """The kernels of the codec's training at its shapes (B2 and B3 at
+    growth 12, B4 forward and backward), a whole step and its parts, the
+    plain path's step, and the peak memory with features saved and
+    recomputed."""
+    rng = np.random.default_rng(61)
+    kernels = []
+    shape = CODEC_TRAIN_LAT
+    ncdhw = lambda t: t.permute(0, 4, 1, 2, 3).contiguous()  # noqa: E731
+    for C in (3, 24):                  # the prior's chains: growth 12
+        gc = 12
+        x, ws, bs, *_ = make_chain(rng, C, 3, shape, device, gc=gc)
+        feats = dc.chain_feats(x, ws, bs)
+        g = seeded_grads(rng, feats, device)
+        leaves = [ncdhw(x), *(w.permute(3, 2, 0, 1)[:, :, None].contiguous() for w in ws), *(b.clone() for b in bs)]
+        for t in leaves:
+            t.requires_grad_(True)
+        lx, lws, lbs = leaves[0], leaves[1:5], leaves[5:]
+        lfeats = library_feats(lx, lws, lbs)
+        lg = ncdhw(dc.true_width(g, gc))
+        check((lfeats.detach().permute(0, 2, 3, 4, 1) - dc.true_width(feats, gc)).abs().max().item() <= 1e-3,
+              "library spatial chain computes the same function")
+        with torch.no_grad():
+            f_ms = time_cuda(lambda: dc.chain_feats(x, ws, bs), iters=10)
+            f_plain = time_cuda(lambda: dc.chain_feats_plain(x, ws, bs), iters=10)
+            f_lib = time_cuda(lambda: library_feats(lx, lws, lbs), iters=10)
+        f_bound, f_by = chain_feats_bound_ms(*shape, C, gc=gc)
+        kernels.append({
+            "name": f"chain_feats[{C},gc{gc}]@codec_train", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES_FEATS, "launches": counts["feats"].get((C, gc), 0),
+            "max_abs_err": worst["feats"][(C, gc)], "ms": f_ms["median"], "plain_ms": f_plain["median"],
+            "bound_ms": f_bound, "bound_by": f_by, "library_ms": f_lib["median"],
+            "ms_min": f_ms["min"], "plain_ms_min": f_plain["min"], "library_ms_min": f_lib["min"],
+            "shape": list(shape) + [C], "gc": gc})
+        b_ms = time_cuda(lambda: dc.chain_spatial_bwd(x, ws, bs, feats, g), iters=10)
+        b_plain = time_cuda(lambda: dc.chain_spatial_bwd_plain(x, ws, bs, feats, g), iters=10)
+        b_lib = time_cuda(lambda: torch.autograd.grad(lfeats, leaves, lg, retain_graph=True), iters=10)
+        b_bound, b_by = chain_bwd_bound_ms(*shape, C, gc=gc)
+        kernels.append({
+            "name": f"chain_spatial_bwd[{C},gc{gc}]@codec_train", "route": "cuda", "source": SOURCE_BWD,
+            "replaces": REPLACES_BWD, "launches": counts["backward"].get((C, gc), 0),
+            "max_abs_err": worst["bwd"][(C, gc)], "ms": b_ms["median"], "plain_ms": b_plain["median"],
+            "bound_ms": b_bound, "bound_by": b_by, "library_ms": b_lib["median"],
+            "ms_min": b_ms["min"], "plain_ms_min": b_plain["min"], "library_ms_min": b_lib["min"],
+            "shape": list(shape) + [C], "gc": gc})
+        del x, ws, bs, feats, g, leaves, lfeats, lg
+    B, T, H, W = shape
+    for C in SURROGATE_C:              # the surrogate's v1 spatial chains
+        x, ws, bs, *_ = make_chain(rng, C, 3, shape, device)
+        for t in (x, *ws, *bs):
+            t.requires_grad_(True)
+        leaves = [x, *ws, *bs]
+        l2 = [x.detach().reshape(B * T, H, W, C).permute(0, 3, 1, 2).contiguous(),
+              *(w.detach().permute(3, 2, 0, 1).contiguous() for w in ws), *(b.detach().clone() for b in bs)]
+        for t in l2:
+            t.requires_grad_(True)
+        out = dc.fused_dense_spatial(x, ws, bs)
+        gout = seeded_grads(rng, out, device)
+        lout = library_feats2d(l2[0], l2[1:5], l2[5:])
+        lg = gout.reshape(B * T, H, W, -1).permute(0, 3, 1, 2).contiguous()
+        check((lout.detach().permute(0, 2, 3, 1).reshape(out.shape) - out.detach()).abs().max().item() <= 1e-3,
+              "library 2-d spatial chain computes the same function")
+        with torch.no_grad():
+            s_ms = time_cuda(lambda: dc.fused_dense_spatial(x, ws, bs), iters=10)
+            s_plain = time_cuda(lambda: dc.fused_dense_spatial_plain(x, ws, bs), iters=10)
+            s_lib = time_cuda(lambda: library_feats2d(l2[0], l2[1:5], l2[5:]), iters=10)
+        out_p = dc.fused_dense_spatial_plain(x, ws, bs)
+        sb_ms = time_cuda(lambda: torch.autograd.grad(out, leaves, gout, retain_graph=True), iters=10)
+        sb_plain = time_cuda(lambda: torch.autograd.grad(out_p, leaves, gout, retain_graph=True), iters=10)
+        sb_lib = time_cuda(lambda: torch.autograd.grad(lout, l2, lg, retain_graph=True), iters=10)
+        bound, by = chain_feats_bound_ms(*shape, C)
+        bb, bby = chain_bwd_bound_ms(*shape, C, dx_in=False)
+        common = {"route": "cuda", "replaces": REPLACES_SPATIAL, "shape": list(shape) + [C], "gc": 32}
+        kernels.append({
+            "name": f"fused_dense_spatial[{C}]@codec_train", "source": SOURCE,
+            "launches": counts["spatial"].get((C, 32), 0), "max_abs_err": worst["spatial"][C],
+            "ms": s_ms["median"], "plain_ms": s_plain["median"], "bound_ms": bound, "bound_by": by,
+            "library_ms": s_lib["median"], "ms_min": s_ms["min"], "plain_ms_min": s_plain["min"],
+            "library_ms_min": s_lib["min"], **common})
+        kernels.append({
+            "name": f"fused_dense_spatial_bwd[{C}]@codec_train", "source": SOURCE_BWD,
+            "launches": counts["spatial_bwd"].get((C, 32), 0), "max_abs_err": worst["spatial_bwd"][C],
+            "ms": sb_ms["median"], "plain_ms": sb_plain["median"], "bound_ms": bb, "bound_by": bby,
+            "library_ms": sb_lib["median"], "ms_min": sb_ms["min"], "plain_ms_min": sb_plain["min"],
+            "library_ms_min": sb_lib["min"], **common})
+        del x, ws, bs, leaves, l2, out, out_p, lout, gout, lg
+
+    # a whole step (host codec included), then its parts, each timed alone
+    model = new_codec_trainer(device, tree, batch)
+    step_of = lambda mdl: (lambda: mdl.optimize_parameters(N_CODEC_STEPS))  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    step = time_cuda(step_of(model), iters=6, warmup=1)
+    peak_saved = torch.cuda.max_memory_allocated() / 2 ** 30
+    parts = {"encode_forward": [], "host_codec": [], "loss_backward": [], "optimizer": []}
+    hr = model._hr
+    with torch.no_grad():
+        ref_l = model.degrade(hr)
+    for _ in range(5):
+        model.optimizer.zero_grad(set_to_none=True)
+        held = {}
+        parts["encode_forward"].append(time_cuda(lambda: held.update(lf=model._encode_lf(hr)), 1, 0)["median"])
+        t0 = time.time()
+        codec_out, _ = model.codec_span(held["lf"], model.q)
+        torch.cuda.synchronize()
+        parts["host_codec"].append((time.time() - t0) * 1e3)
+
+        def loss_backward():
+            model._loss(held["lf"], hr, ref_l, codec_out, model.q)[0].backward()
+
+        parts["loss_backward"].append(time_cuda(loss_backward, 1, 0)["median"])
+
+        def opt():
+            clip_by_global_norm_(list(model.params.parameters()), 0.5)
+            model.optimizer.step()
+
+        parts["optimizer"].append(time_cuda(opt, 1, 0)["median"])
+    split = {k: float(np.median(v)) for k, v in parts.items()}
+    del model
+    recompute = new_codec_trainer(device, tree, batch, save_chain_feats=False)
+    torch.cuda.reset_peak_memory_stats()
+    step_r = time_cuda(step_of(recompute), iters=6, warmup=1)
+    peak_recompute = torch.cuda.max_memory_allocated() / 2 ** 30
+    del recompute
+    plain = new_codec_trainer(device, tree, batch)
+    with plain_chain_on_card():
+        step_p = time_cuda(step_of(plain), iters=5, warmup=1)
+    rate = plain.rate_source
+    del plain
+    emit("timing_codec_train", batch=CODEC_TRAIN_SHAPE, step_ms=step["median"], step_ms_min=step["min"],
+         step_recompute_feats_ms=step_r["median"], step_plain_ms=step_p["median"],
+         step_plain_ms_min=step_p["min"], encode_forward_ms=split["encode_forward"],
+         host_codec_ms=split["host_codec"], loss_backward_ms=split["loss_backward"],
+         optimizer_ms=split["optimizer"], clips_per_s=CODEC_TRAIN_SHAPE[0] * 1e3 / step["median"],
+         peak_device_memory_gib_saved_feats=peak_saved, peak_device_memory_gib_recomputed_feats=peak_recompute,
+         rate_source=rate, host_codec=h265.codec_backend() or "stand-in")
+    return kernels
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="serve,train,codec",
-                    help="comma-separated: kernels (build and check only), serve, train, codec")
+    ap.add_argument("--phases", default="serve,train,codec,codec_train",
+                    help="comma-separated: kernels (build and check only), serve, train, codec, codec_train")
     want = set(ap.parse_args().phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -995,6 +1390,7 @@ def main():
         worst = phase_kernels(device)
         worst_gc = phase_kernels_gc(device)
         worst_bwd = phase_kernels_bwd(device)
+    worst_gc_bwd = phase_kernels_gc_bwd(device)
     phase_grad(device)
     if "serve" in want:
         with torch.no_grad():
@@ -1010,12 +1406,15 @@ def main():
         with torch.no_grad():
             kernels += phase_timing_codec(device, *codec, worst_gc)
         del codec
+    if "codec_train" in want:
+        tree, batch, counts = phase_codec_train(device)
+        kernels += phase_timing_codec_train(device, tree, batch, counts, worst_gc_bwd)
 
     for k in kernels:
         check(k["launches"] >= 1, f"the main path launched {k['name']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
-    if want != {"serve", "train", "codec"}:
+    if want != {"serve", "train", "codec", "codec_train"}:
         print(f"chip_smoke: partial run ({sorted(want)}): no result line", file=sys.stderr)
         return 3
     print(json.dumps({"ok": True, "device": {

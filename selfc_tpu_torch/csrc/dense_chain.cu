@@ -3,7 +3,8 @@
 // Replaces selfc_tpu/ops/pallas_chain.py:_chain_kernel_v2 (forward, all seven
 // coupling epilogues; its emit_feats output is the feats buffer below, which
 // the caller may keep for the backward) and, through the entry
-// selfc_dense_chain_feats, :_pallas_feats (x1..x4 alone). The function:
+// selfc_dense_chain_feats, :_pallas_feats and :_chain_kernel (x1..x4 alone,
+// the latter with conv5 left to the caller). The function:
 //
 //   x1..x4 : four 3x3 SAME convs over the growing concat [x | x1 .. x_{k-1}],
 //            each + bias + LeakyReLU(0.2), gc output channels each
@@ -471,17 +472,18 @@ extern "C" int selfc_dense_chain_forward(const void* x, void* feats, const void*
   return (int)cudaErrorInvalidValue;
 }
 
-// The spatial half alone (replaces selfc_tpu/ops/pallas_chain.py:_pallas_feats):
-// feats (frames,H,W,128), written, = [x1 | x2 | x3 | x4], gc = 32 (the
-// backward it serves takes gc = 32 only). The backward of the chain calls it
-// when the forward did not keep its feats buffer. Same arguments and return
-// value as above, without conv5 and the epilogue.
-extern "C" int selfc_dense_chain_feats(const void* x, void* feats, const void* w1, const void* w2, const void* w3, const void* w4, const void* b1, const void* b2, const void* b3, const void* b4, int frames, int H, int W, int C, int dtype, void* stream) {
+// The spatial half alone (replaces selfc_tpu/ops/pallas_chain.py:_pallas_feats,
+// and is the forward of the v1 spatial chain :_chain_kernel): feats
+// (frames,H,W,4*GCP), written, = [x1 | x2 | x3 | x4] in the layout above,
+// any gc in 1..32. The backward of the chain calls it when the forward did not
+// keep its feats buffer. Same arguments and return value as above, without
+// conv5 and the epilogue.
+extern "C" int selfc_dense_chain_feats(const void* x, void* feats, const void* w1, const void* w2, const void* w3, const void* w4, const void* b1, const void* b2, const void* b3, const void* b4, int frames, int H, int W, int C, int gc, int dtype, void* stream) {
   const void* ws[4] = {w1, w2, w3, w4};
   const void* bs[4] = {b1, b2, b3, b4};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return spatial_layers<float>(x, feats, ws, bs, frames, H, W, C, GC_MAX, s);
-  if (dtype == 1) return spatial_layers<__nv_bfloat16>(x, feats, ws, bs, frames, H, W, C, GC_MAX, s);
+  if (dtype == 0) return spatial_layers<float>(x, feats, ws, bs, frames, H, W, C, gc, s);
+  if (dtype == 1) return spatial_layers<__nv_bfloat16>(x, feats, ws, bs, frames, H, W, C, gc, s);
   return (int)cudaErrorInvalidValue;
 }
 

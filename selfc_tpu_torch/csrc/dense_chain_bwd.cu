@@ -18,19 +18,33 @@
 // with zero outside the image on both sides. dx and dfeats are updated in
 // place; at the end dx holds the whole gradient with respect to x.
 //
+// Growth width gc in 1..32 (32 in the coupling and the 4x prior, 12 in the
+// codec's prior; the TPU kernel pads the weights to 32 lanes a segment in
+// selfc_tpu/ops/pallas_chain.py:pad_gc_params). feats and dfeats have the
+// forward's layout: (frames,H,W,4*GCP), GCP = 16 for gc <= 16 and 32 above,
+// slot j in channels GCP*j .. GCP*j+gc-1 and pad lanes above. The weights are
+// read in their own layout (w_k (3,3,C+gc(k-1),gc)) and remapped while they
+// are staged, as in the forward: buffer lane GCP*j + l is weight row
+// C + gc*j + l for l < gc, and a pad lane meets zeros. dW and db are written
+// in that layout at the true gc. The input concat is cut into chunks of GCP
+// channels: x in runs of GCP (the last one may be short), feats one slot a
+// chunk; a pad lane of dfeats is never written and never read into a result.
+// FULL (gc == GCP == 32) fixes gc at compile time, so the remap folds away
+// and gc 32 runs the code of a kernel written for that one width.
+//
 // What bounds it: arithmetic. The two contractions of a layer each cost what
 // the layer's forward costs (twice the forward in all), on plain fp32 FMAs,
 // while every tensor is moved a few times at most.
 //
 // The design follows the forward's memory layout instead of fusing the sweep
 // into one tile: the running gradient lives in device memory as fp32 (dx and
-// dfeats, split where the forward splits its two sources, so the 128 feature
+// dfeats, split where the forward splits its two sources, so the 4*GCP feature
 // channels of a pixel are 16-byte aligned whatever C is) and the sweep is a
 // sequence of launches. Launch order gives the dependency: slot k of dfeats
 // is complete before layer k reads it, and layer k only adds to slots below k.
 //
 //   * data gradient, one launch a layer, gather form: a block owns 16x16
-//     pixels and 32 channels of dx or of one dfeats slot and sums over the 3x3
+//     pixels and GCP channels of dx or of one dfeats slot and sums over the 3x3
 //     neighbours of dacc with the weights transposed and flipped on the way
 //     into shared memory. Blocks write disjoint elements: no atomics, no
 //     halos, no overlap-add. Same register tiling as the forward (8 pixels x
@@ -54,16 +68,14 @@
 
 namespace {
 
-constexpr int GC = 32;              // growth channels of every spatial conv
-constexpr int FEAT_C = 4 * GC;      // channels of the x1..x4 buffer
-constexpr int KC = 16;              // data gradient: dacc channels staged per step
+constexpr int GC_MAX = 32;          // widest growth the kernels take
+constexpr int KC = 16;              // data gradient: dacc channels staged per step (divides GCP)
 constexpr int TILE = 16;            // data gradient: TILE x TILE pixels a block
 constexpr int HALO = TILE + 2;
 constexpr int WG_TH = 8;            // weight gradient: rows of a pixel tile
 constexpr int WG_TW = 16;           // weight gradient: columns of a pixel tile
 constexpr int WG_HH = WG_TH + 2;
 constexpr int WG_HW = WG_TW + 2;
-constexpr int NTHREADS = 128;
 constexpr int RED_THREADS = 256;
 constexpr float SLOPE = 0.2f;
 
@@ -93,24 +105,43 @@ __device__ __forceinline__ float4 dacc4(const float* dout, const T* out) {
   return d;
 }
 
-// The 32-channel chunk of [x | feats[slots < layer]] a block works on: chunks
-// below x_chunks lie in x (the last one may be short), the others are whole
-// slots of feats.
+// Four consecutive output channels co..co+3 of weight row `row` (n of them a
+// row), zero from n on; 16-byte loads when the rows allow them.
+template <typename T>
+__device__ __forceinline__ float4 weight4(const T* w, size_t row, int n, int co) {
+  const T* p = w + row * n + co;
+  if ((n & 3) == 0) return co < n ? load4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+  return make_float4(co < n ? to_f(p[0]) : 0.f, co + 1 < n ? to_f(p[1]) : 0.f,
+                     co + 2 < n ? to_f(p[2]) : 0.f, co + 3 < n ? to_f(p[3]) : 0.f);
+}
+
+// The chunk of [x | feats[slots < layer]] a block works on, GCP buffer
+// channels wide: chunks below x_chunks lie in x (the last one may be short),
+// the others are whole slots of feats, of which the first gc lanes are real.
 struct Chunk {
   bool in_x;    // the chunk lies in x (else in feats)
   int c0;       // first channel inside its tensor
-  int n;        // channels of the chunk, <= 32
+  int n;        // real channels of the chunk, <= GCP
   int row0;     // first row on the weights' Cin axis
   int stride;   // channels of a pixel in its tensor
 };
 
-__device__ __forceinline__ Chunk chunk_of(int chunk, int x_chunks, int C) {
+template <int GCP>
+__device__ __forceinline__ Chunk chunk_of(int chunk, int x_chunks, int C, int gc) {
   Chunk k;
   k.in_x = chunk < x_chunks;
-  k.c0 = k.in_x ? chunk * GC : (chunk - x_chunks) * GC;
-  k.n = k.in_x ? min(GC, C - k.c0) : GC;
-  k.row0 = k.in_x ? k.c0 : C + k.c0;
-  k.stride = k.in_x ? C : FEAT_C;
+  if (k.in_x) {
+    k.c0 = chunk * GCP;
+    k.n = min(GCP, C - k.c0);
+    k.row0 = k.c0;
+    k.stride = C;
+  } else {
+    const int slot = chunk - x_chunks;
+    k.c0 = slot * GCP;
+    k.n = gc;
+    k.row0 = C + slot * gc;
+    k.stride = 4 * GCP;
+  }
   return k;
 }
 
@@ -118,28 +149,33 @@ __device__ __forceinline__ Chunk chunk_of(int chunk, int x_chunks, int C) {
 //   dst(q)[ci] += sum_{tap,co} dacc(q + tap' - 1)[co] * w[8 - tap'][ci][co]
 // (the forward's tap (dy,dx) seen from the input pixel is tap' = (2-dy,2-dx),
 // whose flat index is 8 - tap). dst is dx for a chunk of x, dfeats for a
-// chunk of feats. grid = (tiles_x * tiles_y, chunks, frames), block = 128.
+// chunk of feats. grid = (tiles_x * tiles_y, chunks, frames), block = 4*GCP.
 // Thread (pg, cg) as in the forward: row pg%16 of the tile, columns
-// 8*(pg/16) .. +7, channels 8*cg .. +7 of the chunk.
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS, 3) data_grad_kernel(const T* feats, const T* w, float* dfeats, float* dx, int H, int W, int C, int layer, int x_chunks) {
+// 8*(pg/16) .. +7, channels 8*cg .. +7 of the chunk (cg < GCP/8). The sum
+// runs over the layer's GCP output lanes; those >= gc meet zero weights.
+template <typename T, int GCP, bool FULL>
+__global__ void __launch_bounds__(4 * GCP, 96 / GCP) data_grad_kernel(const T* feats, const T* w, float* dfeats, float* dx, int H, int W, int C, int gc_arg, int layer, int x_chunks) {
+  const int gc = FULL ? GCP : gc_arg;
+  constexpr int NT = 4 * GCP;
+  constexpr int NCG = GCP / 8;
+  constexpr int FC = 4 * GCP;
   __shared__ float4 in_s[KC / 4][HALO * HALO];
-  __shared__ __align__(16) float w_s[9][KC][GC];
+  __shared__ __align__(16) float w_s[9][KC][GCP];
 
   const int tid = threadIdx.x;
-  const int cg = tid & 3;
-  const int pg = tid >> 2;
+  const int cg = tid % NCG;
+  const int pg = tid / NCG;
   const int row = pg & 15;
   const int cb = (pg >> 4) * 8;
   const int tiles_x = (W + TILE - 1) / TILE;
   const int tx0 = (blockIdx.x % tiles_x) * TILE;
   const int ty0 = (blockIdx.x / tiles_x) * TILE;
   const size_t frame = blockIdx.z;
-  const Chunk ch = chunk_of(blockIdx.y, x_chunks, C);
-  const int cin = C + GC * layer;
-  const T* ff = feats + frame * H * W * FEAT_C + GC * layer;       // the layer's saved output
-  const float* df = dfeats + frame * H * W * FEAT_C + GC * layer;  // the gradient reaching it
-  float* dst = ch.in_x ? dx + frame * H * W * C : dfeats + frame * H * W * FEAT_C;
+  const Chunk ch = chunk_of<GCP>(blockIdx.y, x_chunks, C, gc);
+  const int cin = C + gc * layer;
+  const T* ff = feats + frame * H * W * FC + GCP * layer;       // the layer's saved output
+  const float* df = dfeats + frame * H * W * FC + GCP * layer;  // the gradient reaching it
+  float* dst = ch.in_x ? dx + frame * H * W * C : dfeats + frame * H * W * FC;
 
   float acc[8][8];
 #pragma unroll
@@ -148,29 +184,31 @@ __global__ void __launch_bounds__(NTHREADS, 3) data_grad_kernel(const T* feats, 
     for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
   }
 
-  for (int c0 = 0; c0 < GC; c0 += KC) {
+  for (int c0 = 0; c0 < GCP; c0 += KC) {
     __syncthreads();  // the previous slab is consumed before it is overwritten
-    for (int idx = tid; idx < HALO * HALO * (KC / 4); idx += NTHREADS) {
+    for (int idx = tid; idx < HALO * HALO * (KC / 4); idx += NT) {
       const int c4 = idx & (KC / 4 - 1);
       const int pix = idx / (KC / 4);
       const int iy = ty0 - 1 + pix / HALO;
       const int ix = tx0 - 1 + pix % HALO;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (iy >= 0 && iy < H && ix >= 0 && ix < W) {
-        const size_t off = ((size_t)iy * W + ix) * FEAT_C + c0 + c4 * 4;
+        const size_t off = ((size_t)iy * W + ix) * FC + c0 + c4 * 4;
         v = dacc4(df + off, ff + off);
       }
       in_s[c4][pix] = v;
     }
     // weights, transposed on the way in: w_s[tap'][co][ci]. Neighbouring
     // threads take neighbouring ci, so the four stores of a thread meet no
-    // bank conflict.
-    for (int idx = tid; idx < 9 * GC * (KC / 4); idx += NTHREADS) {
-      const int ci = idx & (GC - 1);
-      const int co4 = (idx / GC) & (KC / 4 - 1);
-      const int tap = idx / (GC * (KC / 4));
+    // bank conflict. Rows of pad lanes (ci >= n) and columns co >= gc stage
+    // as zeros.
+    for (int idx = tid; idx < 9 * GCP * (KC / 4); idx += NT) {
+      const int ci = idx % GCP;
+      const int co4 = (idx / GCP) % (KC / 4);
+      const int tap = idx / (GCP * (KC / 4));
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (ci < ch.n) v = load4(w + ((size_t)(8 - tap) * cin + ch.row0 + ci) * GC + c0 + co4 * 4);
+      const size_t wrow = (size_t)(8 - tap) * cin + ch.row0 + ci;
+      if (ci < ch.n) v = FULL ? load4(w + wrow * GCP + c0 + co4 * 4) : weight4(w, wrow, gc, c0 + co4 * 4);
       w_s[tap][co4 * 4 + 0][ci] = v.x;
       w_s[tap][co4 * 4 + 1][ci] = v.y;
       w_s[tap][co4 * 4 + 2][ci] = v.z;
@@ -229,25 +267,30 @@ __global__ void __launch_bounds__(NTHREADS, 3) data_grad_kernel(const T* feats, 
   }
 }
 
-// Weight and bias gradient of one layer, partial sums of one block:
-//   partial[g][tap][row0 + ci][co] = sum over the block's pixels p of
+// Weight and bias gradient of one layer, partial sums of one block, in the
+// weights' own layout at the true gc:
+//   partial[g][(tap * cin + row0 + ci) * gc + co] = sum over the block's pixels p of
 //       [x | feats](p + tap - 1)[ci] * dacc(p)[co]
-//   partial[g][9 * cin * 32 + co]  = sum over the block's pixels of dacc(p)[co]
-// grid = (groups, chunks), block = 128. Block (g, chunk) walks over the pixel
-// tiles g, g + groups, ... of all frames. Thread (cp, cq): input channels
-// 2*cp, 2*cp + 1 of the chunk, output channels 4*cq .. +3, all nine taps.
-// Every thread of a block visits the same pixels, so a tile that hangs over
-// the edge of the image simply has fewer of them.
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS, 3) weight_grad_kernel(const T* x, const T* feats, const float* dfeats, float* partial, int frames, int H, int W, int C, int layer, int x_chunks) {
-  __shared__ __align__(16) float in_s[WG_HH * WG_HW][GC];  // [pixel with halo][ci]
-  __shared__ __align__(16) float da_s[WG_TH * WG_TW][GC];  // [pixel][co]
+//   partial[g][9 * cin * gc + co]  = sum over the block's pixels of dacc(p)[co]
+// for ci < n and co < gc (pad lanes are computed and dropped).
+// grid = (groups, chunks), block = GCP*GCP/8 (128 at GCP 32, 32 at 16). Block
+// (g, chunk) walks over the pixel tiles g, g + groups, ... of all frames.
+// Thread (cp, cq): input channels 2*cp, 2*cp + 1 of the chunk, output
+// channels 4*cq .. +3, all nine taps. Every thread of a block visits the same
+// pixels, so a tile that hangs over the edge of the image simply has fewer.
+template <typename T, int GCP, bool FULL>
+__global__ void __launch_bounds__(GCP * GCP / 8, 96 / GCP) weight_grad_kernel(const T* x, const T* feats, const float* dfeats, float* partial, int frames, int H, int W, int C, int gc_arg, int layer, int x_chunks) {
+  const int gc = FULL ? GCP : gc_arg;
+  constexpr int NT = GCP * GCP / 8;
+  constexpr int FC = 4 * GCP;
+  __shared__ __align__(16) float in_s[WG_HH * WG_HW][GCP];  // [pixel with halo][ci]
+  __shared__ __align__(16) float da_s[WG_TH * WG_TW][GCP];  // [pixel][co]
 
   const int tid = threadIdx.x;
-  const int cq = tid & 7;
-  const int cp = tid >> 3;
-  const Chunk ch = chunk_of(blockIdx.y, x_chunks, C);
-  const int cin = C + GC * layer;
+  const int cq = tid % (GCP / 4);
+  const int cp = tid / (GCP / 4);
+  const Chunk ch = chunk_of<GCP>(blockIdx.y, x_chunks, C, gc);
+  const int cin = C + gc * layer;
   const int tiles_x = (W + WG_TW - 1) / WG_TW;
   const int tiles_y = (H + WG_TH - 1) / WG_TH;
   const int n_tiles = tiles_x * tiles_y * frames;
@@ -268,14 +311,14 @@ __global__ void __launch_bounds__(NTHREADS, 3) weight_grad_kernel(const T* x, co
     const int tx0 = (rem % tiles_x) * WG_TW;
     const int th = min(WG_TH, H - ty0);
     const int tw = min(WG_TW, W - tx0);
-    const T* src = ch.in_x ? x + frame * H * W * C : feats + frame * H * W * FEAT_C;
-    const size_t foff = frame * H * W * FEAT_C + GC * layer;
+    const T* src = ch.in_x ? x + frame * H * W * C : feats + frame * H * W * FC;
+    const size_t foff = frame * H * W * FC + GCP * layer;
 
     __syncthreads();  // the previous tile is consumed before it is overwritten
     if (vec) {
-      for (int idx = tid; idx < WG_HH * WG_HW * (GC / 4); idx += NTHREADS) {
-        const int c4 = idx & (GC / 4 - 1);
-        const int pix = idx / (GC / 4);
+      for (int idx = tid; idx < WG_HH * WG_HW * (GCP / 4); idx += NT) {
+        const int c4 = idx % (GCP / 4);
+        const int pix = idx / (GCP / 4);
         const int iy = ty0 - 1 + pix / WG_HW;
         const int ix = tx0 - 1 + pix % WG_HW;
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -283,9 +326,9 @@ __global__ void __launch_bounds__(NTHREADS, 3) weight_grad_kernel(const T* x, co
         *reinterpret_cast<float4*>(&in_s[pix][c4 * 4]) = v;
       }
     } else {
-      for (int idx = tid; idx < WG_HH * WG_HW * GC; idx += NTHREADS) {
-        const int c = idx & (GC - 1);
-        const int pix = idx / GC;
+      for (int idx = tid; idx < WG_HH * WG_HW * GCP; idx += NT) {
+        const int c = idx % GCP;
+        const int pix = idx / GCP;
         const int iy = ty0 - 1 + pix / WG_HW;
         const int ix = tx0 - 1 + pix % WG_HW;
         float v = 0.f;
@@ -293,14 +336,14 @@ __global__ void __launch_bounds__(NTHREADS, 3) weight_grad_kernel(const T* x, co
         in_s[pix][c] = v;
       }
     }
-    for (int idx = tid; idx < WG_TH * WG_TW * (GC / 4); idx += NTHREADS) {
-      const int c4 = idx & (GC / 4 - 1);
-      const int pix = idx / (GC / 4);
+    for (int idx = tid; idx < WG_TH * WG_TW * (GCP / 4); idx += NT) {
+      const int c4 = idx % (GCP / 4);
+      const int pix = idx / (GCP / 4);
       const int iy = ty0 + pix / WG_TW;
       const int ix = tx0 + pix % WG_TW;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (iy < H && ix < W) {
-        const size_t off = foff + ((size_t)iy * W + ix) * FEAT_C + c4 * 4;
+        const size_t off = foff + ((size_t)iy * W + ix) * FC + c4 * 4;
         v = dacc4(dfeats + off, feats + off);
       }
       *reinterpret_cast<float4*>(&da_s[pix][c4 * 4]) = v;
@@ -348,25 +391,39 @@ __global__ void __launch_bounds__(NTHREADS, 3) weight_grad_kernel(const T* x, co
     }
   }
 
-  const size_t n_w = (size_t)9 * cin * GC;
-  float* out = partial + (size_t)blockIdx.x * (n_w + GC);
+  const size_t n_w = (size_t)9 * cin * gc;
+  float* out = partial + (size_t)blockIdx.x * (n_w + gc);
 #pragma unroll
   for (int t = 0; t < 9; ++t) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int ci = cp * 2 + j;
-      if (ci < ch.n) *reinterpret_cast<float4*>(out + ((size_t)t * cin + ch.row0 + ci) * GC + cq * 4) = make_float4(acc[t][j][0], acc[t][j][1], acc[t][j][2], acc[t][j][3]);
+      if (ci >= ch.n) continue;
+      float* o = out + ((size_t)t * cin + ch.row0 + ci) * gc + cq * 4;
+      if (FULL) {
+        *reinterpret_cast<float4*>(o) = make_float4(acc[t][j][0], acc[t][j][1], acc[t][j][2], acc[t][j][3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (cq * 4 + i < gc) o[i] = acc[t][j][i];
+        }
+      }
     }
   }
-  if (blockIdx.y == 0 && cp == 0) *reinterpret_cast<float4*>(out + n_w + cq * 4) = make_float4(bsum[0], bsum[1], bsum[2], bsum[3]);
+  if (blockIdx.y == 0 && cp == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (cq * 4 + i < gc) out[n_w + cq * 4 + i] = bsum[i];
+    }
+  }
 }
 
-// dw[e] = sum_g partial[g][e] for e < n_w, db[e - n_w] for the 32 after them,
+// dw[e] = sum_g partial[g][e] for e < n_w, db[e - n_w] for the gc after them,
 // added in the order of g and rounded once.
 template <typename T>
-__global__ void __launch_bounds__(RED_THREADS) reduce_partials_kernel(const float* partial, int groups, int n_w, T* dw, T* db) {
+__global__ void __launch_bounds__(RED_THREADS) reduce_partials_kernel(const float* partial, int groups, int n_w, int gc, T* dw, T* db) {
   const int e = blockIdx.x * RED_THREADS + threadIdx.x;
-  const int n = n_w + GC;
+  const int n = n_w + gc;
   if (e >= n) return;
   float s = 0.f;
   for (int g = 0; g < groups; ++g) s += partial[(size_t)g * n + e];
@@ -377,25 +434,37 @@ __global__ void __launch_bounds__(RED_THREADS) reduce_partials_kernel(const floa
   }
 }
 
-template <typename T>
-int chain_backward(const void* x, const void* feats, const void* const* ws, void* dfeats, void* dx, void* const* dws, void* const* dbs, void* partial, int groups, int frames, int H, int W, int C, int need_dx, cudaStream_t stream) {
-  const int x_chunks = (C + GC - 1) / GC;
+template <typename T, int GCP, bool FULL>
+int chain_backward_at(const void* x, const void* feats, const void* const* ws, void* dfeats, void* dx, void* const* dws, void* const* dbs, void* partial, int groups, int frames, int H, int W, int C, int gc, int need_dx, cudaStream_t stream) {
+  const int x_chunks = (C + GCP - 1) / GCP;
   const int dx_chunks = need_dx ? x_chunks : 0;
   const int tiles = ((W + TILE - 1) / TILE) * ((H + TILE - 1) / TILE);
   for (int layer = 3; layer >= 0; --layer) {
-    const int n_w = 9 * (C + GC * layer) * GC;
-    weight_grad_kernel<T><<<dim3(groups, x_chunks + layer), NTHREADS, 0, stream>>>((const T*)x, (const T*)feats, (const float*)dfeats, (float*)partial, frames, H, W, C, layer, x_chunks);
+    const int n_w = 9 * (C + gc * layer) * gc;
+    weight_grad_kernel<T, GCP, FULL><<<dim3(groups, x_chunks + layer), GCP * GCP / 8, 0, stream>>>((const T*)x, (const T*)feats, (const float*)dfeats, (float*)partial, frames, H, W, C, gc, layer, x_chunks);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    reduce_partials_kernel<T><<<(n_w + GC + RED_THREADS - 1) / RED_THREADS, RED_THREADS, 0, stream>>>((const float*)partial, groups, n_w, (T*)dws[layer], (T*)dbs[layer]);
+    reduce_partials_kernel<T><<<(n_w + gc + RED_THREADS - 1) / RED_THREADS, RED_THREADS, 0, stream>>>((const float*)partial, groups, n_w, gc, (T*)dws[layer], (T*)dbs[layer]);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     if (dx_chunks + layer == 0) continue;  // nothing below the first layer but x
-    data_grad_kernel<T><<<dim3(tiles, dx_chunks + layer, frames), NTHREADS, 0, stream>>>((const T*)feats, (const T*)ws[layer], (float*)dfeats, (float*)dx, H, W, C, layer, dx_chunks);
+    data_grad_kernel<T, GCP, FULL><<<dim3(tiles, dx_chunks + layer, frames), 4 * GCP, 0, stream>>>((const T*)feats, (const T*)ws[layer], (float*)dfeats, (float*)dx, H, W, C, gc, layer, dx_chunks);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// The padded growth width of the feats buffer: the forward's rule
+// (dense_chain.cu:padded_gc), which the wrapper checks the two libraries share.
+inline int padded_gc(int gc) { return gc <= 16 ? 16 : GC_MAX; }
+
+template <typename T>
+int chain_backward(const void* x, const void* feats, const void* const* ws, void* dfeats, void* dx, void* const* dws, void* const* dbs, void* partial, int groups, int frames, int H, int W, int C, int gc, int need_dx, cudaStream_t stream) {
+  if (gc < 1 || gc > GC_MAX) return (int)cudaErrorInvalidValue;
+  if (gc == GC_MAX) return chain_backward_at<T, GC_MAX, true>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, stream);
+  if (padded_gc(gc) == 16) return chain_backward_at<T, 16, false>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, stream);
+  return chain_backward_at<T, GC_MAX, false>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, stream);
 }
 
 }  // namespace
@@ -403,23 +472,30 @@ int chain_backward(const void* x, const void* feats, const void* const* ws, void
 // dtype: 0 = float32, 1 = bfloat16: the type of x, feats, w1..w4, dw1..dw4 and
 // db1..db4. dfeats, dx and partial are float32 whatever dtype is. Every
 // pointer is aligned to 16 bytes.
-// x (frames,H,W,C); feats (frames,H,W,128), the saved x1..x4; w_k (3,3,C+32(k-1),32);
-// dfeats (frames,H,W,128): on entry the gradient that reaches x1..x4 directly,
-//   overwritten with the running gradient;
+// x (frames,H,W,C); feats (frames,H,W,4*GCP), the saved x1..x4 in the
+//   forward's layout (GCP = selfc_dense_chain_bwd_padded_gc(gc)); w_k (3,3,C+gc(k-1),gc);
+// dfeats (frames,H,W,4*GCP): on entry the gradient that reaches x1..x4 directly,
+//   overwritten with the running gradient (pad lanes are neither read into a
+//   result nor written);
 // dx (frames,H,W,C): on entry the gradient that reaches x directly, on return
 //   the whole gradient (untouched, and may be null, when need_dx is 0);
-// dw_k, db_k: written, shaped as w_k and (32);
-// partial: scratch of groups * (9 * (C + 96) * 32 + 32) floats, groups >= 1.
-// Returns the first cudaError_t a launch reports, 0 when all were accepted.
-extern "C" int selfc_dense_chain_spatial_backward(const void* x, const void* feats, const void* w1, const void* w2, const void* w3, const void* w4, void* dfeats, void* dx, void* dw1, void* dw2, void* dw3, void* dw4, void* db1, void* db2, void* db3, void* db4, void* partial, int groups, int frames, int H, int W, int C, int need_dx, int dtype, void* stream) {
+// dw_k, db_k: written, shaped as w_k and (gc);
+// partial: scratch of groups * (9 * (C + 3 * gc) * gc + gc) floats, groups >= 1.
+// 1 <= gc <= 32. Returns the first cudaError_t a launch reports, 0 when all
+// were accepted.
+extern "C" int selfc_dense_chain_spatial_backward(const void* x, const void* feats, const void* w1, const void* w2, const void* w3, const void* w4, void* dfeats, void* dx, void* dw1, void* dw2, void* dw3, void* dw4, void* db1, void* db2, void* db3, void* db4, void* partial, int groups, int frames, int H, int W, int C, int gc, int need_dx, int dtype, void* stream) {
   const void* ws[4] = {w1, w2, w3, w4};
   void* dws[4] = {dw1, dw2, dw3, dw4};
   void* dbs[4] = {db1, db2, db3, db4};
   cudaStream_t s = (cudaStream_t)stream;
   if (groups < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return chain_backward<float>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, need_dx, s);
-  if (dtype == 1) return chain_backward<__nv_bfloat16>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, need_dx, s);
+  if (dtype == 0) return chain_backward<float>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, s);
+  if (dtype == 1) return chain_backward<__nv_bfloat16>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// The per-segment width of the feats / dfeats buffers this library reads for
+// growth width gc.
+extern "C" int selfc_dense_chain_bwd_padded_gc(int gc) { return padded_gc(gc); }
 
 extern "C" const char* selfc_bwd_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -19,6 +19,7 @@ def define_G(opt, device=None, generator=None):
     net = opt["network_G"]
     model_type = opt["model"]
     which = net.get("which_model_G") or {}
+    save_feats = (opt.get("train") or {}).get("save_chain_feats")
     if model_type in ("SelfC_GMM", "SelfC_SR", "SelfC_Contra_UP"):
         nll_enabled = bool(net.get("nll_enabled"))
         lam_cond = (opt.get("train") or {}).get("lambda_cond_prob")
@@ -29,7 +30,6 @@ def define_G(opt, device=None, generator=None):
                 "Set network_G.nll_enabled: true to activate it.", lam_cond,
             )
         gm = net.get("global_module") or "nonlocal"
-        save_feats = (opt.get("train") or {}).get("save_chain_feats")
         return SelfCNetGMM(
             scale=net.get("scale") or opt["scale"],
             block_num=tuple(net.get("block_num") or (4, 4)),
@@ -61,6 +61,7 @@ def define_G(opt, device=None, generator=None):
             global_module=net.get("global_module") or "nonlocal",
             stp_hidden_c=net.get("stp_hidden_c") or 24,
             stp_denseblock_innerc=net.get("stp_denseblock_innerc") or 12,
+            save_chain_feats=True if save_feats is None else bool(save_feats),
             device=device,
             generator=generator,
         )

@@ -58,14 +58,22 @@ def torch_default_b(fan_in: int):
 
 
 def spatial_conv_video(x, w, b=None):
-    """Stride-1 SAME 3x3 conv applied to every frame of (B,T,H,W,C);
-    w: (3,3,Cin,Cout)."""
-    B, T, H, W, C = x.shape
+    """Stride-1 SAME 3x3 conv applied to every frame of (B,T,H,W,C), or to
+    every image of (N,H,W,C); w: (3,3,Cin,Cout)."""
+    *lead, H, W, C = x.shape
     y = F.conv2d(
-        x.reshape(B * T, H, W, C).permute(0, 3, 1, 2),
+        x.reshape(-1, H, W, C).permute(0, 3, 1, 2),
         w.permute(3, 2, 0, 1), b, padding=1,
     )
-    return y.permute(0, 2, 3, 1).reshape(B, T, H, W, -1)
+    return y.permute(0, 2, 3, 1).reshape(*lead, H, W, -1)
+
+
+def conv3d(x, w, b=None):
+    """Stride-1 SAME 3x3x3 conv on (B,T,H,W,C), zero padded in T, H and W;
+    w: (3,3,3,Cin,Cout) (kt, kh, kw). Plain PyTorch: the JAX package computes
+    it outside any Pallas kernel (selfc_tpu/ops/conv.py:conv3d)."""
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2), b, padding=1)
+    return y.permute(0, 2, 3, 4, 1)
 
 
 def temporal_conv3(x, w, b=None):

@@ -3,8 +3,10 @@
 Replaces, of ``selfc_tpu/ops/pallas_chain.py``: ``_chain_kernel_v2`` (the
 forward, reached there through ``fused_dense_chain_t_ep``; its ``emit_feats``
 output is the feats buffer kept here for the backward), ``_pallas_feats``
-(the spatial-only forward) and ``_chain_bwd_kernel`` (the adjoint of the four
-spatial convs, reached through ``_pallas_bwd``).
+(the spatial-only forward), ``_chain_bwd_kernel`` (the adjoint of the four
+spatial convs, reached through ``_pallas_bwd``) and ``_chain_kernel`` (the
+v1 spatial chain behind ``fused_dense_spatial``, whose conv5 runs outside:
+here a route over the spatial-only forward and the adjoint).
 
 The function, on a channels-last video ``x (B,T,H,W,C)``:
 
@@ -27,20 +29,25 @@ preallocated ``(B,T,H,W,4*GCP)`` buffer (the concat is never assembled and
 no halo is recomputed), each thread keeps an 8x8 register tile of plain fp32
 FMAs fed from a 16-channel slab in shared memory, and the epilogue is
 applied where conv5's accumulator lives. ``GCP = padded_gc(gc)`` is gc
-rounded up to 16 or 32: the forward takes any gc in 1..32 and remaps the
+rounded up to 16 or 32: every kernel takes any gc in 1..32 and remaps the
 weights while staging them (a growth segment's pad lanes meet zero
-weights), without a padded weight copy. The adjoint and the spatial-only
-forward take gc = 32 only; gc < 32 on a CUDA tensor raises there (the
-codec's training is a later slice). The adjoint keeps the same layout:
-the running gradient is an fp32 ``dx (…,C)`` / ``dfeats (…,128)`` pair in
+weights), without a padded weight copy. The adjoint keeps the same layout:
+the running gradient is an fp32 ``dx (…,C)`` / ``dfeats (…,4*GCP)`` pair in
 device memory, swept k = 4..1 by one data-gradient and one weight-gradient
 launch a layer, the latter reduced over blocks in a fixed order (the same
-bits on every run). No tensor cores and no TF32: fp32 stays fp32; bf16
-tensors are widened on load and rounded once on store.
+bits on every run); dW and db come out at the true gc. No tensor cores and
+no TF32: fp32 stays fp32; bf16 tensors are widened on load and rounded once
+on store.
 
-``dense_chain_t_ep`` is differentiable on both devices through one
-``torch.autograd.Function``: the kernels on a CUDA tensor, the plain
-PyTorch versions below on a CPU tensor, and only there.
+Feature layouts: a feats tensor holds its four growth segments side by side,
+``P >= gc`` lanes each with the first gc real. The plain versions write
+``P = gc``; the kernels write ``P = padded_gc(gc)`` with zero pad lanes.
+``chain_feats`` returns its device's layout, and ``chain_spatial_bwd`` and
+``_conv5_adjoint`` take either (P is read off the shape).
+
+``dense_chain_t_ep`` and ``fused_dense_spatial`` are differentiable on both
+devices through a ``torch.autograd.Function`` each: the kernels on a CUDA
+tensor, the plain PyTorch versions below on a CPU tensor, and only there.
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ from torch.autograd.function import once_differentiable
 from ..kernels import build
 from .conv import temporal_conv3
 
-GC_MAX = 32  # the widest growth the CUDA kernels take (and the only one of the adjoint)
+GC_MAX = 32  # the widest growth the CUDA kernels take
 
 # number of auxiliary operands of each epilogue
 #   add          y = a + y5            (fwd y1 = x1 + F(x2))
@@ -75,21 +82,31 @@ BWD_GROUPS = 264
 # calls that went to the CUDA kernels (one per call, whatever number of
 # launches the call makes inside), in all and by width: the forward chain by
 # (C, c_out, gc); the chain adjoint and the spatial-only forward, whose work
-# does not depend on c_out, by C
+# does not depend on c_out, by (C, gc); the v1 spatial chain
+# (``fused_dense_spatial``) forward and backward by (C, gc), each of its calls
+# also counted as the spatial-only forward or adjoint launch it makes
 launches = 0
 launches_by_width: dict = {}
 launches_bwd = 0
 launches_bwd_by_width: dict = {}
 launches_feats = 0
 launches_feats_by_width: dict = {}
+launches_spatial = 0
+launches_spatial_by_width: dict = {}
+launches_spatial_bwd = 0
+launches_spatial_bwd_by_width: dict = {}
 
 
 def reset_launch_counts():
-    global launches, launches_bwd, launches_feats
-    launches = launches_bwd = launches_feats = 0
-    launches_by_width.clear()
-    launches_bwd_by_width.clear()
-    launches_feats_by_width.clear()
+    global launches, launches_bwd, launches_feats, launches_spatial, launches_spatial_bwd
+    launches = launches_bwd = launches_feats = launches_spatial = launches_spatial_bwd = 0
+    for d in (launches_by_width, launches_bwd_by_width, launches_feats_by_width,
+              launches_spatial_by_width, launches_spatial_bwd_by_width):
+        d.clear()
+
+
+def _count(key, by_width):
+    by_width[key] = by_width.get(key, 0) + 1
 
 
 def ep_apply(y, mode, clamp, a=None, m=None):
@@ -119,6 +136,23 @@ def padded_gc(gc):
 def _acc_dtype(t):
     """The type sums and the epilogue run in: fp32 (fp64 for fp64 input)."""
     return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def padded_width(t, gc, P):
+    """The concat ``(…,4gc)`` -> the feats layout ``(…,4P)`` with zero pad
+    lanes (the inverse of ``true_width``)."""
+    if P == gc:
+        return t
+    return F.pad(t.reshape(*t.shape[:-1], 4, gc), (0, P - gc)).reshape(*t.shape[:-1], 4 * P)
+
+
+def true_width(t, gc):
+    """A feats-layout tensor ``(…,4P)`` (P >= gc lanes a growth segment, the
+    first gc real) -> the concat ``(…,4gc)`` of the real lanes."""
+    P = t.shape[-1] // 4
+    if P == gc:
+        return t
+    return t.reshape(*t.shape[:-1], 4, P)[..., :gc].reshape(*t.shape[:-1], 4 * gc)
 
 
 # ---------------------------------------------------------------------------
@@ -160,14 +194,16 @@ def dense_chain_t_ep_plain(x, ws, bs, w5, b5, mode="none", clamp=1.0,
 
 def chain_spatial_bwd_plain(x, ws, bs, feats, g, dx0=None):
     """Plain version of the chain adjoint, written as the explicit sweep and
-    not as autograd of the forward. ``g (B,T,H,W,4gc)`` is the gradient that
-    reaches ``feats`` directly, ``dx0`` (optional) the one that reaches
-    ``x`` directly. Returns ``(dx, dws, dbs)`` in the types of ``x``,
-    ``ws``, ``bs``. The running gradient is fp32 whatever the inputs are,
-    and so are the products (bf16 inputs are widened first)."""
+    not as autograd of the forward. ``feats`` and ``g`` (the gradient that
+    reaches feats directly) are ``(B,T,H,W,4P)`` in either feats layout
+    (pad lanes of g are ignored), ``dx0`` (optional) the gradient that
+    reaches ``x`` directly. Returns ``(dx, dws, dbs)`` in the types of
+    ``x``, ``ws``, ``bs``. The running gradient is fp32 whatever the inputs
+    are, and so are the products (bf16 inputs are widened first)."""
     B, T, H, W, C = x.shape
     N, acc = B * T, _acc_dtype(x)
     gc = ws[0].shape[-1]
+    feats, g = true_width(feats, gc), true_width(g, gc)
     nchw = lambda t: t.reshape(N, H, W, -1).permute(0, 3, 1, 2).to(acc)  # noqa: E731
     work = torch.cat([nchw(x), nchw(feats)], dim=1)
     dx = torch.zeros_like(work[:, :C]) if dx0 is None else nchw(dx0)
@@ -205,7 +241,7 @@ def _library(name):
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.selfc_dense_chain_forward.argtypes = [P] * 15 + [I] * 8 + [ctypes.c_float, I, P]
         lib.selfc_dense_chain_forward.restype = I
-        lib.selfc_dense_chain_feats.argtypes = [P] * 10 + [I] * 5 + [P]
+        lib.selfc_dense_chain_feats.argtypes = [P] * 10 + [I] * 6 + [P]
         lib.selfc_dense_chain_feats.restype = I
         lib.selfc_dense_chain_padded_gc.argtypes = [I]
         lib.selfc_dense_chain_padded_gc.restype = I
@@ -213,8 +249,10 @@ def _library(name):
         lib.selfc_cuda_error_string.restype = ctypes.c_char_p
     if name == "dense_chain_bwd" and lib.selfc_dense_chain_spatial_backward.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.selfc_dense_chain_spatial_backward.argtypes = [P] * 17 + [I] * 7 + [P]
+        lib.selfc_dense_chain_spatial_backward.argtypes = [P] * 17 + [I] * 8 + [P]
         lib.selfc_dense_chain_spatial_backward.restype = I
+        lib.selfc_dense_chain_bwd_padded_gc.argtypes = [I]
+        lib.selfc_dense_chain_bwd_padded_gc.restype = I
         lib.selfc_bwd_cuda_error_string.argtypes = [I]
         lib.selfc_bwd_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -247,11 +285,10 @@ def _check(name, t, shape, like, dtype=None):
         raise ValueError(f"{name}: must be aligned to 16 bytes (the kernels use vector loads)")
 
 
-def _validate_spatial(x, ws, bs, backward=False):
+def _validate_spatial(x, ws, bs):
     """Raise on anything the spatial kernels do not take. Every tensor must
     be of x's dtype, on x's device, contiguous and aligned to 16 bytes; the
-    growth width gc (the weights' last axis) in 1..32, and 32 for the
-    adjoint and the spatial-only forward (``backward``)."""
+    growth width gc (the weights' last axis) in 1..32."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"dense chain kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 5:
@@ -266,11 +303,6 @@ def _validate_spatial(x, ws, bs, backward=False):
     for k in range(4):
         _check(f"w{k + 1}", ws[k], (3, 3, C + gc * k, gc), x)
         _check(f"b{k + 1}", bs[k], (gc,), x)
-    if backward and gc != GC_MAX:
-        raise NotImplementedError(
-            f"growth width {gc}: the chain's adjoint and spatial-only forward "
-            f"kernels take {GC_MAX} only; gc < {GC_MAX} on the card comes with "
-            "the codec's training slice (ROADMAP, B2 at gc < 32)")
     if B * T > 65535:
         raise ValueError(f"B*T = {B * T} exceeds the kernel's grid limit 65535")
 
@@ -311,58 +343,74 @@ def _chain_cuda(x, ws, bs, w5, b5, mode, clamp, a, m):
     )
     _raise_on(err, "dense chain", lib.selfc_cuda_error_string)
     launches += 1
-    key = (C, c_out, gc)
-    launches_by_width[key] = launches_by_width.get(key, 0) + 1
+    _count((C, c_out, gc), launches_by_width)
     return out, feats
 
 
 def _feats_cuda(x, ws, bs):
+    """The spatial-only forward kernels: a new feats buffer
+    ``(B,T,H,W,4*padded_gc(gc))`` with zero pad lanes."""
     global launches_feats
-    _validate_spatial(x, ws, bs, backward=True)
+    _validate_spatial(x, ws, bs)
     B, T, H, W, C = x.shape
-    feats = torch.empty((B, T, H, W, 4 * GC_MAX), dtype=x.dtype, device=x.device)
+    gc = ws[0].shape[-1]
     lib = _library("dense_chain")
+    feats = torch.empty((B, T, H, W, 4 * lib.selfc_dense_chain_padded_gc(gc)),
+                        dtype=x.dtype, device=x.device)
     err = lib.selfc_dense_chain_feats(
         x.data_ptr(), feats.data_ptr(),
         *(w.data_ptr() for w in ws), *(b.data_ptr() for b in bs),
-        B * T, H, W, C, _DTYPE_CODE[x.dtype], _stream(x),
+        B * T, H, W, C, gc, _DTYPE_CODE[x.dtype], _stream(x),
     )
     _raise_on(err, "dense chain feats", lib.selfc_cuda_error_string)
     launches_feats += 1
-    launches_feats_by_width[C] = launches_feats_by_width.get(C, 0) + 1
+    _count((C, gc), launches_feats_by_width)
     return feats
 
 
 def _bwd_cuda(x, ws, bs, feats, dfeats, dx):
-    """The adjoint kernels. ``dfeats (B,T,H,W,128)`` and ``dx (B,T,H,W,C)``
-    are fp32 and hold, on entry, the gradients that reach feats and x
-    directly; both are updated in place and dx ends as the whole gradient
-    (``dx=None``: not wanted). Returns ``(dws, dbs)`` in the weights'
-    dtype."""
+    """The adjoint kernels. ``feats`` is the forward kernels' buffer,
+    ``dfeats`` an fp32 one of its shape, ``(B,T,H,W,4*padded_gc(gc))``, and
+    ``dx (B,T,H,W,C)`` fp32; dfeats and dx hold, on entry, the gradients
+    that reach feats and x directly (the pad lanes of dfeats must be
+    finite: they meet zero weights); both are updated in place and dx ends
+    as the whole gradient (``dx=None``: not wanted). Returns ``(dws, dbs)``
+    in the weights' dtype, at the true gc."""
     global launches_bwd
-    _validate_spatial(x, ws, bs, backward=True)
+    _validate_spatial(x, ws, bs)
     B, T, H, W, C = x.shape
-    GC = GC_MAX
-    _check("feats", feats, (B, T, H, W, 4 * GC), x)
-    _check("dfeats", dfeats, (B, T, H, W, 4 * GC), x, torch.float32)
+    gc = ws[0].shape[-1]
+    P = feats.shape[-1] // 4 if feats.dim() == 5 else 0
+    if not gc <= P <= GC_MAX:
+        raise ValueError(f"feats: shape {tuple(feats.shape)}, expected four growth "
+                         f"segments of {gc}..{GC_MAX} lanes")
+    _check("feats", feats, (B, T, H, W, 4 * P), x)
+    _check("dfeats", dfeats, (B, T, H, W, 4 * P), x, torch.float32)
     if dx is not None:
         _check("dx", dx, x.shape, x, torch.float32)
+    lib = _library("dense_chain_bwd")
+    gcp = padded_gc(gc)
+    if lib.selfc_dense_chain_bwd_padded_gc(gc) != gcp:
+        raise RuntimeError(f"growth width {gc}: the forward and adjoint libraries "
+                           "disagree on the feats layout")
+    if P != gcp:
+        raise ValueError(f"feats: {P} lanes a growth segment; the kernels' layout "
+                         f"has {gcp} at growth width {gc}")
     dws = [torch.empty_like(w) for w in ws]
     dbs = [torch.empty_like(b) for b in bs]
     groups = max(1, min(BWD_GROUPS, B * T * H * W // 128))
-    partial = torch.empty(groups * (9 * (C + 3 * GC) * GC + GC), dtype=torch.float32,
+    partial = torch.empty(groups * (9 * (C + 3 * gc) * gc + gc), dtype=torch.float32,
                           device=x.device)
-    lib = _library("dense_chain_bwd")
     err = lib.selfc_dense_chain_spatial_backward(
         x.data_ptr(), feats.data_ptr(), *(w.data_ptr() for w in ws),
         dfeats.data_ptr(), dx.data_ptr() if dx is not None else None,
         *(t.data_ptr() for t in dws), *(t.data_ptr() for t in dbs),
-        partial.data_ptr(), groups, B * T, H, W, C, int(dx is not None),
+        partial.data_ptr(), groups, B * T, H, W, C, gc, int(dx is not None),
         _DTYPE_CODE[x.dtype], _stream(x),
     )
     _raise_on(err, "dense chain backward", lib.selfc_bwd_cuda_error_string)
     launches_bwd += 1
-    launches_bwd_by_width[C] = launches_bwd_by_width.get(C, 0) + 1
+    _count((C, gc), launches_bwd_by_width)
     return dws, dbs
 
 
@@ -373,8 +421,10 @@ def _bwd_cuda(x, ws, bs, feats, dfeats, dx):
 
 
 def chain_feats(x, ws, bs):
-    """The spatial-only forward ``[x_1 | .. | x_4]`` (not differentiable:
-    it serves the backward of ``dense_chain_t_ep``)."""
+    """The spatial-only forward ``[x_1 | .. | x_4]`` in its device's feats
+    layout (not differentiable: it serves the backward of
+    ``dense_chain_t_ep``; ``fused_dense_spatial`` is the differentiable
+    spatial chain)."""
     if not x.is_cuda:
         return chain_feats_plain(x, ws, bs)
     return _feats_cuda(x, ws, bs)
@@ -382,10 +432,14 @@ def chain_feats(x, ws, bs):
 
 def chain_spatial_bwd(x, ws, bs, feats, g, dx0=None):
     """The adjoint of the four spatial convs; arguments and result as
-    ``chain_spatial_bwd_plain``."""
+    ``chain_spatial_bwd_plain``. On a CUDA tensor ``feats`` and ``g`` are in
+    the kernels' layout, as ``chain_feats`` gives it there."""
     if not x.is_cuda:
         return chain_spatial_bwd_plain(x, ws, bs, feats, g, dx0)
+    gc = ws[0].shape[-1]
     dfeats = g.to(torch.float32, copy=True)  # the kernels update both in place
+    P = dfeats.shape[-1] // 4
+    dfeats.view(*dfeats.shape[:-1], 4, P)[..., gc:] = 0
     dx = (torch.zeros(x.shape, dtype=torch.float32, device=x.device) if dx0 is None
           else dx0.to(torch.float32, copy=True))
     dws, dbs = _bwd_cuda(x, ws, bs, feats, dfeats, dx)
@@ -398,17 +452,21 @@ def _conv5_adjoint(x, feats, w5, dy5, need_dx):
     dx)``. The three taps are folded into one contraction: with
     ``S = [dy5(t+1) | dy5(t) | dy5(t-1)]`` (zero outside the clip),
     ``d[x|feats] = S @ [w5[0] | w5[1] | w5[2]]^T`` and
-    ``dw5 = [x|feats]^T @ S``."""
+    ``dw5 = [x|feats]^T @ S``. ``feats`` may be in either layout: w5's
+    feature rows are scattered to its real lanes (zero rows at the pad
+    lanes, so dfeats has zero pad lanes) and dw5's gathered back from them."""
     B, T, H, W, C = x.shape
     c_out, acc = w5.shape[-1], dy5.dtype
+    gc = (w5.shape[1] - C) // 4
+    P = feats.shape[-1] // 4
     dyp = F.pad(dy5, (0, 0, 0, 0, 0, 0, 1, 1))
     S = torch.cat([dyp[:, 2 - dt:2 - dt + T] for dt in range(3)], dim=-1)
     S2 = S.reshape(-1, 3 * c_out)
-    wt = w5.to(acc).permute(0, 2, 1).reshape(3 * c_out, C + feats.shape[-1])
-    dfeats = (S2 @ wt[:, C:]).reshape(feats.shape)
+    wt = w5.to(acc).permute(0, 2, 1).reshape(3 * c_out, C + 4 * gc)
+    dfeats = (S2 @ padded_width(wt[:, C:], gc, P)).reshape(feats.shape)
     dx = (S2 @ wt[:, :C]).reshape(x.shape) if need_dx else None
-    dw5 = torch.cat([x.reshape(-1, C).to(acc).t() @ S2,
-                     feats.reshape(-1, feats.shape[-1]).to(acc).t() @ S2])
+    dwf = true_width((feats.reshape(-1, 4 * P).to(acc).t() @ S2).t(), gc).t()
+    dw5 = torch.cat([x.reshape(-1, C).to(acc).t() @ S2, dwf])
     dw5 = dw5.reshape(-1, 3, c_out).permute(1, 0, 2)
     return dw5, dy5.sum(dim=(0, 1, 2, 3)), dfeats, dx
 
@@ -450,8 +508,6 @@ class _DenseChainEp(torch.autograd.Function):
         need = ctx.needs_input_grad  # (mode, clamp, save_feats, x, w5, b5, a, m, *wbs)
         need_x, need_a, need_m = need[3], need[6], need[7]
         acc = _acc_dtype(x)
-        if x.is_cuda:  # before any work: the adjoint kernels take gc = 32 only
-            _validate_spatial(x, ws, bs, backward=True)
         if feats is None:
             feats = chain_feats(x, ws, bs)
         C = x.shape[-1]
@@ -479,7 +535,8 @@ class _DenseChainEp(torch.autograd.Function):
             gm = g * m.to(acc)
             dy5, da = -gm, gm
             if need_m:
-                y5 = temporal_conv3(torch.cat([x, feats], dim=-1), w5, b5).to(acc)
+                y5 = temporal_conv3(torch.cat([x, true_width(feats, ws[0].shape[-1])], dim=-1),
+                                    w5, b5).to(acc)
                 dm = g * (a.to(acc) - y5)
         dy5 = dy5.contiguous()
 
@@ -519,3 +576,71 @@ def dense_chain_t_ep(x, ws, bs, w5, b5, mode="none", clamp=1.0, a=None,
         a if n_aux >= 1 else None, m if n_aux >= 2 else None,
         *(w.to(dt) for w in ws), *(b.to(dt) for b in bs),
     )
+
+
+# ---------------------------------------------------------------------------
+# the v1 spatial chain (conv5 outside): selfc_tpu/ops/pallas_chain.py
+# fused_dense_spatial, a route over the spatial-only forward and the adjoint
+# ---------------------------------------------------------------------------
+
+
+def fused_dense_spatial_plain(x, ws, bs):
+    """Plain version of ``fused_dense_spatial``, differentiable by autograd."""
+    x5 = x if x.dim() == 5 else x[:, None]
+    out = chain_feats_plain(x5, [w.to(x.dtype) for w in ws], [b.to(x.dtype) for b in bs])
+    return out if x.dim() == 5 else out[:, 0]
+
+
+class _FusedDenseSpatial(torch.autograd.Function):
+    """``fused_dense_spatial`` on 5-d tensors already cast to x's dtype.
+    Forward: the spatial-only forward, whose feats buffer is the result (at
+    gc 32 it has no pad lanes) and is kept for the backward. Backward: the
+    chain adjoint from those features, as JAX's ``_fds_bwd`` takes
+    ``_pallas_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, *wbs):
+        global launches_spatial
+        ws, bs = list(wbs[:4]), list(wbs[4:])
+        if x.is_cuda:
+            out = _feats_cuda(x, ws, bs)
+            launches_spatial += 1
+            _count((x.shape[-1], GC_MAX), launches_spatial_by_width)
+        else:
+            out = chain_feats_plain(x, ws, bs)
+        ctx.save_for_backward(x, out, *wbs)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        global launches_spatial_bwd
+        x, feats, *wbs = ctx.saved_tensors
+        ws, bs = list(wbs[:4]), list(wbs[4:])
+        if x.is_cuda:
+            dfeats = g.to(torch.float32, copy=True).contiguous()
+            dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+            dws, dbs = _bwd_cuda(x, ws, bs, feats, dfeats, dx)
+            launches_spatial_bwd += 1
+            _count((x.shape[-1], GC_MAX), launches_spatial_bwd_by_width)
+        else:
+            dx, dws, dbs = chain_spatial_bwd_plain(x, ws, bs, feats, g)
+        return (dx.to(x.dtype) if ctx.needs_input_grad[0] else None), *dws, *dbs
+
+
+def fused_dense_spatial(x, ws, bs):
+    """The four spatial convs of the dense chain alone, differentiable:
+    ``x (B,T,H,W,C)`` or ``(N,H,W,C)`` -> the concat ``[x_1 | .. | x_4]``
+    ``(…,128)``, growth width 32 (the v1 kernel's). A CUDA tensor goes to
+    the kernels (or raises on what they do not take), a CPU tensor to the
+    plain versions. Parameters are cast to x's dtype outside the autograd
+    function, as in ``dense_chain_t_ep``."""
+    gc = ws[0].shape[-1]
+    if gc != GC_MAX:
+        raise ValueError(f"growth width {gc}: the v1 spatial chain takes {GC_MAX} only")
+    if x.dim() not in (4, 5):
+        raise ValueError(f"x: expected (B,T,H,W,C) or (N,H,W,C), got shape {tuple(x.shape)}")
+    x5 = x if x.dim() == 5 else x[:, None]
+    dt = x.dtype
+    out = _FusedDenseSpatial.apply(x5.contiguous(), *(w.to(dt) for w in ws), *(b.to(dt) for b in bs))
+    return out if x.dim() == 5 else out[:, 0]

@@ -50,6 +50,22 @@ def clip_by_global_norm_(params, max_norm: float):
     return norm
 
 
+def build_adam(params, to):
+    """Adam with the weight decay coupled into the gradient (``g + wd * p``
+    before the moments), eps 1e-8 outside the root, from the ``train``
+    options; the caller clips the gradients by global norm first
+    (``clip_by_global_norm_``). Returns the optimizer and the steps at which
+    its moments are cleared (``train.restarts`` when ``train.clear_state``
+    is set)."""
+    optimizer = torch.optim.Adam(
+        params, lr=to.get("lr_G") or 1e-4,
+        betas=(to.get("beta1") or 0.9, to.get("beta2") or 0.999),
+        eps=1e-8, weight_decay=to.get("weight_decay_G") or 0.0)
+    clear = (frozenset(int(r) for r in (to.get("restarts") or []))
+             if to.get("clear_state") else frozenset())
+    return optimizer, clear
+
+
 class RescaleModel:
     """Training and eval wrapper for the SelfC_GMM model type."""
 
@@ -84,22 +100,12 @@ class RescaleModel:
             self._build_optimizer()
 
     def _build_optimizer(self):
-        """Gradient clipping by global norm, then Adam with the weight decay
-        coupled into the gradient (``g + wd * p`` before the moments), eps
-        1e-8 outside the root. ``train.fused_optimizer`` is accepted and
-        changes nothing: it names the same arithmetic on one flat vector,
-        and there is one optimizer here."""
+        """``train.fused_optimizer`` is accepted and changes nothing: it
+        names the same arithmetic on one flat vector, and there is one
+        optimizer here."""
         to = self.train_opt
         base_lr = to.get("lr_G") or 1e-4
-        self.optimizer = torch.optim.Adam(
-            self.net.parameters(), lr=base_lr,
-            betas=(to.get("beta1") or 0.9, to.get("beta2") or 0.999),
-            eps=1e-8, weight_decay=to.get("weight_decay_G") or 0.0)
-        # Adam's moments are cleared at the restart steps when
-        # train.clear_state is set
-        self._clear_state_steps = (
-            frozenset(int(r) for r in (to.get("restarts") or []))
-            if to.get("clear_state") else frozenset())
+        self.optimizer, self._clear_state_steps = build_adam(self.net.parameters(), to)
         scheme = to.get("lr_scheme") or "MultiStepLR"
         if scheme == "MultiStepLR":
             self.lr_fn = multistep_restart(

@@ -33,6 +33,14 @@ CODEC_DEC_SHAPE = (16, 3, 270, 480)
 # (C, c_out, gc) of the codec's chains: coupling F, H/G (12 = 3 * 2^2 HF
 # channels); the prior's head and body (hidden 24, gc 12)
 CODEC_WIDTHS = ((12, 3, 32), (3, 12, 32), (3, 24, 12), (24, 24, 12))
+# the codec's training batch (selfc_tpu/configs/train/train_compression.yml:
+# 12 clips of 3 frames, 144 x 144 crops) and its latent at scale 2
+CODEC_TRAIN_SHAPE = (12, 3, 144, 144, 3)
+CODEC_TRAIN_LAT = (12, 3, 72, 72)
+# the input widths of the surrogate's four DenseBlock2D chains (growth 32):
+# net_0 takes the LR and its indicator plane, net_1, net_4 and net_5 the
+# hidden 24
+SURROGATE_C = (4, 24)
 
 
 def time_cuda(fn, iters: int = 20, warmup: int = 3) -> dict:
@@ -104,17 +112,19 @@ def chain_feats_cost(B, T, H, W, C, itemsize, gc=32):
     return 2.0 * _spatial_macs(B, T, H, W, C, gc), float(nbytes)
 
 
-def chain_bwd_cost(B, T, H, W, C, itemsize, gc=32):
-    """(operations, bytes) of the chain adjoint. Operations: the data
-    gradient and the weight gradient of a layer each repeat the layer's
-    forward products, with the same taps inside the image. Bytes: x, the
-    saved features and the weights read once (``itemsize`` each), the fp32
-    gradients that reach features and x read once, the fp32 gradient of x
-    written once, the weight and bias gradients written once."""
+def chain_bwd_cost(B, T, H, W, C, itemsize, gc=32, dx_in=True):
+    """(operations, bytes) of the chain adjoint at the true growth width.
+    Operations: the data gradient and the weight gradient of a layer each
+    repeat the layer's forward products, with the same taps inside the
+    image. Bytes: x, the saved features and the weights read once
+    (``itemsize`` each), the fp32 gradients that reach features and (with
+    ``dx_in``; the v1 spatial chain has none) x read once, the fp32
+    gradient of x written once, the weight and bias gradients written
+    once."""
     px = B * T * H * W
     n_params = sum(9 * (C + gc * k) * gc + gc for k in range(4))
     nbytes = (itemsize * (px * (C + 4 * gc) + 2 * n_params)
-              + 4 * px * (4 * gc + 2 * C))
+              + 4 * px * (4 * gc + (2 if dx_in else 1) * C))
     return 4.0 * _spatial_macs(B, T, H, W, C, gc), float(nbytes)
 
 
@@ -136,9 +146,11 @@ def chain_bound_ms(B, T, H, W, C, c_out, n_aux, dtype=torch.float32, gc=32):
     return bound_ms(*chain_cost(B, T, H, W, C, c_out, n_aux, _itemsize(dtype), gc), dtype)
 
 
-def chain_feats_bound_ms(B, T, H, W, C, dtype=torch.float32):
-    return bound_ms(*chain_feats_cost(B, T, H, W, C, _itemsize(dtype)), dtype)
+def chain_feats_bound_ms(B, T, H, W, C, dtype=torch.float32, gc=32):
+    """Also the bound of the v1 spatial chain's forward (gc 32)."""
+    return bound_ms(*chain_feats_cost(B, T, H, W, C, _itemsize(dtype), gc), dtype)
 
 
-def chain_bwd_bound_ms(B, T, H, W, C, dtype=torch.float32):
-    return bound_ms(*chain_bwd_cost(B, T, H, W, C, _itemsize(dtype)), dtype)
+def chain_bwd_bound_ms(B, T, H, W, C, dtype=torch.float32, gc=32, dx_in=True):
+    """``dx_in=False``: the v1 spatial chain's backward."""
+    return bound_ms(*chain_bwd_cost(B, T, H, W, C, _itemsize(dtype), gc, dx_in), dtype)

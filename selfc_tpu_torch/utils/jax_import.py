@@ -7,7 +7,9 @@ module's parameters. Reading the checkpoint file itself (flax msgpack) is
 the caller's business — this module imports neither jax nor flax.
 ``export_jax_params`` / ``export_jax_grads`` go the other way: the
 module's parameters, or their gradients, as a nested numpy tree under the
-JAX names, so the two stacks can be compared leaf by leaf.
+JAX names, so the two stacks can be compared leaf by leaf. A tree of
+several top-level parts, as the codec's training keeps (``{net,
+surrogate}``), goes into an ``nn.ModuleDict`` of modules under those keys.
 """
 
 from __future__ import annotations

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from selfc_tpu.ops.pallas_chain import (
-    _pallas_bwd, _pallas_feats, _xla_impl, _xla_impl_v2_ep)
+    _pallas_bwd, _pallas_feats, _xla_impl, _xla_impl_v2, _xla_impl_v2_ep, fused_dense_spatial)
 from selfc_tpu_torch.ops import dense_chain as dc
 from selfc_tpu_torch.utils.bench import chain_bwd_cost, chain_feats_cost
 
@@ -303,3 +303,136 @@ def test_backward_cost_model_counts_only_taps_inside_the_image(C, shape):
     ops, nbytes = chain_bwd_cost(B, T, H, W, C, 2)
     assert ops == pytest.approx(4 * macs, rel=1e-12)
     assert nbytes == 2 * (px * (C + 128) + 2 * n_params) + 4 * px * (128 + 2 * C)
+
+
+# ---------------------------------------------------------------------------
+# growth width below 32 (the codec prior's 12), and the feats layouts
+# ---------------------------------------------------------------------------
+
+
+def _chain_gc(seed, C, gc, c_out, shape):
+    rng = np.random.default_rng(seed)
+    f = lambda s, sc: rng.normal(0, sc, s).astype(np.float32)  # noqa: E731
+    ws = [f((3, 3, C + gc * k, gc), (9 * (C + gc * k)) ** -0.5) for k in range(4)]
+    bs = [f((gc,), 0.1) for _ in range(4)]
+    w5, b5 = f((3, C + 4 * gc, c_out), (3 * (C + 4 * gc)) ** -0.5), f((c_out,), 0.1)
+    return f(shape + (C,), 1.0), ws, bs, w5, b5
+
+
+@pytest.mark.parametrize("save_feats", [True, False])
+@pytest.mark.parametrize("gc,C,c_out", [(12, 3, 12), (24, 24, 24)])
+def test_small_gc_grads_match_xla(gc, C, c_out, save_feats):
+    """tests/test_pallas_chain.py's test of the same name, on the port:
+    ``dense_chain_t_ep`` under autograd against ``jax.grad`` of
+    ``_xla_impl_v2`` (the chain without an epilogue) at growth width 12 and
+    24, the gradients coming back at the true gc's shapes."""
+    shape = (1, 2, 8, 16)
+    x, ws, bs, w5, b5 = _chain_gc(22, C, gc, c_out, shape)
+    leaves = [_t(x), *_t(ws), *_t(bs), _t(w5), _t(b5)]
+    for t in leaves:
+        t.requires_grad_(True)
+    y = dc.dense_chain_t_ep(leaves[0], leaves[1:5], leaves[5:9], leaves[9], leaves[10],
+                            save_feats=save_feats)
+    got = torch.autograd.grad((y ** 2).sum(), leaves)
+    want = jax.jit(jax.grad(lambda *a: jnp.sum(_xla_impl_v2(*a) ** 2), argnums=(0, 1, 2, 3, 4)))(
+        _j(x), _j(ws), _j(bs), _j(w5), _j(b5))
+    for u, v in zip(got, jax.tree.leaves(want)):
+        assert u.shape == v.shape
+        np.testing.assert_allclose(u.numpy(), np.asarray(v), rtol=1e-5, atol=2e-3)
+
+
+@pytest.mark.parametrize("gc", [12, 24])
+def test_adjoint_and_conv5_adjoint_take_either_feats_layout(gc):
+    """The kernels' layout (each growth segment padded to 16 or 32 lanes)
+    and the plain one give the same adjoint: the plain sweep ignores the pad
+    lanes of the gradient (noise here), and conv5's adjoint scatters w5's
+    rows to the real lanes (zero rows at the pad lanes) and gathers dw5 back."""
+    P = 16 if gc <= 16 else 32
+    x, ws, bs, w5, _ = _chain_gc(30, 8, gc, 6, (1, 3, 5, 6))
+    x, ws, bs, w5 = _t(x), _t(ws), _t(bs), _t(w5)
+    feats = dc.chain_feats_plain(x, ws, bs)
+    padded = dc.padded_width(feats, gc, P)
+    assert padded.shape[-1] == 4 * P and torch.equal(dc.true_width(padded, gc), feats)
+    g = torch.from_numpy(np.random.default_rng(31).normal(0, 1, padded.shape).astype(np.float32))
+    want = dc.chain_spatial_bwd_plain(x, ws, bs, feats, dc.true_width(g, gc))
+    got = dc.chain_spatial_bwd_plain(x, ws, bs, padded, g)
+    for u, v in zip([got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]]):
+        torch.testing.assert_close(u, v, rtol=0, atol=0)
+    dy5 = torch.from_numpy(np.random.default_rng(32).normal(0, 1, (1, 3, 5, 6, 6)).astype(np.float32))
+    a = dc._conv5_adjoint(x, feats, w5, dy5, True)
+    b = dc._conv5_adjoint(x, padded, w5, dy5, True)
+    torch.testing.assert_close(b[0], a[0], rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(dc.true_width(b[2], gc), a[2], rtol=1e-6, atol=1e-6)
+    assert not dc.true_width(b[2], gc).equal(b[2]) and b[2].reshape(1, 3, 5, 6, 4, P)[..., gc:].abs().max() == 0
+    torch.testing.assert_close(b[3], a[3])
+
+
+# ---------------------------------------------------------------------------
+# the v1 spatial chain (conv5 outside): fused_dense_spatial
+# ---------------------------------------------------------------------------
+
+
+def _spatial_grads(x, ws, bs, g):
+    leaves = [_t(x), *_t(ws), *_t(bs)]
+    for t in leaves:
+        t.requires_grad_(True)
+    y = dc.fused_dense_spatial(leaves[0], leaves[1:5], leaves[5:])
+    return y.detach().numpy(), [t.numpy() for t in torch.autograd.grad(y, leaves, _t(g))]
+
+
+def test_fused_dense_spatial_matches_pallas_interpret():
+    """JAX's ``fused_dense_spatial`` (the v1 kernel in interpret mode, its
+    custom VJP) against the port's, forward and gradients, at the shape of
+    tests/test_pallas_chain.py's ``test_custom_vjp_matches_xla_grads``."""
+    x, ws, bs, *_ = _chain(40, 3, 3, (1, 1, 12, 16))
+    g = np.random.default_rng(41).normal(0, 1, (1, 1, 12, 16, 128)).astype(np.float32)
+    y, got = _spatial_grads(x, ws, bs, g)
+    want_y, want = jax.jit(lambda a, g: (lambda o: (o[0], o[1](g)))(jax.vjp(fused_dense_spatial, *a)))(
+        (_j(x), _j(ws), _j(bs)), _j(g))
+    np.testing.assert_allclose(y, np.asarray(want_y), atol=2e-5)
+    for u, v in zip(got, jax.tree.leaves(want)):
+        np.testing.assert_allclose(u, np.asarray(v), rtol=1e-5, atol=2e-3)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 6, 24), (3, 10, 24)])
+def test_fused_dense_spatial_matches_xla(shape):
+    """Against ``jax.vjp`` of ``_xla_impl`` at a width that is not a multiple
+    of 16 (as the surrogate's 72-column latents), on a video and on images
+    ``(N,H,W,C)``."""
+    C = 4
+    x, ws, bs, *_ = _chain(42, C, 3, shape[:-1] if len(shape) == 4 else shape[:-1])
+    x = np.random.default_rng(43).normal(0, 1, shape + (C,)).astype(np.float32)
+    g = np.random.default_rng(44).normal(0, 1, shape + (128,)).astype(np.float32)
+    y, got = _spatial_grads(x, ws, bs, g)
+    x5 = _j(x) if len(shape) == 4 else _j(x)[:, None]
+    g5 = _j(g) if len(shape) == 4 else _j(g)[:, None]
+    want_y = jax.jit(_xla_impl)(x5, _j(ws), _j(bs))
+    want = _jax_vjp(_xla_impl, (x5, _j(ws), _j(bs)), g5)
+    np.testing.assert_allclose(y, np.asarray(want_y).reshape(y.shape), atol=2e-5)
+    _assert_bwd((torch.from_numpy(got[0]), [torch.from_numpy(u) for u in got[1:5]],
+                 [torch.from_numpy(u) for u in got[5:]]),
+                (np.asarray(want[0]).reshape(x.shape), want[1], want[2]))
+
+
+def test_fused_dense_spatial_takes_growth_32_only():
+    x, ws, bs, *_ = _chain_gc(45, 4, 12, 3, (1, 1, 4, 4))
+    with pytest.raises(ValueError, match="growth width 12"):
+        dc.fused_dense_spatial(_t(x), _t(ws), _t(bs))
+
+
+@pytest.mark.parametrize("gc,dx_in", [(12, True), (24, True), (32, False)])
+def test_backward_cost_model_counts_the_true_growth_width(gc, dx_in):
+    """Below growth 32 the bounds of the adjoint and the spatial-only forward
+    count the chain's own channels, not the kernels' pad lanes; the v1
+    spatial chain's backward (``dx_in=False``) reads no gradient of x."""
+    B, T, H, W, C = 2, 3, 5, 4, 24
+    ones = torch.ones(1, 1, H, W, dtype=torch.float64)
+    taps = torch.nn.functional.conv2d(ones, torch.ones(1, 1, 3, 3, dtype=torch.float64), padding=1).sum().item()
+    macs = B * T * taps * sum((C + gc * k) * gc for k in range(4))
+    n_params = sum(9 * (C + gc * k) * gc + gc for k in range(4))
+    px = B * T * H * W
+    ops, nbytes = chain_feats_cost(B, T, H, W, C, 4, gc)
+    assert ops == pytest.approx(2 * macs, rel=1e-12) and nbytes == 4 * (px * (C + 4 * gc) + n_params)
+    ops, nbytes = chain_bwd_cost(B, T, H, W, C, 4, gc, dx_in)
+    assert ops == pytest.approx(4 * macs, rel=1e-12)
+    assert nbytes == 4 * (px * (C + 4 * gc) + 2 * n_params) + 4 * px * (4 * gc + (2 if dx_in else 1) * C)

@@ -323,14 +323,17 @@ def test_batched_call_count(standin_pinned):
 
 
 def test_codec_model_defaults_to_cuda_and_serves_only():
+    """The default device is the card; on the CPU only when asked. A model
+    built for eval serves only (``optimize_parameters`` needs
+    ``is_train``, which the codec's training slice now provides)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works here")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CodecModel(_codec_opt())
-    opt = _codec_opt()
-    opt["is_train"] = True
-    with pytest.raises(NotImplementedError, match="A14"):
-        CodecModel(opt, device="cpu")
+    model = CodecModel(_codec_opt(), device="cpu")
+    assert not model.is_train and model.surrogate is None
+    with pytest.raises(RuntimeError, match="is_train"):
+        model.optimize_parameters(0)
 
 
 def test_codec_model_test_matches_jax_composition(stacks, standin_pinned):

@@ -182,16 +182,18 @@ def test_kernel_argument_checks_reject_growth_width_over_32():
 
 
 def test_small_growth_width_backward_refused_on_the_card():
-    """The adjoint and the spatial-only forward kernels take gc = 32 only:
-    the validator that ``_DenseChainEp.backward``, ``chain_feats`` and
-    ``chain_spatial_bwd`` run on a CUDA tensor refuses gc 12 before any
-    launch, naming the codec's training slice; gc 32 passes it."""
+    """The adjoint and the spatial-only forward kernels take every growth
+    width the forward takes (the refusal of gc < 32 is gone): the validator
+    that ``chain_feats`` and ``chain_spatial_bwd`` run on a CUDA tensor
+    passes gc 12 and 32 and refuses only gc > 32, before any launch."""
     t = torch.from_numpy
     x, ws, bs, *_ = _chain_gc(7, 24, 12, 24, (1, 2, 4, 5))
-    with pytest.raises(NotImplementedError, match="codec's training"):
-        dc._validate_spatial(t(x), [t(w) for w in ws], [t(b) for b in bs], backward=True)
+    dc._validate_spatial(t(x), [t(w) for w in ws], [t(b) for b in bs])
     x, ws, bs, *_ = _valid_args()
-    dc._validate_spatial(x, ws, bs, backward=True)
+    dc._validate_spatial(x, ws, bs)
+    x, ws, bs, *_ = _chain_gc(7, 24, 48, 24, (1, 2, 4, 5))
+    with pytest.raises(ValueError, match="growth width 48"):
+        dc._validate_spatial(t(x), [t(w) for w in ws], [t(b) for b in bs])
 
 
 @pytest.mark.parametrize("fault,error", [
