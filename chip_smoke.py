@@ -11,13 +11,17 @@ batch of the published training config (``optimize_parameters`` on 8 clips
 of 7 frames, 144 x 144), and it runs the compression eval of the published
 SelfC_GMM_Codec net (``CodecModel``: feed_data -> test() on a synthetic
 13-frame clip at the UVG size 1080 x 1920, through the host's x265 or the
-zlib stand-in). It times the kernels beside their roofline bound. Prints one
-JSON line per phase; any failure exits non-zero. There is no CPU fallback:
-without a CUDA device the script fails at once.
+zlib stand-in), it trains that codec net with its surrogate
+(``optimize_parameters`` on the published batch of 12 clips of 3 frames,
+144 x 144), and it runs the codec's eval and training step again with the
+de-artifact net (``network_G.deart_net``, whose deformable conv is kernel B5).
+It times the kernels beside their roofline bound. Prints one JSON line per
+phase; any failure exits non-zero. There is no CPU fallback: without a CUDA
+device the script fails at once.
 
-``--phases serve,train,codec`` (the default) picks the paths; ``--phases
-kernels`` only builds the kernels and checks them against their plain
-versions.
+``--phases serve,train,codec,codec_train,deart`` (the default) picks the
+paths; ``--phases kernels`` only builds the kernels and checks them against
+their plain versions.
 
 Last lines of the output: a ``{"kernels": [...]}`` object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+from collections import Counter
 import json
 import subprocess
 import sys
@@ -40,13 +45,16 @@ from selfc_tpu_torch.codec import h265
 from selfc_tpu_torch.codec.pipeline import seg_add_pad
 from selfc_tpu_torch.config import dict_to_nonedict
 from selfc_tpu_torch.kernels import build
+from selfc_tpu_torch.ops import deform as df
 from selfc_tpu_torch.ops import dense_chain as dc
+from selfc_tpu_torch.ops.conv import conv2d
 from selfc_tpu_torch.train.codec_model import CodecModel
 from selfc_tpu_torch.train.rescale_model import RescaleModel, clip_by_global_norm_
 from selfc_tpu_torch.utils.bench import (
     CLIP_HW, CODEC_DEC_SHAPE, CODEC_ENC_SHAPE, CODEC_TRAIN_LAT, CODEC_TRAIN_SHAPE, CODEC_WIDTHS,
-    PATH_WIDTHS, SERVE_SHAPE, SURROGATE_C, TRAIN_SHAPE, UVG_HW, chain_bound_ms, chain_bwd_bound_ms,
-    chain_feats_bound_ms, make_chain, time_cuda)
+    DEART_C, DEART_DEC_SHAPE, DEART_TRAIN_SHAPE, PATH_WIDTHS, SERVE_SHAPE, STP_DEFORM_C,
+    STP_DEFORM_SHAPE, SURROGATE_C, TRAIN_SHAPE, UVG_HW, chain_bound_ms, chain_bwd_bound_ms,
+    chain_feats_bound_ms, deform_bound_ms, deform_tap_stats, make_chain, make_deform, time_cuda)
 from selfc_tpu_torch.utils.metrics import psnr
 
 CHECK_WIDTHS = ((3, 48), (48, 3), (64, 64))           # coupling F/H/G and the prior
@@ -107,6 +115,21 @@ N_CODEC_STEPS = 3
 # three 24->24); the surrogate's 4 v1 spatial chains
 CODEC_TRAIN_FWD = {(12, 3, 32): 8, (3, 12, 32): 16, (3, 24, 12): 1, (24, 24, 12): 3}
 CODEC_TRAIN_SPATIAL = {(4, 32): 1, (24, 32): 3}
+# B5, the modulated deformable conv
+SOURCE_DEFORM = "selfc_tpu_torch/csrc/deform.cu"
+REPLACES_DEFORM = "selfc_tpu/ops/deform.py:177"
+# (shape, C, Cout) of the checks: odd sizes, the JAX package's kernel test,
+# the de-artifact net's training and decode calls, the STP prior's
+DEFORM_CHECKS = (((2, 13, 21), 5, 3), ((2, 12, 16), 8, 8), (DEART_TRAIN_SHAPE, DEART_C, DEART_C),
+                 (DEART_DEC_SHAPE, DEART_C, DEART_C), (STP_DEFORM_SHAPE, STP_DEFORM_C, STP_DEFORM_C))
+DEFORM_SPREAD = 7.0              # px: the checks' offsets, so that taps leave the frame
+DEART_OFFSET_STD = 2.0           # px: the de-artifact net's seeded offsets are scaled to this spread
+# launches of the de-artifact net: B5 9 a decode call (3 output frames x 3
+# pairs), so 18 a test() and 9 each way a training step; B1 one 3->32 and one
+# 32->3 chain a decode call
+DEART_B5_TEST, DEART_B5_STEP = 18, 9
+DEART_B1_DECODE = {(3, 32, 32): 1, (32, 3, 32): 1}
+ALL_PHASES = ("serve", "train", "codec", "codec_train", "deart")
 
 
 def check(ok, what):
@@ -143,15 +166,16 @@ def to_library_layout(x, ws, bs, w5, b5, a, m):
 
 @contextlib.contextmanager
 def plain_chain_on_card():
-    """Route the models' chain calls (the whole chain and the v1 spatial
-    chain) to the plain versions, for comparison."""
-    kernels = dc.dense_chain_t_ep, dc.fused_dense_spatial
+    """Route the models' kernel calls (the whole chain, the v1 spatial chain
+    and the deformable conv) to the plain versions, for comparison."""
+    kernels = dc.dense_chain_t_ep, dc.fused_dense_spatial, df.deform_conv2d
     dc.dense_chain_t_ep = lambda *a, save_feats=True, **kw: dc.dense_chain_t_ep_plain(*a, **kw)
     dc.fused_dense_spatial = dc.fused_dense_spatial_plain
+    df.deform_conv2d = df.deform_conv2d_plain
     try:
         yield
     finally:
-        dc.dense_chain_t_ep, dc.fused_dense_spatial = kernels
+        dc.dense_chain_t_ep, dc.fused_dense_spatial, df.deform_conv2d = kernels
 
 
 def seeded_tree(net, seed):
@@ -765,16 +789,17 @@ def phase_kernels_gc(device):
     return worst
 
 
-def codec_options():
+def codec_options(**network):
     """The network of the published selfc_tpu/configs/test/test_codec_uvg_bf.yml
-    (random weights instead of its .pth), built here."""
+    (random weights instead of its .pth), built here; ``network`` overrides
+    its ``network_G`` (``deart_net=True``: the de-artifact net)."""
     return dict_to_nonedict({
         "model": "SelfC_GMM_Codec", "distortion": "sr_bd", "scale": 2,
         "network_G": {"which_model_G": {"subnet_type": "D2DTNet"}, "in_nc": 3, "out_nc": 3,
                       "block_num": [4], "scale": 2, "init": "xavier", "global_module": "nonlocal",
                       "stp_blk_num": 4, "h265_deart": False, "h265_q": 9, "h265_keyint": -1,
                       "h265_all_default": True, "fh_loss": "l2", "stp_hidden_c": 24,
-                      "stp_denseblock_innerc": 12},
+                      "stp_denseblock_innerc": 12, **network},
     })
 
 
@@ -979,7 +1004,7 @@ def phase_timing_codec(device, model, split, x_enc, lr_dec, test_s, peak_gib, wo
          chains_ms_per_encode_call=chains_ms["encode"], chains_ms_per_decode_call=chains_ms["decode"],
          host_codec_s=codec_s, host_codec=h265.codec_backend() or model.rate_source,
          test_s=test_s, frames_per_s=CODEC_T / test_s, peak_device_memory_gib=peak_gib)
-    return kernels
+    return kernels, {"test_s": test_s, "decode_call_ms": dec["median"], "peak_device_memory_gib": peak_gib}
 
 
 def library_feats2d(x, ws, bs):
@@ -1076,16 +1101,18 @@ def phase_kernels_gc_bwd(device):
     return worst
 
 
-def codec_train_options(**train):
+def codec_train_options(network=None, **train):
     """The options of the published selfc_tpu/configs/train/train_compression.yml,
-    built here: the whole batch of 12 on one card."""
+    built here: the whole batch of 12 on one card; ``network`` overrides its
+    ``network_G``."""
     return dict_to_nonedict({
         "model": "SelfC_GMM_Codec", "distortion": "sr_bd", "scale": 2, "is_train": True,
         "datasets": {"train": {"video_len": 3, "batch_size": 12, "GT_size": 144}},
         "network_G": {"which_model_G": {"subnet_type": "D2DTNet"}, "in_nc": 3, "out_nc": 3,
                       "block_num": [4], "scale": 2, "init": "xavier", "global_module": "nonlocal",
                       "stp_blk_num": 4, "fh_loss": "l2", "h265_deart": False, "h265_q": 16,
-                      "lambda_corr": 1e-5, "stp_hidden_c": 24, "stp_denseblock_innerc": 12},
+                      "lambda_corr": 1e-5, "stp_hidden_c": 24, "stp_denseblock_innerc": 12,
+                      **(network or {})},
         "train": {"lr_G": 1e-4, "beta1": 0.9, "beta2": 0.999, "niter": 1000000, "warmup_iter": -1,
                   "lr_scheme": "MultiStepLR", "lr_steps": [300000, 400000, 500000, 600000],
                   "lr_gamma": 0.5, "pixel_criterion_forw": "l2", "pixel_criterion_back": "l1",
@@ -1112,8 +1139,8 @@ def codec_tree(model, seed):
     return {"net": seeded_tree(model.net, seed), "surrogate": seeded_tree(model.surrogate, seed + 1)}
 
 
-def new_codec_trainer(device, tree, batch, **train):
-    model = CodecModel(codec_train_options(**train), device=device, rng_seed=0)
+def new_codec_trainer(device, tree, batch, network=None, **train):
+    model = CodecModel(codec_train_options(network, **train), device=device, rng_seed=0)
     model.load_jax_params(tree)
     check(model.feed_data({"GT": batch}) == CODEC_TRAIN_SHAPE[1], "feed_data returns the clip length")
     return model
@@ -1356,13 +1383,284 @@ def phase_timing_codec_train(device, tree, batch, counts, worst):
          optimizer_ms=split["optimizer"], clips_per_s=CODEC_TRAIN_SHAPE[0] * 1e3 / step["median"],
          peak_device_memory_gib_saved_feats=peak_saved, peak_device_memory_gib_recomputed_feats=peak_recompute,
          rate_source=rate, host_codec=h265.codec_backend() or "stand-in")
-    return kernels
+    return kernels, {"step_ms": step["median"], "step_plain_ms": step_p["median"],
+                     "peak_device_memory_gib": peak_saved}
+
+
+def deform_errors(got, want, fp32):
+    """Errors of one deformable-conv comparison: max abs (fp32) or relative
+    to max |ref| (bf16)."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err if fp32 else err / want.float().abs().max().item()
+
+
+def phase_kernels_deform(device):
+    """B5 forward and backward against the composition and the closed-form
+    adjoint on the card, fp32 and bf16: offsets uniform in +-7 px (taps
+    leave the frame), the mask in [0, 2]; dweight the same bits twice, and
+    dx's run-to-run difference (atomics) reported. Zero offsets with mask 1
+    must give the port's conv2d. On a CUDA tensor the op launches or raises."""
+    rng = np.random.default_rng(70)
+    cases, worst = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        fp32 = dtype == torch.float32
+        for shape, C, c_out in DEFORM_CHECKS:
+            x, off, mask, w, g = make_deform(rng, shape, C, c_out, device, dtype, DEFORM_SPREAD)
+            corners, outside = deform_tap_stats(off)
+            e_fwd = deform_errors(df.deform_conv2d(x, off, mask, w), df.deform_conv2d_plain(x, off, mask, w), fp32)
+            got = df._backward_cuda(x, off, mask, w, g)
+            again = df._backward_cuda(x, off, mask, w, g)
+            want = df.deform_conv2d_bwd_plain(x, off, mask, w, g)
+            torch.cuda.synchronize()
+            e_bwd = {n: rel_err(u, v) for n, u, v in zip(("dx", "doffset", "dmask", "dweight"), got, want)}
+            same_bits = torch.equal(got[3], again[3])
+            dx_repeat = (got[0].float() - again[0].float()).abs().max().item()
+            ok = (e_fwd <= (FP32_LIMIT if fp32 else BF16_REL_LIMIT)
+                  and max(e_bwd.values()) <= (BWD_FP32_REL_LIMIT if fp32 else BWD_BF16_REL_LIMIT) and same_bits)
+            if fp32:
+                worst[(tuple(shape), C, c_out)] = {
+                    "forward": e_fwd, "backward": max((u.float() - v.float()).abs().max().item()
+                                                      for u, v in zip(got, want))}
+            cases.append({"dtype": str(dtype).split(".")[-1], "shape": list(shape), "C": C, "c_out": c_out,
+                          "forward_err": e_fwd, **{f"{n}_rel_err": v for n, v in e_bwd.items()},
+                          "dweight_same_bits_twice": same_bits, "dx_run_to_run_max_abs": dx_repeat,
+                          "corners_inside_per_tap": corners, "taps_with_a_corner_outside": outside, "ok": ok})
+            check(ok and np.isfinite(e_fwd + sum(e_bwd.values())),
+                  f"B5 agrees with its plain versions: {cases[-1]}")
+            del x, off, mask, w, g, got, again, want
+    # zero offsets, mask 1: the SAME 3x3 conv
+    x, _, _, w, _ = make_deform(rng, (2, 12, 16), 8, 8, device)
+    zero = df.deform_conv2d(x, torch.zeros(2, 12, 16, 18, device=device), torch.ones(2, 12, 16, 9, device=device), w)
+    e_zero = (zero - conv2d(x, w)).abs().max().item()
+    check(e_zero <= FP32_LIMIT, f"zero offsets and mask 1 give conv2d: {e_zero}")
+    # on a CUDA tensor the op launches or raises
+    x, off, mask, w, _ = make_deform(rng, (1, 5, 6), 4, 4, device)
+    before, refused = (df.launches, df.launches_bwd), []
+    for fault, error, args in (("bf16 offset", ValueError, (x, off.bfloat16(), mask, w)),
+                               ("float64", TypeError, (x.double(), off.double(), mask.double(), w.double())),
+                               ("17 offset channels", ValueError, (x, off[..., :17], mask, w))):
+        try:
+            df.deform_conv2d(*args)
+        except error:
+            refused.append(fault)
+    check(len(refused) == 3 and (df.launches, df.launches_bwd) == before,
+          f"the deformable conv refuses bad CUDA arguments: {refused}")
+    emit("kernels_deform", kernels=["deform_conv2d", "deform_conv2d_bwd"], n_cases=len(cases),
+         spread_px=DEFORM_SPREAD, fp32_limit=FP32_LIMIT, bf16_rel_limit=BF16_REL_LIMIT,
+         bwd_fp32_rel_limit=BWD_FP32_REL_LIMIT, bwd_bf16_rel_limit=BWD_BF16_REL_LIMIT,
+         zero_offset_vs_conv2d_max_abs=e_zero, refused=refused, cases=cases)
+    return worst
+
+
+def scale_deart_offsets(module, tree, lr):
+    """Scale ``deart_1.offset_w`` / ``offset_b`` of the (flat) ``tree`` in
+    place so that the offsets the loaded ``module`` gives on ``lr`` have a
+    standard deviation of DEART_OFFSET_STD px; returns their statistics
+    after the scaling (range, corners inside, share of taps with a corner
+    outside the frame)."""
+    with torch.no_grad():
+        _, off, _ = module.deart_1.deform_inputs(module.deart_0(lr))
+        f = DEART_OFFSET_STD / off.float().std().item()
+        for leaf in ("offset_w", "offset_b"):
+            tree[f"deart_1.{leaf}"] = tree[f"deart_1.{leaf}"] * np.float32(f)
+            getattr(module.deart_1, leaf).mul_(f)
+        _, off, _ = module.deart_1.deform_inputs(module.deart_0(lr))
+        pairs = off.permute(0, 1, 4, 2, 3, 5).reshape(-1, *off.shape[2:4], 18)
+        corners, outside = deform_tap_stats(pairs)
+        return {"scale": f, "min_px": off.min().item(), "max_px": off.max().item(),
+                "std_px": off.float().std().item(), "corners_inside_per_tap": corners,
+                "taps_with_a_corner_outside": outside}
+
+
+def phase_codec_deart(device, base):
+    """The compression eval of the published codec net with
+    ``deart_net: true`` through ``CodecModel.test``; the launch counts of
+    exactly that call are kept. Then hr from one shared decoded LR, kernel
+    path against plain path, and the decode call's time."""
+    clip = uvg_clip()
+    model = CodecModel(codec_options(deart_net=True), device=device, rng_seed=0)
+    tree = seeded_tree(model.net, 41)
+    model.load_jax_params(tree)
+    lr_like = model._on_device(first_group(seg_add_pad(clip[:, :, ::2, ::2], 3)[0], 4))
+    offsets = scale_deart_offsets(model.net, tree, lr_like)
+    n_params = sum(p.numel() for p in model.net.parameters())
+    plain_calls = [0]
+    plain = df.deform_conv2d_plain
+
+    def plain_counted(*a, **kw):
+        plain_calls[0] += 1
+        return plain(*a, **kw)
+
+    df.deform_conv2d_plain = plain_counted
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        # ---- the main path: counts set to 0 just before, read just after ----
+        dc.reset_launch_counts()
+        df.reset_launch_counts()
+        t0 = time.time()
+        check(model.feed_data({"GT": clip}) == CODEC_T, "feed_data returns the clip length")
+        model.test()
+        torch.cuda.synchronize()
+        test_s = time.time() - t0
+        counts = {"b5": dict(df.launches_by_width), "b5_bwd": df.launches_bwd, "b1": dict(dc.launches_by_width)}
+        # ---------------------------------------------------------------------
+    finally:
+        df.deform_conv2d_plain = plain
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    want_b1 = dict(Counter(CODEC_LAUNCHES["encode"]) + Counter(CODEC_LAUNCHES["decode"])
+                   + Counter({k: 2 * v for k, v in DEART_B1_DECODE.items()}))
+    check(counts["b5"] == {(DEART_C, DEART_C): DEART_B5_TEST} and counts["b5_bwd"] == 0 and plain_calls[0] == 0,
+          f"B5 launches of test(): {counts['b5']}, backward {counts['b5_bwd']}, plain calls {plain_calls[0]}")
+    check(counts["b1"] == want_b1, f"B1 launches of test(): {counts['b1']} (expected {want_b1})")
+    vis, met = model.get_current_visuals(), model.get_current_metrics()
+    check(vis["SR"].shape == clip.shape and np.isfinite(vis["SR"]).all(), "SR: shape and finite")
+    bpp = met["video_bpp"]
+    check(0.01 < bpp < 6.0, f"bpp {bpp}: neither trivial nor saturated")
+    with torch.no_grad():
+        lr_dec = model._on_device(first_group(seg_add_pad(vis["LR"], 3)[0], 4))
+        hr_k = model.net.decode(lr_dec)[0]
+        with plain_chain_on_card():
+            before = (df.launches, dc.launches)
+            hr_p = model.net.decode(lr_dec)[0]
+            check((df.launches, dc.launches) == before, "the plain path launches no kernel")
+        dec_err = (hr_k - hr_p).abs().max().item()
+        del hr_k, hr_p
+        dec = time_cuda(lambda: model._decode(lr_dec), iters=5, warmup=1)
+    check(dec_err <= CODEC_LIMIT, f"hr from a shared LR (de-artifact net): kernel path within {CODEC_LIMIT} of plain, got {dec_err}")
+    emit("codec_deart", clip=clip.shape, n_params=n_params, rate_source=model.rate_source, video_bpp=bpp,
+         deart_offsets=offsets, launches_b5=DEART_B5_TEST, launches_b1={str(k): v for k, v in counts["b1"].items()},
+         hr_max_abs_err_kernel_vs_plain=dec_err, limit=CODEC_LIMIT,
+         test_s=test_s, frames_per_s=CODEC_T / test_s, peak_device_memory_gib=peak_gib,
+         decode_call_ms=dec["median"], decode_call_ms_min=dec["min"],
+         without_deart=base)
+    return counts
+
+
+def phase_codec_deart_train(device, base):
+    """Three training steps of the published codec net with
+    ``deart_net: true`` and its surrogate at the published batch through the
+    host codec, then one with ``save_chain_feats: false``; the B5 launch
+    counts of exactly these four steps are kept. Then one step's whole
+    gradient, kernel path against plain path, from one shared codec output,
+    and the step's time."""
+    batch = codec_train_batch()
+    net_opt = {"deart_net": True}
+    probe = CodecModel(codec_train_options(net_opt), device=device, rng_seed=0)
+    tree = codec_tree(probe, 51)
+    probe.load_jax_params(tree)
+    lr_like = torch.from_numpy(np.ascontiguousarray(batch[:, :, ::2, ::2])).to(device)
+    offsets = scale_deart_offsets(probe.net, tree["net"], lr_like)
+    n_params = sum(p.numel() for p in probe.params.parameters())
+    del probe
+    model = new_codec_trainer(device, tree, batch, net_opt)
+
+    # ---- the main path: counts set to 0 just before, read just after ----
+    dc.reset_launch_counts()
+    df.reset_launch_counts()
+    logs, per_step = [], []
+    t0 = time.time()
+    for step in range(N_CODEC_STEPS):
+        before = (df.launches, df.launches_bwd)
+        model.optimize_parameters(step)
+        logs.append(dict(model.get_current_log()))
+        per_step.append((df.launches - before[0], df.launches_bwd - before[1]))
+    recompute = new_codec_trainer(device, tree, batch, net_opt, save_chain_feats=False)
+    before = (df.launches, df.launches_bwd)
+    recompute.optimize_parameters(0)
+    log_r = dict(recompute.get_current_log())
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    per_step.append((df.launches - before[0], df.launches_bwd - before[1]))
+    counts = {"forward": dict(df.launches_by_width), "backward": dict(df.launches_bwd_by_width)}
+    # ---------------------------------------------------------------------
+
+    check(per_step == [(DEART_B5_STEP, DEART_B5_STEP)] * (N_CODEC_STEPS + 1),
+          f"B5 launches (forward, backward) of each step: {per_step}")
+    for lg in logs + [log_r]:
+        check(all(np.isfinite(v) for k, v in lg.items() if k != "rate_source")
+              and lg["skipped_nonfinite"] == 0.0, f"the step's losses are finite and it was not skipped: {lg}")
+    check(log_r["loss"] == logs[0]["loss"], f"save_chain_feats false gives the same loss: {(log_r['loss'], logs[0]['loss'])}")
+    del recompute
+
+    # one step from one shared codec output: kernel path against plain path
+    kern = new_codec_trainer(device, tree, batch, net_opt)
+    with torch.no_grad():
+        shared, _ = kern.codec_span(kern._encode_lf(kern._hr), kern.q)
+    kern.optimize_parameters(0, codec_out=shared)
+    log_k, grads_k = dict(kern.get_current_log()), all_grads(kern)
+    del kern
+    plain = new_codec_trainer(device, tree, batch, net_opt)
+    with plain_chain_on_card():
+        before = (df.launches, df.launches_bwd, dc.launches, dc.launches_bwd)
+        plain.optimize_parameters(0, codec_out=shared)
+        check((df.launches, df.launches_bwd, dc.launches, dc.launches_bwd) == before,
+              "the plain path launches no kernel")
+    log_p, grads_p = dict(plain.get_current_log()), all_grads(plain)
+    del plain
+    loss_rel = abs(log_k["loss"] - log_p["loss"]) / abs(log_p["loss"])
+    grad_l2 = (sum((grads_k[k] - g).pow(2).sum().item() for k, g in grads_p.items())
+               / sum(g.pow(2).sum().item() for g in grads_p.values())) ** 0.5
+    deart = [k for k in grads_p if ".deart_" in k]
+    grad_l2_deart = (sum((grads_k[k] - grads_p[k]).pow(2).sum().item() for k in deart)
+                     / sum(grads_p[k].pow(2).sum().item() for k in deart)) ** 0.5
+    check(np.isfinite(log_k["loss"]) and loss_rel <= TRAIN_LOSS_REL_LIMIT,
+          f"de-artifact step's loss, kernel path vs plain path: {(log_k['loss'], log_p['loss'])}")
+    check(grad_l2 <= TRAIN_GRAD_L2_LIMIT, f"de-artifact step's whole gradient, kernel path vs plain path: {grad_l2}")
+
+    torch.cuda.reset_peak_memory_stats()
+    step = time_cuda(lambda: model.optimize_parameters(N_CODEC_STEPS), iters=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit("codec_deart_train", batch=batch.shape, n_params=n_params, steps=N_CODEC_STEPS, train_s=train_s,
+         rate_source=logs[0]["rate_source"], deart_offsets=offsets,
+         launches_b5_per_step={"forward": DEART_B5_STEP, "backward": DEART_B5_STEP}, logs=logs,
+         loss_rel_err_kernel_vs_plain=loss_rel, loss_rel_limit=TRAIN_LOSS_REL_LIMIT,
+         grad_l2_rel_err_kernel_vs_plain=grad_l2, grad_l2_limit=TRAIN_GRAD_L2_LIMIT,
+         grad_l2_rel_err_deart_leaves=grad_l2_deart, step_ms=step["median"], step_ms_min=step["min"],
+         clips_per_s=CODEC_TRAIN_SHAPE[0] * 1e3 / step["median"], peak_device_memory_gib=peak,
+         without_deart=base)
+    return counts
+
+
+def phase_timing_deform(device, counts_test, counts_train, worst):
+    """B5 forward at the decode and training shapes and its backward at the
+    training shape: ms beside the bound (for this run's offsets: 3 px, the
+    de-artifact net's spread) and the plain version's ms. No single PyTorch
+    call computes the function (torchvision is not installed): library_ms
+    is null."""
+    rng = np.random.default_rng(71)
+    rows = []
+    for shape, backward, launches in ((DEART_DEC_SHAPE, False, counts_test["b5"].get((DEART_C, DEART_C), 0)),
+                                      (DEART_TRAIN_SHAPE, False, counts_train["forward"].get((DEART_C, DEART_C), 0)),
+                                      (DEART_TRAIN_SHAPE, True, counts_train["backward"].get((DEART_C, DEART_C), 0))):
+        x, off, mask, w, g = make_deform(rng, shape, DEART_C, DEART_C, device, spread=3.0)
+        corners, _ = deform_tap_stats(off)
+        iters = 10 if shape == DEART_DEC_SHAPE else 20
+        with torch.no_grad():
+            if backward:
+                ms = time_cuda(lambda: df._backward_cuda(x, off, mask, w, g), iters=iters)
+                plain = time_cuda(lambda: df.deform_conv2d_bwd_plain(x, off, mask, w, g), iters=5, warmup=1)
+            else:
+                ms = time_cuda(lambda: df._forward_cuda(x, off, mask, w), iters=iters)
+                plain = time_cuda(lambda: df.deform_conv2d_plain(x, off, mask, w), iters=5, warmup=1)
+        bound, by = deform_bound_ms(*shape, DEART_C, DEART_C, corners=corners, backward=backward)
+        err = worst[(tuple(shape), DEART_C, DEART_C)]["backward" if backward else "forward"]
+        rows.append({
+            "name": f"deform_conv2d{'_bwd' if backward else ''}[{DEART_C}->{DEART_C}]@"
+                    f"{'codec' if shape == DEART_DEC_SHAPE else 'codec_train'}",
+            "route": "cuda", "source": SOURCE_DEFORM, "replaces": REPLACES_DEFORM, "launches": launches,
+            "max_abs_err": err, "ms": ms["median"], "plain_ms": plain["median"], "bound_ms": bound,
+            "bound_by": by, "library_ms": None, "ms_min": ms["min"], "plain_ms_min": plain["min"],
+            "shape": list(shape) + [DEART_C], "corners_inside_per_tap": corners})
+        del x, off, mask, w, g
+    emit("timing_deform", rows=[{k: r[k] for k in ("name", "ms", "ms_min", "plain_ms", "bound_ms", "bound_by")}
+                                for r in rows])
+    return rows
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="serve,train,codec,codec_train",
-                    help="comma-separated: kernels (build and check only), serve, train, codec, codec_train")
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+                    help="comma-separated: kernels (build and check only), " + ", ".join(ALL_PHASES))
     want = set(ap.parse_args().phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1390,6 +1688,7 @@ def main():
         worst = phase_kernels(device)
         worst_gc = phase_kernels_gc(device)
         worst_bwd = phase_kernels_bwd(device)
+        worst_deform = phase_kernels_deform(device)
     worst_gc_bwd = phase_kernels_gc_bwd(device)
     phase_grad(device)
     if "serve" in want:
@@ -1401,20 +1700,28 @@ def main():
         trainer, recompute, counts, eps = phase_train(device)
         kernels += phase_timing_train(device, trainer, recompute, counts, worst_bwd, eps)
         del trainer, recompute
+    base_codec = base_train = None   # the codec's numbers without the de-artifact net
     if "codec" in want:
         codec = phase_codec(device)
         with torch.no_grad():
-            kernels += phase_timing_codec(device, *codec, worst_gc)
+            rows, base_codec = phase_timing_codec(device, *codec, worst_gc)
+        kernels += rows
         del codec
     if "codec_train" in want:
         tree, batch, counts = phase_codec_train(device)
-        kernels += phase_timing_codec_train(device, tree, batch, counts, worst_gc_bwd)
+        rows, base_train = phase_timing_codec_train(device, tree, batch, counts, worst_gc_bwd)
+        kernels += rows
+        del tree, batch
+    if "deart" in want:
+        counts_test = phase_codec_deart(device, base_codec)
+        counts_train = phase_codec_deart_train(device, base_train)
+        kernels += phase_timing_deform(device, counts_test, counts_train, worst_deform)
 
     for k in kernels:
         check(k["launches"] >= 1, f"the main path launched {k['name']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
-    if want != {"serve", "train", "codec", "codec_train"}:
+    if want != set(ALL_PHASES):
         print(f"chip_smoke: partial run ({sorted(want)}): no result line", file=sys.stderr)
         return 3
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,14 @@ _NOT_PORTED = {
 }
 
 
+def _clip_frames(opt):
+    """The clip length the JAX package's model wrappers initialise the net
+    with (``train/*_model.py:_init_params``): ``datasets.train.video_len``,
+    else 3. The deformable aggregations' parameter shapes depend on it."""
+    train_set = (opt.get("datasets") or {}).get("train") or {}
+    return train_set.get("video_len") or 3
+
+
 def define_G(opt, device=None, generator=None):
     """``device=None`` means the GPU (raises without one)."""
     net = opt["network_G"]
@@ -41,15 +49,15 @@ def define_G(opt, device=None, generator=None):
             global_module=gm,
             nll_enabled=nll_enabled,
             save_chain_feats=True if save_feats is None else bool(save_feats),
+            deform_radius=net.get("deform_radius"),
+            frames=_clip_frames(opt),
             device=device,
             generator=generator,
         )
     if model_type == "SelfC_GMM_Codec":
-        if net.get("deart_net") or net.get("h265_deart"):
-            raise NotImplementedError(
-                "the codec's de-artifact net (deart_net / h265_deart) needs the "
-                "deformable convolution, which is not ported yet (ROADMAP A24; the "
-                "rest of A12 is ported)")
+        # the de-artifact net is built from deart_net alone, as the JAX
+        # package builds it (selfc_tpu/models/factory.py); h265_deart is read
+        # by no module there
         return SelfCNetCodec(
             scale=net.get("scale") or opt["scale"],
             block_num=tuple(net.get("block_num") or (4,)),
@@ -61,6 +69,9 @@ def define_G(opt, device=None, generator=None):
             global_module=net.get("global_module") or "nonlocal",
             stp_hidden_c=net.get("stp_hidden_c") or 24,
             stp_denseblock_innerc=net.get("stp_denseblock_innerc") or 12,
+            deart_net=bool(net.get("deart_net")),
+            deform_radius=net.get("deform_radius"),
+            frames=_clip_frames(opt),
             save_chain_feats=True if save_feats is None else bool(save_feats),
             device=device,
             generator=generator,

@@ -4,7 +4,8 @@
 blocks + the STPNet (GMM) prior.
 ``SelfCNetCodec`` — the compression net (model type 'SelfC_GMM_Codec'):
 frequency split (k=2) + 4 coupling blocks + the codec's STPNet (hidden 24,
-growth 12, an l2 tail by default); the H.265 span between its encode and its
+growth 12, an l2 tail by default), and with ``deart_net`` a de-artifact net
+that cleans the decoded LR first; the H.265 span between its encode and its
 decode is ``codec/pipeline.py``'s.
 
 Both take channels-last video ``(B, T, H, W, C)``. Methods:
@@ -32,7 +33,8 @@ from .. import resolve_device
 from ..ops.freq import freq_forward, freq_inverse
 from ..ops.gmm import gmm_neg_log_likelihood, gmm_sample, split_params
 from ..ops.quantize import quantize_ste
-from .blocks import DenseChain, subnet
+from .agg import GroupedGlobalDeformAgg
+from .blocks import D2DT, DenseChain, subnet
 from .coupling import InvBlockExp
 from .stp import STPNet
 
@@ -44,7 +46,7 @@ class _CouplingNet(nn.Module):
 
     def __init__(self, scale, block_num, subnet_type, init_mode, stp_blk_num,
                  fh_loss, gmm_k, global_module, stp_hidden_c, stp_gc,
-                 save_chain_feats, device, generator):
+                 save_chain_feats, device, generator, deform_radius=None, frames=3):
         super().__init__()
         device = resolve_device(device)
         self.scale = scale
@@ -63,7 +65,7 @@ class _CouplingNet(nn.Module):
         self.stp_net = STPNet(
             scale=scale, stp_blk_num=stp_blk_num, fh_loss=fh_loss,
             gmm_k=gmm_k, global_module=global_module, hidden_c=stp_hidden_c,
-            gc=stp_gc, generator=generator,
+            gc=stp_gc, deform_radius=deform_radius, frames=frames, generator=generator,
         )
         # training memory against backward time: see blocks.DenseChain
         for mod in self.modules():
@@ -133,10 +135,11 @@ class SelfCNetGMM(_CouplingNet):
                  subnet_type: str = "D2DTNet", init_mode: str = "xavier",
                  stp_blk_num: int = 6, fh_loss: str = "gmm", gmm_k: int = 5,
                  global_module: str = "nonlocal", nll_enabled: bool = False,
-                 save_chain_feats: bool = True, device=None, generator=None):
+                 save_chain_feats: bool = True, deform_radius=None, frames: int = 3,
+                 device=None, generator=None):
         super().__init__(scale, block_num, subnet_type, init_mode, stp_blk_num,
                          fh_loss, gmm_k, global_module, 64, 32,
-                         save_chain_feats, device, generator)
+                         save_chain_feats, device, generator, deform_radius, frames)
         # the forward conditional NLL is off by default, as in the trained
         # snapshot; set True to restore the loss_c term
         self.nll_enabled = nll_enabled
@@ -170,24 +173,40 @@ class SelfCNetGMM(_CouplingNet):
 
 class SelfCNetCodec(_CouplingNet):
     """Compression net (model type 'SelfC_GMM_Codec'); the JAX package's
-    ``models/inv_nets.py:SelfCNetCodec``. The de-artifact net
-    (``deart_net``) needs the deformable convolution, which is not ported
-    yet."""
+    ``models/inv_nets.py:SelfCNetCodec``. ``deart_net``: the de-artifact net
+    D2DT(3->32) -> GroupedGlobalDeformAgg(32) -> D2DT(32->3) (``deart_0..2``),
+    which ``decode`` applies to the decoded LR before the prior and the
+    inverse coupling; ``frames`` is the clip length it is built for."""
 
     def __init__(self, scale: int = 2, block_num: Sequence[int] = (4,),
                  subnet_type: str = "D2DTNet", init_mode: str = "xavier",
                  stp_blk_num: int = 4, fh_loss: str = "l2", gmm_k: int = 5,
                  global_module: str = "nonlocal", stp_hidden_c: int = 24,
                  stp_denseblock_innerc: int = 12, deart_net: bool = False,
-                 save_chain_feats: bool = True, device=None, generator=None):
-        if deart_net:
-            raise NotImplementedError(
-                "deart_net needs the deformable convolution, which is not "
-                "ported yet (ROADMAP A24)")
+                 deform_radius=None, frames: int = 3, save_chain_feats: bool = True,
+                 device=None, generator=None):
         super().__init__(scale, block_num, subnet_type, init_mode, stp_blk_num,
                          fh_loss, gmm_k, global_module, stp_hidden_c,
                          stp_denseblock_innerc, save_chain_feats, device,
-                         generator)
+                         generator, deform_radius, frames)
+        self.deart_net = bool(deart_net)
+        if self.deart_net:
+            # created after the coupling blocks and the prior, as in the JAX setup()
+            self.deart_0 = D2DT(3, 32, 32, "plain_xavier", generator)
+            self.deart_1 = GroupedGlobalDeformAgg(32, frames, deform_radius=deform_radius,
+                                                  generator=generator)
+            self.deart_2 = D2DT(32, 3, 32, "plain_xavier", generator)
+            for chain in (self.deart_0.chain, self.deart_2.chain):
+                chain.save_feats = bool(save_chain_feats)
+            self.to(next(self.parameters()).device)
+
+    def decode(self, lr, eps=None, generator=None):
+        """As ``_CouplingNet.decode``, on the LR the de-artifact net cleaned
+        (with ``deart_net``): the prior and the inverse coupling both see
+        it."""
+        if self.deart_net:
+            lr = self.deart_2(self.deart_1(self.deart_0(lr.contiguous())))
+        return super().decode(lr, eps=eps, generator=generator)
 
     def roundtrip(self, x, eps=None, generator=None):
         """The codec-free roundtrip: encode -> STE-quantize LR -> decode

@@ -11,18 +11,17 @@ import torch
 import torch.nn as nn
 
 from ..ops.conv import leaky_relu, pointwise, torch_default_b, torch_default_w
-from .agg import GlobalAgg
+from .agg import DeformConvAgg, GlobalAgg, GroupedGlobalDeformAgg
 from .blocks import D2DT
 
 
-def _global_module(kind: str, c: int, generator=None):
+def _global_module(kind: str, c: int, generator=None, frames=3, deform_radius=None):
     if kind == "nonlocal":
         return GlobalAgg(c, generator)
-    if kind in ("deform", "grouped_global_deform"):
-        raise NotImplementedError(
-            f"global_module {kind!r} needs the deformable convolution, which "
-            "is not ported yet (ROADMAP A24)"
-        )
+    if kind == "deform":
+        return DeformConvAgg(c, frames, deform_radius, generator)
+    if kind == "grouped_global_deform":
+        return GroupedGlobalDeformAgg(c, frames, deform_radius=deform_radius, generator=generator)
     return None
 
 
@@ -40,15 +39,20 @@ class _PW(nn.Module):
 
 class STPNet(nn.Module):
     """``forward = tail(backbone(lr))``: D2DT chains interleaved with
-    global aggregations, then the GMM-parameter MLP."""
+    global aggregations, then the GMM-parameter MLP. ``frames`` (the clip
+    length) and ``deform_radius`` reach the deformable aggregations only."""
 
     def __init__(self, scale=4, stp_blk_num=6, fh_loss="gmm", gmm_k=5,
-                 global_module="nonlocal", hidden_c=64, gc=32, generator=None):
+                 global_module="nonlocal", hidden_c=64, gc=32, deform_radius=None,
+                 frames=3, generator=None):
         super().__init__()
         self.stp_blk_num = stp_blk_num
         self.fh_loss = fh_loss
         self.hf_dim = 3 * scale * scale
         c, g = hidden_c, generator
+
+        def agg():
+            return _global_module(global_module, c, g, frames, deform_radius)
 
         def reg(name, mod):
             if mod is None:
@@ -59,11 +63,11 @@ class STPNet(nn.Module):
         # creation order follows the JAX package's setup()
         self.local_m1 = D2DT(3, c, gc, "plain_xavier", g)
         self.local_m2 = D2DT(c, c, gc, "plain_xavier", g)
-        reg("global_m1", _global_module(global_module, c, g))
-        reg("global_m2", _global_module(global_module, c, g))
+        reg("global_m1", agg())
+        reg("global_m2", agg())
         for i in range(stp_blk_num - 2):
             reg(f"other_local_{i}", D2DT(c, c, gc, "plain_xavier", g))
-            reg(f"other_global_{i}", _global_module(global_module, c, g))
+            reg(f"other_global_{i}", agg())
         if fh_loss == "l2":
             self.tail_0 = _PW(c, self.hf_dim, g)
         elif fh_loss == "gmm":

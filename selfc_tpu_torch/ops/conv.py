@@ -68,6 +68,15 @@ def spatial_conv_video(x, w, b=None):
     return y.permute(0, 2, 3, 1).reshape(*lead, H, W, -1)
 
 
+def conv2d(x, w, b=None):
+    """Stride-1 SAME 2-D conv on (N,H,W,C); w: (kh,kw,Cin,Cout), odd kh and
+    kw. Plain PyTorch: the JAX package computes it outside any Pallas kernel
+    (selfc_tpu/ops/conv.py:conv2d)."""
+    kh, kw = w.shape[:2]
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b, padding=(kh // 2, kw // 2))
+    return y.permute(0, 2, 3, 1)
+
+
 def conv3d(x, w, b=None):
     """Stride-1 SAME 3x3x3 conv on (B,T,H,W,C), zero padded in T, H and W;
     w: (3,3,3,Cin,Cout) (kt, kh, kw). Plain PyTorch: the JAX package computes

@@ -35,12 +35,14 @@ import numpy as np
 import torch
 
 from selfc_tpu_torch.kernels import build
+from selfc_tpu_torch.ops import deform as df
 from selfc_tpu_torch.ops import dense_chain as dc
-from selfc_tpu_torch.utils.bench import make_chain
+from selfc_tpu_torch.utils.bench import make_chain, make_deform
 
 CUDA_RUNTIME_H = r"""
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -68,6 +70,7 @@ constexpr int cudaSuccess = 0;
 constexpr int cudaErrorInvalidValue = 1;
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "cpu stand-in"; }
+inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
 inline thread_local dim3 threadIdx, blockIdx, gridDim;
 inline thread_local std::barrier<>* block_barrier;
 inline void __syncthreads() { block_barrier->arrive_and_wait(); }
@@ -160,9 +163,10 @@ def build_cpu_library(name: str, out_dir: Path) -> Path:
 @contextlib.contextmanager
 def cpu_kernels(out_dir: Path):
     """Inside, the launch functions of ``ops.dense_chain`` (``_chain_cuda``,
-    ``_feats_cuda``, ``_bwd_cuda``) run the CPU builds of the CUDA sources on
-    CPU tensors. ``dense_chain_t_ep`` itself still takes its plain versions
-    for a CPU tensor: call the launch functions directly."""
+    ``_feats_cuda``, ``_bwd_cuda``) and ``ops.deform`` (``_forward_cuda``,
+    ``_backward_cuda``) run the CPU builds of the CUDA sources on CPU
+    tensors. The public wrappers still take their plain versions for a CPU
+    tensor: call the launch functions directly."""
     names = build.kernel_names()
     libs = {n: build_cpu_library(n, out_dir) for n in names}
     stream = dc._stream
@@ -228,16 +232,44 @@ def rehearse(shape=(2, 2, 9, 21), widths=WIDTHS,
     return out
 
 
+# (N, H, W, C, Cout) of the deformable conv: odd sizes, the JAX package's
+# kernel test shape, the de-artifact width, and C / Cout over one 32-channel slab
+DEFORM_CASES = ((2, 13, 21, 5, 3), (2, 12, 16, 8, 8), (1, 9, 11, 32, 32), (1, 7, 6, 40, 36))
+
+
+def rehearse_deform(cases=DEFORM_CASES, dtypes=(torch.float32, torch.bfloat16), seed=0) -> list[dict]:
+    """The deformable conv's kernels against its plain versions (offsets
+    uniform in +-7 px, so taps leave the frame; the mask in [0, 2]); call
+    inside ``cpu_kernels()``. One record a case: the errors relative to max
+    |plain| of the forward and of each gradient, and whether dweight is the
+    same bits twice."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for dtype in dtypes:
+        for N, H, W, C, c_out in cases:
+            x, off, mask, w, g = make_deform(rng, (N, H, W), C, c_out, "cpu", dtype)
+            rec = {"kernel": "deform", "dtype": str(dtype).split(".")[-1], "shape": [N, H, W], "C": C, "c_out": c_out}
+            rec["forward"] = rel_err(df._forward_cuda(x, off, mask, w), df.deform_conv2d_plain(x, off, mask, w))
+            got = df._backward_cuda(x, off, mask, w, g)
+            want = df.deform_conv2d_bwd_plain(x, off, mask, w, g)
+            for name, u, v in zip(("dx", "doffset", "dmask", "dweight"), got, want):
+                rec[name] = rel_err(u, v)
+            rec["dweight_same_bits"] = torch.equal(got[3], df._backward_cuda(x, off, mask, w, g)[3])
+            out.append(rec)
+    return out
+
+
 def main() -> int:
     with tempfile.TemporaryDirectory() as tmp, cpu_kernels(Path(tmp)), torch.no_grad():
-        records = rehearse()
+        records = rehearse() + rehearse_deform()
     for rec in records:
         print(json.dumps(rec), flush=True)
         limit = 1e-5 if rec["dtype"] == "float32" else 3e-2
         bad = {k: v for k, v in rec.items() if isinstance(v, float) and not v <= limit}
+        if rec.get("dweight_same_bits") is False:
+            bad["dweight_same_bits"] = False
         if bad:
-            print(f"cpu_rehearsal: FAILED {rec['dtype']} C={rec['C']} c_out={rec['c_out']} "
-                  f"gc={rec['gc']}: {bad}", file=sys.stderr)
+            print(f"cpu_rehearsal: FAILED {rec}: {bad}", file=sys.stderr)
             return 1
     print(json.dumps({"ok": True, "cases": len(records), "device": "cpu (CUDA sources compiled by g++)"}))
     return 0

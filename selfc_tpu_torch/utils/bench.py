@@ -1,7 +1,7 @@
-"""Measuring helpers for the GPU: CUDA-event timing, seeded dense-chain
-inputs at the serving, training and codec shapes, and the cost models of the
-dense chain's kernels (operations and bytes from shapes, at the chain's true
-growth width) with the card's published peaks, for a roofline bound."""
+"""Measuring helpers for the GPU: CUDA-event timing, seeded dense-chain and
+deformable-conv inputs at the serving, training and codec shapes, and the
+cost models of the kernels (operations and bytes from shapes, at the chain's
+true growth width) with the card's published peaks, for a roofline bound."""
 
 from __future__ import annotations
 
@@ -41,6 +41,17 @@ CODEC_TRAIN_LAT = (12, 3, 72, 72)
 # net_0 takes the LR and its indicator plane, net_1, net_4 and net_5 the
 # hidden 24
 SURROGATE_C = (4, 24)
+# the codec's de-artifact net (network_G.deart_net) runs its deformable conv
+# on one frame of each of the call's B clips, 32 -> 32 channels, 9 times a
+# decode call (3 output frames x 3 offset pairs): (N,H,W) of one such call in
+# an eval decode call (16 tiles of 270 x 480) and in a training step's decode
+# (12 clips at the 72 x 72 latent)
+DEART_DEC_SHAPE = (16, 270, 480)
+DEART_TRAIN_SHAPE = (12, 72, 72)
+DEART_C = 32
+# the STP prior's deformable aggregation at the serving latent, hidden 64
+STP_DEFORM_SHAPE = (1, 144, 176)
+STP_DEFORM_C = 64
 
 
 def time_cuda(fn, iters: int = 20, warmup: int = 3) -> dict:
@@ -79,6 +90,63 @@ def make_chain(rng, C, c_out, shape, device, dtype=torch.float32, gc=32):
     b5 = mk((c_out,), 0.1)
     return (mk(shape + (C,)), ws, bs, w5, b5,
             mk(shape + (c_out,)), mk(shape + (c_out,)))
+
+
+def make_deform(rng, shape, C, c_out, device, dtype=torch.float32, spread=7.0):
+    """Seeded deformable-conv operands for ``shape = (N,H,W)``: x and the
+    output gradient g standard normal, offsets uniform in +-``spread`` px
+    (taps leave the frame), the mask uniform in [0, 2] (the range of
+    ``2 sigmoid``), the weight fan-in scaled. Returns (x, offset, mask,
+    weight, g)."""
+    def mk(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device=device, dtype=dtype)
+
+    return (mk(rng.normal(0, 1, shape + (C,))), mk(rng.uniform(-spread, spread, shape + (18,))),
+            mk(rng.uniform(0, 2, shape + (9,))), mk(rng.normal(0, (9 * C) ** -0.5, (3, 3, C, c_out))),
+            mk(rng.normal(0, 1, shape + (c_out,))))
+
+
+def deform_tap_stats(offset):
+    """``(corners, outside)`` of the offsets ``(N,H,W,18)`` of one
+    deformable-conv call: the mean number of bilinear corners a tap finds
+    inside the frame, and the share of taps with a corner outside it."""
+    N, H, W, _ = offset.shape
+    dev = offset.device
+    k = torch.arange(9, device=dev)
+    py = (torch.arange(H, device=dev, dtype=torch.float32).view(1, H, 1, 1) + (k // 3 - 1)
+          + offset[..., 0::2].float())
+    px = (torch.arange(W, device=dev, dtype=torch.float32).view(1, 1, W, 1) + (k % 3 - 1)
+          + offset[..., 1::2].float())
+    y0, x0 = torch.floor(py), torch.floor(px)
+    inside = 0
+    for sy in (0, 1):
+        iy = (y0 + sy >= 0) & (y0 + sy <= H - 1)
+        for sx in (0, 1):
+            inside = inside + (iy & (x0 + sx >= 0) & (x0 + sx <= W - 1)).to(torch.int32)
+    return inside.float().mean().item(), (inside < 4).float().mean().item()
+
+
+def deform_cost(N, H, W, C, c_out, itemsize, corners=4.0, backward=False):
+    """(operations, bytes) of one deformable-conv call. ``corners``: the
+    mean number of bilinear corners a tap finds inside the frame for this
+    call's offsets (the kernels skip the others). Forward, a pixel and tap:
+    the contraction 2 C c_out, the sample 2 C a corner, the mask C. Backward:
+    the two contractions (dval and dW) 4 C c_out, and a channel 8 per corner
+    (the sample for dW, the sample and its two derivatives for dmask and
+    doffset, the scatter to dx) and 4 more. Bytes: every input read once
+    and every output written once, at ``itemsize``."""
+    px = N * H * W
+    if backward:
+        ops = px * 9 * (4.0 * C * c_out + C * (8.0 * corners + 4.0))
+        nbytes = itemsize * (px * (2 * C + 2 * 27 + c_out) + 2 * 9 * C * c_out)
+    else:
+        ops = px * 9 * (2.0 * C * c_out + C * (2.0 * corners + 1.0))
+        nbytes = itemsize * (px * (C + 27 + c_out) + 9 * C * c_out)
+    return ops, float(nbytes)
+
+
+def deform_bound_ms(N, H, W, C, c_out, dtype=torch.float32, corners=4.0, backward=False):
+    return bound_ms(*deform_cost(N, H, W, C, c_out, _itemsize(dtype), corners, backward), dtype)
 
 
 def chain_cost(B, T, H, W, C, c_out, n_aux, itemsize, gc=32):

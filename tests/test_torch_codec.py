@@ -137,9 +137,25 @@ def test_codec_roundtrip_matches_jax(stacks):
     assert got["loss_c"].item() == 0.0
 
 
-def test_codec_deart_net_not_ported():
-    with pytest.raises(NotImplementedError, match="A24"):
-        SelfCNetCodec(device="cpu", deart_net=True, **SMALL)
+def _jax_tree_shapes(jm):
+    """{dot-joined name: shape} of the JAX net's parameters, from
+    ``jax.eval_shape`` (no values are computed)."""
+    x = jnp.zeros((1, 3, 16, 16, 3))
+    shapes = jax.eval_shape(lambda: jm.init({"params": jax.random.PRNGKey(0),
+                                             "sample": jax.random.PRNGKey(1)},
+                                            x, method=jm.roundtrip))["params"]
+    return {".".join(str(k.key) for k in path): leaf.shape
+            for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+
+
+def test_codec_deart_net_builds_the_jax_tree():
+    """``deart_net=True`` adds the de-artifact net with the JAX net's leaf
+    names and shapes (``deart_0`` / ``deart_2`` D2DT chains, ``deart_1`` the
+    grouped deformable aggregation over 3 frames)."""
+    tm = SelfCNetCodec(device="cpu", deart_net=True, **SMALL)
+    got = {k: tuple(p.shape) for k, p in tm.named_parameters()}
+    assert got == _jax_tree_shapes(JSelfCNetCodec(deart_net=True, **SMALL))
+    assert got["deart_1.offset_w"] == (3, 3, 32, 54) and got["deart_2.chain.conv5.weight"] == (3, 160, 3)
 
 
 def _codec_opt(**network_g):
@@ -156,8 +172,9 @@ def _codec_opt(**network_g):
 def test_define_g_builds_the_published_codec_net(tmp_path, monkeypatch):
     """The port's parser reads the shipped UVG codec config to the JAX
     package's options, and ``define_G`` builds the full-width net from them
-    with the JAX net's parameter names and count; ``h265_deart: True``
-    names ROADMAP A24."""
+    with the JAX net's parameter names and count. As in the JAX package's
+    factory, ``h265_deart: True`` alone changes nothing (no module reads
+    it) and ``deart_net: True`` adds the de-artifact net."""
     from selfc_tpu import config as jconfig
     from selfc_tpu_torch import config as tconfig
 
@@ -169,17 +186,14 @@ def test_define_g_builds_the_published_codec_net(tmp_path, monkeypatch):
     assert isinstance(net, SelfCNetCodec) and net.n_blocks == 4 and net.scale == 2
     chains = [m for m in net.modules() if type(m).__name__ == "DenseChain"]
     assert sorted({m.conv1.weight.shape[-1] for m in chains}) == [12, 32]
-    jm = JSelfCNetCodec(scale=2, block_num=(4,), stp_blk_num=4)
-    x = jnp.zeros((1, 3, 16, 16, 3))
-    shapes = jax.eval_shape(lambda: jm.init({"params": jax.random.PRNGKey(0),
-                                             "sample": jax.random.PRNGKey(1)},
-                                            x, method=jm.roundtrip))["params"]
-    flat = {".".join(str(k.key) for k in path): leaf.shape
-            for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    flat = _jax_tree_shapes(JSelfCNetCodec(scale=2, block_num=(4,), stp_blk_num=4))
     assert flat == {k: tuple(p.shape) for k, p in net.named_parameters()}
     opt["network_G"]["h265_deart"] = True
-    with pytest.raises(NotImplementedError, match="A24"):
-        define_G(opt, device="cpu")
+    assert {k: tuple(p.shape) for k, p in define_G(opt, device="cpu").named_parameters()} == flat
+    opt["network_G"]["deart_net"] = True
+    flat = _jax_tree_shapes(JSelfCNetCodec(scale=2, block_num=(4,), stp_blk_num=4, deart_net=True))
+    assert {k: tuple(p.shape) for k, p in define_G(opt, device="cpu").named_parameters()} == flat
+    assert any(k.startswith("deart_1.") for k in flat)
 
 
 # ---------------------------------------------------------------------------

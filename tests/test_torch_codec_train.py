@@ -225,19 +225,19 @@ def _train_opt(network=None, **train):
         "network_G": dict(NET, **(network or {})), "train": dict(TRAIN, **train)})
 
 
-@pytest.fixture(scope="module")
-def step_pair():
+def _step_pair(network=None):
     """One step through both stacks from the same parameters, clip and
     codec output. JAX side: the loss of selfc_tpu/train/codec_model.py
     (``_encode_lf`` into ``_loss``, as its ``_train_step_reencode``
     composes them) under one ``jax.jit(jax.value_and_grad)``, and its
     optax chain."""
+    net = dict(NET, **(network or {}))
     x = np.random.default_rng(20).random(CLIP, dtype=np.float32)
     codec_out = np.random.default_rng(21).random((2, 3, 8, 8, 3), dtype=np.float32)
     jm = object.__new__(JCodecModel)
-    jm.net = JSelfCNetCodec(scale=2, block_num=(1,), stp_blk_num=1)
+    jm.net = JSelfCNetCodec(scale=2, block_num=(1,), stp_blk_num=1, deart_net=bool(net.get("deart_net")))
     jm.surrogate = jsur.H265Surrogate(dynamic_q=False)
-    jm.train_opt, jm.net_opt = jnonedict(dict(TRAIN)), jnonedict(dict(NET))
+    jm.train_opt, jm.net_opt = jnonedict(dict(TRAIN)), jnonedict(net)
     jm.noise_type, jm.use_surrogate, jm.surrogate_variant, jm._mp = "h265", True, "correlation1", False
     jm.degrade = jmake_degrade("sr_bd", 2)
     hr = jnp.asarray(x)
@@ -258,13 +258,43 @@ def step_pair():
     jax_step = {"logs": {k: float(v) for k, v in logs.items()},
                 "grads": jax.tree.map(np.asarray, grads), "params": jax.tree.map(np.asarray, after)}
 
-    model = CodecModel(_train_opt(), device="cpu")
+    model = CodecModel(_train_opt(network), device="cpu")
     model.load_jax_params(tree)
     assert model.feed_data({"GT": x}) == 3
     model.optimize_parameters(0, codec_out=codec_out)
     port_step = {"logs": dict(model.get_current_log()), "grad_norm": float(model.grad_norm),
                  "grads": export_jax_grads(model.params), "params": export_jax_params(model.params)}
     return jax_step, port_step, tree, x, codec_out
+
+
+@pytest.fixture(scope="module")
+def step_pair():
+    return _step_pair()
+
+
+@pytest.fixture(scope="module")
+def step_pair_deart():
+    """The same step with ``deart_net: true``: the decode runs the
+    de-artifact net, whose deformable aggregation is differentiated (the
+    JAX side's Pallas kernel in interpret mode, its VJP the composition's)."""
+    return _step_pair({"deart_net": True})
+
+
+def _assert_gradient_tree_matches(jax_step, port_step):
+    """Leaf by leaf; the port's ``.grad`` is clipped in place, so its
+    leaves are scaled back by norm / clip."""
+    want, got = flatten_tree(jax_step["grads"]), flatten_tree(port_step["grads"])
+    assert set(got) == set(want) and any(k.startswith("surrogate.") for k in want)
+    norm = np.sqrt(sum((v.astype(np.float64) ** 2).sum() for v in want.values()))
+    np.testing.assert_allclose(port_step["grad_norm"], norm, rtol=1e-4)
+    assert norm > TRAIN["gradient_clipping"]  # the clip is active in this test
+    top = max(np.abs(v).max() for v in want.values())
+    for k, v in want.items():
+        g = got[k] * (norm / TRAIN["gradient_clipping"])
+        if np.abs(v).max() < 1e-6 * top:   # zero by construction: rounding noise on both sides
+            assert np.abs(g - v).max() <= 1e-6 * top, k
+        else:
+            assert np.linalg.norm(g - v) <= 1e-4 * np.linalg.norm(v), (k, np.linalg.norm(g - v) / np.linalg.norm(v))
 
 
 def test_codec_train_step_logs_match_jax(step_pair):
@@ -278,21 +308,41 @@ def test_codec_train_step_logs_match_jax(step_pair):
 
 
 def test_codec_train_step_gradient_tree_matches_jax(step_pair):
-    """Leaf by leaf; the port's ``.grad`` is clipped in place, so its
-    leaves are scaled back by norm / clip."""
-    jax_step, port_step = step_pair[:2]
-    want, got = flatten_tree(jax_step["grads"]), flatten_tree(port_step["grads"])
-    assert set(got) == set(want) and any(k.startswith("surrogate.") for k in want)
-    norm = np.sqrt(sum((v.astype(np.float64) ** 2).sum() for v in want.values()))
-    np.testing.assert_allclose(port_step["grad_norm"], norm, rtol=1e-4)
-    assert norm > TRAIN["gradient_clipping"]  # the clip is active in this test
-    top = max(np.abs(v).max() for v in want.values())
-    for k, v in want.items():
-        g = got[k] * (norm / TRAIN["gradient_clipping"])
-        if np.abs(v).max() < 1e-6 * top:   # zero by construction: rounding noise on both sides
-            assert np.abs(g - v).max() <= 1e-6 * top, k
-        else:
-            assert np.linalg.norm(g - v) <= 1e-4 * np.linalg.norm(v), (k, np.linalg.norm(g - v) / np.linalg.norm(v))
+    _assert_gradient_tree_matches(*step_pair[:2])
+
+
+def test_codec_deart_train_step_logs_match_jax(step_pair_deart):
+    jax_step, port_step = step_pair_deart[:2]
+    for k, want in jax_step["logs"].items():
+        np.testing.assert_allclose(port_step["logs"][k], want, rtol=1e-5, atol=1e-12, err_msg=k)
+
+
+def test_codec_deart_train_mixed_precision_keeps_fp32_masters(step_pair_deart):
+    """``train.mixed_precision`` with the de-artifact net: its deformable
+    convs take bf16 operands (the master parameters cast like the rest of
+    the net), the step is finite and moves the de-artifact leaves, which stay
+    fp32."""
+    _, _, tree, x, codec_out = step_pair_deart
+    model = CodecModel(_train_opt({"deart_net": True}, mixed_precision=True), device="cpu")
+    model.load_jax_params(tree)
+    model.feed_data({"GT": x})
+    model.optimize_parameters(0, codec_out=codec_out)
+    log = model.get_current_log()
+    assert log["skipped_nonfinite"] == 0.0 and np.isfinite(log["loss"])
+    assert model.net.deart_1.offset_w.dtype == torch.float32
+    moved = flatten_tree(export_jax_params(model.params))
+    for k in ("net.deart_1.offset_w", "net.deart_1.regular_w", "net.deart_0.chain.conv1.weight"):
+        assert np.abs(moved[k] - flatten_tree(tree)[k]).max() > 1e-6, k
+
+
+def test_codec_deart_train_step_gradient_tree_matches_jax(step_pair_deart):
+    """Every leaf within 1e-4 relative l2, the de-artifact net's included:
+    its deformable aggregation's offset, modulator and regular convs get
+    their gradients through the op's closed-form adjoint."""
+    jax_step, port_step = step_pair_deart[:2]
+    deart = [k for k in flatten_tree(jax_step["grads"]) if ".deart_1." in k]
+    assert {"net.deart_1.offset_w", "net.deart_1.modulator_w", "net.deart_1.regular_w"} <= set(deart)
+    _assert_gradient_tree_matches(jax_step, port_step)
 
 
 def test_codec_parameters_after_step_match_jax(step_pair):
@@ -364,8 +414,19 @@ def test_codec_train_mixed_precision_keeps_fp32_masters(step_pair):
 
 @pytest.mark.parametrize("network,train,match", [
     ({}, {"codec_pipeline": True}, "A16'"),
-    ({"h265_deart": True}, {}, "A24"),
 ])
 def test_codec_train_unported_options_raise(network, train, match):
     with pytest.raises(NotImplementedError, match=match):
         CodecModel(_train_opt(network, **train), device="cpu")
+
+
+@pytest.mark.parametrize("network,deart", [({"h265_deart": True}, False), ({"deart_net": True}, True)])
+def test_codec_train_builds_the_de_artifact_net_from_deart_net(network, deart):
+    """``h265_deart`` alone builds the same net as without it (the JAX
+    package reads it nowhere); ``deart_net`` adds the de-artifact net, built
+    for the training clips' 3 frames, and Adam holds its parameters too."""
+    model = CodecModel(_train_opt(network), device="cpu")
+    names = [k for k, _ in model.params.named_parameters()]
+    assert any(k.startswith("net.deart_1.") for k in names) == deart
+    assert model.net.deart_net == deart
+    assert sum(len(g["params"]) for g in model.optimizer.param_groups) == len(names)

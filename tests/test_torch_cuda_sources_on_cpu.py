@@ -16,6 +16,7 @@ import shutil
 import pytest
 import torch
 
+from selfc_tpu_torch.ops import deform as df
 from selfc_tpu_torch.ops import dense_chain as dc
 from selfc_tpu_torch.tools import cpu_rehearsal
 
@@ -47,7 +48,7 @@ def _errors(rec):
 
 def test_rewrite_finds_every_launch():
     from selfc_tpu_torch.kernels import build
-    for name, n_launches in (("dense_chain", 3), ("dense_chain_bwd", 3)):
+    for name, n_launches in (("dense_chain", 3), ("dense_chain_bwd", 3), ("deform", 4)):
         text, n = cpu_rehearsal.rewrite_launches((build.CSRC_DIR / f"{name}.cu").read_text())
         assert n == n_launches and "<<<" not in text
 
@@ -105,3 +106,31 @@ def test_cpu_build_counts_as_a_launch_and_is_undone(cpu_built):
     with torch.no_grad():
         cpu_rehearsal.rehearse((1, 1, 3, 4), ((3, 3),), (torch.float32,), ("none",))
     assert (dc.launches, dc.launches_feats, dc.launches_bwd) == (1, 1, 2)
+
+
+@pytest.mark.parametrize("case", [(2, 13, 21, 5, 3), (1, 9, 11, 32, 32), (1, 7, 6, 40, 36)],
+                         ids=["odd", "deart_width", "over_one_slab"])
+def test_deform_cuda_source_matches_plain_fp32(cpu_built, case):
+    """csrc/deform.cu: the forward against the composition, the backward
+    (data and weight kernels and the reduction) against the closed-form
+    adjoint, offsets +-7 px and the mask in [0, 2]; dweight the same bits
+    twice. The last case has C and Cout over one 32-channel slab."""
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse_deform((case,), (torch.float32,))
+    errs = _errors(rec)
+    assert set(errs) == {"forward", "dx", "doffset", "dmask", "dweight"}
+    assert all(v <= 1e-5 for v in errs.values()) and rec["dweight_same_bits"], rec
+
+
+def test_deform_cuda_source_matches_plain_bf16(cpu_built):
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse_deform(((2, 12, 16, 8, 8),), (torch.bfloat16,))
+    assert all(v <= 3e-2 for v in _errors(rec).values()) and rec["dweight_same_bits"], rec
+
+
+def test_deform_cpu_build_counts_a_call_each_way(cpu_built):
+    df.reset_launch_counts()
+    with torch.no_grad():
+        cpu_rehearsal.rehearse_deform(((1, 3, 4, 3, 3),), (torch.float32,))
+    assert (df.launches, df.launches_bwd) == (1, 2)
+    assert df.launches_by_width == {(3, 3): 1} and df.launches_bwd_by_width == {(3, 3): 2}

@@ -165,9 +165,16 @@ def test_stp_net_matches_jax(fh_loss, global_module, extra):
 
 
 @pytest.mark.parametrize("kind", ["deform", "grouped_global_deform"])
-def test_stp_deform_not_ported(kind):
-    with pytest.raises(NotImplementedError, match="A24"):
-        STPNet(global_module=kind)
+def test_stp_deform_builds_the_jax_tree(kind):
+    """The deformable global modules build at the default width with the
+    JAX prior's leaf names and shapes (a clip of 3 frames, the JAX model
+    wrappers' default); tests/test_torch_deform.py holds their values."""
+    lr = jnp.zeros((1, 3, 8, 8, 3))
+    shapes = jax.eval_shape(lambda: JSTPNet(global_module=kind).init(jax.random.PRNGKey(0), lr))["params"]
+    want = {".".join(str(k.key) for k in path): leaf.shape
+            for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    got = {k: tuple(p.shape) for k, p in STPNet(global_module=kind).named_parameters()}
+    assert got == want and any(k.startswith("global_m1.offset_w") for k in got)
 
 
 def test_subnet_factory_names_unported_types():

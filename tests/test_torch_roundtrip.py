@@ -214,17 +214,29 @@ def test_entry_points_default_to_cuda():
         SelfCNetGMM(**SMALL)
 
 
-@pytest.mark.parametrize("model_type,item", [("SelfC", "A22"), ("IRN", "A22"),
-                                             ("SelfC_GMM_Codec", "A12")])
+@pytest.mark.parametrize("model_type,item", [("SelfC", "A22"), ("IRN", "A22")])
 def test_factory_names_unported_models(model_type, item):
-    """SelfC_GMM_Codec is ported but for its de-artifact net: the factory
-    names what is left of A12 and the item that carries it (A24)."""
     opt = _opt()
     opt["model"] = model_type
-    if model_type == "SelfC_GMM_Codec":
-        opt["network_G"]["h265_deart"] = True
     with pytest.raises(NotImplementedError, match=item):
         define_G(opt, device="cpu")
+
+
+@pytest.mark.parametrize("flags", [{"h265_deart": True}, {"deart_net": True},
+                                   {"h265_deart": True, "deart_net": True}])
+def test_factory_builds_the_codec_de_artifact_net_from_deart_net(flags):
+    """The JAX package's factory builds the de-artifact net from
+    ``network_G.deart_net`` alone and reads no ``h265_deart``: so does the
+    port's (the same option gives the same parameter tree)."""
+    from selfc_tpu.models import factory as jfactory
+
+    opt = _opt()
+    opt["model"] = "SelfC_GMM_Codec"
+    opt["network_G"].update(scale=2, block_num=[1], fh_loss="l2", **flags)
+    net = define_G(opt, device="cpu")
+    want = jfactory.define_G(opt).deart_net
+    assert net.deart_net == want == bool(flags.get("deart_net"))
+    assert any(k.startswith("deart_") for k, _ in net.named_parameters()) == want
 
 
 def test_config_parse_matches_jax_package(tmp_path, monkeypatch):
