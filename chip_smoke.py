@@ -14,14 +14,16 @@ SelfC_GMM_Codec net (``CodecModel``: feed_data -> test() on a synthetic
 zlib stand-in), it trains that codec net with its surrogate
 (``optimize_parameters`` on the published batch of 12 clips of 3 frames,
 144 x 144), and it runs the codec's eval and training step again with the
-de-artifact net (``network_G.deart_net``, whose deformable conv is kernel B5).
-It times the kernels beside their roofline bound. Prints one JSON line per
-phase; any failure exits non-zero. There is no CPU fallback: without a CUDA
-device the script fails at once.
+de-artifact net (``network_G.deart_net``, whose deformable conv is kernel B5),
+and it serves a GOP through and trains one step of the SelfC_GMM 4x net
+again with each of the subnet types whose chains reach the standalone
+temporal conv (kernel B6). It times the kernels beside their roofline bound.
+Prints one JSON line per phase; any failure exits non-zero. There is no CPU
+fallback: without a CUDA device the script fails at once.
 
-``--phases serve,train,codec,codec_train,deart`` (the default) picks the
-paths; ``--phases kernels`` only builds the kernels and checks them against
-their plain versions.
+``--phases serve,train,codec,codec_train,deart,subnets`` (the default) picks
+the paths; ``--phases kernels`` only builds the kernels and checks them
+against their plain versions.
 
 Last lines of the output: a ``{"kernels": [...]}`` object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -47,6 +49,7 @@ from selfc_tpu_torch.config import dict_to_nonedict
 from selfc_tpu_torch.kernels import build
 from selfc_tpu_torch.ops import deform as df
 from selfc_tpu_torch.ops import dense_chain as dc
+from selfc_tpu_torch.ops import temporal_conv as tc
 from selfc_tpu_torch.ops.conv import conv2d
 from selfc_tpu_torch.train.codec_model import CodecModel
 from selfc_tpu_torch.train.rescale_model import RescaleModel, clip_by_global_norm_
@@ -54,7 +57,8 @@ from selfc_tpu_torch.utils.bench import (
     CLIP_HW, CODEC_DEC_SHAPE, CODEC_ENC_SHAPE, CODEC_TRAIN_LAT, CODEC_TRAIN_SHAPE, CODEC_WIDTHS,
     DEART_C, DEART_DEC_SHAPE, DEART_TRAIN_SHAPE, PATH_WIDTHS, SERVE_SHAPE, STP_DEFORM_C,
     STP_DEFORM_SHAPE, SURROGATE_C, TRAIN_SHAPE, UVG_HW, chain_bound_ms, chain_bwd_bound_ms,
-    chain_feats_bound_ms, deform_bound_ms, deform_tap_stats, make_chain, make_deform, time_cuda)
+    chain_feats_bound_ms, deform_bound_ms, deform_tap_stats, make_chain, make_deform, make_temporal_conv,
+    temporal_conv_bound_ms, time_cuda)
 from selfc_tpu_torch.utils.metrics import psnr
 
 CHECK_WIDTHS = ((3, 48), (48, 3), (64, 64))           # coupling F/H/G and the prior
@@ -129,7 +133,24 @@ DEART_OFFSET_STD = 2.0           # px: the de-artifact net's seeded offsets are 
 # 32->3 chain a decode call
 DEART_B5_TEST, DEART_B5_STEP = 18, 9
 DEART_B1_DECODE = {(3, 32, 32): 1, (32, 3, 32): 1}
-ALL_PHASES = ("serve", "train", "codec", "codec_train", "deart")
+# B6, the standalone (3,1,1) temporal conv
+SOURCE_TC = "selfc_tpu_torch/csrc/temporal_conv.cu"
+REPLACES_TC = "selfc_tpu/ops/pallas_kernels.py:109"
+# (shape, C, Co) of its checks: a ragged H*W with T 3, T 1, and the widths of
+# the nets' (3,1,1) convs: D2DLT's and D2DTEnhance's conv5 / conv51 (G/H
+# 131 -> 48, F 176 -> 3) and FeatureCollapseFast's (G/H 432 -> 768, F 1152 -> 48)
+TC_CHECKS = (((1, 3, 5, 7), 131, 48), ((2, 1, 6, 10), 176, 3), ((1, 3, 9, 11), 432, 768),
+             ((2, 3, 4, 6), 1152, 48))
+# the published SelfC_GMM with the subnet types whose chains reach B6
+SUBNET_TYPES = ("D2DLTInput", "FeatureCalapseBlock_Fast", "D2DTEnhanceInput")
+# (C, Co) of B6 in each: coupling G/H and F; and the frames' shrink (the
+# collapse block's space-to-depth)
+SUBNET_TC = {"D2DLTInput": (((131, 48), (176, 3)), 1),
+             "FeatureCalapseBlock_Fast": (((432, 768), (1152, 48)), 4),
+             "D2DTEnhanceInput": (((131, 48), (176, 3)), 1)}
+# kernel path against the plain path (B1-B4 and B6 plain), relative l2
+SUBNET_REL_L2_LIMIT = 1e-4
+ALL_PHASES = ("serve", "train", "codec", "codec_train", "deart", "subnets")
 
 
 def check(ok, what):
@@ -166,22 +187,25 @@ def to_library_layout(x, ws, bs, w5, b5, a, m):
 
 @contextlib.contextmanager
 def plain_chain_on_card():
-    """Route the models' kernel calls (the whole chain, the v1 spatial chain
-    and the deformable conv) to the plain versions, for comparison."""
-    kernels = dc.dense_chain_t_ep, dc.fused_dense_spatial, df.deform_conv2d
+    """Route the models' kernel calls (the whole chain, the v1 spatial chain,
+    the deformable conv and the temporal conv) to the plain versions, for
+    comparison."""
+    kernels = dc.dense_chain_t_ep, dc.fused_dense_spatial, df.deform_conv2d, tc.temporal_conv3_fused
     dc.dense_chain_t_ep = lambda *a, save_feats=True, **kw: dc.dense_chain_t_ep_plain(*a, **kw)
     dc.fused_dense_spatial = dc.fused_dense_spatial_plain
     df.deform_conv2d = df.deform_conv2d_plain
+    tc.temporal_conv3_fused = tc.temporal_conv3_fused_plain
     try:
         yield
     finally:
-        dc.dense_chain_t_ep, dc.fused_dense_spatial, df.deform_conv2d = kernels
+        dc.dense_chain_t_ep, dc.fused_dense_spatial, df.deform_conv2d, tc.temporal_conv3_fused = kernels
 
 
 def seeded_tree(net, seed):
-    """Random parameters from a numpy seed, every conv non-zero. conv5 of
-    the coupling subnets is scaled down so the latents stay of order one
-    through eight blocks."""
+    """Random parameters from a numpy seed, every leaf non-zero (conv5 and
+    ``early_3d_layer`` too, which init to zero). The last conv of the
+    coupling subnets (conv5, D2DTEnhance's conv6) is scaled down so the
+    latents stay of order one through eight blocks."""
     rng = np.random.default_rng(seed)
     tree = {}
     for name, p in net.named_parameters():
@@ -189,7 +213,7 @@ def seeded_tree(net, seed):
             std = 0.05
         else:
             std = float(np.prod(p.shape[:-1])) ** -0.5
-            if name.startswith("inv_blocks") and ".conv5." in name:
+            if name.startswith("inv_blocks") and (".conv5." in name or ".conv6." in name):
                 std *= 0.25
         tree[name] = rng.normal(0, std, tuple(p.shape)).astype(np.float32)
     return tree
@@ -252,17 +276,23 @@ NETWORK_G = {"which_model_G": {"subnet_type": "D2DTNet"}, "block_num": BLOCK_NUM
              "stp_blk_num": STP_BLK_NUM, "fh_loss": "gmm", "gmm_k": 5}
 
 
-def serve_options(**val):
-    return dict_to_nonedict({"model": "SelfC_GMM", "scale": 4, "val": val, "network_G": NETWORK_G})
+def network_g(subnet_type="D2DTNet"):
+    """The published net's ``network_G`` with ``which_model_G.subnet_type``
+    set to ``subnet_type``."""
+    return {**NETWORK_G, "which_model_G": {"subnet_type": subnet_type}}
 
 
-def train_options(**train):
+def serve_options(network=NETWORK_G, **val):
+    return dict_to_nonedict({"model": "SelfC_GMM", "scale": 4, "val": val, "network_G": network})
+
+
+def train_options(network=NETWORK_G, **train):
     """The options of the published training config
     (selfc_tpu/configs/train/train_rescaling_selfc_large.yml), built here."""
     return dict_to_nonedict({
         "model": "SelfC_GMM", "scale": 4, "distortion": "sr_bd", "is_train": True,
         "datasets": {"train": {"video_len": 7, "batch_size": 8, "GT_size": 144}},
-        "network_G": NETWORK_G,
+        "network_G": network,
         "train": {"lr_G": 1e-4, "beta1": 0.9, "beta2": 0.999, "warmup_iter": -1,
                   "lr_scheme": "MultiStepLR", "lr_steps": [100000, 200000, 300000], "lr_gamma": 0.5,
                   "pixel_criterion_forw": "l2", "pixel_criterion_back": "l1",
@@ -534,8 +564,8 @@ def train_batch(seed=20):
     return np.clip(base + rng.normal(0, 0.02, (B, T, S, S, 3)), 0, 1).astype(np.float32)
 
 
-def new_trainer(device, tree, batch, **train):
-    model = RescaleModel(train_options(**train), device=device, rng_seed=0)
+def new_trainer(device, tree, batch, network=NETWORK_G, **train):
+    model = RescaleModel(train_options(network, **train), device=device, rng_seed=0)
     model.load_jax_params(tree)
     check(model.feed_data({"GT": batch}) == TRAIN_SHAPE[1], "feed_data returns the clip length")
     return model
@@ -566,6 +596,7 @@ def phase_train(device):
 
     # ---- the main path: counts set to 0 just before, read just after ----
     dc.reset_launch_counts()
+    tc.reset_launch_counts()
     logs, per_step, seen = [], [], (0, 0, 0)
     t0 = time.time()
     for step in range(N_TRAIN_STEPS):
@@ -584,11 +615,16 @@ def phase_train(device):
     now = (dc.launches, dc.launches_bwd, dc.launches_feats)
     per_step.append(tuple(int(v) for v in np.subtract(now, seen)))
     counts = {"forward": dict(dc.launches_by_width), "backward": dict(dc.launches_bwd_by_width),
-              "feats": dict(dc.launches_feats_by_width)}
+              "feats": dict(dc.launches_feats_by_width), "b6": dict(tc.launches_by_width),
+              "b6_bwd": dict(tc.launches_bwd_by_width)}
     # ---------------------------------------------------------------------
 
     check(per_step == [(n_chain, n_chain, 0)] * N_TRAIN_STEPS + [(n_chain, n_chain, n_chain)],
           f"chain launches (forward, backward, feats) of each step: {per_step}")
+    # B6 recomputes conv5 of each reverse G chain (the sub_mul epilogue's dm)
+    n_sub_mul = sum(BLOCK_NUM) * (N_TRAIN_STEPS + 1)
+    check(counts["b6"] == {(3 + 4 * 32, 48): n_sub_mul} and not counts["b6_bwd"],
+          f"B6 launches of the four steps: {counts['b6']}, backward {counts['b6_bwd']}")
     for lg in logs + [log_r]:
         check(all(np.isfinite(v) for v in lg.values()) and lg["skipped_nonfinite"] == 0.0,
               f"the step's losses are finite and it was not skipped: {lg}")
@@ -601,9 +637,10 @@ def phase_train(device):
     # the same first step through the plain chain, on the card
     plain = new_trainer(device, tree, batch)
     with plain_chain_on_card():
-        before = (dc.launches, dc.launches_bwd, dc.launches_feats)
+        before = (dc.launches, dc.launches_bwd, dc.launches_feats, tc.launches)
         plain.optimize_parameters(0, eps=eps[0])
-        check((dc.launches, dc.launches_bwd, dc.launches_feats) == before, "the plain path launches no kernel")
+        check((dc.launches, dc.launches_bwd, dc.launches_feats, tc.launches) == before,
+              "the plain path launches no kernel")
     log_p, grads_p, after_p = dict(plain.get_current_log()), grads_of(plain), params_of(plain)
     loss_rel = abs(logs[0]["loss"] - log_p["loss"]) / abs(log_p["loss"])
     top = max(g.abs().max().item() for g in grads_p.values())
@@ -628,7 +665,7 @@ def phase_train(device):
     check(not differ, f"a repeated first step gives bit-identical parameters: {differ[:5]}")
 
     emit("train", batch=batch.shape, n_params=n_params, steps=N_TRAIN_STEPS, train_s=train_s,
-         launches_per_step=per_step, logs=logs, grad_norm_step0=norm_1,
+         launches_per_step=per_step, launches_b6_sub_mul=n_sub_mul, logs=logs, grad_norm_step0=norm_1,
          loss_rel_err_kernel_vs_plain=loss_rel, loss_rel_limit=TRAIN_LOSS_REL_LIMIT,
          grad_l2_rel_err_kernel_vs_plain=grad_l2, grad_l2_limit=TRAIN_GRAD_L2_LIMIT,
          grad_max_rel_err_kernel_vs_plain=grad_rel, grad_rel_limit=TRAIN_GRAD_REL_LIMIT,
@@ -1657,6 +1694,250 @@ def phase_timing_deform(device, counts_test, counts_train, worst):
     return rows
 
 
+def tc_adjoint_plain(x, w, b, g, slope, positive):
+    """dx, dw and db of the temporal conv for the output gradient ``g``,
+    plain: autograd of the plain conv (fp32) with the LeakyReLU's mask
+    ``positive`` given (None: no LeakyReLU)."""
+    leaves = [t.detach().float().requires_grad_(True) for t in (x, w, b)]
+    dy = g.float() if slope is None else torch.where(positive, g.float(), slope * g.float())
+    return torch.autograd.grad(tc.temporal_conv3_fused_plain(*leaves), leaves, dy)
+
+
+def phase_kernels_temporal(device):
+    """B6 against its plain version on the card, fp32 and bf16, without a
+    LeakyReLU and at slopes 0.2 and 0: the forward, and the backward (dx
+    through B6 with the flipped weights, dw and db as products) against
+    autograd of the plain conv at the kernel's own LeakyReLU mask (where two
+    forwards ~1e-6 apart straddle 0, the masks differ and so would the
+    gradients, without a fault). Each twice: the same bits. On a CUDA
+    tensor the wrapper launches or raises."""
+    rng = np.random.default_rng(80)
+    cases, worst = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        fp32 = dtype == torch.float32
+        for shape, C, co in TC_CHECKS:
+            x, w, b, g = make_temporal_conv(rng, shape, C, co, device, dtype)
+            for slope in (None, 0.2, 0.0):
+                before = (tc.launches, tc.launches_bwd)
+                leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+                out = tc.temporal_conv3_fused(*leaves, slope)
+                got_g = torch.autograd.grad(out, leaves, g)
+                counted = (tc.launches - before[0], tc.launches_bwd - before[1]) == (1, 1)
+                again = tc.temporal_conv3_fused(*leaves, slope)
+                again_g = torch.autograd.grad(again, leaves, g)
+                want = tc.temporal_conv3_fused_plain(x, w, b, slope)
+                positive = (None if slope is None else out >= 0 if slope > 0
+                            else tc._forward_cuda(x, w, b, slope, True)[1])
+                want_g = tc_adjoint_plain(x, w, b, g, slope, positive)
+                torch.cuda.synchronize()
+                e_fwd = deform_errors(out.detach(), want, fp32)
+                e_bwd = {n: rel_err(u, v) for n, u, v in zip(("dx", "dw", "db"), got_g, want_g)}
+                same_bits = torch.equal(out, again) and all(torch.equal(u, v) for u, v in zip(got_g, again_g))
+                ok = (e_fwd <= (FP32_LIMIT if fp32 else BF16_REL_LIMIT) and counted and same_bits
+                      and max(e_bwd.values()) <= (BWD_FP32_REL_LIMIT if fp32 else BWD_BF16_REL_LIMIT))
+                if fp32:
+                    worst[(C, co)] = max(worst.get((C, co), 0.0), e_fwd)
+                cases.append({"dtype": str(dtype).split(".")[-1], "shape": list(shape), "C": C, "c_out": co,
+                              "slope": slope, "forward_err": e_fwd, **{f"{n}_rel_err": v for n, v in e_bwd.items()},
+                              "same_bits_twice": same_bits, "launches_counted": counted, "ok": ok})
+                check(ok and np.isfinite(e_fwd + sum(e_bwd.values())), f"B6 agrees with its plain version: {cases[-1]}")
+    # on a CUDA tensor the wrapper launches or raises
+    x, w, b, _ = make_temporal_conv(rng, (1, 3, 4, 5), 6, 4, device)
+    before, refused = (tc.launches, tc.launches_bwd), []
+    for fault, error, args in (("float64", TypeError, (x.double(), w, b)),
+                               ("4-d x", ValueError, (x[0], w, b)),
+                               ("bias of 5", ValueError, (x, w, torch.zeros(5, device=device))),
+                               ("w of 7 input channels", ValueError, (x, torch.zeros(3, 7, 4, device=device), b))):
+        try:
+            tc.temporal_conv3_fused(*args)
+        except error:
+            refused.append(fault)
+    check(len(refused) == 4 and (tc.launches, tc.launches_bwd) == before,
+          f"the temporal conv refuses bad CUDA arguments: {refused}")
+    emit("kernels_temporal", kernels=["temporal_conv3_fused", "temporal_conv3_fused_bwd"], n_cases=len(cases),
+         fp32_limit=FP32_LIMIT, bf16_rel_limit=BF16_REL_LIMIT, bwd_fp32_rel_limit=BWD_FP32_REL_LIMIT,
+         bwd_bf16_rel_limit=BWD_BF16_REL_LIMIT, refused=refused, cases=cases)
+    return worst
+
+
+def rel_l2(got, want):
+    """|got - want|_2 / |want|_2 over matching arrays or tensors, in fp64."""
+    got, want = (np.asarray(t.detach().cpu() if torch.is_tensor(t) else t, np.float64) for t in (got, want))
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def grads_rel_l2(grads, ref):
+    return (sum((grads[k] - g).pow(2).sum().item() for k, g in ref.items())
+            / sum(g.pow(2).sum().item() for g in ref.values())) ** 0.5
+
+
+def b6_counts():
+    return {"forward": dict(tc.launches_by_width), "backward": dict(tc.launches_bwd_by_width),
+            "b1": dict(dc.launches_by_width)}
+
+
+def phase_subnets(device, counts):
+    """The published SelfC_GMM at full width with each subnet type of
+    SUBNET_TYPES, whose coupling chains reach B6: a GOP request
+    (``RescaleModel.test``) on a 7-frame Vid4-size clip, then one training
+    step at the published batch; the B6 and B1 launch counts of exactly
+    those calls are kept (added into ``counts``, keyed by (path, C, Co)).
+    Each against the same net with the kernels swapped for their plain
+    versions: hr from one shared LR and noise, and the step's loss and
+    whole gradient, in relative l2."""
+    rng = np.random.default_rng(90)
+    clip = np.clip(rng.normal(0.5, 0.2, (1, 7, *CLIP_HW, 3)), 0, 1).astype(np.float32)
+    batch = train_batch(91)
+    n_blocks = sum(BLOCK_NUM)
+    out = []
+    for subnet_type in SUBNET_TYPES:
+        widths, shrink = SUBNET_TC[subnet_type]
+        network = network_g(subnet_type)
+        model = RescaleModel(serve_options(network), device=device, rng_seed=0)
+        tree = seeded_tree(model.net, 92)
+        model.load_jax_params(tree)
+        n_params = sum(p.numel() for p in model.net.parameters())
+
+        # ---- the main path: counts set to 0 just before, read just after ----
+        dc.reset_launch_counts()
+        tc.reset_launch_counts()
+        model.generator.manual_seed(5)
+        t0 = time.time()
+        with torch.no_grad():
+            model.feed_data({"GT": clip})
+            model.test(gop=7)
+        torch.cuda.synchronize()
+        serve_s = time.time() - t0
+        serve = b6_counts()
+        # ---------------------------------------------------------------------
+
+        # F's width a block each way, and G's and H's
+        want_b6 = {widths[1]: 2 * n_blocks, widths[0]: 4 * n_blocks}
+        check(serve["forward"] == want_b6 and not serve["backward"],
+              f"{subnet_type}: B6 launches of test(): {serve}")
+        check(serve["b1"] == {(3, 64, 32): 1, (64, 64, 32): STP_BLK_NUM - 1},
+              f"{subnet_type}: B1 launches of test() (the prior alone): {serve['b1']}")
+        sr = model.get_current_visuals()["SR"]
+        check(sr.shape == clip.shape and np.isfinite(sr).all(), f"{subnet_type}: SR shape and finite")
+        with torch.no_grad():
+            lr_k = model.downscale(clip)
+            model.generator.manual_seed(6)
+            hr_k = model.upscale(lr_k)
+            with plain_chain_on_card():
+                before = (dc.launches, tc.launches)
+                lr_p = model.downscale(clip)
+                model.generator.manual_seed(6)
+                hr_p = model.upscale(lr_k)   # the same LR and the same noise as the kernel path
+                check((dc.launches, tc.launches) == before, "the plain path launches no kernel")
+        lr_differ = float(np.mean(np.abs(lr_k - lr_p) > 1e-6))
+        hr_l2 = rel_l2(hr_k, hr_p)
+        check(lr_differ < 1e-3 and np.abs(lr_k - lr_p).max() < 1.01 / 255,
+              f"{subnet_type}: downscale, kernel path vs plain path: {lr_differ}")
+        check(hr_l2 <= SUBNET_REL_L2_LIMIT, f"{subnet_type}: hr from a shared LR, kernel vs plain path: {hr_l2}")
+        del model, lr_k, hr_k, lr_p, hr_p
+
+        eps = rng.normal(0, 1, (*TRAIN_SHAPE, 48, 5)).astype(np.float32)
+        trainer = new_trainer(device, tree, batch, network)
+        # ---- the main path: counts set to 0 just before, read just after ----
+        dc.reset_launch_counts()
+        tc.reset_launch_counts()
+        t0 = time.time()
+        trainer.optimize_parameters(0, eps=eps)
+        torch.cuda.synchronize()
+        step_s = time.time() - t0
+        train = b6_counts()
+        # ---------------------------------------------------------------------
+        log_k, grads_k = dict(trainer.get_current_log()), grads_of(trainer)
+        check(train["forward"] == want_b6 and train["backward"] == want_b6,
+              f"{subnet_type}: B6 launches of a step (forward, backward): {train}")
+        check(all(np.isfinite(v) for v in log_k.values()) and log_k["skipped_nonfinite"] == 0.0,
+              f"{subnet_type}: the step's losses are finite and it was not skipped: {log_k}")
+        step = time_cuda(lambda: trainer.optimize_parameters(1, eps=eps), iters=3, warmup=1)
+        del trainer
+        plain = new_trainer(device, tree, batch, network)
+        with plain_chain_on_card():
+            before = (dc.launches, dc.launches_bwd, tc.launches, tc.launches_bwd)
+            plain.optimize_parameters(0, eps=eps)
+            check((dc.launches, dc.launches_bwd, tc.launches, tc.launches_bwd) == before,
+                  "the plain path launches no kernel")
+            log_p, grads_p = dict(plain.get_current_log()), grads_of(plain)
+            step_p = time_cuda(lambda: plain.optimize_parameters(1, eps=eps), iters=3, warmup=1)
+        del plain
+        loss_rel = abs(log_k["loss"] - log_p["loss"]) / abs(log_p["loss"])
+        grad_l2 = grads_rel_l2(grads_k, grads_p)
+        check(loss_rel <= TRAIN_LOSS_REL_LIMIT and grad_l2 <= SUBNET_REL_L2_LIMIT,
+              f"{subnet_type}: a step's loss and whole gradient, kernel vs plain path: {(loss_rel, grad_l2)}")
+        del grads_k, grads_p
+
+        for (C, co) in widths:
+            for key, n in ((("serve", shrink, C, co, False), serve["forward"].get((C, co), 0)),
+                           (("train", shrink, C, co, False), train["forward"].get((C, co), 0)),
+                           (("train", shrink, C, co, True), train["backward"].get((C, co), 0))):
+                counts[key] = counts.get(key, 0) + n
+        out.append({"subnet_type": subnet_type, "n_params": n_params, "serve_s": serve_s,
+                    "launches_b6_test": {str(k): v for k, v in serve["forward"].items()},
+                    "launches_b1_test": {str(k): v for k, v in serve["b1"].items()},
+                    "launches_b6_step": {"forward": {str(k): v for k, v in train["forward"].items()},
+                                         "backward": {str(k): v for k, v in train["backward"].items()}},
+                    "lr_levels_differ": lr_differ, "hr_rel_l2_kernel_vs_plain": hr_l2,
+                    "loss": log_k["loss"], "loss_rel_err_kernel_vs_plain": loss_rel,
+                    "grad_rel_l2_kernel_vs_plain": grad_l2, "first_step_s": step_s,
+                    "step_ms": step["median"], "step_plain_ms": step_p["median"]})
+    emit("subnets", clip=clip.shape, batch=batch.shape, rel_l2_limit=SUBNET_REL_L2_LIMIT,
+         loss_rel_limit=TRAIN_LOSS_REL_LIMIT, nets=out)
+
+
+def library_temporal(x, w, b):
+    """The same conv through one PyTorch library call (``F.conv3d`` with a
+    (3,1,1) kernel) on NCDHW tensors: the yardstick, never called by the
+    port."""
+    return F.conv3d(x, w, b, padding=(1, 0, 0))
+
+
+def phase_timing_temporal(device, counts, worst):
+    """B6 at the shapes and widths the main paths launched it with: the
+    forward at the serving and training latents (the collapse block's
+    space-to-depth shrinks them 4x) and the data gradient (the kernel with
+    the flipped weights) at the training latent: ms beside the bound, the
+    plain version's ms and one ``F.conv3d``'s."""
+    rng = np.random.default_rng(93)
+    rows = []
+    for (path, shrink, C, co, backward), launches in sorted(counts.items()):
+        if not launches:
+            continue
+        B, T, H, W = SERVE_SHAPE if path == "serve" else TRAIN_SHAPE
+        shape = (B, T, H // shrink, W // shrink)
+        x, w, b, g = make_temporal_conv(rng, shape, C, co, device)
+        if backward:   # dx = the conv of g with the flipped weights, no bias
+            x, w, b = g, tc._flipped(w), None
+        ncdhw = x.permute(0, 4, 1, 2, 3).contiguous()
+        lw = w.permute(2, 1, 0)[..., None, None].contiguous()
+        with torch.no_grad():
+            got = tc._forward_cuda(x, w, b, None, False)[0]
+            want = tc.temporal_conv3_fused_plain(x, w, b)
+            lib = library_temporal(ncdhw, lw, b).permute(0, 2, 3, 4, 1)
+            err = (got - want).abs().max().item()
+            check(err <= FP32_LIMIT, f"B6 vs plain at {shape} {C}->{co}: {err}")
+            check((lib - want).abs().max().item() <= 1e-3, "the library conv computes the same function")
+            ms = time_cuda(lambda: tc._launch(x, w, b, None, False))
+            plain = time_cuda(lambda: tc.temporal_conv3_fused_plain(x, w, b))
+            library = time_cuda(lambda: library_temporal(ncdhw, lw, b))
+        M = int(np.prod(shape))
+        bound, by = temporal_conv_bound_ms(M, *((co, C) if backward else (C, co)), T=T)
+        rows.append({
+            "name": f"temporal_conv3{'_dx' if backward else ''}[{C}->{co}]@{path}"
+                    + ("/4" if shrink > 1 else ""),
+            "route": "cuda", "source": SOURCE_TC, "replaces": REPLACES_TC, "launches": launches,
+            "max_abs_err": max(err, worst.get((C, co), 0.0)), "ms": ms["median"], "plain_ms": plain["median"],
+            "bound_ms": bound, "bound_by": by, "library_ms": library["median"], "ms_min": ms["min"],
+            "plain_ms_min": plain["min"], "library_ms_min": library["min"],
+            "shape": list(shape) + [co if backward else C]})
+        del x, w, b, g, ncdhw, lw, got, want, lib
+    emit("timing_temporal", rows=[{k: r[k] for k in ("name", "launches", "ms", "ms_min", "plain_ms", "library_ms",
+                                                      "bound_ms", "bound_by")} for r in rows])
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -1691,6 +1972,8 @@ def main():
         worst_deform = phase_kernels_deform(device)
     worst_gc_bwd = phase_kernels_gc_bwd(device)
     phase_grad(device)
+    worst_tc = phase_kernels_temporal(device)
+    tc_counts = {}   # B6 launches of the main paths by (path, shrink, C, Co, backward)
     if "serve" in want:
         with torch.no_grad():
             model, counts = phase_roundtrip(device)
@@ -1700,6 +1983,8 @@ def main():
         trainer, recompute, counts, eps = phase_train(device)
         kernels += phase_timing_train(device, trainer, recompute, counts, worst_bwd, eps)
         del trainer, recompute
+        for (C, co), n in counts["b6"].items():
+            tc_counts[("train", 1, C, co, False)] = n
     base_codec = base_train = None   # the codec's numbers without the de-artifact net
     if "codec" in want:
         codec = phase_codec(device)
@@ -1716,6 +2001,10 @@ def main():
         counts_test = phase_codec_deart(device, base_codec)
         counts_train = phase_codec_deart_train(device, base_train)
         kernels += phase_timing_deform(device, counts_test, counts_train, worst_deform)
+    if "subnets" in want:
+        phase_subnets(device, tc_counts)
+    if tc_counts:
+        kernels += phase_timing_temporal(device, tc_counts, worst_tc)
 
     for k in kernels:
         check(k["launches"] >= 1, f"the main path launched {k['name']}")

@@ -7,10 +7,11 @@
   log-jac: +-sum(s) / (B*T)
 
 The block carries the ``(x1, x2)`` pair (x1 = the 3 LR channels, x2 = the
-high-frequency rest) and never concatenates it. The coupling arithmetic
-rides the dense chains as fused epilogues: H emits exp(+-s) directly, the
-y1/y2 combines happen on conv5's accumulator, and the log-jacobian is
-recovered as sum(log(exp(+-s))).
+high-frequency rest) and never concatenates it. Where the subnets are D2DT
+chains (``SUPPORTS_EP``), the coupling arithmetic rides them as fused
+epilogues: H emits exp(+-s) directly, the y1/y2 combines happen on conv5's
+accumulator, and the log-jacobian is recovered as sum(log(exp(+-s))). Every
+other subnet family takes the plain branch above, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,11 +32,14 @@ class InvBlockExp(nn.Module):
         self.F = subnet_ctor(s2, s1, generator=generator)
         self.G = subnet_ctor(s1, s2, generator=generator)
         self.H = subnet_ctor(s1, s2, generator=generator)
+        self.use_ep = getattr(type(self.F), "SUPPORTS_EP", False)
 
     def forward(self, pair, rev: bool = False):
         """pair: (x1 (B,T,H,W,s1), x2 (B,T,H,W,s2)), both contiguous.
         Returns ((y1, y2), log_jac)."""
         x1, x2 = pair
+        if not self.use_ep:
+            return self._plain(x1, x2, rev)
         if not rev:
             y1 = self.F(x2, ep=("add", 1.0, x1, None))
             s_exp = self.H(y1, ep=("sig_exp", self.clamp, None, None))
@@ -46,3 +50,18 @@ class InvBlockExp(nn.Module):
             y1 = self.F(y2, ep=("sub_from", 1.0, x1, None))
         jac = torch.sum(torch.log(s_exp.float())) / (x1.shape[0] * x1.shape[1])
         return (y1, y2), jac
+
+    def _plain(self, x1, x2, rev):
+        """The coupling for subnets without the fused epilogues
+        (selfc_tpu/models/coupling.py, its last two branches)."""
+        if not rev:
+            y1 = x1 + self.F(x2)
+            s = self.clamp * (2.0 * torch.sigmoid(self.H(y1)) - 1.0)
+            y2 = x2 * torch.exp(s) + self.G(y1)
+            jac = torch.sum(s.float())
+        else:
+            s = self.clamp * (2.0 * torch.sigmoid(self.H(x1)) - 1.0)
+            y2 = (x2 - self.G(x1)) * torch.exp(-s)
+            y1 = x1 - self.F(y2)
+            jac = -torch.sum(s.float())
+        return (y1, y2), jac / (x1.shape[0] * x1.shape[1])

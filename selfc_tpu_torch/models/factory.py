@@ -57,10 +57,11 @@ def define_G(opt, device=None, generator=None):
     if model_type == "SelfC_GMM_Codec":
         # the de-artifact net is built from deart_net alone, as the JAX
         # package builds it (selfc_tpu/models/factory.py); h265_deart is read
-        # by no module there
+        # by no module there. Without network_G.block_num the coupling has
+        # (4, 4) blocks for every model type there, the codec's too
         return SelfCNetCodec(
             scale=net.get("scale") or opt["scale"],
-            block_num=tuple(net.get("block_num") or (4,)),
+            block_num=tuple(net.get("block_num") or (4, 4)),
             subnet_type=which.get("subnet_type", "D2DTNet"),
             init_mode=net.get("init") or "xavier",
             stp_blk_num=net.get("stp_blk_num") or 4,

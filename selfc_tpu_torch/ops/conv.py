@@ -36,6 +36,17 @@ def xavier_normal(scale: float = 1.0, gain: float = 1.0):
     return init
 
 
+def kaiming_normal(scale: float = 1.0):
+    """``nn.init.kaiming_normal_(a=0, mode='fan_in')`` followed by
+    ``weight *= scale``: std ``scale * sqrt(2 / fan_in)``."""
+
+    def init(shape, generator=None):
+        fan_in, _ = _fans(shape)
+        return scale * math.sqrt(2.0 / fan_in) * torch.randn(shape, generator=generator)
+
+    return init
+
+
 def zeros_init(shape, generator=None):
     return torch.zeros(shape)
 
@@ -77,6 +88,20 @@ def conv2d(x, w, b=None):
     return y.permute(0, 2, 3, 1)
 
 
+def conv2d_same_strided(x, w, b=None, stride: int = 2):
+    """Strided 2-D conv on (N,H,W,C) with flax / lax ``"SAME"`` padding; w:
+    (kh,kw,Cin,Cout). Each side gets ``total = max((ceil(n/s)-1)*s + k - n, 0)``
+    padded, ``total // 2`` before and the rest after: a 3x3 stride-2 conv at an
+    even size pads 0 before and 1 after, so it samples other pixels than
+    ``F.conv2d(padding=1)``. Plain PyTorch, as the JAX package's ``nn.Conv``."""
+    pads = []
+    for n, k in ((x.shape[2], w.shape[1]), (x.shape[1], w.shape[0])):   # W, then H
+        total = max((-(-n // stride) - 1) * stride + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    y = F.conv2d(F.pad(x.permute(0, 3, 1, 2), pads), w.permute(3, 2, 0, 1), b, stride=stride)
+    return y.permute(0, 2, 3, 1)
+
+
 def conv3d(x, w, b=None):
     """Stride-1 SAME 3x3x3 conv on (B,T,H,W,C), zero padded in T, H and W;
     w: (3,3,3,Cin,Cout) (kt, kh, kw). Plain PyTorch: the JAX package computes
@@ -85,15 +110,19 @@ def conv3d(x, w, b=None):
     return y.permute(0, 2, 3, 4, 1)
 
 
-def temporal_conv3(x, w, b=None):
-    """(3,1,1) conv on (B,T,H,W,C), zero padded along T; w: (3,Cin,Cout).
-    Three shifted matmuls."""
+def temporal_conv3(x, w, b=None, dilation: int = 1):
+    """(3,1,1) conv on (B,T,H,W,C) with dilation d in T, zero padded along T
+    (taps t-d, t, t+d); w: (3,Cin,Cout). Three shifted matmuls. The dense
+    chains and the dilation-1 convs of the block families take the kernels
+    (ops/dense_chain.py, ops/temporal_conv.py); this is their plain building
+    block and D2DTEnhance's dilation-2 and -3 conv, plain on both sides."""
+    d = dilation
     T = x.shape[1]
-    xp = F.pad(x, (0, 0, 0, 0, 0, 0, 1, 1))
+    xp = F.pad(x, (0, 0, 0, 0, 0, 0, d, d))
     y = (
         torch.matmul(xp[:, 0:T], w[0])
-        + torch.matmul(xp[:, 1:T + 1], w[1])
-        + torch.matmul(xp[:, 2:T + 2], w[2])
+        + torch.matmul(xp[:, d:T + d], w[1])
+        + torch.matmul(xp[:, 2 * d:T + 2 * d], w[2])
     )
     if b is not None:
         y = y + b

@@ -59,6 +59,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from ..kernels import build
+from . import temporal_conv as tc
 from .conv import temporal_conv3
 
 GC_MAX = 32  # the widest growth the CUDA kernels take
@@ -474,7 +475,9 @@ def _conv5_adjoint(x, feats, w5, dy5, need_dx):
 class _DenseChainEp(torch.autograd.Function):
     """``dense_chain_t_ep`` on tensors already cast to x's dtype. The
     backward: (1) feats, saved by the forward or recomputed by the
-    spatial-only forward; (2) the epilogue's adjoint, elementwise in fp32;
+    spatial-only forward; (2) the epilogue's adjoint, elementwise in fp32
+    (``sub_mul`` recomputes conv5's output for dm, through the temporal-conv
+    kernel on a CUDA tensor);
     (3) conv5's adjoint as plain products (it is outside the kernels on the
     JAX side too), written into the fp32 ``dx`` / ``dfeats`` pair; (4) the
     chain adjoint, in place on that pair; (5) dx rounded to x's dtype."""
@@ -535,8 +538,9 @@ class _DenseChainEp(torch.autograd.Function):
             gm = g * m.to(acc)
             dy5, da = -gm, gm
             if need_m:
-                y5 = temporal_conv3(torch.cat([x, true_width(feats, ws[0].shape[-1])], dim=-1),
-                                    w5, b5).to(acc)
+                # conv5 again: the temporal-conv kernel on a CUDA tensor
+                y5 = tc.temporal_conv3_fused(
+                    torch.cat([x, true_width(feats, ws[0].shape[-1])], dim=-1), w5, b5).to(acc)
                 dm = g * (a.to(acc) - y5)
         dy5 = dy5.contiguous()
 

@@ -37,6 +37,7 @@ import torch
 from selfc_tpu_torch.kernels import build
 from selfc_tpu_torch.ops import deform as df
 from selfc_tpu_torch.ops import dense_chain as dc
+from selfc_tpu_torch.ops import temporal_conv as tc
 from selfc_tpu_torch.utils.bench import make_chain, make_deform
 
 CUDA_RUNTIME_H = r"""
@@ -163,20 +164,21 @@ def build_cpu_library(name: str, out_dir: Path) -> Path:
 @contextlib.contextmanager
 def cpu_kernels(out_dir: Path):
     """Inside, the launch functions of ``ops.dense_chain`` (``_chain_cuda``,
-    ``_feats_cuda``, ``_bwd_cuda``) and ``ops.deform`` (``_forward_cuda``,
-    ``_backward_cuda``) run the CPU builds of the CUDA sources on CPU
+    ``_feats_cuda``, ``_bwd_cuda``), ``ops.deform`` (``_forward_cuda``,
+    ``_backward_cuda``) and ``ops.temporal_conv`` (``_forward_cuda``,
+    ``_data_grad_cuda``) run the CPU builds of the CUDA sources on CPU
     tensors. The public wrappers still take their plain versions for a CPU
     tensor: call the launch functions directly."""
     names = build.kernel_names()
     libs = {n: build_cpu_library(n, out_dir) for n in names}
-    stream = dc._stream
-    dc._stream = lambda x: None
+    streams = dc._stream, tc._stream
+    dc._stream = tc._stream = lambda x: None
     try:
         for n, lib in libs.items():
             build.use_library(n, lib)
         yield
     finally:
-        dc._stream = stream
+        dc._stream, tc._stream = streams
         for n in names:
             build.use_library(n)
 
@@ -259,15 +261,50 @@ def rehearse_deform(cases=DEFORM_CASES, dtypes=(torch.float32, torch.bfloat16), 
     return out
 
 
+# (B, T, H, W, C, Co) of the temporal conv: a ragged H*W (35) and T 3, T 1
+# (both neighbour taps in the padding), C and Co not multiples of the 16-channel
+# slab or the 64-column tile, over one tile each, and Co 3
+TEMPORAL_CASES = ((1, 3, 5, 7, 9, 5), (2, 1, 4, 3, 6, 3), (1, 4, 3, 23, 37, 70), (2, 3, 2, 9, 19, 3))
+
+
+def rehearse_temporal_conv(cases=TEMPORAL_CASES, dtypes=(torch.float32, torch.bfloat16),
+                           slopes=(None, 0.2, 0.0), seed=0) -> list[dict]:
+    """The temporal conv's kernel against its plain version, forward at each
+    slope (with the mask it writes at slope 0) and the data-gradient launch
+    (the kernel with the flipped weights, no bias); call inside
+    ``cpu_kernels()``. One record a case: the errors relative to max
+    |plain|, and whether the mask is the plain one."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for dtype in dtypes:
+        for B, T, H, W, C, co in cases:
+            mk = lambda *s: torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(dtype)  # noqa: E731
+            x, w, b, dy = mk(B, T, H, W, C), mk(3, C, co) * (3 * C) ** -0.5, mk(co) * 0.1, mk(B, T, H, W, co)
+            rec = {"kernel": "temporal_conv", "dtype": str(dtype).split(".")[-1], "shape": [B, T, H, W],
+                   "C": C, "c_out": co}
+            for ns in slopes:
+                got, mask = tc._forward_cuda(x, w, b, ns, ns is not None and ns <= 0)
+                want, want_mask = tc._plain(x, w, b, ns)
+                rec[f"forward_slope_{ns}"] = rel_err(got, want)
+                if mask is not None:
+                    # a mask bit may differ only where the two sums straddle 0
+                    rec["mask_same"] = bool(torch.equal(mask, want_mask) or
+                                            (want[mask != want_mask].float().abs().max() < 1e-5).item())
+            rec["dx"] = rel_err(tc._data_grad_cuda(dy, w), tc.temporal_conv3_fused_plain(dy, tc._flipped(w)))
+            out.append(rec)
+    return out
+
+
 def main() -> int:
     with tempfile.TemporaryDirectory() as tmp, cpu_kernels(Path(tmp)), torch.no_grad():
-        records = rehearse() + rehearse_deform()
+        records = rehearse() + rehearse_deform() + rehearse_temporal_conv()
     for rec in records:
         print(json.dumps(rec), flush=True)
         limit = 1e-5 if rec["dtype"] == "float32" else 3e-2
         bad = {k: v for k, v in rec.items() if isinstance(v, float) and not v <= limit}
-        if rec.get("dweight_same_bits") is False:
-            bad["dweight_same_bits"] = False
+        for flag in ("dweight_same_bits", "mask_same"):
+            if rec.get(flag) is False:
+                bad[flag] = False
         if bad:
             print(f"cpu_rehearsal: FAILED {rec}: {bad}", file=sys.stderr)
             return 1

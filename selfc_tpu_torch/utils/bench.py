@@ -196,6 +196,32 @@ def chain_bwd_cost(B, T, H, W, C, itemsize, gc=32, dx_in=True):
     return 4.0 * _spatial_macs(B, T, H, W, C, gc), float(nbytes)
 
 
+def temporal_conv_cost(M, C, Co, itemsize, T=None):
+    """(operations, bytes) of one (3,1,1) temporal conv over ``M = B*T*H*W``
+    rows, C -> Co channels. Operations: two a multiply-add, 3C of them a row
+    and output channel; with ``T`` given, the taps that meet the zero padding
+    in T (2 of 3T a clip column) are not counted. Bytes: x read once, the
+    output written once, the weights and bias read once, at ``itemsize``."""
+    inside_t = 1.0 if T is None else (3 * T - 2) / (3 * T)
+    ops = 2.0 * M * 3 * C * Co * inside_t
+    nbytes = itemsize * (M * (C + Co) + 3 * C * Co + Co)
+    return ops, float(nbytes)
+
+
+def temporal_conv_bound_ms(M, C, Co, dtype=torch.float32, T=None):
+    return bound_ms(*temporal_conv_cost(M, C, Co, _itemsize(dtype), T), dtype)
+
+
+def make_temporal_conv(rng, shape, C, c_out, device, dtype=torch.float32):
+    """Seeded temporal-conv operands for ``shape = (B,T,H,W)``: x and the
+    output gradient g standard normal, the weight fan-in scaled, the bias
+    N(0, 0.1). Returns (x, w, b, g)."""
+    def mk(s, std=1.0):
+        return torch.from_numpy(rng.normal(0, std, s).astype(np.float32)).to(device=device, dtype=dtype)
+
+    return mk(shape + (C,)), mk((3, C, c_out), (3 * C) ** -0.5), mk((c_out,), 0.1), mk(shape + (c_out,))
+
+
 def bound_ms(ops, nbytes, dtype=torch.float32):
     """(bound_ms, 'operations' | 'bytes'): the least time the card could
     take for this work."""

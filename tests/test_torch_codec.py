@@ -196,6 +196,21 @@ def test_define_g_builds_the_published_codec_net(tmp_path, monkeypatch):
     assert any(k.startswith("deart_1.") for k in flat)
 
 
+def test_define_g_codec_block_num_default_follows_jax():
+    """Without ``network_G.block_num`` both factories build (4, 4) coupling
+    blocks for the codec too (selfc_tpu/models/factory.py): one option dict
+    gives one parameter tree on both sides."""
+    from selfc_tpu.models.factory import define_G as jdefine_G
+
+    opt = _codec_opt()
+    del opt["network_G"]["block_num"]
+    jnet = jdefine_G(opt)
+    assert tuple(jnet.block_num) == (4, 4)
+    net = define_G(opt, device="cpu")
+    assert net.block_num == (4, 4) and net.n_blocks == 8
+    assert {k: tuple(p.shape) for k, p in net.named_parameters()} == _jax_tree_shapes(jnet)
+
+
 # ---------------------------------------------------------------------------
 # the host codec
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ import torch
 
 from selfc_tpu_torch.ops import deform as df
 from selfc_tpu_torch.ops import dense_chain as dc
+from selfc_tpu_torch.ops import temporal_conv as tc
 from selfc_tpu_torch.tools import cpu_rehearsal
 
 
@@ -48,7 +49,8 @@ def _errors(rec):
 
 def test_rewrite_finds_every_launch():
     from selfc_tpu_torch.kernels import build
-    for name, n_launches in (("dense_chain", 3), ("dense_chain_bwd", 3), ("deform", 4)):
+    for name, n_launches in (("dense_chain", 3), ("dense_chain_bwd", 3), ("deform", 4),
+                             ("temporal_conv", 1)):
         text, n = cpu_rehearsal.rewrite_launches((build.CSRC_DIR / f"{name}.cu").read_text())
         assert n == n_launches and "<<<" not in text
 
@@ -134,3 +136,31 @@ def test_deform_cpu_build_counts_a_call_each_way(cpu_built):
         cpu_rehearsal.rehearse_deform(((1, 3, 4, 3, 3),), (torch.float32,))
     assert (df.launches, df.launches_bwd) == (1, 2)
     assert df.launches_by_width == {(3, 3): 1} and df.launches_bwd_by_width == {(3, 3): 2}
+
+
+@pytest.mark.parametrize("case", cpu_rehearsal.TEMPORAL_CASES,
+                         ids=["ragged_hw", "one_frame", "over_one_tile", "co3"])
+def test_temporal_conv_cuda_source_matches_plain_fp32(cpu_built, case):
+    """csrc/temporal_conv.cu through the port's launch functions: the
+    forward with no LeakyReLU, slope 0.2 and slope 0 (and the mask it writes
+    there), and the data-gradient launch (flipped weights, no bias), at a
+    ragged H*W, T 1 and 3, C and Co off the slab and tile sizes."""
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse_temporal_conv((case,), (torch.float32,))
+    errs = _errors(rec)
+    assert set(errs) == {"forward_slope_None", "forward_slope_0.2", "forward_slope_0.0", "dx"}
+    assert all(v <= 1e-5 for v in errs.values()) and rec["mask_same"], rec
+
+
+def test_temporal_conv_cuda_source_matches_plain_bf16(cpu_built):
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse_temporal_conv((cpu_rehearsal.TEMPORAL_CASES[2],), (torch.bfloat16,))
+    assert all(v <= 3e-2 for v in _errors(rec).values()) and rec["mask_same"], rec
+
+
+def test_temporal_conv_cpu_build_counts_forward_and_backward_apart(cpu_built):
+    tc.reset_launch_counts()
+    with torch.no_grad():
+        cpu_rehearsal.rehearse_temporal_conv(((1, 3, 2, 2, 4, 5),), (torch.float32,), (None,))
+    assert (tc.launches, tc.launches_bwd) == (1, 1)
+    assert tc.launches_by_width == {(4, 5): 1} and tc.launches_bwd_by_width == {(4, 5): 1}

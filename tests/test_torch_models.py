@@ -178,5 +178,9 @@ def test_stp_deform_builds_the_jax_tree(kind):
 
 
 def test_subnet_factory_names_unported_types():
-    with pytest.raises(NotImplementedError, match="A23"):
-        subnet("DBNet")
+    """Every name of the JAX table is ported (tests/test_torch_blocks_all.py);
+    an unknown one raises KeyError, as in the JAX package."""
+    with pytest.raises(KeyError, match="NoSuchNet"):
+        subnet("NoSuchNet")
+    with pytest.raises(KeyError):
+        jsubnet("NoSuchNet")
