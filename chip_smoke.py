@@ -17,11 +17,14 @@ zlib stand-in), it trains that codec net with its surrogate
 de-artifact net (``network_G.deart_net``, whose deformable conv is kernel B5),
 and it serves a GOP through and trains one step of the SelfC_GMM 4x net
 again with each of the subnet types whose chains reach the standalone
-temporal conv (kernel B6). It times the kernels beside their roofline bound.
+temporal conv (kernel B6), and it serves a GOP and trains the published 4x
+net once more with the opt-in chain schedules (``network_G.chain_variants:
+[hg, ride, v3]``: kernels B7, B9 and B8 carry all 54 chains of a roundtrip).
+It times the kernels beside their roofline bound.
 Prints one JSON line per phase; any failure exits non-zero. There is no CPU
 fallback: without a CUDA device the script fails at once.
 
-``--phases serve,train,codec,codec_train,deart,subnets`` (the default) picks
+``--phases serve,train,codec,codec_train,deart,subnets,variants`` (the default) picks
 the paths; ``--phases kernels`` only builds the kernels and checks them
 against their plain versions.
 
@@ -47,6 +50,7 @@ from selfc_tpu_torch.codec import h265
 from selfc_tpu_torch.codec.pipeline import seg_add_pad
 from selfc_tpu_torch.config import dict_to_nonedict
 from selfc_tpu_torch.kernels import build
+from selfc_tpu_torch.ops import chain_variants as cv
 from selfc_tpu_torch.ops import deform as df
 from selfc_tpu_torch.ops import dense_chain as dc
 from selfc_tpu_torch.ops import temporal_conv as tc
@@ -57,8 +61,8 @@ from selfc_tpu_torch.utils.bench import (
     CLIP_HW, CODEC_DEC_SHAPE, CODEC_ENC_SHAPE, CODEC_TRAIN_LAT, CODEC_TRAIN_SHAPE, CODEC_WIDTHS,
     DEART_C, DEART_DEC_SHAPE, DEART_TRAIN_SHAPE, PATH_WIDTHS, SERVE_SHAPE, STP_DEFORM_C,
     STP_DEFORM_SHAPE, SURROGATE_C, TRAIN_SHAPE, UVG_HW, chain_bound_ms, chain_bwd_bound_ms,
-    chain_feats_bound_ms, deform_bound_ms, deform_tap_stats, make_chain, make_deform, make_temporal_conv,
-    temporal_conv_bound_ms, time_cuda)
+    chain_feats_bound_ms, deform_bound_ms, deform_tap_stats, hg_bound_ms, make_chain, make_deform,
+    make_temporal_conv, temporal_conv_bound_ms, time_cuda)
 from selfc_tpu_torch.utils.metrics import psnr
 
 CHECK_WIDTHS = ((3, 48), (48, 3), (64, 64))           # coupling F/H/G and the prior
@@ -150,7 +154,27 @@ SUBNET_TC = {"D2DLTInput": (((131, 48), (176, 3)), 1),
              "D2DTEnhanceInput": (((131, 48), (176, 3)), 1)}
 # kernel path against the plain path (B1-B4 and B6 plain), relative l2
 SUBNET_REL_L2_LIMIT = 1e-4
-ALL_PHASES = ("serve", "train", "codec", "codec_train", "deart", "subnets")
+# B7-B9, the opt-in chain schedules (network_G.chain_variants)
+VARIANTS = ["hg", "ride", "v3"]
+SOURCE_HG = "selfc_tpu_torch/csrc/chain_hg.cu"
+SOURCE_RIDE = "selfc_tpu_torch/csrc/chain_ride.cu"
+SOURCE_V3 = "selfc_tpu_torch/csrc/chain_v3.cu"
+REPLACES_HG = "selfc_tpu/ops/pallas_chain.py:1248"
+REPLACES_RIDE = "selfc_tpu/ops/pallas_chain.py:1523"
+REPLACES_V3 = "selfc_tpu/ops/pallas_chain.py:890"
+# (shape, C, c_out, gc) of the checks: B7 at the serving and training latents
+# of the 4x pair, ragged H and W with the codec's c_out 12 and with growth 12;
+# B9 with every epilogue at c_out 3, 6, 10 and at T 1; B8 at the 4x prior's
+# widths and the codec prior's growth 12
+HG_CHECKS = ((SERVE_SHAPE, 3, 48, 32), (TRAIN_SHAPE, 3, 48, 32), (CHECK_SHAPE, 3, 12, 32), (CHECK_SHAPE, 3, 48, 12))
+RIDE_CHECKS = ((CHECK_SHAPE, 48, 3, 32), (CHECK_SHAPE, 48, 6, 32), (CHECK_SHAPE, 48, 10, 32), ((2, 1, 20, 26), 48, 3, 32))
+V3_CHECKS = ((CHECK_SHAPE, 3, 64, 32), (CHECK_SHAPE, 64, 64, 32), (CHECK_SHAPE, 24, 24, 12))
+# calls of one GOP roundtrip of the published 4x net with all three: the pair
+# 8 forward (encode) + 8 reverse (decode), F 16 times on the ride, the prior's
+# 6 chains on v3, B1 none
+VARIANT_LAUNCHES = {"hg": {(3, 48, 32, "forward"): 8, (3, 48, 32, "reverse"): 8},
+                    "ride": {(48, 3, 32): 16}, "v3": {(3, 64, 32): 1, (64, 64, 32): 5}}
+ALL_PHASES = ("serve", "train", "codec", "codec_train", "deart", "subnets", "variants")
 
 
 def check(ok, what):
@@ -188,17 +212,22 @@ def to_library_layout(x, ws, bs, w5, b5, a, m):
 @contextlib.contextmanager
 def plain_chain_on_card():
     """Route the models' kernel calls (the whole chain, the v1 spatial chain,
-    the deformable conv and the temporal conv) to the plain versions, for
-    comparison."""
-    kernels = dc.dense_chain_t_ep, dc.fused_dense_spatial, df.deform_conv2d, tc.temporal_conv3_fused
-    dc.dense_chain_t_ep = lambda *a, save_feats=True, **kw: dc.dense_chain_t_ep_plain(*a, **kw)
+    the deformable conv, the temporal conv and the chain variants) to the
+    plain versions, for comparison."""
+    kernels = (dc.dense_chain_t_ep, dc.fused_dense_spatial, df.deform_conv2d, tc.temporal_conv3_fused,
+               cv.fused_hg_pair, cv.dense_chain_ride, cv.dense_chain_v3)
+    dc.dense_chain_t_ep = lambda *a, save_feats=True, launch=None, **kw: dc.dense_chain_t_ep_plain(*a, **kw)
     dc.fused_dense_spatial = dc.fused_dense_spatial_plain
     df.deform_conv2d = df.deform_conv2d_plain
     tc.temporal_conv3_fused = tc.temporal_conv3_fused_plain
+    cv.fused_hg_pair = cv.fused_hg_pair_plain
+    cv.dense_chain_ride = cv.dense_chain_ride_plain
+    cv.dense_chain_v3 = cv.dense_chain_v3_plain
     try:
         yield
     finally:
-        dc.dense_chain_t_ep, dc.fused_dense_spatial, df.deform_conv2d, tc.temporal_conv3_fused = kernels
+        (dc.dense_chain_t_ep, dc.fused_dense_spatial, df.deform_conv2d, tc.temporal_conv3_fused,
+         cv.fused_hg_pair, cv.dense_chain_ride, cv.dense_chain_v3) = kernels
 
 
 def seeded_tree(net, seed):
@@ -1938,6 +1967,304 @@ def phase_timing_temporal(device, counts, worst):
     return rows
 
 
+def variant_counts():
+    return {"hg": dict(cv.launches_hg_by_width), "ride": dict(cv.launches_ride_by_width),
+            "v3": dict(cv.launches_v3_by_width), "b1": dc.launches, "b3": dc.launches_feats,
+            "b2": dc.launches_bwd, "b6": tc.launches}
+
+
+def reset_all_counts():
+    dc.reset_launch_counts()
+    tc.reset_launch_counts()
+    cv.reset_launch_counts()
+
+
+def chain_pair(rng, shape, C, c_out, gc, device, dtype=torch.float32):
+    """x, x2 and the H and G chains' parameters for one pair call."""
+    x, hws, hbs, hw5, hb5, x2, _ = make_chain(rng, C, c_out, shape, device, dtype, gc)
+    _, gws, gbs, gw5, gb5, _, _ = make_chain(rng, C, c_out, shape, device, dtype, gc)
+    return x, x2, hws, hbs, hw5, hb5, gws, gbs, gw5, gb5
+
+
+def within(got, want, fp32):
+    """(max abs error, ok): 1e-4 abs in fp32, 3e-2 of max |ref| in bf16."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err <= (FP32_LIMIT if fp32 else BF16_REL_LIMIT * want.float().abs().max().item())
+
+
+def phase_kernels_variants(device):
+    """B7, B9 and B8 against their plain versions on the card, fp32 and bf16:
+    the pair's y2 and se both ways, its backward route (B3 + B2 + glue)
+    against the plain adjoint at the same features, the ride with every
+    epilogue, v3; then the arguments each wrapper refuses on a CUDA tensor."""
+    rng = np.random.default_rng(110)
+    cases, worst = [], {}
+
+    def note(kind, C, c_out, err, fp32):
+        if fp32:
+            worst[(kind, C, c_out)] = max(worst.get((kind, C, c_out), 0.0), err)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        fp32, name = dtype == torch.float32, str(dtype).split(".")[-1]
+        for shape, C, c_out, gc in HG_CHECKS:
+            args = chain_pair(rng, shape, C, c_out, gc, device, dtype)
+            for rev in (False, True):
+                got = cv._hg_cuda(*args, 0.8, rev)
+                want = cv.fused_hg_pair_plain(*args, 0.8, rev)
+                (e_y, ok_y), (e_s, ok_s) = within(got[0], want[0], fp32), within(got[1], want[1], fp32)
+                rec = {"kernel": "chain_hg", "dtype": name, "shape": list(shape), "C": C, "c_out": c_out,
+                       "gc": gc, "rev": rev, "y2_err": e_y, "se_err": e_s, "ok": ok_y and ok_s}
+                if shape != SERVE_SHAPE:   # the backward route at the same features
+                    x, x2, *params = [t for a in args for t in (a if isinstance(a, list) else [a])]
+                    g = [torch.from_numpy(rng.normal(0, 1, got[0].shape).astype(np.float32)).to(device, dtype)
+                         for _ in range(2)]
+                    feats = [dc.chain_feats(x, args[2], args[3]), dc.chain_feats(x, args[6], args[7])]
+                    k = cv.hg_adjoint(x, x2, got[1], params, *g, 0.8, rev, feats)
+                    p = cv.hg_adjoint(x, x2, got[1], params, *g, 0.8, rev, feats, plain=True)
+                    rec["adjoint_rel_err"] = max(rel_err(u, v) for u, v in zip(k, p))
+                    rec["ok"] = rec["ok"] and rec["adjoint_rel_err"] <= (
+                        BWD_FP32_REL_LIMIT if fp32 else BWD_BF16_REL_LIMIT)
+                torch.cuda.synchronize()
+                note("hg", C, c_out, max(e_y, e_s), fp32)
+                cases.append(rec)
+                check(rec["ok"] and np.isfinite(e_y + e_s), f"B7 agrees with its plain version: {rec}")
+        for shape, C, c_out, gc in RIDE_CHECKS:
+            x, ws, bs, w5, b5, a, m = make_chain(rng, C, c_out, shape, device, dtype, gc)
+            for mode, n_aux in dc.EP_AUX.items():
+                aa, mm = (a if n_aux >= 1 else None), (m if n_aux >= 2 else None)
+                err, ok = within(cv._ride_cuda(x, ws, bs, w5, b5, mode, 0.8, aa, mm),
+                                 cv.dense_chain_ride_plain(x, ws, bs, w5, b5, mode, 0.8, aa, mm), fp32)
+                note("ride", C, c_out, err, fp32)
+                cases.append({"kernel": "chain_ride", "dtype": name, "shape": list(shape), "C": C,
+                              "c_out": c_out, "mode": mode, "err": err, "ok": ok})
+                check(ok and np.isfinite(err), f"B9 agrees with its plain version: {cases[-1]}")
+        for shape, C, c_out, gc in V3_CHECKS:
+            x, ws, bs, w5, b5, _, _ = make_chain(rng, C, c_out, shape, device, dtype, gc)
+            err, ok = within(cv._v3_cuda(x, ws, bs, w5, b5), cv.dense_chain_v3_plain(x, ws, bs, w5, b5), fp32)
+            note("v3", C, c_out, err, fp32)
+            cases.append({"kernel": "chain_v3", "dtype": name, "shape": list(shape), "C": C, "c_out": c_out,
+                          "gc": gc, "err": err, "ok": ok})
+            check(ok and np.isfinite(err), f"B8 agrees with its plain version: {cases[-1]}")
+    # the pair under autograd: one forward call, features twice (B3), the
+    # adjoint twice (B2), G's conv5 again on the reverse (B6)
+    args = chain_pair(rng, CHECK_SHAPE, 3, 48, 32, device)
+    leaves = [t for a in args for t in (a if isinstance(a, list) else [a])]
+    for t in leaves:
+        t.requires_grad_(True)
+    reset_all_counts()
+    with torch.enable_grad():
+        y2, se = cv.fused_hg_pair(*args, 0.8, True)
+        torch.autograd.grad((y2.square().sum() + se.log().sum()), leaves)
+    c = variant_counts()
+    check((sum(c["hg"].values()), c["b3"], c["b2"], c["b6"], c["b1"]) == (1, 2, 2, 1, 0),
+          f"the pair's launches under autograd: {c}")
+    # on a CUDA tensor the wrappers launch or raise
+    x, ws, bs, w5, b5, a, m = make_chain(rng, 3, 12, CHECK_SHAPE, device)
+    hg = chain_pair(rng, CHECK_SHAPE, 3, 48, 32, device)
+    before = (cv.launches_hg, cv.launches_ride, cv.launches_v3)
+    refused = []
+    for fault, error, fn in (
+        ("pair with x2 of 12 channels", ValueError, lambda: cv.fused_hg_pair(hg[0], a, *hg[2:], 1.0, False)),
+        ("ride at c_out 12", ValueError, lambda: cv._ride_cuda(x, ws, bs, w5, b5, "add", 1.0, a, None)),
+        ("v3 with an epilogue", ValueError, lambda: cv._v3_cuda(x, ws, bs, w5, b5, "add", 1.0, a, None)),
+        ("float64 v3", TypeError, lambda: cv.dense_chain_v3(x.double(), ws, bs, w5, b5)),
+    ):
+        try:
+            fn()
+        except error:
+            refused.append(fault)
+    check(len(refused) == 4 and (cv.launches_hg, cv.launches_ride, cv.launches_v3) == before,
+          f"the variant wrappers refuse bad CUDA arguments: {refused}")
+    emit("kernels_variants", kernels=["fused_hg_pair", "dense_chain_ride", "dense_chain_v3"],
+         n_cases=len(cases), refused=refused, fp32_limit=FP32_LIMIT, bf16_rel_limit=BF16_REL_LIMIT,
+         bwd_fp32_rel_limit=BWD_FP32_REL_LIMIT, cases=cases)
+    return worst
+
+
+def phase_variants(device):
+    """The published 4x SelfC_GMM with ``chain_variants: [hg, ride, v3]``: a
+    GOP request (``test(gop=7)``) on 7 Vid4-size frames, whose launches are
+    kept, hr from one shared LR and noise against the plain path; then 3
+    training steps at the published batch, the first's loss and whole
+    gradient against the plain path, and a repeat of the first step (the
+    same bits); then a GOP roundtrip and a step timed with the variants and
+    with B1 in turns, on the same parameters."""
+    rng = np.random.default_rng(100)
+    clip = np.clip(rng.normal(0.5, 0.2, (1, 7, *CLIP_HW, 3)), 0, 1).astype(np.float32)
+    network = {**NETWORK_G, "chain_variants": VARIANTS}
+    model = RescaleModel(serve_options(network), device=device, rng_seed=0)
+    tree = seeded_tree(model.net, 2)
+    model.load_jax_params(tree)
+
+    # ---- the main path: counts set to 0 just before, read just after ----
+    reset_all_counts()
+    model.generator.manual_seed(5)
+    t0 = time.time()
+    with torch.no_grad():
+        model.feed_data({"GT": clip})
+        model.test(gop=7)
+    torch.cuda.synchronize()
+    serve_s = time.time() - t0
+    serve = variant_counts()
+    # ---------------------------------------------------------------------
+    check({k: serve[k] for k in VARIANT_LAUNCHES} == VARIANT_LAUNCHES and serve["b1"] == 0,
+          f"launches of one GOP roundtrip with the variants: {serve}")
+    sr = model.get_current_visuals()["SR"]
+    check(sr.shape == clip.shape and np.isfinite(sr).all(), "SR shape and finite")
+    with torch.no_grad():
+        lr_k = model.downscale(clip)
+        model.generator.manual_seed(6)
+        hr_k = model.upscale(lr_k)
+        with plain_chain_on_card():
+            before = (cv.launches_hg, cv.launches_ride, cv.launches_v3, dc.launches)
+            lr_p = model.downscale(clip)
+            model.generator.manual_seed(6)
+            hr_p = model.upscale(lr_k)   # the same LR and the same noise as the kernel path
+            check((cv.launches_hg, cv.launches_ride, cv.launches_v3, dc.launches) == before,
+                  "the plain path launches no kernel")
+    lr_differ = float(np.mean(np.abs(lr_k - lr_p) > 1e-6))
+    hr_err = float(np.abs(hr_k - hr_p).max())
+    check(lr_differ < 1e-3 and np.abs(lr_k - lr_p).max() < 1.01 / 255,
+          f"downscale with the variants, kernel vs plain path: {lr_differ}")
+    check(hr_err <= HR_LIMIT, f"upscale with the variants within {HR_LIMIT} of the plain path, got {hr_err}")
+    gop = torch.rand((1, 7, *CLIP_HW, 3), device=device, generator=torch.Generator(device=device).manual_seed(0))
+    eps_gop = torch.randn(model.net.eps_shape(SERVE_SHAPE + (3,)), device=device,
+                          generator=torch.Generator(device=device).manual_seed(1))
+    rt = {}
+    with torch.no_grad():
+        for names in (VARIANTS, [], VARIANTS, []):   # in turns
+            model.net.set_chain_variants(names)
+            rt.setdefault(bool(names), []).append(
+                time_cuda(lambda: model.net.roundtrip(gop, eps=eps_gop), iters=5, warmup=1)["median"])
+    del model, lr_k, hr_k, lr_p, hr_p, gop
+
+    batch = train_batch(101)
+    eps = rng.normal(0, 1, (*TRAIN_SHAPE, 48, 5)).astype(np.float32)
+    trainer = new_trainer(device, tree, batch, network)
+    # ---- the main path: counts set to 0 just before, read just after ----
+    reset_all_counts()
+    per_step = []
+    for step in range(N_TRAIN_STEPS):
+        trainer.optimize_parameters(step, eps=eps)
+        per_step.append(variant_counts())
+        if step == 0:
+            log_k, grads_k, after_1 = dict(trainer.get_current_log()), grads_of(trainer), params_of(trainer)
+        reset_all_counts()
+    torch.cuda.synchronize()
+    # ---------------------------------------------------------------------
+    n_pair, n_ride, n_v3 = 16, 16, 6
+    want_step = {**VARIANT_LAUNCHES, "b1": 0, "b3": 2 * n_pair + n_ride + n_v3, "b2": 2 * n_pair + n_ride + n_v3,
+                 "b6": 8}
+    check(all(c == want_step for c in per_step), f"launches of each training step with the variants: {per_step}")
+    check(all(np.isfinite(v) for v in log_k.values()) and log_k["skipped_nonfinite"] == 0.0,
+          f"the step's losses are finite and it was not skipped: {log_k}")
+    plain = new_trainer(device, tree, batch, network)
+    with plain_chain_on_card():
+        plain.optimize_parameters(0, eps=eps)
+    log_p, grads_p = dict(plain.get_current_log()), grads_of(plain)
+    del plain
+    loss_rel = abs(log_k["loss"] - log_p["loss"]) / abs(log_p["loss"])
+    grad_l2 = grads_rel_l2(grads_k, grads_p)
+    check(loss_rel <= TRAIN_LOSS_REL_LIMIT and grad_l2 <= TRAIN_GRAD_L2_LIMIT,
+          f"a step with the variants, loss and whole gradient vs the plain path: {(loss_rel, grad_l2)}")
+    del grads_k, grads_p
+    again = new_trainer(device, tree, batch, network)
+    again.optimize_parameters(0, eps=eps)
+    differ = [k for k, p in again.net.named_parameters() if not torch.equal(p.detach(), after_1[k])]
+    check(not differ, f"a repeated first step with the variants gives the same bits: {differ[:5]}")
+    del again, after_1
+    step_ms = {}
+    for names in (VARIANTS, [], VARIANTS, []):   # in turns
+        trainer.net.set_chain_variants(names)
+        step_ms.setdefault(bool(names), []).append(
+            time_cuda(lambda: trainer.optimize_parameters(N_TRAIN_STEPS, eps=eps), iters=5, warmup=1)["median"])
+    del trainer
+    emit("variants", chain_variants=VARIANTS, clip=clip.shape, batch=batch.shape, serve_s=serve_s,
+         launches_test={k: {str(w): n for w, n in serve[k].items()} for k in VARIANT_LAUNCHES},
+         launches_b1_test=serve["b1"],
+         launches_per_step=[{k: ({str(w): n for w, n in v.items()} if isinstance(v, dict) else v)
+                             for k, v in c.items()} for c in per_step],
+         lr_levels_differ=lr_differ, hr_max_abs_err_kernel_vs_plain=hr_err, hr_limit=HR_LIMIT,
+         loss_rel_err_kernel_vs_plain=loss_rel, grad_l2_rel_err_kernel_vs_plain=grad_l2,
+         grad_l2_limit=TRAIN_GRAD_L2_LIMIT, repeat_bit_identical=True,
+         gop_roundtrip_ms=float(np.median(rt[True])), gop_roundtrip_ms_b1=float(np.median(rt[False])),
+         gop_roundtrip_ms_turns={"variants": rt[True], "b1": rt[False]},
+         step_ms=float(np.median(step_ms[True])), step_ms_b1=float(np.median(step_ms[False])),
+         step_ms_turns={"variants": step_ms[True], "b1": step_ms[False]})
+    return serve, per_step[0]
+
+
+def library_pair(h_lib, g_lib, x2_lib, clamp=1.0):
+    """The pair through PyTorch's library convolutions: H's chain, the
+    scale, then G's chain with the mul_add combine."""
+    se = torch.exp(clamp * (2.0 * torch.sigmoid(library_chain(*h_lib)) - 1.0))
+    return library_chain(*g_lib, x2_lib, se), se
+
+
+def phase_timing_variants(device, serve, step, worst):
+    """B7, B9 and B8 at the shapes and widths the variants phase launched them
+    with: ms beside the bound, the plain version's ms, the library chain's and
+    B1's ms at the same shape and width (for the pair, B1's two epilogue
+    calls it replaces)."""
+    rng = np.random.default_rng(120)
+    rows = []
+    specs = [("hg", 3, 48), ("ride", 48, 3), ("v3", 64, 64), ("v3", 3, 64)]
+    for path, shape, counts in (("serve", SERVE_SHAPE, serve), ("train", TRAIN_SHAPE, step)):
+        for kind, C, c_out in specs:
+            if kind == "hg":
+                n = sum(v for k, v in counts["hg"].items() if k[:2] == (C, c_out))
+                args = chain_pair(rng, shape, C, c_out, 32, device)
+                x, x2 = args[0], args[1]
+                h, g = args[2:6], args[6:10]
+                got = cv._hg_cuda(*args, 1.0, False)
+                want = cv.fused_hg_pair_plain(*args, 1.0, False)
+                err = max((u - v).abs().max().item() for u, v in zip(got, want))
+                lib_h = to_library_layout(x, *h, None, None)[:5]
+                lib_g = to_library_layout(x, *g, None, None)[:5]
+                x2_lib = x2.permute(0, 4, 1, 2, 3).contiguous()
+                lib = [t.permute(0, 2, 3, 4, 1) for t in library_pair(lib_h, lib_g, x2_lib)]
+                check(max((u - v).abs().max().item() for u, v in zip(lib, want)) <= 1e-3,
+                      "the library pair computes the same function")
+                fn = lambda: cv._hg_cuda(*args, 1.0, False)  # noqa: E731
+                plain_fn = lambda: cv.fused_hg_pair_plain(*args, 1.0, False)  # noqa: E731
+                lib_fn = lambda: library_pair(lib_h, lib_g, x2_lib)  # noqa: E731
+
+                def b1_fn():
+                    s = dc._chain_cuda(x, *h, "sig_exp", 1.0, None, None)[0]
+                    return dc._chain_cuda(x, *g, "mul_add", 1.0, x2, s)[0]
+                bound, by = hg_bound_ms(*shape, C, c_out)
+                name, source, replaces = f"fused_hg_pair[{C}->{c_out}]@{path}", SOURCE_HG, REPLACES_HG
+            else:
+                key = (C, c_out, 32)
+                n = counts[kind].get(key, 0)
+                x, ws, bs, w5, b5, a, m = make_chain(rng, C, c_out, shape, device)
+                mode = "add" if kind == "ride" else "none"
+                aa = a if kind == "ride" else None
+                launch = cv._ride_cuda if kind == "ride" else cv._v3_cuda
+                fn = lambda: launch(x, ws, bs, w5, b5, mode, 1.0, aa, None)  # noqa: E731
+                plain_fn = lambda: dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, mode, 1.0, aa, None)  # noqa: E731
+                err = (fn() - plain_fn()).abs().max().item()
+                lib_args = to_library_layout(x, ws, bs, w5, b5, None, None)[:5]
+                lib_a = aa.permute(0, 4, 1, 2, 3).contiguous() if aa is not None else None
+                lib_fn = ((lambda: library_chain(*lib_args) + lib_a) if aa is not None  # noqa: E731
+                          else (lambda: library_chain(*lib_args)))
+                b1_fn = lambda: dc._chain_cuda(x, ws, bs, w5, b5, mode, 1.0, aa, None)  # noqa: E731
+                bound, by = chain_bound_ms(*shape, C, c_out, 1 if aa is not None else 0)
+                name = f"dense_chain_{kind}[{C}->{c_out}]@{path}"
+                source, replaces = (SOURCE_RIDE, REPLACES_RIDE) if kind == "ride" else (SOURCE_V3, REPLACES_V3)
+            check(err <= FP32_LIMIT, f"{name} vs plain at the timed shape: {err}")
+            ms, plain, library, b1 = (time_cuda(f) for f in (fn, plain_fn, lib_fn, b1_fn))
+            rows.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,
+                "max_abs_err": max(err, worst.get((kind, C, c_out), 0.0)), "ms": ms["median"],
+                "plain_ms": plain["median"], "bound_ms": bound, "bound_by": by, "library_ms": library["median"],
+                "b1_ms": b1["median"], "ms_min": ms["min"], "plain_ms_min": plain["min"],
+                "library_ms_min": library["min"], "b1_ms_min": b1["min"], "shape": list(shape) + [C]})
+    emit("timing_variants", rows=[{k: r[k] for k in ("name", "launches", "ms", "ms_min", "b1_ms", "plain_ms",
+                                                      "library_ms", "bound_ms", "bound_by")} for r in rows])
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -1973,6 +2300,8 @@ def main():
     worst_gc_bwd = phase_kernels_gc_bwd(device)
     phase_grad(device)
     worst_tc = phase_kernels_temporal(device)
+    with torch.no_grad():
+        worst_var = phase_kernels_variants(device)
     tc_counts = {}   # B6 launches of the main paths by (path, shrink, C, Co, backward)
     if "serve" in want:
         with torch.no_grad():
@@ -2005,6 +2334,10 @@ def main():
         phase_subnets(device, tc_counts)
     if tc_counts:
         kernels += phase_timing_temporal(device, tc_counts, worst_tc)
+    if "variants" in want:
+        serve_var, step_var = phase_variants(device)
+        with torch.no_grad():
+            kernels += phase_timing_variants(device, serve_var, step_var, worst_var)
 
     for k in kernels:
         check(k["launches"] >= 1, f"the main path launched {k['name']}")

@@ -46,225 +46,21 @@
 // No padded weight copy is made. The 16-lane rounding also keeps every
 // segment 16-byte aligned in fp32 and bf16, so the 16-byte loads stay.
 //
+// The spatial layer, its staging helpers and the epilogue live in
+// csrc/chain_common.cuh, which the chain variants (chain_hg.cu, chain_ride.cu)
+// share.
+//
 // Plain C interface (loaded with ctypes); the caller owns every buffer.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "chain_common.cuh"
 
 namespace {
 
-constexpr int GC_MAX = 32;          // widest growth the kernels take
-constexpr int KC = 16;              // input channels staged per step (divides GCP)
-constexpr int TILE = 16;            // spatial layers: TILE x TILE output pixels a block
-constexpr int HALO = TILE + 2;      // staged input tile edge
-constexpr int NTHREADS = 128;       // threads of a conv5 block (and of a spatial block at GCP 32)
+using namespace chain;  // the spatial layer, staging helpers and the epilogue
+
+constexpr int NTHREADS = 128;       // threads of a conv5 block
 constexpr int PIX5 = 256;           // conv5: most pixels a block handles
 constexpr int CO5 = 64;             // conv5: most output channels a block handles
-constexpr float SLOPE = 0.2f;
-
-enum EpMode {
-  EP_NONE = 0,         // y
-  EP_ADD = 1,          // a + y
-  EP_SUB_FROM = 2,     // a - y
-  EP_SIG_EXP = 3,      // exp(+clamp * (2 sigmoid(y) - 1))
-  EP_SIG_EXP_NEG = 4,  // exp(-clamp * (2 sigmoid(y) - 1))
-  EP_MUL_ADD = 5,      // a * m + y
-  EP_SUB_MUL = 6       // (a - y) * m
-};
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void from_f(float v, float* dst) { *dst = v; }
-__device__ __forceinline__ void from_f(float v, __nv_bfloat16* dst) { *dst = __float2bfloat16(v); }
-
-// Four consecutive elements as fp32; p is aligned to the four elements.
-__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);  // bf16 -> fp32 is a 16-bit shift
-  return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u), __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
-}
-
-// A slab of staged channels c0 .. c0+kc-1 of source src (0: x, 1: feats)
-// lies in x or inside one growth segment of feats (KC divides gcp). Its
-// channel c0 + c meets weight row row0 + c for c < nreal; the channels from
-// nreal on are pad lanes and meet zeros (see the note at the top).
-struct SlabRows {
-  int row0, nreal;
-};
-__device__ __forceinline__ SlabRows slab_rows(int src, int c0, int kc, int C, int gc, int gcp) {
-  if (src == 0) return {c0, kc};
-  const int lane0 = c0 % gcp;
-  return {C + gc * (c0 / gcp) + lane0, min(kc, gc - lane0)};
-}
-
-// Four consecutive output channels co..co+3 of weight row `row` (gc or c_out
-// of them a row), zero from n on; 16-byte loads when the rows allow them.
-template <typename T>
-__device__ __forceinline__ float4 weight4(const T* w, size_t row, int n, int co) {
-  const T* p = w + row * n + co;
-  if ((n & 3) == 0) return co < n ? load4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
-  return make_float4(co < n ? to_f(p[0]) : 0.f, co + 1 < n ? to_f(p[1]) : 0.f,
-                     co + 2 < n ? to_f(p[2]) : 0.f, co + 3 < n ? to_f(p[3]) : 0.f);
-}
-
-// One spatial layer at padded growth GCP (16 or 32; gc <= GCP channels are
-// real): feats[..., GCP*layer : GCP*layer+GCP] =
-//   lrelu(conv3x3([x | feats[..., :GCP*layer]], w) + b), zero in lanes >= gc.
-// FULL (gc == GCP == 32, the coupling's and the 4x prior's) fixes gc at compile
-// time, so the remap folds away and the weights are staged as in a kernel
-// written for that one width.
-// The layer reads channels below GCP*layer of `feats` and writes the GCP above
-// them, so reading and writing the one buffer from many blocks is race free.
-// grid = (ceil(W/16), ceil(H/16), frames), block = 4*GCP threads.
-// Thread (pg, cg): output row pg%16 of the tile, columns 8*(pg/16) .. +7,
-// output channels 8*cg .. +7 (pg < 32, cg < GCP/8).
-template <typename T, int GCP, bool FULL>
-__global__ void __launch_bounds__(4 * GCP, 96 / GCP) spatial_layer_kernel(const T* x, T* feats, const T* w, const T* b, int H, int W, int C, int gc_arg, int layer) {
-  const int gc = FULL ? GCP : gc_arg;
-  constexpr int NT = 4 * GCP;
-  constexpr int NCG = GCP / 8;
-  constexpr int FC = 4 * GCP;
-  __shared__ float4 in_s[KC / 4][HALO * HALO];
-  __shared__ __align__(16) float w_s[9][KC][GCP];
-
-  const int tid = threadIdx.x;
-  const int cg = tid % NCG;
-  const int pg = tid / NCG;
-  const int row = pg & 15;
-  const int cb = (pg >> 4) * 8;
-  const int tx0 = blockIdx.x * TILE;
-  const int ty0 = blockIdx.y * TILE;
-  const size_t frame = blockIdx.z;
-  const T* xf = x + frame * H * W * C;
-  T* ff = feats + frame * H * W * FC;
-  const int cin = C + gc * layer;  // rows of w
-
-  float acc[8][8];
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const int co = cg * 8 + q;
-    const float bias = co < gc ? to_f(b[co]) : 0.f;
-#pragma unroll
-    for (int p = 0; p < 8; ++p) acc[p][q] = bias;
-  }
-
-  for (int src = 0; src < 2; ++src) {
-    const int nsrc = src == 0 ? C : GCP * layer;
-    const T* base = src == 0 ? xf : ff;
-    const int stride = src == 0 ? C : FC;
-    const bool vec = (stride & 3) == 0;  // every pixel's channels start on a 4-element boundary
-    for (int c0 = 0; c0 < nsrc; c0 += KC) {
-      const int kc = min(KC, nsrc - c0);
-      const int kc4 = (kc + 3) >> 2;
-      __syncthreads();  // the previous slab is consumed before it is overwritten
-      if (vec) {  // 16-byte loads: four channels of a pixel at once
-        for (int idx = tid; idx < HALO * HALO * (KC / 4); idx += NT) {
-          const int c4 = idx & (KC / 4 - 1);
-          const int pix = idx / (KC / 4);
-          if (c4 >= kc4) continue;
-          const int iy = ty0 - 1 + pix / HALO;
-          const int ix = tx0 - 1 + pix % HALO;
-          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (iy >= 0 && iy < H && ix >= 0 && ix < W) v = load4(base + ((size_t)iy * W + ix) * stride + c0 + c4 * 4);
-          in_s[c4][pix] = v;
-        }
-      } else {
-        for (int idx = tid; idx < HALO * HALO * KC; idx += NT) {
-          const int c = idx & (KC - 1);
-          const int pix = idx / KC;
-          if (c >= kc4 * 4) continue;
-          const int iy = ty0 - 1 + pix / HALO;
-          const int ix = tx0 - 1 + pix % HALO;
-          float v = 0.f;
-          if (c < kc && iy >= 0 && iy < H && ix >= 0 && ix < W) v = to_f(base[((size_t)iy * W + ix) * stride + c0 + c]);
-          reinterpret_cast<float*>(&in_s[c >> 2][pix])[c & 3] = v;
-        }
-      }
-      // a weight row (gc output channels of one tap and input channel) is
-      // contiguous; a pad lane's row, and its columns >= gc, stage as zeros
-      const SlabRows sr = slab_rows(src, c0, kc, C, gc, GCP);
-      for (int idx = tid; idx < 9 * KC * (GCP / 4); idx += NT) {
-        const int co4 = idx % (GCP / 4);
-        const int c = (idx / (GCP / 4)) % KC;
-        const int tap = idx / (GCP / 4 * KC);
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (c < sr.nreal) v = weight4(w, (size_t)tap * cin + sr.row0 + c, gc, co4 * 4);
-        *reinterpret_cast<float4*>(&w_s[tap][c][co4 * 4]) = v;
-      }
-      __syncthreads();
-
-      for (int dy = 0; dy < 3; ++dy) {
-        for (int c4 = 0; c4 < kc4; ++c4) {
-          float in[10][4];
-          const float4* rowp = &in_s[c4][(row + dy) * HALO + cb];
-#pragma unroll
-          for (int j = 0; j < 10; ++j) {
-            const float4 t = rowp[j];
-            in[j][0] = t.x;
-            in[j][1] = t.y;
-            in[j][2] = t.z;
-            in[j][3] = t.w;
-          }
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-#pragma unroll
-            for (int cc = 0; cc < 4; ++cc) {
-              const float4 wa = *reinterpret_cast<const float4*>(&w_s[dy * 3 + dx][c4 * 4 + cc][cg * 8]);
-              const float4 wb = *reinterpret_cast<const float4*>(&w_s[dy * 3 + dx][c4 * 4 + cc][cg * 8 + 4]);
-#pragma unroll
-              for (int p = 0; p < 8; ++p) {
-                const float v = in[p + dx][cc];
-                acc[p][0] = fmaf(v, wa.x, acc[p][0]);
-                acc[p][1] = fmaf(v, wa.y, acc[p][1]);
-                acc[p][2] = fmaf(v, wa.z, acc[p][2]);
-                acc[p][3] = fmaf(v, wa.w, acc[p][3]);
-                acc[p][4] = fmaf(v, wb.x, acc[p][4]);
-                acc[p][5] = fmaf(v, wb.y, acc[p][5]);
-                acc[p][6] = fmaf(v, wb.z, acc[p][6]);
-                acc[p][7] = fmaf(v, wb.w, acc[p][7]);
-              }
-            }
-          }
-        }
-      }
-    }
-  }
-
-  const int oy = ty0 + row;
-  if (oy >= H) return;
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int ox = tx0 + cb + p;
-    if (ox < W) {
-      T* o = ff + ((size_t)oy * W + ox) * FC + GCP * layer + cg * 8;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const float v = acc[p][q];
-        from_f(v >= 0.f ? v : SLOPE * v, o + q);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float ep_apply(float y, int mode, float clamp, float a, float m) {
-  switch (mode) {
-    case EP_ADD:
-      return a + y;
-    case EP_SUB_FROM:
-      return a - y;
-    case EP_SIG_EXP:
-      return expf(clamp * (2.f / (1.f + expf(-y)) - 1.f));
-    case EP_SIG_EXP_NEG:
-      return expf(-clamp * (2.f / (1.f + expf(-y)) - 1.f));
-    case EP_MUL_ADD:
-      return a * m + y;
-    case EP_SUB_MUL:
-      return (a - y) * m;
-    default:
-      return y;
-  }
-}
 
 // conv5 + epilogue: out = ep(b5 + sum_dt [x | feats](t + dt - 1) @ w5[dt]),
 // feats of 4*gcp channels with gc real ones a segment (w5 rows remapped).
@@ -408,15 +204,24 @@ __global__ void __launch_bounds__(NTHREADS) conv5_ep_kernel(const T* x, const T*
   }
 }
 
-// The padded growth width of the feats buffer for growth width gc.
-inline int padded_gc(int gc) { return gc <= 16 ? 16 : GC_MAX; }
 
 // The four spatial layers, in order: layer k reads what layers < k wrote.
 template <typename T, int GCP, bool FULL>
 int spatial_layers_at(const void* x, void* feats, const void* const* ws, const void* const* bs, int frames, int H, int W, int C, int gc, cudaStream_t stream) {
   const dim3 grid_s((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, frames);
+  SpatialArgs<T> a{};
+  a.x = (const T*)x;
+  a.feats[0] = a.feats[1] = (T*)feats;
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.gc = gc;
+  a.write_feats = 1;
   for (int layer = 0; layer < 4; ++layer) {
-    spatial_layer_kernel<T, GCP, FULL><<<grid_s, 4 * GCP, 0, stream>>>((const T*)x, (T*)feats, (const T*)ws[layer], (const T*)bs[layer], H, W, C, gc, layer);
+    a.layer = layer;
+    a.w[0] = a.w[1] = (const T*)ws[layer];
+    a.b[0] = a.b[1] = (const T*)bs[layer];
+    spatial_layer_kernel<T, GCP, FULL, false, 1><<<grid_s, 4 * GCP, 0, stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -489,6 +294,6 @@ extern "C" int selfc_dense_chain_feats(const void* x, void* feats, const void* w
 
 // The per-segment width of the feats buffer that selfc_dense_chain_forward
 // writes for growth width gc: the caller sizes the buffer with it.
-extern "C" int selfc_dense_chain_padded_gc(int gc) { return padded_gc(gc); }
+extern "C" int selfc_dense_chain_padded_gc(int gc) { return chain::padded_gc(gc); }
 
 extern "C" const char* selfc_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
 library ``build/lib<name>_<hash>.so``, compiled by ``nvcc`` for ``sm_90a``
-at first use. The hash covers the source and the flags, so an edited source
+at first use (``csrc/*.cuh`` are headers the sources share). The hash covers
+the source, the headers and the flags, so an edited source
 is rebuilt and a stale library is never loaded. All missing libraries are
 compiled at once, one ``nvcc`` process each. A build or load failure raises
 with the compiler's output; nothing falls back.
@@ -48,8 +49,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path; its hash covers the source, the headers of
+    ``csrc/`` it may include and the flags."""
     src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..ops import chain_variants as _cv
 from ..ops import dense_chain as _dc
 from ..ops import temporal_conv as _tc
 from ..ops.conv import (conv2d_same_strided, conv3d, kaiming_normal, leaky_relu, pointwise,
@@ -115,12 +116,18 @@ class DenseChain(nn.Module):
 
     ``save_feats`` (an attribute, default true): keep the chain's features
     from the forward for the backward on the first route; false makes the
-    backward recompute them. The nets set it from ``train.save_chain_feats``."""
+    backward recompute them. The nets set it from ``train.save_chain_feats``.
+
+    ``variants`` (an attribute, default empty): the opt-in schedules of the
+    first route (``ops/chain_variants.py``), set by the nets from
+    ``network_G.chain_variants``; ``chain_variants.pick`` chooses among B1,
+    the ride (B9) and v3 (B8), whose chains keep no features."""
 
     def __init__(self, c_in, c_out, gc=32, k1="s", k5="t", init_mode="inn_xavier",
                  is_res=False, kmid="s", early_3d=False, generator=None):
         super().__init__()
         self.save_feats = True
+        self.variants = frozenset()
         self.gc, self.is_res, self.early_3d = gc, bool(is_res), bool(early_3d)
         self.k1, self.kmid, self.k5 = k1, kmid, k5
         grow = _w_init(init_mode, "grow")
@@ -135,6 +142,13 @@ class DenseChain(nn.Module):
     def _convs(self):
         return [getattr(self, f"conv{i + 1}") for i in range(4)]
 
+    def weights(self):
+        """``(ws, bs, w5, b5)``, the raw parameters (JAX ``ep="weights"``):
+        the coupling hands an H/G pair of chains to one fused call."""
+        convs = self._convs()
+        return ([c.weight for c in convs], [c.bias for c in convs],
+                self.conv5.weight, self.conv5.bias)
+
     def forward(self, x, ep=None):
         """ep: optional fused coupling epilogue ``(mode, clamp, a, m)``
         applied to the chain output (see ops.dense_chain.ep_apply); not with
@@ -145,10 +159,15 @@ class DenseChain(nn.Module):
         spatial = self.k1 == "s" and self.kmid == "s" and not self.early_3d
         if spatial and self.k5 == "t" and self.gc <= _dc.GC_MAX and x.dim() == 5:
             mode, clamp, a, m = ep if ep is not None else ("none", 1.0, None, None)
-            y = _dc.dense_chain_t_ep(
-                x, [c.weight for c in convs], [c.bias for c in convs],
-                self.conv5.weight, self.conv5.bias, mode, clamp, a, m,
-                save_feats=self.save_feats)
+            ws, bs, w5, b5 = self.weights()
+            kind = _cv.pick(self.variants, mode, w5.shape[-1])
+            if kind == "ride":
+                y = _cv.dense_chain_ride(x, ws, bs, w5, b5, mode, clamp, a, m)
+            elif kind == "v3":
+                y = _cv.dense_chain_v3(x, ws, bs, w5, b5)
+            else:
+                y = _dc.dense_chain_t_ep(x, ws, bs, w5, b5, mode, clamp, a, m,
+                                         save_feats=self.save_feats)
             return y + x if self.is_res else y
         if spatial and self.gc == _dc.GC_MAX and self.k5 != "t":
             x1234 = _dc.fused_dense_spatial(x, [c.weight for c in convs], [c.bias for c in convs])
@@ -180,6 +199,9 @@ class D2DT(nn.Module):
 
     def forward(self, x, ep=None):  # (B,T,H,W,C)
         return self.chain(x, ep=ep)
+
+    def weights(self):
+        return self.chain.weights()
 
 
 class _Chain(nn.Module):

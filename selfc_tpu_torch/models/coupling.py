@@ -10,7 +10,10 @@ The block carries the ``(x1, x2)`` pair (x1 = the 3 LR channels, x2 = the
 high-frequency rest) and never concatenates it. Where the subnets are D2DT
 chains (``SUPPORTS_EP``), the coupling arithmetic rides them as fused
 epilogues: H emits exp(+-s) directly, the y1/y2 combines happen on conv5's
-accumulator, and the log-jacobian is recovered as sum(log(exp(+-s))). Every
+accumulator, and the log-jacobian is recovered as sum(log(exp(+-s))). With
+"hg" among ``variants`` (``network_G.chain_variants``), H and G, which read
+the same input, run as one pair with the y2 combine
+(``ops/chain_variants.py:fused_hg_pair``, kernel B7; JAX ``use_hg``). Every
 other subnet family takes the plain branch above, as in the JAX package.
 """
 
@@ -18,6 +21,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+
+from ..ops import chain_variants as _cv
 
 
 class InvBlockExp(nn.Module):
@@ -33,6 +38,7 @@ class InvBlockExp(nn.Module):
         self.G = subnet_ctor(s1, s2, generator=generator)
         self.H = subnet_ctor(s1, s2, generator=generator)
         self.use_ep = getattr(type(self.F), "SUPPORTS_EP", False)
+        self.variants = frozenset()  # the nets set it from network_G.chain_variants
 
     def forward(self, pair, rev: bool = False):
         """pair: (x1 (B,T,H,W,s1), x2 (B,T,H,W,s2)), both contiguous.
@@ -40,7 +46,13 @@ class InvBlockExp(nn.Module):
         x1, x2 = pair
         if not self.use_ep:
             return self._plain(x1, x2, rev)
-        if not rev:
+        if "hg" in self.variants and not rev:
+            y1 = self.F(x2, ep=("add", 1.0, x1, None))
+            y2, s_exp = _cv.fused_hg_pair(y1, x2, *self.H.weights(), *self.G.weights(), self.clamp, False)
+        elif "hg" in self.variants:
+            y2, s_exp = _cv.fused_hg_pair(x1, x2, *self.H.weights(), *self.G.weights(), self.clamp, True)
+            y1 = self.F(y2, ep=("sub_from", 1.0, x1, None))
+        elif not rev:
             y1 = self.F(x2, ep=("add", 1.0, x1, None))
             s_exp = self.H(y1, ep=("sig_exp", self.clamp, None, None))
             y2 = self.G(y1, ep=("mul_add", 1.0, x2, s_exp))

@@ -28,6 +28,9 @@ def define_G(opt, device=None, generator=None):
     model_type = opt["model"]
     which = net.get("which_model_G") or {}
     save_feats = (opt.get("train") or {}).get("save_chain_feats")
+    # the opt-in chain schedules (ops/chain_variants.py; the JAX package's
+    # SELFC_TPU_PALLAS_HG / _RIDE / _V3): an unknown name raises in the net
+    variants = net.get("chain_variants") or ()
     if model_type in ("SelfC_GMM", "SelfC_SR", "SelfC_Contra_UP"):
         nll_enabled = bool(net.get("nll_enabled"))
         lam_cond = (opt.get("train") or {}).get("lambda_cond_prob")
@@ -51,6 +54,7 @@ def define_G(opt, device=None, generator=None):
             save_chain_feats=True if save_feats is None else bool(save_feats),
             deform_radius=net.get("deform_radius"),
             frames=_clip_frames(opt),
+            chain_variants=variants,
             device=device,
             generator=generator,
         )
@@ -74,6 +78,7 @@ def define_G(opt, device=None, generator=None):
             deform_radius=net.get("deform_radius"),
             frames=_clip_frames(opt),
             save_chain_feats=True if save_feats is None else bool(save_feats),
+            chain_variants=variants,
             device=device,
             generator=generator,
         )

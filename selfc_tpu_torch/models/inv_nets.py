@@ -30,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from .. import resolve_device
+from ..ops.chain_variants import parse_variants
 from ..ops.freq import freq_forward, freq_inverse
 from ..ops.gmm import gmm_neg_log_likelihood, gmm_sample, split_params
 from ..ops.quantize import quantize_ste
@@ -46,7 +47,8 @@ class _CouplingNet(nn.Module):
 
     def __init__(self, scale, block_num, subnet_type, init_mode, stp_blk_num,
                  fh_loss, gmm_k, global_module, stp_hidden_c, stp_gc,
-                 save_chain_feats, device, generator, deform_radius=None, frames=3):
+                 save_chain_feats, device, generator, deform_radius=None, frames=3,
+                 chain_variants=()):
         super().__init__()
         device = resolve_device(device)
         self.scale = scale
@@ -67,11 +69,27 @@ class _CouplingNet(nn.Module):
             gmm_k=gmm_k, global_module=global_module, hidden_c=stp_hidden_c,
             gc=stp_gc, deform_radius=deform_radius, frames=frames, generator=generator,
         )
-        # training memory against backward time: see blocks.DenseChain
+        self.save_chain_feats = bool(save_chain_feats)
+        self.set_chain_variants(chain_variants)
+        self.to(device)
+
+    def set_chain_variants(self, names):
+        """Select the opt-in chain schedules (``network_G.chain_variants``,
+        a list out of ``ops.chain_variants.VARIANTS``; empty: B1) on every
+        chain and coupling block."""
+        self.chain_variants = parse_variants(names)
+        self._configure_chains()
+
+    def _configure_chains(self):
+        """Hand the chain options to every chain and coupling block:
+        ``save_chain_feats`` (training memory against backward time) and
+        ``chain_variants`` (the opt-in schedules); see blocks.DenseChain."""
         for mod in self.modules():
             if isinstance(mod, DenseChain):
-                mod.save_feats = bool(save_chain_feats)
-        self.to(device)
+                mod.save_feats = self.save_chain_feats
+                mod.variants = self.chain_variants
+            elif isinstance(mod, InvBlockExp):
+                mod.variants = self.chain_variants
 
     def _blocks(self, rev: bool):
         order = range(self.n_blocks)
@@ -136,10 +154,11 @@ class SelfCNetGMM(_CouplingNet):
                  stp_blk_num: int = 6, fh_loss: str = "gmm", gmm_k: int = 5,
                  global_module: str = "nonlocal", nll_enabled: bool = False,
                  save_chain_feats: bool = True, deform_radius=None, frames: int = 3,
-                 device=None, generator=None):
+                 chain_variants=(), device=None, generator=None):
         super().__init__(scale, block_num, subnet_type, init_mode, stp_blk_num,
                          fh_loss, gmm_k, global_module, 64, 32,
-                         save_chain_feats, device, generator, deform_radius, frames)
+                         save_chain_feats, device, generator, deform_radius, frames,
+                         chain_variants)
         # the forward conditional NLL is off by default, as in the trained
         # snapshot; set True to restore the loss_c term
         self.nll_enabled = nll_enabled
@@ -184,11 +203,11 @@ class SelfCNetCodec(_CouplingNet):
                  global_module: str = "nonlocal", stp_hidden_c: int = 24,
                  stp_denseblock_innerc: int = 12, deart_net: bool = False,
                  deform_radius=None, frames: int = 3, save_chain_feats: bool = True,
-                 device=None, generator=None):
+                 chain_variants=(), device=None, generator=None):
         super().__init__(scale, block_num, subnet_type, init_mode, stp_blk_num,
                          fh_loss, gmm_k, global_module, stp_hidden_c,
                          stp_denseblock_innerc, save_chain_feats, device,
-                         generator, deform_radius, frames)
+                         generator, deform_radius, frames, chain_variants)
         self.deart_net = bool(deart_net)
         if self.deart_net:
             # created after the coupling blocks and the prior, as in the JAX setup()
@@ -196,8 +215,7 @@ class SelfCNetCodec(_CouplingNet):
             self.deart_1 = GroupedGlobalDeformAgg(32, frames, deform_radius=deform_radius,
                                                   generator=generator)
             self.deart_2 = D2DT(32, 3, 32, "plain_xavier", generator)
-            for chain in (self.deart_0.chain, self.deart_2.chain):
-                chain.save_feats = bool(save_chain_feats)
+            self._configure_chains()
             self.to(next(self.parameters()).device)
 
     def decode(self, lr, eps=None, generator=None):

@@ -483,15 +483,16 @@ class _DenseChainEp(torch.autograd.Function):
     chain adjoint, in place on that pair; (5) dx rounded to x's dtype."""
 
     @staticmethod
-    def forward(ctx, mode, clamp, save_feats, x, w5, b5, a, m, *wbs):
+    def forward(ctx, mode, clamp, save_feats, launch, x, w5, b5, a, m, *wbs):
         ws, bs = list(wbs[:4]), list(wbs[4:])
-        if x.is_cuda:
+        if x.is_cuda and launch is not None:  # another schedule: it keeps no features
+            out, feats = launch(x, ws, bs, w5, b5, mode, clamp, a, m), None
+        elif x.is_cuda:
             out, feats = _chain_cuda(x, ws, bs, w5, b5, mode, clamp, a, m)
         else:
             feats = chain_feats_plain(x, ws, bs)
             out = _conv5_ep_plain(x, feats, w5, b5, mode, clamp, a, m)
         ctx.mode, ctx.clamp = mode, clamp
-        ctx.has_feats = bool(save_feats)
         n_aux = EP_AUX[mode]
         # the epilogue's derivative needs: out for the two exp modes, a and
         # m for the products
@@ -499,7 +500,7 @@ class _DenseChainEp(torch.autograd.Function):
         keep_a = a if n_aux >= 2 else None
         keep_m = m if n_aux >= 2 else None
         ctx.save_for_backward(x, w5, b5, keep_out, keep_a, keep_m,
-                              feats if save_feats else None, *wbs)
+                              feats if save_feats and launch is None else None, *wbs)
         return out
 
     @staticmethod
@@ -508,8 +509,8 @@ class _DenseChainEp(torch.autograd.Function):
         x, w5, b5, out, a, m, feats, *wbs = ctx.saved_tensors
         ws, bs = list(wbs[:4]), list(wbs[4:])
         mode, clamp = ctx.mode, ctx.clamp
-        need = ctx.needs_input_grad  # (mode, clamp, save_feats, x, w5, b5, a, m, *wbs)
-        need_x, need_a, need_m = need[3], need[6], need[7]
+        need = ctx.needs_input_grad  # (mode, clamp, save_feats, launch, x, w5, b5, a, m, *wbs)
+        need_x, need_a, need_m = need[4], need[7], need[8]
         acc = _acc_dtype(x)
         if feats is None:
             feats = chain_feats(x, ws, bs)
@@ -552,7 +553,7 @@ class _DenseChainEp(torch.autograd.Function):
             dws, dbs = _bwd_cuda(x, ws, bs, feats, dfeats, dx)
         else:
             dx, dws, dbs = chain_spatial_bwd_plain(x, ws, bs, feats, dfeats, dx)
-        return (None, None, None,
+        return (None, None, None, None,
                 dx.to(x.dtype) if need_x else None,
                 dw5.to(w5.dtype), db5.to(b5.dtype),
                 da.to(x.dtype) if da is not None and need_a else None,
@@ -561,7 +562,7 @@ class _DenseChainEp(torch.autograd.Function):
 
 
 def dense_chain_t_ep(x, ws, bs, w5, b5, mode="none", clamp=1.0, a=None,
-                     m=None, save_feats=True):
+                     m=None, save_feats=True, launch=None):
     """The chain with its epilogue, differentiable. A CUDA tensor goes to
     the kernels (or raises on what they do not take); a CPU tensor to the
     plain versions. Parameters are cast to x's dtype first, outside the
@@ -570,13 +571,18 @@ def dense_chain_t_ep(x, ws, bs, w5, b5, mode="none", clamp=1.0, a=None,
 
     ``save_feats``: keep the forward's ``(B,T,H,W,4*GCP)`` feats buffer for
     the backward (the default); false frees it and makes the backward
-    recompute it with the spatial-only forward."""
+    recompute it with the spatial-only forward.
+
+    ``launch``: the forward kernels of another schedule of the same function
+    on a CUDA tensor (``ops/chain_variants.py``: B8, B9), called as
+    ``_chain_cuda`` is and returning the output alone; the backward then
+    recomputes the features. None: B1."""
     if mode not in EP_AUX:
         raise ValueError(mode)
     dt = x.dtype
     n_aux = EP_AUX[mode]
     return _DenseChainEp.apply(
-        mode, float(clamp), bool(save_feats), x, w5.to(dt), b5.to(dt),
+        mode, float(clamp), bool(save_feats), launch, x, w5.to(dt), b5.to(dt),
         a if n_aux >= 1 else None, m if n_aux >= 2 else None,
         *(w.to(dt) for w in ws), *(b.to(dt) for b in bs),
     )

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from selfc_tpu_torch.kernels import build
+from selfc_tpu_torch.ops import chain_variants as cv
 from selfc_tpu_torch.ops import deform as df
 from selfc_tpu_torch.ops import dense_chain as dc
 from selfc_tpu_torch.ops import temporal_conv as tc
@@ -71,6 +72,9 @@ constexpr int cudaSuccess = 0;
 constexpr int cudaErrorInvalidValue = 1;
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "cpu stand-in"; }
+constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
+template <typename F>
+inline cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
 inline thread_local dim3 threadIdx, blockIdx, gridDim;
 inline thread_local std::barrier<>* block_barrier;
@@ -117,6 +121,9 @@ inline __nv_bfloat16 __float2bfloat16(float f) {  // round to nearest even
 """
 
 _LAUNCH = re.compile(r"(\w+<[^<>;]*>)<<<(.*?)>>>\((.*?)\);", re.S)
+# a kernel's dynamic shared memory: static storage of 128 KB (blocks run one
+# after another, as for __shared__)
+_DYN_SMEM = re.compile(r"extern __shared__ (__align__\(\d+\) )?float (\w+)\[\];")
 
 
 def _split_top(text: str) -> list[str]:
@@ -138,6 +145,7 @@ def rewrite_launches(source: str) -> tuple[str, int]:
     def repl(m):
         grid, block = _split_top(m.group(2))[:2]
         return f"cpu_launch(dim3({grid}), dim3({block}), [=] {{ {m.group(1)}({m.group(3)}); }});"
+    source = _DYN_SMEM.sub(r"static \1float \2[1 << 15];", source)
     return _LAUNCH.subn(repl, source)
 
 
@@ -154,7 +162,8 @@ def build_cpu_library(name: str, out_dir: Path) -> Path:
         raise RuntimeError(f"{name}.cu: no kernel launch found to rewrite")
     cpp, lib = out_dir / f"{name}.cpp", out_dir / f"lib{name}_cpu.so"
     cpp.write_text(text)
-    res = subprocess.run([gxx, "-std=c++20", "-O2", "-fPIC", "-shared", f"-I{out_dir}", "-o", str(lib),
+    res = subprocess.run([gxx, "-std=c++20", "-O2", "-fPIC", "-shared", f"-I{out_dir}",
+                          f"-I{build.CSRC_DIR}", "-o", str(lib),
                           str(cpp), "-lpthread"], capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"g++ failed for {name}:\n{res.stderr}")
@@ -165,20 +174,21 @@ def build_cpu_library(name: str, out_dir: Path) -> Path:
 def cpu_kernels(out_dir: Path):
     """Inside, the launch functions of ``ops.dense_chain`` (``_chain_cuda``,
     ``_feats_cuda``, ``_bwd_cuda``), ``ops.deform`` (``_forward_cuda``,
-    ``_backward_cuda``) and ``ops.temporal_conv`` (``_forward_cuda``,
-    ``_data_grad_cuda``) run the CPU builds of the CUDA sources on CPU
+    ``_backward_cuda``), ``ops.temporal_conv`` (``_forward_cuda``,
+    ``_data_grad_cuda``) and ``ops.chain_variants`` (``_hg_cuda``,
+    ``_ride_cuda``, ``_v3_cuda``) run the CPU builds of the CUDA sources on CPU
     tensors. The public wrappers still take their plain versions for a CPU
     tensor: call the launch functions directly."""
     names = build.kernel_names()
     libs = {n: build_cpu_library(n, out_dir) for n in names}
-    streams = dc._stream, tc._stream
-    dc._stream = tc._stream = lambda x: None
+    streams = dc._stream, tc._stream, cv._stream
+    dc._stream = tc._stream = cv._stream = lambda x: None
     try:
         for n, lib in libs.items():
             build.use_library(n, lib)
         yield
     finally:
-        dc._stream, tc._stream = streams
+        dc._stream, tc._stream, cv._stream = streams
         for n in names:
             build.use_library(n)
 
@@ -295,9 +305,53 @@ def rehearse_temporal_conv(cases=TEMPORAL_CASES, dtypes=(torch.float32, torch.bf
     return out
 
 
+# (C, c_out, gc) of the variants: the 4x net's H/G pair and its F chain, the
+# codec's pair (c_out 12) and F chain, its prior at gc 12; c_out 6 and 10 (the
+# widest ride), odd widths
+HG_WIDTHS = ((3, 48, 32), (3, 12, 32), (5, 7, 13), (4, 12, 20))
+RIDE_WIDTHS = ((48, 3, 32), (12, 3, 32), (6, 6, 16), (5, 10, 13), (9, 3, 24))
+V3_WIDTHS = ((3, 64, 32), (64, 64, 32), (24, 24, 12), (3, 24, 12), (32, 3, 32), (5, 7, 20))
+
+
+def rehearse_variants(shape=(2, 2, 9, 21), dtypes=(torch.float32, torch.bfloat16), hg_widths=HG_WIDTHS,
+                      ride_widths=RIDE_WIDTHS, v3_widths=V3_WIDTHS, modes=tuple(dc.EP_AUX),
+                      seed=0) -> list[dict]:
+    """B7 (both combines), B9 (every epilogue) and B8 against their plain
+    versions; call inside ``cpu_kernels()``. One record a kernel, dtype and
+    width: the errors relative to max |plain|."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for dtype in dtypes:
+        name = str(dtype).split(".")[-1]
+        for C, c_out, gc in hg_widths:
+            x, hws, hbs, hw5, hb5, x2, _ = make_chain(rng, C, c_out, shape, "cpu", dtype, gc)
+            _, gws, gbs, gw5, gb5, _, _ = make_chain(rng, C, c_out, shape, "cpu", dtype, gc)
+            rec = {"kernel": "chain_hg", "dtype": name, "C": C, "c_out": c_out, "gc": gc}
+            for rev in (False, True):
+                args = (x, x2, hws, hbs, hw5, hb5, gws, gbs, gw5, gb5, 0.8, rev)
+                got, want = cv._hg_cuda(*args), cv.fused_hg_pair_plain(*args)
+                rec[f"y2_rev_{rev}"], rec[f"se_rev_{rev}"] = (rel_err(u, v) for u, v in zip(got, want))
+            out.append(rec)
+        for C, c_out, gc in ride_widths:
+            x, ws, bs, w5, b5, a, m = make_chain(rng, C, c_out, shape, "cpu", dtype, gc)
+            rec = {"kernel": "chain_ride", "dtype": name, "C": C, "c_out": c_out, "gc": gc}
+            for mode in modes:
+                n_aux = dc.EP_AUX[mode]
+                aa, mm = (a if n_aux >= 1 else None), (m if n_aux >= 2 else None)
+                rec[f"forward_{mode}"] = rel_err(cv._ride_cuda(x, ws, bs, w5, b5, mode, 0.8, aa, mm),
+                                                 cv.dense_chain_ride_plain(x, ws, bs, w5, b5, mode, 0.8, aa, mm))
+            out.append(rec)
+        for C, c_out, gc in v3_widths:
+            x, ws, bs, w5, b5, _, _ = make_chain(rng, C, c_out, shape, "cpu", dtype, gc)
+            out.append({"kernel": "chain_v3", "dtype": name, "C": C, "c_out": c_out, "gc": gc,
+                        "forward": rel_err(cv._v3_cuda(x, ws, bs, w5, b5),
+                                           cv.dense_chain_v3_plain(x, ws, bs, w5, b5))})
+    return out
+
+
 def main() -> int:
     with tempfile.TemporaryDirectory() as tmp, cpu_kernels(Path(tmp)), torch.no_grad():
-        records = rehearse() + rehearse_deform() + rehearse_temporal_conv()
+        records = rehearse() + rehearse_deform() + rehearse_temporal_conv() + rehearse_variants()
     for rec in records:
         print(json.dumps(rec), flush=True)
         limit = 1e-5 if rec["dtype"] == "float32" else 3e-2

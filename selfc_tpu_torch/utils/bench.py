@@ -1,7 +1,8 @@
 """Measuring helpers for the GPU: CUDA-event timing, seeded dense-chain and
 deformable-conv inputs at the serving, training and codec shapes, and the
 cost models of the kernels (operations and bytes from shapes, at the chain's
-true growth width) with the card's published peaks, for a roofline bound."""
+true growth width; the chain variants B8 and B9 compute B1's function and take
+its bound, B7 two chains and the combine) with the card's published peaks, for a roofline bound."""
 
 from __future__ import annotations
 
@@ -159,10 +160,29 @@ def chain_cost(B, T, H, W, C, c_out, n_aux, itemsize, gc=32):
     inside_t = (3 * T - 2) / (3 * T)
     conv5 = px * 3 * (C + 4 * gc) * c_out * inside_t
     ops = 2.0 * (_spatial_macs(B, T, H, W, C, gc) + conv5)
-    n_params = (sum(9 * (C + gc * k) * gc + gc for k in range(4))
-                + 3 * (C + 4 * gc) * c_out + c_out)
-    nbytes = itemsize * (px * (C + (1 + n_aux) * c_out) + n_params)
+    nbytes = itemsize * (px * (C + (1 + n_aux) * c_out) + _chain_params(C, c_out, gc))
     return ops, float(nbytes)
+
+
+def _chain_params(C, c_out, gc=32):
+    return sum(9 * (C + gc * k) * gc + gc for k in range(4)) + 3 * (C + 4 * gc) * c_out + c_out
+
+
+def hg_cost(B, T, H, W, C, c_out, itemsize, gc=32):
+    """(operations, bytes) of one H/G pair call (B7): the two chains'
+    products as ``chain_cost`` counts them, and the combine at 8 operations
+    an output element (the sigmoid's exp, add and divide, the scale, the
+    exp, the product and the sum, the subtraction or the second product).
+    Bytes: x and x2 read once, both chains' parameters read once, y2 and se
+    written once."""
+    px = B * T * H * W
+    ops = 2.0 * chain_cost(B, T, H, W, C, c_out, 0, itemsize, gc)[0] + 8.0 * px * c_out
+    nbytes = itemsize * (px * (C + 3 * c_out) + 2 * _chain_params(C, c_out, gc))
+    return ops, float(nbytes)
+
+
+def hg_bound_ms(B, T, H, W, C, c_out, dtype=torch.float32, gc=32):
+    return bound_ms(*hg_cost(B, T, H, W, C, c_out, _itemsize(dtype), gc), dtype)
 
 
 def _spatial_macs(B, T, H, W, C, gc=32):

@@ -164,3 +164,60 @@ def test_temporal_conv_cpu_build_counts_forward_and_backward_apart(cpu_built):
         cpu_rehearsal.rehearse_temporal_conv(((1, 3, 2, 2, 4, 5),), (torch.float32,), (None,))
     assert (tc.launches, tc.launches_bwd) == (1, 1)
     assert tc.launches_by_width == {(4, 5): 1} and tc.launches_bwd_by_width == {(4, 5): 1}
+
+
+# ---------------------------------------------------------------------------
+# the chain variants: csrc/chain_hg.cu (B7), chain_ride.cu (B9), chain_v3.cu (B8)
+# ---------------------------------------------------------------------------
+
+
+def test_rewrite_finds_the_variant_launches():
+    """Three instantiations of the shared spatial layer in the pair and the
+    ride, their last launches, and v3's two (its dynamic shared memory
+    becomes static storage)."""
+    from selfc_tpu_torch.kernels import build
+    for name, n_launches in (("chain_hg", 5), ("chain_ride", 4), ("chain_v3", 2)):
+        text, n = cpu_rehearsal.rewrite_launches((build.CSRC_DIR / f"{name}.cu").read_text())
+        assert n == n_launches and "<<<" not in text and "extern __shared__" not in text
+
+
+VARIANT_CASES = {
+    # the pair forward and reverse at the 4x net's width and an odd one at gc 13
+    "hg": dict(hg_widths=((3, 48, 32), (5, 7, 13)), ride_widths=(), v3_widths=()),
+    # the ride with every epilogue at the F chain's width, c_out 10 at gc 13
+    "ride": dict(hg_widths=(), ride_widths=((48, 3, 32), (5, 10, 13)), v3_widths=()),
+    # v3 at the codec prior's growth 12, the 4x prior's 64->64, an odd width
+    "v3": dict(hg_widths=(), ride_widths=(), v3_widths=((24, 24, 12), (64, 64, 32), (5, 7, 20))),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(VARIANT_CASES))
+def test_variant_cuda_sources_match_plain_fp32(cpu_built, kind):
+    with torch.no_grad():
+        recs = cpu_rehearsal.rehearse_variants(SHAPE, (torch.float32,), **VARIANT_CASES[kind])
+    for rec in recs:
+        errs = _errors(rec)
+        assert errs and all(v <= 1e-5 for v in errs.values()), rec
+    if kind == "hg":
+        assert {"y2_rev_True", "se_rev_True"} <= set(_errors(recs[0]))
+    if kind == "ride":
+        assert {f"forward_{m}" for m in dc.EP_AUX} == set(_errors(recs[0]))
+
+
+def test_variant_cuda_sources_match_plain_bf16(cpu_built):
+    with torch.no_grad():
+        recs = cpu_rehearsal.rehearse_variants(
+            SHAPE, (torch.bfloat16,), hg_widths=((3, 12, 32),), ride_widths=((12, 3, 32),),
+            v3_widths=((3, 24, 12),), modes=("sub_from", "mul_add"))
+    assert len(recs) == 3 and all(all(v <= 3e-2 for v in _errors(r).values()) for r in recs), recs
+
+
+def test_variant_cpu_builds_count_their_calls(cpu_built):
+    from selfc_tpu_torch.ops import chain_variants as cv
+    cv.reset_launch_counts()
+    with torch.no_grad():
+        cpu_rehearsal.rehearse_variants((1, 2, 3, 4), (torch.float32,), hg_widths=((3, 5, 32),),
+                                        ride_widths=((4, 3, 12),), v3_widths=((3, 4, 8),), modes=("none",))
+    assert (cv.launches_hg, cv.launches_ride, cv.launches_v3) == (2, 1, 1)
+    assert cv.launches_hg_by_width == {(3, 5, 32, "forward"): 1, (3, 5, 32, "reverse"): 1}
+    assert cv.launches_ride_by_width == {(4, 3, 12): 1} and cv.launches_v3_by_width == {(3, 4, 8): 1}
