@@ -20,6 +20,10 @@ again with each of the subnet types whose chains reach the standalone
 temporal conv (kernel B6), and it serves a GOP and trains the published 4x
 net once more with the opt-in chain schedules (``network_G.chain_variants:
 [hg, ride, v3]``: kernels B7, B9 and B8 carry all 54 chains of a roundtrip).
+Both training steps run W-packed, as by default (``network_G.pack_w``: every
+chain of the 4x step as 2 rows of 4 images at stripe 36, the codec's coupling
+and prior chains 2 to a row at stripe 72, B1, B3 and B2 with their stripe
+masks), and once more with ``pack_w: false``, timed beside it in turns.
 It times the kernels beside their roofline bound.
 Prints one JSON line per phase; any failure exits non-zero. There is no CPU
 fallback: without a CUDA device the script fails at once.
@@ -174,6 +178,21 @@ V3_CHECKS = ((CHECK_SHAPE, 3, 64, 32), (CHECK_SHAPE, 64, 64, 32), (CHECK_SHAPE, 
 # 6 chains on v3, B1 none
 VARIANT_LAUNCHES = {"hg": {(3, 48, 32, "forward"): 8, (3, 48, 32, "reverse"): 8},
                     "ride": {(48, 3, 32): 16}, "v3": {(3, 64, 32): 1, (64, 64, 32): 5}}
+# W-packing (network_G.pack_w, on by default): the 4x training latent (8, 36
+# wide) runs every chain as 2 rows of 4 images, stripe 36; the codec's (12, 72
+# wide) its coupling and prior chains as 6 rows of 2, stripe 72
+TRAIN_STRIPE, CODEC_STRIPE = TRAIN_SHAPE[3], CODEC_TRAIN_LAT[3]
+TRAIN_P = dc.pick_pack_w(TRAIN_SHAPE[0], TRAIN_STRIPE)
+CODEC_P = dc.pick_pack_w(CODEC_TRAIN_LAT[0], CODEC_STRIPE)
+TRAIN_PACKED = (TRAIN_SHAPE[0] // TRAIN_P, *TRAIN_SHAPE[1:3], TRAIN_P * TRAIN_STRIPE)
+CODEC_PACKED = (CODEC_TRAIN_LAT[0] // CODEC_P, *CODEC_TRAIN_LAT[1:3], CODEC_P * CODEC_STRIPE)
+# (packed shape, stripe, C, c_out, gc) of the stripe checks: the 4x step's
+# widths, the codec coupling's at gc 32 and its prior's at gc 12
+STRIPE_CHECKS = (tuple((TRAIN_PACKED, TRAIN_STRIPE, C, c_out, 32) for C, c_out in PATH_WIDTHS)
+                 + tuple((CODEC_PACKED, CODEC_STRIPE, C, c_out, gc) for C, c_out, gc in CODEC_WIDTHS))
+# limits of a packed step against the unpacked one (the whole gradient,
+# relative l2): the same products, the weight gradient's sums over other tiles
+PACK_GRAD_L2_LIMIT = 1e-5
 ALL_PHASES = ("serve", "train", "codec", "codec_train", "deart", "subnets", "variants")
 
 
@@ -216,7 +235,8 @@ def plain_chain_on_card():
     plain versions, for comparison."""
     kernels = (dc.dense_chain_t_ep, dc.fused_dense_spatial, df.deform_conv2d, tc.temporal_conv3_fused,
                cv.fused_hg_pair, cv.dense_chain_ride, cv.dense_chain_v3)
-    dc.dense_chain_t_ep = lambda *a, save_feats=True, launch=None, **kw: dc.dense_chain_t_ep_plain(*a, **kw)
+    dc.dense_chain_t_ep = lambda *a, save_feats=True, launch=None, stripe=0, pack=False, **kw: (
+        dc.dense_chain_t_ep_plain(*a, stripe_w=stripe, **kw))
     dc.fused_dense_spatial = dc.fused_dense_spatial_plain
     df.deform_conv2d = df.deform_conv2d_plain
     tc.temporal_conv3_fused = tc.temporal_conv3_fused_plain
@@ -421,13 +441,13 @@ def phase_roundtrip(device):
     return model, counts
 
 
-def chain_error(args, mode):
+def chain_error(args, mode, stripe=0):
     """Max abs difference of the kernel and its plain version on one input."""
     x, ws, bs, w5, b5, a, m = args
     n_aux = dc.EP_AUX[mode]
     aa, mm = (a if n_aux >= 1 else None), (m if n_aux >= 2 else None)
-    got = dc.dense_chain_t_ep(x, ws, bs, w5, b5, mode, 0.8, aa, mm)
-    want = dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, mode, 0.8, aa, mm)
+    got = dc.dense_chain_t_ep(x, ws, bs, w5, b5, mode, 0.8, aa, mm, stripe=stripe)
+    want = dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, mode, 0.8, aa, mm, stripe_w=stripe)
     return (got.float() - want.float()).abs().max().item()
 
 
@@ -610,8 +630,10 @@ def params_of(model):
 
 def phase_train(device):
     """Three training steps of the full-width net at the published batch,
-    then one step with ``save_chain_feats: false``; the launch counts of
-    exactly these four steps are kept."""
+    then one step with ``save_chain_feats: false``, all W-packed (the
+    default: every chain at stripe 36), then the first step and the
+    recomputing one again with ``pack_w: false``; the launch counts of
+    exactly these six steps are kept."""
     batch = train_batch()
     rng = np.random.default_rng(21)
     lat = TRAIN_SHAPE + (3,)
@@ -636,25 +658,44 @@ def phase_train(device):
         seen = now
         if step == 0:
             after_1, grads_1, norm_1 = params_of(model), grads_of(model), float(model.grad_norm)
-    recompute = new_trainer(device, tree, batch, save_chain_feats=False)
-    recompute.optimize_parameters(0, eps=eps[0])
-    log_r, norm_r = dict(recompute.get_current_log()), float(recompute.grad_norm)
+    unpacked_net = {**NETWORK_G, "pack_w": False}
+    trainers = {}
+    for name, network, train in (("recompute", NETWORK_G, {"save_chain_feats": False}),
+                                 ("unpacked", unpacked_net, {}),
+                                 ("unpacked_recompute", unpacked_net, {"save_chain_feats": False})):
+        trainers[name] = new_trainer(device, tree, batch, network, **train)
+        trainers[name].optimize_parameters(0, eps=eps[0])
+        now = (dc.launches, dc.launches_bwd, dc.launches_feats)
+        per_step.append(tuple(int(v) for v in np.subtract(now, seen)))
+        seen = now
     torch.cuda.synchronize()
     train_s = time.time() - t0
-    now = (dc.launches, dc.launches_bwd, dc.launches_feats)
-    per_step.append(tuple(int(v) for v in np.subtract(now, seen)))
     counts = {"forward": dict(dc.launches_by_width), "backward": dict(dc.launches_bwd_by_width),
               "feats": dict(dc.launches_feats_by_width), "b6": dict(tc.launches_by_width),
-              "b6_bwd": dict(tc.launches_bwd_by_width)}
+              "b6_bwd": dict(tc.launches_bwd_by_width), "forward_stripe": dict(dc.launches_by_stripe),
+              "backward_stripe": dict(dc.launches_bwd_by_stripe), "feats_stripe": dict(dc.launches_feats_by_stripe)}
     # ---------------------------------------------------------------------
+    recompute, unpacked = trainers["recompute"], trainers["unpacked"]
+    log_r, norm_r = dict(recompute.get_current_log()), float(recompute.grad_norm)
+    log_u, grads_u = dict(unpacked.get_current_log()), grads_of(unpacked)
+    log_ur = dict(trainers["unpacked_recompute"].get_current_log())
+    del trainers, unpacked
 
-    check(per_step == [(n_chain, n_chain, 0)] * N_TRAIN_STEPS + [(n_chain, n_chain, n_chain)],
+    steps = N_TRAIN_STEPS + 3
+    check(per_step == [(n_chain, n_chain, 0)] * N_TRAIN_STEPS + [(n_chain, n_chain, n_chain)]
+          + [(n_chain, n_chain, 0), (n_chain, n_chain, n_chain)],
           f"chain launches (forward, backward, feats) of each step: {per_step}")
+    # every chain of the four packed steps at stripe 36, of the other two unpacked
+    stripes = {k: by_stripe(counts[f"{k}_stripe"]) for k in ("forward", "backward", "feats")}
+    want_stripes = {"forward": {TRAIN_STRIPE: 4 * n_chain, 0: 2 * n_chain},
+                    "backward": {TRAIN_STRIPE: 4 * n_chain, 0: 2 * n_chain},
+                    "feats": {TRAIN_STRIPE: n_chain, 0: n_chain}}
+    check(stripes == want_stripes, f"chain launches by stripe: {stripes} (expected {want_stripes})")
     # B6 recomputes conv5 of each reverse G chain (the sub_mul epilogue's dm)
-    n_sub_mul = sum(BLOCK_NUM) * (N_TRAIN_STEPS + 1)
+    n_sub_mul = sum(BLOCK_NUM) * steps
     check(counts["b6"] == {(3 + 4 * 32, 48): n_sub_mul} and not counts["b6_bwd"],
           f"B6 launches of the four steps: {counts['b6']}, backward {counts['b6_bwd']}")
-    for lg in logs + [log_r]:
+    for lg in logs + [log_r, log_u, log_ur]:
         check(all(np.isfinite(v) for v in lg.values()) and lg["skipped_nonfinite"] == 0.0,
               f"the step's losses are finite and it was not skipped: {lg}")
     unchanged = [k for k, p in model.net.named_parameters() if torch.equal(p.detach(), start[k])]
@@ -662,6 +703,14 @@ def phase_train(device):
     # recomputed features: the same forward, and a backward on the same bits
     check(log_r["loss"] == logs[0]["loss"] and abs(norm_r - norm_1) <= 1e-6 * norm_1,
           f"save_chain_feats false gives the same loss and gradient norm: {(log_r['loss'], logs[0]['loss'], norm_r, norm_1)}")
+    check(log_ur["loss"] == log_u["loss"], f"unpacked, save_chain_feats false gives the same loss: {(log_ur, log_u)}")
+    # packed against unpacked: the same products; the weight gradient sums
+    # over other tiles
+    pack_loss_rel = abs(logs[0]["loss"] - log_u["loss"]) / abs(log_u["loss"])
+    pack_grad_l2 = grads_rel_l2(grads_1, grads_u)
+    check(pack_loss_rel <= TRAIN_LOSS_REL_LIMIT and pack_grad_l2 <= PACK_GRAD_L2_LIMIT,
+          f"the packed step against the unpacked one, loss and whole gradient: {(pack_loss_rel, pack_grad_l2)}")
+    del grads_u
 
     # the same first step through the plain chain, on the card
     plain = new_trainer(device, tree, batch)
@@ -695,6 +744,11 @@ def phase_train(device):
 
     emit("train", batch=batch.shape, n_params=n_params, steps=N_TRAIN_STEPS, train_s=train_s,
          launches_per_step=per_step, launches_b6_sub_mul=n_sub_mul, logs=logs, grad_norm_step0=norm_1,
+         pack_w=TRAIN_P, stripe_w=TRAIN_STRIPE, launches_by_stripe=stripes,
+         launches_forward_by_width_and_stripe={str(k): v for k, v in counts["forward_stripe"].items()},
+         launches_backward_by_width_and_stripe={str(k): v for k, v in counts["backward_stripe"].items()},
+         loss_rel_err_packed_vs_unpacked=pack_loss_rel, grad_l2_rel_err_packed_vs_unpacked=pack_grad_l2,
+         grad_l2_packed_vs_unpacked_limit=PACK_GRAD_L2_LIMIT,
          loss_rel_err_kernel_vs_plain=loss_rel, loss_rel_limit=TRAIN_LOSS_REL_LIMIT,
          grad_l2_rel_err_kernel_vs_plain=grad_l2, grad_l2_limit=TRAIN_GRAD_L2_LIMIT,
          grad_max_rel_err_kernel_vs_plain=grad_rel, grad_rel_limit=TRAIN_GRAD_REL_LIMIT,
@@ -714,64 +768,18 @@ def library_feats(x, ws, bs):
     return feats[:, x.shape[1]:]
 
 
-def phase_timing_train(device, model, recompute, counts, worst, eps):
-    rng = np.random.default_rng(22)
-    kernels = []
-    for C, c_out in PATH_WIDTHS:   # the forward chain at the training shape
-        args = make_chain(rng, C, c_out, TRAIN_SHAPE, device)
-        x, ws, bs, w5, b5, a, m = args
-        err = max(chain_error(args, mode) for mode in dc.EP_AUX)
-        check(err <= FP32_LIMIT, f"kernel vs plain at the training shape: {(C, c_out, err)}")
-        lib_args = to_library_layout(*args)
-        ms = time_cuda(lambda: dc.dense_chain_t_ep(x, ws, bs, w5, b5, "mul_add", 1.0, a, m))
-        plain = time_cuda(lambda: dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, "mul_add", 1.0, a, m))
-        library = time_cuda(lambda: library_chain(*lib_args))
-        bound, by = chain_bound_ms(*TRAIN_SHAPE, C, c_out, 2)
-        kernels.append({
-            "name": f"dense_chain_t_ep[{C}->{c_out}]@train", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES, "launches": counts["forward"].get((C, c_out, 32), 0),
-            "max_abs_err": err, "ms": ms["median"], "plain_ms": plain["median"],
-            "bound_ms": bound, "bound_by": by, "library_ms": library["median"],
-            "ms_min": ms["min"], "plain_ms_min": plain["min"], "library_ms_min": library["min"],
-            "shape": list(TRAIN_SHAPE) + [C], "mode": "mul_add"})
-    for C in CHAIN_C:              # the adjoint and the spatial-only forward
-        x, ws, bs, *_ = make_chain(rng, C, 3, TRAIN_SHAPE, device)
-        feats = dc.chain_feats(x, ws, bs)
-        g = torch.from_numpy(rng.normal(0, 1, feats.shape).astype(np.float32)).to(device)
-        # the library's copies, in its layout, as leaves of a graph of their own
-        leaves = [x.permute(0, 4, 1, 2, 3).contiguous(),
-                  *(w.permute(3, 2, 0, 1)[:, :, None].contiguous() for w in ws), *(b.clone() for b in bs)]
-        for t in leaves:
-            t.requires_grad_(True)
-        lx, lws, lbs = leaves[0], leaves[1:5], leaves[5:]
-        lg = g.permute(0, 4, 1, 2, 3).contiguous()
-        lfeats = library_feats(lx, lws, lbs)
-        check((lfeats.detach().permute(0, 2, 3, 4, 1) - feats).abs().max().item() <= 1e-3,
-              "library spatial chain computes the same function")
-        with torch.no_grad():
-            f_ms = time_cuda(lambda: dc.chain_feats(x, ws, bs))
-            f_plain = time_cuda(lambda: dc.chain_feats_plain(x, ws, bs))
-            f_lib = time_cuda(lambda: library_feats(lx, lws, lbs))
-        f_bound, f_by = chain_feats_bound_ms(*TRAIN_SHAPE, C)
-        kernels.append({
-            "name": f"chain_feats[{C}]@train", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES_FEATS, "launches": counts["feats"].get((C, 32), 0),
-            "max_abs_err": worst["feats"][C], "ms": f_ms["median"], "plain_ms": f_plain["median"],
-            "bound_ms": f_bound, "bound_by": f_by, "library_ms": f_lib["median"],
-            "ms_min": f_ms["min"], "plain_ms_min": f_plain["min"], "library_ms_min": f_lib["min"],
-            "shape": list(TRAIN_SHAPE) + [C]})
-        b_ms = time_cuda(lambda: dc.chain_spatial_bwd(x, ws, bs, feats, g))
-        b_plain = time_cuda(lambda: dc.chain_spatial_bwd_plain(x, ws, bs, feats, g))
-        b_lib = time_cuda(lambda: torch.autograd.grad(lfeats, leaves, lg, retain_graph=True))
-        b_bound, b_by = chain_bwd_bound_ms(*TRAIN_SHAPE, C)
-        kernels.append({
-            "name": f"chain_spatial_bwd[{C}]@train", "route": "cuda", "source": SOURCE_BWD,
-            "replaces": REPLACES_BWD, "launches": counts["backward"].get((C, 32), 0),
-            "max_abs_err": worst["bwd"][C], "ms": b_ms["median"], "plain_ms": b_plain["median"],
-            "bound_ms": b_bound, "bound_by": b_by, "library_ms": b_lib["median"],
-            "ms_min": b_ms["min"], "plain_ms_min": b_plain["min"], "library_ms_min": b_lib["min"],
-            "shape": list(TRAIN_SHAPE) + [C]})
-        del lfeats
+def phase_timing_train(device, model, recompute, counts, worst, worst_bwd, worst_stripe, eps):
+    """The chain kernels at the training latent unpacked (the ``pack_w:
+    false`` steps' launches) and W-packed (stripe 36, the default steps'),
+    then a whole step and its parts packed and unpacked in turns, the
+    recomputing step and the plain path's step."""
+    widths, spatial = [(C, c_out, 32) for C, c_out in PATH_WIDTHS], [(C, 32) for C in CHAIN_C]
+    worst_unpacked = {"forward": {(C, c_out, 32): worst[(C, c_out)] for C, c_out in PATH_WIDTHS},
+                      "feats": {(C, 32): worst_bwd["feats"][C] for C in CHAIN_C},
+                      "bwd": {(C, 32): worst_bwd["bwd"][C] for C in CHAIN_C}}
+    kernels = (chain_rows(device, "train", TRAIN_SHAPE, 0, widths, spatial, counts, worst_unpacked)
+               + chain_rows(device, "train_packed", TRAIN_PACKED, TRAIN_STRIPE, widths, spatial, counts,
+                            worst_stripe))
 
     # one whole step, and its three parts (forward with the losses, backward,
     # clip + Adam), each between CUDA events
@@ -801,26 +809,28 @@ def phase_timing_train(device, model, recompute, counts, worst, eps):
             out["optimizer"].append(time_cuda(opt, iters=1, warmup=0)["median"])
         return {k: float(np.median(v)) for k, v in out.items()}
 
-    torch.cuda.reset_peak_memory_stats()
-    step = time_cuda(step_of(model), iters=10, warmup=1)
-    peak_saved = torch.cuda.max_memory_allocated() / 2 ** 30
-    split = parts(model)
+    turns = timed_in_turns(model, step_of(model), lambda: parts(model))
+    step_ms, peak_saved = turns["packed"]["step_ms_median"], turns["packed"]["peak_device_memory_gib"]
+    split = turns["packed"]["parts"]
     torch.cuda.reset_peak_memory_stats()
     step_r = time_cuda(step_of(recompute), iters=10, warmup=1)
     peak_recompute = torch.cuda.max_memory_allocated() / 2 ** 30
     with plain_chain_on_card():
         step_p = time_cuda(step_of(model), iters=10, warmup=1)
+    # the chain kernels' ms in one packed step: rows x launches of the four
+    # packed steps / 4
     by_name = {k["name"]: k for k in kernels}
-    n_fwd = sum(by_name[f"dense_chain_t_ep[{C}->{co}]@train"]["ms"] * counts["forward"].get((C, co, 32), 0)
-                for C, co in PATH_WIDTHS) / (N_TRAIN_STEPS + 1)
-    n_bwd = sum(by_name[f"chain_spatial_bwd[{C}]@train"]["ms"] * counts["backward"].get((C, 32), 0)
-                for C in CHAIN_C) / (N_TRAIN_STEPS + 1)
-    emit("timing_train", shape=TRAIN_SHAPE, step_ms=step["median"], step_ms_min=step["min"],
+    n_fwd = sum(by_name[f"dense_chain_t_ep[{C}->{co},gc32]@train_packed"]["ms"]
+                * counts["forward_stripe"].get((C, co, 32, TRAIN_STRIPE), 0) for C, co in PATH_WIDTHS) / 4
+    n_bwd = sum(by_name[f"chain_spatial_bwd[{C},gc32]@train_packed"]["ms"]
+                * counts["backward_stripe"].get((C, 32, TRAIN_STRIPE), 0) for C in CHAIN_C) / 4
+    emit("timing_train", shape=TRAIN_SHAPE, packed_shape=TRAIN_PACKED, step_ms=step_ms,
+         step_ms_unpacked=turns["unpacked"]["step_ms_median"], turns=turns,
          step_recompute_feats_ms=step_r["median"], step_recompute_feats_ms_min=step_r["min"],
          step_plain_ms=step_p["median"], step_plain_ms_min=step_p["min"],
          forward_ms=split["forward"], backward_ms=split["backward"], optimizer_ms=split["optimizer"],
          forward_chain_kernels_ms_per_step=n_fwd, backward_chain_kernels_ms_per_step=n_bwd,
-         clips_per_s=TRAIN_SHAPE[0] * 1e3 / step["median"],
+         clips_per_s=TRAIN_SHAPE[0] * 1e3 / step_ms,
          peak_device_memory_gib_saved_feats=peak_saved, peak_device_memory_gib_recomputed_feats=peak_recompute)
     return kernels
 
@@ -1222,12 +1232,20 @@ def codec_counts():
             "spatial_bwd": dict(dc.launches_spatial_bwd_by_width)}
 
 
+def stripe_counts():
+    return {"forward_stripe": dict(dc.launches_by_stripe), "backward_stripe": dict(dc.launches_bwd_by_stripe),
+            "feats_stripe": dict(dc.launches_feats_by_stripe)}
+
+
 def phase_codec_train(device):
     """Three training steps of the published codec net with its surrogate
     at the published batch, through the host codec, then one step with
-    ``save_chain_feats: false``; the launch counts of exactly these four
-    steps are kept. Then one step's whole gradient, kernel path against
-    plain path, from one shared codec output."""
+    ``save_chain_feats: false``, all W-packed (the default: the coupling and
+    prior chains at stripe 72, the surrogate's unpacked), then the first
+    step and the recomputing one again with ``pack_w: false``; the launch
+    counts of exactly these six steps are kept. Then one step's whole
+    gradient, kernel path against plain path and packed against unpacked,
+    from one shared codec output."""
     batch = codec_train_batch()
     probe = CodecModel(codec_train_options(), device=device, rng_seed=0)
     tree = codec_tree(probe, 51)
@@ -1249,15 +1267,20 @@ def phase_codec_train(device):
                          for k, d in codec_counts().items()})
         if step == 0:
             grads_1 = all_grads(model)
-    recompute = new_codec_trainer(device, tree, batch, save_chain_feats=False)
-    before = codec_counts()
-    recompute.optimize_parameters(0)
-    log_r = dict(recompute.get_current_log())
+    log_more = []
+    for network, train in ((None, {"save_chain_feats": False}), ({"pack_w": False}, {}),
+                           ({"pack_w": False}, {"save_chain_feats": False})):
+        extra = new_codec_trainer(device, tree, batch, network, **train)
+        before = codec_counts()
+        extra.optimize_parameters(0)
+        log_more.append(dict(extra.get_current_log()))
+        per_step.append({k: {w: n - before[k].get(w, 0) for w, n in d.items()} for k, d in codec_counts().items()})
+        del extra
     torch.cuda.synchronize()
     train_s = time.time() - t0
-    per_step.append({k: {w: n - before[k].get(w, 0) for w, n in d.items()} for k, d in codec_counts().items()})
-    counts = codec_counts()
+    counts = {**codec_counts(), **stripe_counts()}
     # ---------------------------------------------------------------------
+    log_r, log_u, log_ur = log_more
 
     # the adjoint by (C, gc): one a chain, and one a v1 spatial chain, whose
     # forward is a spatial-only forward launch (their widths do not meet)
@@ -1269,19 +1292,28 @@ def phase_codec_train(device):
     # the recomputing step also runs the spatial-only forward once a chain
     want_r = dict(want, feats=adjoint)
     got = [{k: {w: n for w, n in d.items() if n} for k, d in st.items()} for st in per_step]
-    check(got == [want] * N_CODEC_STEPS + [want_r],
+    check(got == [want] * N_CODEC_STEPS + [want_r, want, want_r],
           f"kernel launches of each codec training step: {got} (expected {want}, then {want_r})")
+    # the coupling and prior chains of the four packed steps at stripe 72,
+    # of the other two unpacked; the surrogate's (B4) unpacked in all six
+    n_chain, n_b4 = sum(CODEC_TRAIN_FWD.values()), sum(CODEC_TRAIN_SPATIAL.values())
+    stripes = {k: by_stripe(counts[f"{k}_stripe"]) for k in ("forward", "backward", "feats")}
+    want_stripes = {"forward": {CODEC_STRIPE: 4 * n_chain, 0: 2 * n_chain},
+                    "backward": {CODEC_STRIPE: 4 * n_chain, 0: 2 * n_chain + 6 * n_b4},
+                    "feats": {CODEC_STRIPE: n_chain, 0: n_chain + 6 * n_b4}}
+    check(stripes == want_stripes, f"codec chain launches by stripe: {stripes} (expected {want_stripes})")
     n_gc12 = sum(n for (C, gc), n in got[0]["backward"].items() if gc == 12)
     check(n_gc12 == 4, f"adjoint launches at growth 12 a step: {n_gc12}")
-    for lg in logs + [log_r]:
+    for lg in logs + log_more:
         check(all(np.isfinite(v) for k, v in lg.items() if k != "rate_source")
               and lg["skipped_nonfinite"] == 0.0, f"the step's losses are finite and it was not skipped: {lg}")
-    check(log_r["loss"] == logs[0]["loss"], f"save_chain_feats false gives the same loss: {(log_r['loss'], logs[0]['loss'])}")
+    check(log_r["loss"] == logs[0]["loss"] and log_ur["loss"] == log_u["loss"],
+          f"save_chain_feats false gives the same loss: {(log_r['loss'], logs[0]['loss'], log_ur['loss'], log_u['loss'])}")
     top = max(g.abs().max().item() for g in grads_1.values())
     unchanged = [k for k, p in model.params.named_parameters() if torch.equal(p.detach(), start[k])]
     check(all(grads_1[k].abs().max().item() < TRAIN_GRAD_ZERO * top for k in unchanged),
           f"every parameter with a gradient changed: {unchanged[:5]}")
-    del model, recompute
+    del model
 
     # one step from one shared codec output: kernel path against plain path
     kern = new_codec_trainer(device, tree, batch)
@@ -1290,6 +1322,15 @@ def phase_codec_train(device):
     kern.optimize_parameters(0, codec_out=shared)
     log_k, grads_k = dict(kern.get_current_log()), all_grads(kern)
     del kern
+    unpacked = new_codec_trainer(device, tree, batch, {"pack_w": False})
+    unpacked.optimize_parameters(0, codec_out=shared)
+    log_u, grads_u = dict(unpacked.get_current_log()), all_grads(unpacked)
+    del unpacked
+    pack_loss_rel = abs(log_k["loss"] - log_u["loss"]) / abs(log_u["loss"])
+    pack_grad_l2 = grads_rel_l2(grads_k, grads_u)
+    check(pack_loss_rel <= TRAIN_LOSS_REL_LIMIT and pack_grad_l2 <= PACK_GRAD_L2_LIMIT,
+          f"the packed codec step against the unpacked one, loss and whole gradient: {(pack_loss_rel, pack_grad_l2)}")
+    del grads_u
     plain = new_codec_trainer(device, tree, batch)
     with plain_chain_on_card():
         before = codec_counts()
@@ -1307,59 +1348,30 @@ def phase_codec_train(device):
          host_codec=h265.codec_backend() or "stand-in", rate_source=logs[0]["rate_source"],
          host_codec_s_per_step=codec_s,
          launches_per_step={k: {str(w): n for w, n in d.items()} for k, d in got[0].items()},
-         launches_adjoint_gc12_per_step=n_gc12, logs=logs,
+         launches_adjoint_gc12_per_step=n_gc12, logs=logs, pack_w=CODEC_P, stripe_w=CODEC_STRIPE,
+         launches_by_stripe=stripes,
+         launches_forward_by_width_and_stripe={str(k): v for k, v in counts["forward_stripe"].items()},
+         loss_rel_err_packed_vs_unpacked=pack_loss_rel, grad_l2_rel_err_packed_vs_unpacked=pack_grad_l2,
+         grad_l2_packed_vs_unpacked_limit=PACK_GRAD_L2_LIMIT,
          loss_rel_err_kernel_vs_plain=loss_rel, loss_rel_limit=TRAIN_LOSS_REL_LIMIT,
          grad_l2_rel_err_kernel_vs_plain=grad_l2, grad_l2_limit=TRAIN_GRAD_L2_LIMIT,
          recompute_same_loss=True)
     return tree, batch, counts
 
 
-def phase_timing_codec_train(device, tree, batch, counts, worst):
-    """The kernels of the codec's training at its shapes (B2 and B3 at
-    growth 12, B4 forward and backward), a whole step and its parts, the
+def phase_timing_codec_train(device, tree, batch, counts, worst, worst_gc, worst_stripe):
+    """The kernels of the codec's training at its shapes (B1, and B3 and B2
+    at growth 12, unpacked and W-packed at stripe 72; B4 forward and
+    backward), a whole step and its parts packed and unpacked in turns, the
     plain path's step, and the peak memory with features saved and
     recomputed."""
     rng = np.random.default_rng(61)
-    kernels = []
     shape = CODEC_TRAIN_LAT
-    ncdhw = lambda t: t.permute(0, 4, 1, 2, 3).contiguous()  # noqa: E731
-    for C in (3, 24):                  # the prior's chains: growth 12
-        gc = 12
-        x, ws, bs, *_ = make_chain(rng, C, 3, shape, device, gc=gc)
-        feats = dc.chain_feats(x, ws, bs)
-        g = seeded_grads(rng, feats, device)
-        leaves = [ncdhw(x), *(w.permute(3, 2, 0, 1)[:, :, None].contiguous() for w in ws), *(b.clone() for b in bs)]
-        for t in leaves:
-            t.requires_grad_(True)
-        lx, lws, lbs = leaves[0], leaves[1:5], leaves[5:]
-        lfeats = library_feats(lx, lws, lbs)
-        lg = ncdhw(dc.true_width(g, gc))
-        check((lfeats.detach().permute(0, 2, 3, 4, 1) - dc.true_width(feats, gc)).abs().max().item() <= 1e-3,
-              "library spatial chain computes the same function")
-        with torch.no_grad():
-            f_ms = time_cuda(lambda: dc.chain_feats(x, ws, bs), iters=10)
-            f_plain = time_cuda(lambda: dc.chain_feats_plain(x, ws, bs), iters=10)
-            f_lib = time_cuda(lambda: library_feats(lx, lws, lbs), iters=10)
-        f_bound, f_by = chain_feats_bound_ms(*shape, C, gc=gc)
-        kernels.append({
-            "name": f"chain_feats[{C},gc{gc}]@codec_train", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES_FEATS, "launches": counts["feats"].get((C, gc), 0),
-            "max_abs_err": worst["feats"][(C, gc)], "ms": f_ms["median"], "plain_ms": f_plain["median"],
-            "bound_ms": f_bound, "bound_by": f_by, "library_ms": f_lib["median"],
-            "ms_min": f_ms["min"], "plain_ms_min": f_plain["min"], "library_ms_min": f_lib["min"],
-            "shape": list(shape) + [C], "gc": gc})
-        b_ms = time_cuda(lambda: dc.chain_spatial_bwd(x, ws, bs, feats, g), iters=10)
-        b_plain = time_cuda(lambda: dc.chain_spatial_bwd_plain(x, ws, bs, feats, g), iters=10)
-        b_lib = time_cuda(lambda: torch.autograd.grad(lfeats, leaves, lg, retain_graph=True), iters=10)
-        b_bound, b_by = chain_bwd_bound_ms(*shape, C, gc=gc)
-        kernels.append({
-            "name": f"chain_spatial_bwd[{C},gc{gc}]@codec_train", "route": "cuda", "source": SOURCE_BWD,
-            "replaces": REPLACES_BWD, "launches": counts["backward"].get((C, gc), 0),
-            "max_abs_err": worst["bwd"][(C, gc)], "ms": b_ms["median"], "plain_ms": b_plain["median"],
-            "bound_ms": b_bound, "bound_by": b_by, "library_ms": b_lib["median"],
-            "ms_min": b_ms["min"], "plain_ms_min": b_plain["min"], "library_ms_min": b_lib["min"],
-            "shape": list(shape) + [C], "gc": gc})
-        del x, ws, bs, feats, g, leaves, lfeats, lg
+    spatial = [(3, 12), (24, 12)]        # the prior's chains: growth 12
+    kernels = (chain_rows(device, "codec_train", shape, 0, CODEC_WIDTHS, spatial, counts,
+                          {"forward": worst_gc, "feats": worst["feats"], "bwd": worst["bwd"]})
+               + chain_rows(device, "codec_train_packed", CODEC_PACKED, CODEC_STRIPE, CODEC_WIDTHS, spatial, counts,
+                            worst_stripe))
     B, T, H, W = shape
     for C in SURROGATE_C:              # the surrogate's v1 spatial chains
         x, ws, bs, *_ = make_chain(rng, C, 3, shape, device)
@@ -1404,9 +1416,36 @@ def phase_timing_codec_train(device, tree, batch, counts, worst):
     # a whole step (host codec included), then its parts, each timed alone
     model = new_codec_trainer(device, tree, batch)
     step_of = lambda mdl: (lambda: mdl.optimize_parameters(N_CODEC_STEPS))  # noqa: E731
+    turns = timed_in_turns(model, step_of(model), lambda: codec_parts(model))
+    step_ms, peak_saved = turns["packed"]["step_ms_median"], turns["packed"]["peak_device_memory_gib"]
+    split = turns["packed"]["parts"]
+    del model
+    recompute = new_codec_trainer(device, tree, batch, save_chain_feats=False)
     torch.cuda.reset_peak_memory_stats()
-    step = time_cuda(step_of(model), iters=6, warmup=1)
-    peak_saved = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_r = time_cuda(step_of(recompute), iters=6, warmup=1)
+    peak_recompute = torch.cuda.max_memory_allocated() / 2 ** 30
+    del recompute
+    plain = new_codec_trainer(device, tree, batch)
+    with plain_chain_on_card():
+        step_p = time_cuda(step_of(plain), iters=5, warmup=1)
+    rate = plain.rate_source
+    del plain
+    emit("timing_codec_train", batch=CODEC_TRAIN_SHAPE, packed_shape=CODEC_PACKED, step_ms=step_ms,
+         step_ms_unpacked=turns["unpacked"]["step_ms_median"], turns=turns,
+         step_recompute_feats_ms=step_r["median"], step_plain_ms=step_p["median"],
+         step_plain_ms_min=step_p["min"], encode_forward_ms=split["encode_forward"],
+         host_codec_ms=split["host_codec"], loss_backward_ms=split["loss_backward"],
+         optimizer_ms=split["optimizer"], clips_per_s=CODEC_TRAIN_SHAPE[0] * 1e3 / step_ms,
+         peak_device_memory_gib_saved_feats=peak_saved, peak_device_memory_gib_recomputed_feats=peak_recompute,
+         rate_source=rate, host_codec=h265.codec_backend() or "stand-in")
+    return kernels, {"step_ms": step_ms, "step_plain_ms": step_p["median"],
+                     "peak_device_memory_gib": peak_saved}
+
+
+def codec_parts(model):
+    """One codec training step's parts, each timed alone, median of 5: the
+    encode forward, the host codec (host clock), the loss and backward, clip
+    + Adam."""
     parts = {"encode_forward": [], "host_codec": [], "loss_backward": [], "optimizer": []}
     hr = model._hr
     with torch.no_grad():
@@ -1430,27 +1469,9 @@ def phase_timing_codec_train(device, tree, batch, counts, worst):
             model.optimizer.step()
 
         parts["optimizer"].append(time_cuda(opt, 1, 0)["median"])
-    split = {k: float(np.median(v)) for k, v in parts.items()}
-    del model
-    recompute = new_codec_trainer(device, tree, batch, save_chain_feats=False)
-    torch.cuda.reset_peak_memory_stats()
-    step_r = time_cuda(step_of(recompute), iters=6, warmup=1)
-    peak_recompute = torch.cuda.max_memory_allocated() / 2 ** 30
-    del recompute
-    plain = new_codec_trainer(device, tree, batch)
-    with plain_chain_on_card():
-        step_p = time_cuda(step_of(plain), iters=5, warmup=1)
-    rate = plain.rate_source
-    del plain
-    emit("timing_codec_train", batch=CODEC_TRAIN_SHAPE, step_ms=step["median"], step_ms_min=step["min"],
-         step_recompute_feats_ms=step_r["median"], step_plain_ms=step_p["median"],
-         step_plain_ms_min=step_p["min"], encode_forward_ms=split["encode_forward"],
-         host_codec_ms=split["host_codec"], loss_backward_ms=split["loss_backward"],
-         optimizer_ms=split["optimizer"], clips_per_s=CODEC_TRAIN_SHAPE[0] * 1e3 / step["median"],
-         peak_device_memory_gib_saved_feats=peak_saved, peak_device_memory_gib_recomputed_feats=peak_recompute,
-         rate_source=rate, host_codec=h265.codec_backend() or "stand-in")
-    return kernels, {"step_ms": step["median"], "step_plain_ms": step_p["median"],
-                     "peak_device_memory_gib": peak_saved}
+    return {k: float(np.median(v)) for k, v in parts.items()}
+
+
 
 
 def deform_errors(got, want, fp32):
@@ -1992,6 +2013,154 @@ def within(got, want, fp32):
     return err, err <= (FP32_LIMIT if fp32 else BF16_REL_LIMIT * want.float().abs().max().item())
 
 
+def phase_kernels_stripe(device):
+    """B1 (every epilogue), B3 and B2 under a stripe against the plain
+    versions of the striped calls (unpack, run per image, pack), fp32 and
+    bf16, at the packed shapes the training steps run: 1e-4 abs and 3e-2 of
+    max |ref| forward, the adjoint's limits backward, dW and db the same bits
+    twice. Returns the worst fp32 errors by (C, c_out, gc) and by kernel and
+    (C, gc)."""
+    rng = np.random.default_rng(130)
+    cases, worst = [], {"forward": {}, "feats": {}, "bwd": {}}
+    for shape, stripe, C, c_out, gc in STRIPE_CHECKS:
+        gcp = dc.padded_gc(gc)
+        for dtype in (torch.float32, torch.bfloat16):
+            fp32 = dtype == torch.float32
+            x, ws, bs, w5, b5, a, m = make_chain(rng, C, c_out, shape, device, dtype, gc)
+            errs = {}
+            for mode, n_aux in dc.EP_AUX.items():
+                aa, mm = (a if n_aux >= 1 else None), (m if n_aux >= 2 else None)
+                got = dc.dense_chain_t_ep(x, ws, bs, w5, b5, mode, 0.8, aa, mm, stripe=stripe)
+                errs[mode], ok = within(got, dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, mode, 0.8, aa, mm,
+                                                                      stripe_w=stripe), fp32)
+                check(ok, f"striped B1 agrees with its plain version: {(shape, stripe, C, c_out, gc, dtype, mode, errs[mode])}")
+            want_f = dc.padded_width(dc.chain_feats_plain(x, ws, bs, stripe), gc, gcp)
+            got_f = dc.chain_feats(x, ws, bs, stripe)
+            e_f, ok_f = within(got_f, want_f, fp32)
+            g = seeded_grads(rng, want_f, device, dtype)        # noise in the pad lanes too
+            dx0 = seeded_grads(rng, x, device)
+            want = dc.chain_spatial_bwd_plain(x, ws, bs, want_f, g, dx0, stripe)
+            got = dc.chain_spatial_bwd(x, ws, bs, want_f, g, dx0, stripe)
+            again = dc.chain_spatial_bwd(x, ws, bs, want_f, g, dx0, stripe)
+            torch.cuda.synchronize()
+            flat = lambda r: [r[0], *r[1], *r[2]]  # noqa: E731
+            e_dx, *e_p = [rel_err(u, v) for u, v in zip(flat(got), flat(want))]
+            same_bits = all(torch.equal(u, v) for u, v in zip(flat(got), flat(again)))
+            limit = BWD_FP32_REL_LIMIT if fp32 else BWD_BF16_REL_LIMIT
+            cases.append({"shape": shape, "stripe_w": stripe, "dtype": str(dtype).split(".")[-1], "C": C,
+                          "c_out": c_out, "gc": gc, "forward_max_abs_err": max(errs.values()),
+                          "feats_max_abs_err": e_f, "dx_rel_err": e_dx, "dw_db_rel_err": max(e_p),
+                          "same_bits_twice": same_bits})
+            check(ok_f and max(e_dx, *e_p) <= limit and same_bits and np.isfinite(e_f + e_dx + max(e_p)),
+                  f"striped B3 and B2 agree with their plain versions: {cases[-1]}")
+            if fp32:
+                worst["forward"][(C, c_out, gc)] = max(errs.values())
+                worst["feats"][(C, gc)] = max(worst["feats"].get((C, gc), 0.0), e_f)
+                worst["bwd"][(C, gc)] = max(worst["bwd"].get((C, gc), 0.0), (got[0] - want[0]).abs().max().item())
+            del x, ws, bs, w5, b5, a, m, want_f, got_f, g, dx0, want, got, again
+    emit("kernels_stripe", kernels=["dense_chain_t_ep", "chain_feats", "chain_spatial_bwd"], n_cases=len(cases),
+         fp32_limit=FP32_LIMIT, bf16_rel_limit=BF16_REL_LIMIT, bwd_fp32_rel_limit=BWD_FP32_REL_LIMIT,
+         bwd_bf16_rel_limit=BWD_BF16_REL_LIMIT, cases=cases)
+    return worst
+
+
+def by_stripe(counts):
+    """Calls summed by stripe (the key's last entry)."""
+    out = {}
+    for key, n in counts.items():
+        out[key[-1]] = out.get(key[-1], 0) + n
+    return out
+
+
+def chain_rows(device, tag, shape, stripe, fwd_widths, spatial_widths, counts, worst):
+    """The kernels-line rows of B1 (``fwd_widths``: (C, c_out, gc), timed
+    with the mul_add epilogue, held to its plain version with every
+    epilogue), B3 and B2 (``spatial_widths``: (C, gc)) on ``shape``, W-packed
+    under ``stripe`` (0: not packed), with their launches at that stripe. A
+    packed call does the unpacked call's work: its bound is the unpacked
+    shape's (the pad columns it no longer computes are not counted either
+    way), and the library's yardstick is one F.conv3d chain at the unpacked
+    shape. ``worst``: the checks' worst fp32 errors."""
+    rng = np.random.default_rng(140)
+    P = shape[3] // stripe if stripe else 1
+    lat = (shape[0] * P, *shape[1:3], shape[3] // P)
+    ncdhw = lambda t: t.permute(0, 4, 1, 2, 3).contiguous()  # noqa: E731
+    rows = []
+
+    def row(name, source, replaces, launches, err, ms, plain, library, bound, gc, C):
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+                     "max_abs_err": err, "ms": ms["median"], "plain_ms": plain["median"], "bound_ms": bound[0],
+                     "bound_by": bound[1], "library_ms": library["median"], "ms_min": ms["min"],
+                     "plain_ms_min": plain["min"], "library_ms_min": library["min"], "shape": list(shape) + [C],
+                     "stripe_w": stripe, "gc": gc})
+
+    for C, c_out, gc in fwd_widths:
+        args = make_chain(rng, C, c_out, shape, device, gc=gc)
+        x, ws, bs, w5, b5, a, m = args
+        err = max(chain_error(args, mode, stripe) for mode in dc.EP_AUX)
+        check(err <= FP32_LIMIT, f"kernel vs plain at the timed shape: {(tag, C, c_out, gc, err)}")
+        lib_args = to_library_layout(dc.unpack_w(x, P), ws, bs, w5, b5, dc.unpack_w(a, P), dc.unpack_w(m, P))
+        want = dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, "mul_add", 1.0, a, m, stripe_w=stripe)
+        lib = dc.pack_w(library_chain(*lib_args).permute(0, 2, 3, 4, 1), P)
+        check((lib - want).abs().max().item() <= 1e-3, "library chain computes the same function")
+        del want, lib
+        ms = time_cuda(lambda: dc.dense_chain_t_ep(x, ws, bs, w5, b5, "mul_add", 1.0, a, m, stripe=stripe), iters=10)
+        plain = time_cuda(lambda: dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, "mul_add", 1.0, a, m,
+                                                            stripe_w=stripe), iters=10)
+        library = time_cuda(lambda: library_chain(*lib_args), iters=10)
+        row(f"dense_chain_t_ep[{C}->{c_out},gc{gc}]@{tag}", SOURCE, REPLACES,
+            counts["forward_stripe"].get((C, c_out, gc, stripe), 0), max(err, worst["forward"][(C, c_out, gc)]), ms, plain,
+            library, chain_bound_ms(*lat, C, c_out, 2, gc=gc), gc, C)
+        del args, x, ws, bs, w5, b5, a, m, lib_args
+    for C, gc in spatial_widths:
+        x, ws, bs, *_ = make_chain(rng, C, 3, shape, device, gc=gc)
+        feats = dc.chain_feats(x, ws, bs, stripe)
+        g = seeded_grads(rng, feats, device)
+        leaves = [ncdhw(dc.unpack_w(x, P)), *(w.permute(3, 2, 0, 1)[:, :, None].contiguous() for w in ws),
+                  *(b.clone() for b in bs)]
+        for t in leaves:
+            t.requires_grad_(True)
+        lx, lws, lbs = leaves[0], leaves[1:5], leaves[5:]
+        lfeats = library_feats(lx, lws, lbs)
+        lg = ncdhw(dc.unpack_w(dc.true_width(g, gc), P))
+        check((dc.pack_w(lfeats.detach().permute(0, 2, 3, 4, 1), P) - dc.true_width(feats, gc)).abs().max().item()
+              <= 1e-3, "library spatial chain computes the same function")
+        with torch.no_grad():
+            f_ms = time_cuda(lambda: dc.chain_feats(x, ws, bs, stripe), iters=10)
+            f_plain = time_cuda(lambda: dc.chain_feats_plain(x, ws, bs, stripe), iters=10)
+            f_lib = time_cuda(lambda: library_feats(lx, lws, lbs), iters=10)
+        row(f"chain_feats[{C},gc{gc}]@{tag}", SOURCE, REPLACES_FEATS,
+            counts["feats_stripe"].get((C, gc, stripe), 0), worst["feats"][(C, gc)], f_ms, f_plain, f_lib,
+            chain_feats_bound_ms(*lat, C, gc=gc), gc, C)
+        b_ms = time_cuda(lambda: dc.chain_spatial_bwd(x, ws, bs, feats, g, None, stripe), iters=10)
+        b_plain = time_cuda(lambda: dc.chain_spatial_bwd_plain(x, ws, bs, feats, g, None, stripe), iters=10)
+        b_lib = time_cuda(lambda: torch.autograd.grad(lfeats, leaves, lg, retain_graph=True), iters=10)
+        row(f"chain_spatial_bwd[{C},gc{gc}]@{tag}", SOURCE_BWD, REPLACES_BWD,
+            counts["backward_stripe"].get((C, gc, stripe), 0), worst["bwd"][(C, gc)], b_ms, b_plain, b_lib,
+            chain_bwd_bound_ms(*lat, C, gc=gc), gc, C)
+        del x, ws, bs, feats, g, leaves, lfeats, lg
+    return rows
+
+
+def timed_in_turns(model, step, parts):
+    """A whole step (median of 5 after a warm-up) and its parts, W-packed and
+    with ``pack_w: false`` in turns (packed, unpacked, packed, unpacked) on
+    the same model; the parts once each way, the peak memory of each way's
+    steps. Leaves the model packed."""
+    out = {True: {"step_ms": [], "peak_device_memory_gib": 0.0}, False: {"step_ms": [], "peak_device_memory_gib": 0.0}}
+    for packed in (True, False, True, False):
+        model.net.set_pack_w(packed)
+        torch.cuda.reset_peak_memory_stats()
+        out[packed]["step_ms"].append(time_cuda(step, iters=5, warmup=1)["median"])
+        out[packed]["peak_device_memory_gib"] = max(out[packed]["peak_device_memory_gib"],
+                                                    torch.cuda.max_memory_allocated() / 2 ** 30)
+        if "parts" not in out[packed]:
+            out[packed]["parts"] = parts()
+    model.net.set_pack_w(True)
+    return {("packed" if k else "unpacked"): {**v, "step_ms_median": float(np.median(v["step_ms"]))}
+            for k, v in out.items()}
+
+
 def phase_kernels_variants(device):
     """B7, B9 and B8 against their plain versions on the card, fp32 and bf16:
     the pair's y2 and se both ways, its backward route (B3 + B2 + glue)
@@ -2302,6 +2471,7 @@ def main():
     worst_tc = phase_kernels_temporal(device)
     with torch.no_grad():
         worst_var = phase_kernels_variants(device)
+        worst_stripe = phase_kernels_stripe(device)
     tc_counts = {}   # B6 launches of the main paths by (path, shrink, C, Co, backward)
     if "serve" in want:
         with torch.no_grad():
@@ -2310,7 +2480,7 @@ def main():
         del model
     if "train" in want:
         trainer, recompute, counts, eps = phase_train(device)
-        kernels += phase_timing_train(device, trainer, recompute, counts, worst_bwd, eps)
+        kernels += phase_timing_train(device, trainer, recompute, counts, worst, worst_bwd, worst_stripe, eps)
         del trainer, recompute
         for (C, co), n in counts["b6"].items():
             tc_counts[("train", 1, C, co, False)] = n
@@ -2323,7 +2493,7 @@ def main():
         del codec
     if "codec_train" in want:
         tree, batch, counts = phase_codec_train(device)
-        rows, base_train = phase_timing_codec_train(device, tree, batch, counts, worst_gc_bwd)
+        rows, base_train = phase_timing_codec_train(device, tree, batch, counts, worst_gc_bwd, worst_gc, worst_stripe)
         kernels += rows
         del tree, batch
     if "deart" in want:

@@ -2,6 +2,10 @@
 
 * ``NoneDict``: missing keys read as None so sparse configs default
   features off.
+* Keys of the port alone, where the JAX package reads an environment
+  variable: ``network_G.chain_variants`` (``SELFC_TPU_PALLAS_HG/_RIDE/_V3``)
+  and ``network_G.pack_w`` (W-packing of narrow latents, on unless false;
+  ``SELFC_TPU_PALLAS_PACK_W=0``); ``models/factory.py`` reads them.
 * ``parse(path, is_train)``: loads YAML, injects per-dataset scale/phase,
   expands experiment/result paths, applies debug-mode frequency overrides.
   ``gpu_ids`` is accepted and ignored.

@@ -86,6 +86,7 @@ struct SpatialArgs {
   const T* b[2];       // a chain's b_layer (gc)
   int H, W, C, gc, layer;
   int write_feats;     // store x_{layer+1} into feats
+  int stripe_w;        // with STRIPE: the width of one image of a W-packed batch
   // ride (one chain): conv5's taps of x_{layer+1} (and of x at layer 0) are
   // added into partial (3, frames, H*W, c_out), fp32, plane k holding the
   // source frame's product with w5[k]; written at layer 0, added to after
@@ -101,7 +102,16 @@ struct SpatialArgs {
 // stored). The layer reads feats lanes below GCP*layer and writes the GCP
 // above them, so one buffer is race free. The widths and the chain count are
 // compile-time constants: as run-time values they made B1's layers slower.
-template <typename T, int GCP, bool FULL, bool RIDE, int NCH>
+//
+// STRIPE (B1 and B3 on a W-packed batch, JAX's stripe_w): the W axis holds
+// images of p.stripe_w columns side by side, and no 3x3 tap may reach across
+// from one into the next. The staging zeroes only the edges of the whole
+// row, and a 16-wide tile and a thread's 8 columns straddle stripe edges
+// (36, 72, 108 at stripe 36), so the mask belongs to the output column: a
+// column ox with ox % WS == 0 takes no dx = 0 tap, one with ox % WS == WS - 1
+// no dx = 2 tap. Without STRIPE the kernel compiles to the same code as
+// before the flag.
+template <typename T, int GCP, bool FULL, bool RIDE, int NCH, bool STRIPE = false>
 __global__ void __launch_bounds__(4 * GCP, 96 / GCP) spatial_layer_kernel(SpatialArgs<T> p) {
   const int gc = FULL ? GCP : p.gc;
   constexpr int FC = (RIDE ? 3 : 4) * GCP;
@@ -127,6 +137,19 @@ __global__ void __launch_bounds__(4 * GCP, 96 / GCP) spatial_layer_kernel(Spatia
   const T* xf = p.x + frame * H * W * C;
   T* ff = (chain ? p.feats[1] : p.feats[0]) + frame * H * W * FC;
   const int cin = C + gc * layer;
+
+  // bit j: output column tx0 + cb + j takes no dx = 0 tap (lmask) / no
+  // dx = 2 tap (rmask)
+  unsigned lmask = 0, rmask = 0;
+  if (STRIPE) {
+    const int ws = p.stripe_w;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int r = (tx0 + cb + j) % ws;
+      lmask |= (r == 0 ? 1u : 0u) << j;
+      rmask |= (r == ws - 1 ? 1u : 0u) << j;
+    }
+  }
 
   float acc[8][8];
 #pragma unroll
@@ -201,7 +224,8 @@ __global__ void __launch_bounds__(4 * GCP, 96 / GCP) spatial_layer_kernel(Spatia
               const float4 wb = *reinterpret_cast<const float4*>(wr + 4);
 #pragma unroll
               for (int j = 0; j < 8; ++j) {
-                const float v = in[j + dx][cc];
+                float v = in[j + dx][cc];
+                if (STRIPE && dx != 1 && (((dx == 0 ? lmask : rmask) >> j) & 1u)) v = 0.f;
                 acc[j][0] = fmaf(v, wa.x, acc[j][0]);
                 acc[j][1] = fmaf(v, wa.y, acc[j][1]);
                 acc[j][2] = fmaf(v, wa.z, acc[j][2]);

@@ -4,7 +4,10 @@
 // coupling epilogues; its emit_feats output is the feats buffer below, which
 // the caller may keep for the backward) and, through the entry
 // selfc_dense_chain_feats, :_pallas_feats and :_chain_kernel (x1..x4 alone,
-// the latter with conv5 left to the caller). The function:
+// the latter with conv5 left to the caller). The first two take stripe_w
+// (a W-packed batch: images side by side along W, no 3x3 tap across an
+// image's edge; the masks are in chain_common.cuh:spatial_layer_kernel).
+// The function:
 //
 //   x1..x4 : four 3x3 SAME convs over the growing concat [x | x1 .. x_{k-1}],
 //            each + bias + LeakyReLU(0.2), gc output channels each
@@ -206,8 +209,10 @@ __global__ void __launch_bounds__(NTHREADS) conv5_ep_kernel(const T* x, const T*
 
 
 // The four spatial layers, in order: layer k reads what layers < k wrote.
+// stripe_w > 0: x is a W-packed batch of images stripe_w columns wide (the
+// STRIPE instantiation, which masks the taps across stripe edges).
 template <typename T, int GCP, bool FULL>
-int spatial_layers_at(const void* x, void* feats, const void* const* ws, const void* const* bs, int frames, int H, int W, int C, int gc, cudaStream_t stream) {
+int spatial_layers_at(const void* x, void* feats, const void* const* ws, const void* const* bs, int frames, int H, int W, int C, int gc, int stripe_w, cudaStream_t stream) {
   const dim3 grid_s((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, frames);
   SpatialArgs<T> a{};
   a.x = (const T*)x;
@@ -217,11 +222,16 @@ int spatial_layers_at(const void* x, void* feats, const void* const* ws, const v
   a.C = C;
   a.gc = gc;
   a.write_feats = 1;
+  a.stripe_w = stripe_w;
   for (int layer = 0; layer < 4; ++layer) {
     a.layer = layer;
     a.w[0] = a.w[1] = (const T*)ws[layer];
     a.b[0] = a.b[1] = (const T*)bs[layer];
-    spatial_layer_kernel<T, GCP, FULL, false, 1><<<grid_s, 4 * GCP, 0, stream>>>(a);
+    if (stripe_w > 0) {
+      spatial_layer_kernel<T, GCP, FULL, false, 1, true><<<grid_s, 4 * GCP, 0, stream>>>(a);
+    } else {
+      spatial_layer_kernel<T, GCP, FULL, false, 1><<<grid_s, 4 * GCP, 0, stream>>>(a);
+    }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -229,16 +239,17 @@ int spatial_layers_at(const void* x, void* feats, const void* const* ws, const v
 }
 
 template <typename T>
-int spatial_layers(const void* x, void* feats, const void* const* ws, const void* const* bs, int frames, int H, int W, int C, int gc, cudaStream_t stream) {
+int spatial_layers(const void* x, void* feats, const void* const* ws, const void* const* bs, int frames, int H, int W, int C, int gc, int stripe_w, cudaStream_t stream) {
   if (gc < 1 || gc > GC_MAX) return (int)cudaErrorInvalidValue;
-  if (gc == GC_MAX) return spatial_layers_at<T, GC_MAX, true>(x, feats, ws, bs, frames, H, W, C, gc, stream);
-  if (gc <= 16) return spatial_layers_at<T, 16, false>(x, feats, ws, bs, frames, H, W, C, gc, stream);
-  return spatial_layers_at<T, GC_MAX, false>(x, feats, ws, bs, frames, H, W, C, gc, stream);
+  if (stripe_w < 0 || (stripe_w > 0 && W % stripe_w != 0)) return (int)cudaErrorInvalidValue;
+  if (gc == GC_MAX) return spatial_layers_at<T, GC_MAX, true>(x, feats, ws, bs, frames, H, W, C, gc, stripe_w, stream);
+  if (gc <= 16) return spatial_layers_at<T, 16, false>(x, feats, ws, bs, frames, H, W, C, gc, stripe_w, stream);
+  return spatial_layers_at<T, GC_MAX, false>(x, feats, ws, bs, frames, H, W, C, gc, stripe_w, stream);
 }
 
 template <typename T>
-int chain_forward(const void* x, void* feats, const void* const* ws, const void* const* bs, const void* w5, const void* b5, const void* a, const void* m, void* out, int frames, int Tn, int H, int W, int C, int gc, int c_out, int mode, float clamp, cudaStream_t stream) {
-  const int err = spatial_layers<T>(x, feats, ws, bs, frames, H, W, C, gc, stream);
+int chain_forward(const void* x, void* feats, const void* const* ws, const void* const* bs, const void* w5, const void* b5, const void* a, const void* m, void* out, int frames, int Tn, int H, int W, int C, int gc, int c_out, int mode, float clamp, int stripe_w, cudaStream_t stream) {
+  const int err = spatial_layers<T>(x, feats, ws, bs, frames, H, W, C, gc, stripe_w, stream);
   if (err != 0) return err;
   const int gcp = padded_gc(gc);
   const int co_blk = c_out < CO5 ? c_out : CO5;
@@ -266,14 +277,16 @@ int chain_forward(const void* x, void* feats, const void* const* ws, const void*
 // gc <= 16, else 32; lanes >= gc of each segment are written as zeros);
 // w1..w4 (3,3,C+gc*k,gc); b1..b4 (gc); w5 (3,C+4*gc,c_out); b5 (c_out);
 // a, m (frames,H,W,c_out) or null; out (frames,H,W,c_out). frames = B*T with
-// T = frames_per_clip; 1 <= gc <= 32. Returns the first cudaError_t a launch
-// reports, 0 when all five were accepted.
-extern "C" int selfc_dense_chain_forward(const void* x, void* feats, const void* w1, const void* w2, const void* w3, const void* w4, const void* b1, const void* b2, const void* b3, const void* b4, const void* w5, const void* b5, const void* a, const void* m, void* out, int frames, int frames_per_clip, int H, int W, int C, int gc, int c_out, int mode, float clamp, int dtype, void* stream) {
+// T = frames_per_clip; 1 <= gc <= 32. stripe_w: 0, or the width of one image
+// of a W-packed batch (W a multiple of it; conv5 and the epilogue do not see
+// the stripes: they are temporal and pointwise). Returns the first
+// cudaError_t a launch reports, 0 when all five were accepted.
+extern "C" int selfc_dense_chain_forward(const void* x, void* feats, const void* w1, const void* w2, const void* w3, const void* w4, const void* b1, const void* b2, const void* b3, const void* b4, const void* w5, const void* b5, const void* a, const void* m, void* out, int frames, int frames_per_clip, int H, int W, int C, int gc, int c_out, int mode, float clamp, int stripe_w, int dtype, void* stream) {
   const void* ws[4] = {w1, w2, w3, w4};
   const void* bs[4] = {b1, b2, b3, b4};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return chain_forward<float>(x, feats, ws, bs, w5, b5, a, m, out, frames, frames_per_clip, H, W, C, gc, c_out, mode, clamp, s);
-  if (dtype == 1) return chain_forward<__nv_bfloat16>(x, feats, ws, bs, w5, b5, a, m, out, frames, frames_per_clip, H, W, C, gc, c_out, mode, clamp, s);
+  if (dtype == 0) return chain_forward<float>(x, feats, ws, bs, w5, b5, a, m, out, frames, frames_per_clip, H, W, C, gc, c_out, mode, clamp, stripe_w, s);
+  if (dtype == 1) return chain_forward<__nv_bfloat16>(x, feats, ws, bs, w5, b5, a, m, out, frames, frames_per_clip, H, W, C, gc, c_out, mode, clamp, stripe_w, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -283,12 +296,12 @@ extern "C" int selfc_dense_chain_forward(const void* x, void* feats, const void*
 // any gc in 1..32. The backward of the chain calls it when the forward did not
 // keep its feats buffer. Same arguments and return value as above, without
 // conv5 and the epilogue.
-extern "C" int selfc_dense_chain_feats(const void* x, void* feats, const void* w1, const void* w2, const void* w3, const void* w4, const void* b1, const void* b2, const void* b3, const void* b4, int frames, int H, int W, int C, int gc, int dtype, void* stream) {
+extern "C" int selfc_dense_chain_feats(const void* x, void* feats, const void* w1, const void* w2, const void* w3, const void* w4, const void* b1, const void* b2, const void* b3, const void* b4, int frames, int H, int W, int C, int gc, int stripe_w, int dtype, void* stream) {
   const void* ws[4] = {w1, w2, w3, w4};
   const void* bs[4] = {b1, b2, b3, b4};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return spatial_layers<float>(x, feats, ws, bs, frames, H, W, C, gc, s);
-  if (dtype == 1) return spatial_layers<__nv_bfloat16>(x, feats, ws, bs, frames, H, W, C, gc, s);
+  if (dtype == 0) return spatial_layers<float>(x, feats, ws, bs, frames, H, W, C, gc, stripe_w, s);
+  if (dtype == 1) return spatial_layers<__nv_bfloat16>(x, feats, ws, bs, frames, H, W, C, gc, stripe_w, s);
   return (int)cudaErrorInvalidValue;
 }
 

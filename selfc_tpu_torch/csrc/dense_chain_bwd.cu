@@ -1,7 +1,9 @@
 // Adjoint of the dense chain's four spatial convs for Hopper (sm_90a).
 //
 // Replaces selfc_tpu/ops/pallas_chain.py:_chain_bwd_kernel (reached there
-// through _pallas_bwd). The function, for the chain of dense_chain.cu
+// through _pallas_bwd), with its stripe_w: on a W-packed batch the products
+// whose tap crosses an image's edge are dropped, the adjoint of the forward's
+// masks (pallas_chain.py's dp0 / dp2). The function, for the chain of dense_chain.cu
 //
 //   x_k = lrelu_0.2(conv3x3_SAME([x | x_1 .. x_{k-1}], w_k) + b_k),  k = 1..4
 //
@@ -65,6 +67,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -153,8 +157,14 @@ __device__ __forceinline__ Chunk chunk_of(int chunk, int x_chunks, int C, int gc
 // Thread (pg, cg) as in the forward: row pg%16 of the tile, columns
 // 8*(pg/16) .. +7, channels 8*cg .. +7 of the chunk (cg < GCP/8). The sum
 // runs over the layer's GCP output lanes; those >= gc meet zero weights.
-template <typename T, int GCP, bool FULL>
-__global__ void __launch_bounds__(4 * GCP, 96 / GCP) data_grad_kernel(const T* feats, const T* w, float* dfeats, float* dx, int H, int W, int C, int gc_arg, int layer, int x_chunks) {
+// STRIPE: the adjoint of the forward's stripe masks (chain_common.cuh). Seen
+// from the input pixel q, the staged column dx_ holds dacc(q + dx_ - 1)
+// through the forward's tap 2 - dx_, and that pair was masked where the
+// output column q + dx_ - 1 lies in the next or the last stripe: the same
+// rule as the forward's, no dx_ = 0 term where q % WS == 0 and no dx_ = 2 term
+// where q % WS == WS - 1.
+template <typename T, int GCP, bool FULL, bool STRIPE>
+__global__ void __launch_bounds__(4 * GCP, 96 / GCP) data_grad_kernel(const T* feats, const T* w, float* dfeats, float* dx, int H, int W, int C, int gc_arg, int layer, int x_chunks, int stripe_w) {
   const int gc = FULL ? GCP : gc_arg;
   constexpr int NT = 4 * GCP;
   constexpr int NCG = GCP / 8;
@@ -176,6 +186,15 @@ __global__ void __launch_bounds__(4 * GCP, 96 / GCP) data_grad_kernel(const T* f
   const T* ff = feats + frame * H * W * FC + GCP * layer;       // the layer's saved output
   const float* df = dfeats + frame * H * W * FC + GCP * layer;  // the gradient reaching it
   float* dst = ch.in_x ? dx + frame * H * W * C : dfeats + frame * H * W * FC;
+  unsigned lmask = 0, rmask = 0;  // bit p: column tx0 + cb + p takes no dx_ = 0 / dx_ = 2 term
+  if (STRIPE) {
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const int r = (tx0 + cb + p) % stripe_w;
+      lmask |= (r == 0 ? 1u : 0u) << p;
+      rmask |= (r == stripe_w - 1 ? 1u : 0u) << p;
+    }
+  }
 
   float acc[8][8];
 #pragma unroll
@@ -236,7 +255,8 @@ __global__ void __launch_bounds__(4 * GCP, 96 / GCP) data_grad_kernel(const T* f
             const float4 wb = *reinterpret_cast<const float4*>(&w_s[dy * 3 + dx_][c4 * 4 + cc][cg * 8 + 4]);
 #pragma unroll
             for (int p = 0; p < 8; ++p) {
-              const float v = in[p + dx_][cc];
+              float v = in[p + dx_][cc];
+              if (STRIPE && dx_ != 1 && (((dx_ == 0 ? lmask : rmask) >> p) & 1u)) v = 0.f;
               acc[p][0] = fmaf(v, wa.x, acc[p][0]);
               acc[p][1] = fmaf(v, wa.y, acc[p][1]);
               acc[p][2] = fmaf(v, wa.z, acc[p][2]);
@@ -278,8 +298,11 @@ __global__ void __launch_bounds__(4 * GCP, 96 / GCP) data_grad_kernel(const T* f
 // Thread (cp, cq): input channels 2*cp, 2*cp + 1 of the chunk, output
 // channels 4*cq .. +3, all nine taps. Every thread of a block visits the same
 // pixels, so a tile that hangs over the edge of the image simply has fewer.
-template <typename T, int GCP, bool FULL>
-__global__ void __launch_bounds__(GCP * GCP / 8, 96 / GCP) weight_grad_kernel(const T* x, const T* feats, const float* dfeats, float* partial, int frames, int H, int W, int C, int gc_arg, int layer, int x_chunks) {
+// STRIPE: a product whose tap crosses a stripe edge is dropped (the forward
+// masked it): window column 0 where the pixel's column p % WS == 0, column 2
+// where p % WS == WS - 1. The order of the sums does not change.
+template <typename T, int GCP, bool FULL, bool STRIPE>
+__global__ void __launch_bounds__(GCP * GCP / 8, 96 / GCP) weight_grad_kernel(const T* x, const T* feats, const float* dfeats, float* partial, int frames, int H, int W, int C, int gc_arg, int layer, int x_chunks, int stripe_w) {
   const int gc = FULL ? GCP : gc_arg;
   constexpr int NT = GCP * GCP / 8;
   constexpr int FC = 4 * GCP;
@@ -358,6 +381,7 @@ __global__ void __launch_bounds__(GCP * GCP / 8, 96 / GCP) weight_grad_kernel(co
         win[r][1] = *reinterpret_cast<const float2*>(&in_s[(py + r) * WG_HW + 0][cp * 2]);
         win[r][2] = *reinterpret_cast<const float2*>(&in_s[(py + r) * WG_HW + 1][cp * 2]);
       }
+      int sc = STRIPE ? tx0 % stripe_w : 0;  // the pixel's column in its stripe
       for (int px = 0; px < tw; ++px) {
 #pragma unroll
         for (int r = 0; r < 3; ++r) {
@@ -370,23 +394,34 @@ __global__ void __launch_bounds__(GCP * GCP / 8, 96 / GCP) weight_grad_kernel(co
         bsum[1] += d.y;
         bsum[2] += d.z;
         bsum[3] += d.w;
+        // masked: the pixel is at a stripe edge (every thread of the block
+        // visits the same pixel, so the branch does not diverge)
+        auto taps = [&](auto masked) {
 #pragma unroll
-        for (int r = 0; r < 3; ++r) {
+          for (int r = 0; r < 3; ++r) {
 #pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            const float2 v = win[r][c];
-            float* a0 = acc[r * 3 + c][0];
-            float* a1 = acc[r * 3 + c][1];
-            a0[0] = fmaf(v.x, d.x, a0[0]);
-            a0[1] = fmaf(v.x, d.y, a0[1]);
-            a0[2] = fmaf(v.x, d.z, a0[2]);
-            a0[3] = fmaf(v.x, d.w, a0[3]);
-            a1[0] = fmaf(v.y, d.x, a1[0]);
-            a1[1] = fmaf(v.y, d.y, a1[1]);
-            a1[2] = fmaf(v.y, d.z, a1[2]);
-            a1[3] = fmaf(v.y, d.w, a1[3]);
+            for (int c = 0; c < 3; ++c) {
+              float2 v = win[r][c];
+              if (decltype(masked)::value && ((c == 0 && sc == 0) || (c == 2 && sc == stripe_w - 1))) v.x = v.y = 0.f;
+              float* a0 = acc[r * 3 + c][0];
+              float* a1 = acc[r * 3 + c][1];
+              a0[0] = fmaf(v.x, d.x, a0[0]);
+              a0[1] = fmaf(v.x, d.y, a0[1]);
+              a0[2] = fmaf(v.x, d.z, a0[2]);
+              a0[3] = fmaf(v.x, d.w, a0[3]);
+              a1[0] = fmaf(v.y, d.x, a1[0]);
+              a1[1] = fmaf(v.y, d.y, a1[1]);
+              a1[2] = fmaf(v.y, d.z, a1[2]);
+              a1[3] = fmaf(v.y, d.w, a1[3]);
+            }
           }
+        };
+        if (STRIPE && (sc == 0 || sc == stripe_w - 1)) {
+          taps(std::true_type{});
+        } else {
+          taps(std::false_type{});
         }
+        if (STRIPE) sc = sc + 1 == stripe_w ? 0 : sc + 1;
       }
     }
   }
@@ -434,21 +469,21 @@ __global__ void __launch_bounds__(RED_THREADS) reduce_partials_kernel(const floa
   }
 }
 
-template <typename T, int GCP, bool FULL>
-int chain_backward_at(const void* x, const void* feats, const void* const* ws, void* dfeats, void* dx, void* const* dws, void* const* dbs, void* partial, int groups, int frames, int H, int W, int C, int gc, int need_dx, cudaStream_t stream) {
+template <typename T, int GCP, bool FULL, bool STRIPE>
+int chain_backward_at(const void* x, const void* feats, const void* const* ws, void* dfeats, void* dx, void* const* dws, void* const* dbs, void* partial, int groups, int frames, int H, int W, int C, int gc, int need_dx, int stripe_w, cudaStream_t stream) {
   const int x_chunks = (C + GCP - 1) / GCP;
   const int dx_chunks = need_dx ? x_chunks : 0;
   const int tiles = ((W + TILE - 1) / TILE) * ((H + TILE - 1) / TILE);
   for (int layer = 3; layer >= 0; --layer) {
     const int n_w = 9 * (C + gc * layer) * gc;
-    weight_grad_kernel<T, GCP, FULL><<<dim3(groups, x_chunks + layer), GCP * GCP / 8, 0, stream>>>((const T*)x, (const T*)feats, (const float*)dfeats, (float*)partial, frames, H, W, C, gc, layer, x_chunks);
+    weight_grad_kernel<T, GCP, FULL, STRIPE><<<dim3(groups, x_chunks + layer), GCP * GCP / 8, 0, stream>>>((const T*)x, (const T*)feats, (const float*)dfeats, (float*)partial, frames, H, W, C, gc, layer, x_chunks, stripe_w);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     reduce_partials_kernel<T><<<(n_w + gc + RED_THREADS - 1) / RED_THREADS, RED_THREADS, 0, stream>>>((const float*)partial, groups, n_w, gc, (T*)dws[layer], (T*)dbs[layer]);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     if (dx_chunks + layer == 0) continue;  // nothing below the first layer but x
-    data_grad_kernel<T, GCP, FULL><<<dim3(tiles, dx_chunks + layer, frames), 4 * GCP, 0, stream>>>((const T*)feats, (const T*)ws[layer], (float*)dfeats, (float*)dx, H, W, C, gc, layer, dx_chunks);
+    data_grad_kernel<T, GCP, FULL, STRIPE><<<dim3(tiles, dx_chunks + layer, frames), 4 * GCP, 0, stream>>>((const T*)feats, (const T*)ws[layer], (float*)dfeats, (float*)dx, H, W, C, gc, layer, dx_chunks, stripe_w);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -459,12 +494,19 @@ int chain_backward_at(const void* x, const void* feats, const void* const* ws, v
 // (dense_chain.cu:padded_gc), which the wrapper checks the two libraries share.
 inline int padded_gc(int gc) { return gc <= 16 ? 16 : GC_MAX; }
 
+template <typename T, bool STRIPE>
+int chain_backward_striped(const void* x, const void* feats, const void* const* ws, void* dfeats, void* dx, void* const* dws, void* const* dbs, void* partial, int groups, int frames, int H, int W, int C, int gc, int need_dx, int stripe_w, cudaStream_t stream) {
+  if (gc == GC_MAX) return chain_backward_at<T, GC_MAX, true, STRIPE>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, stripe_w, stream);
+  if (padded_gc(gc) == 16) return chain_backward_at<T, 16, false, STRIPE>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, stripe_w, stream);
+  return chain_backward_at<T, GC_MAX, false, STRIPE>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, stripe_w, stream);
+}
+
 template <typename T>
-int chain_backward(const void* x, const void* feats, const void* const* ws, void* dfeats, void* dx, void* const* dws, void* const* dbs, void* partial, int groups, int frames, int H, int W, int C, int gc, int need_dx, cudaStream_t stream) {
+int chain_backward(const void* x, const void* feats, const void* const* ws, void* dfeats, void* dx, void* const* dws, void* const* dbs, void* partial, int groups, int frames, int H, int W, int C, int gc, int need_dx, int stripe_w, cudaStream_t stream) {
   if (gc < 1 || gc > GC_MAX) return (int)cudaErrorInvalidValue;
-  if (gc == GC_MAX) return chain_backward_at<T, GC_MAX, true>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, stream);
-  if (padded_gc(gc) == 16) return chain_backward_at<T, 16, false>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, stream);
-  return chain_backward_at<T, GC_MAX, false>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, stream);
+  if (stripe_w < 0 || (stripe_w > 0 && W % stripe_w != 0)) return (int)cudaErrorInvalidValue;
+  if (stripe_w > 0) return chain_backward_striped<T, true>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, stripe_w, stream);
+  return chain_backward_striped<T, false>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, 0, stream);
 }
 
 }  // namespace
@@ -481,16 +523,17 @@ int chain_backward(const void* x, const void* feats, const void* const* ws, void
 //   the whole gradient (untouched, and may be null, when need_dx is 0);
 // dw_k, db_k: written, shaped as w_k and (gc);
 // partial: scratch of groups * (9 * (C + 3 * gc) * gc + gc) floats, groups >= 1.
-// 1 <= gc <= 32. Returns the first cudaError_t a launch reports, 0 when all
-// were accepted.
-extern "C" int selfc_dense_chain_spatial_backward(const void* x, const void* feats, const void* w1, const void* w2, const void* w3, const void* w4, void* dfeats, void* dx, void* dw1, void* dw2, void* dw3, void* dw4, void* db1, void* db2, void* db3, void* db4, void* partial, int groups, int frames, int H, int W, int C, int gc, int need_dx, int dtype, void* stream) {
+// 1 <= gc <= 32. stripe_w: 0, or the width of one image of a W-packed batch
+// (W a multiple of it), whose forward masked the taps across stripe edges.
+// Returns the first cudaError_t a launch reports, 0 when all were accepted.
+extern "C" int selfc_dense_chain_spatial_backward(const void* x, const void* feats, const void* w1, const void* w2, const void* w3, const void* w4, void* dfeats, void* dx, void* dw1, void* dw2, void* dw3, void* dw4, void* db1, void* db2, void* db3, void* db4, void* partial, int groups, int frames, int H, int W, int C, int gc, int need_dx, int stripe_w, int dtype, void* stream) {
   const void* ws[4] = {w1, w2, w3, w4};
   void* dws[4] = {dw1, dw2, dw3, dw4};
   void* dbs[4] = {db1, db2, db3, db4};
   cudaStream_t s = (cudaStream_t)stream;
   if (groups < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return chain_backward<float>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, s);
-  if (dtype == 1) return chain_backward<__nv_bfloat16>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, s);
+  if (dtype == 0) return chain_backward<float>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, stripe_w, s);
+  if (dtype == 1) return chain_backward<__nv_bfloat16>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, stripe_w, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -121,13 +121,22 @@ class DenseChain(nn.Module):
     ``variants`` (an attribute, default empty): the opt-in schedules of the
     first route (``ops/chain_variants.py``), set by the nets from
     ``network_G.chain_variants``; ``chain_variants.pick`` chooses among B1,
-    the ride (B9) and v3 (B8), whose chains keep no features."""
+    the ride (B9) and v3 (B8), whose chains keep no features.
+
+    ``pack_w`` (an attribute, default true as in the JAX package): a B1
+    chain packs its batch along W where ``dense_chain.pick_pack_w`` gives
+    P > 1. The nets set it from ``network_G.pack_w``.
+
+    ``forward(x, ep, stripe)``: ``stripe`` > 0 says x (and the epilogue's
+    operands) arrive W-packed with images of that width; only the first
+    route has the stripe masks, and any other raises."""
 
     def __init__(self, c_in, c_out, gc=32, k1="s", k5="t", init_mode="inn_xavier",
                  is_res=False, kmid="s", early_3d=False, generator=None):
         super().__init__()
         self.save_feats = True
         self.variants = frozenset()
+        self.pack_w = True
         self.gc, self.is_res, self.early_3d = gc, bool(is_res), bool(early_3d)
         self.k1, self.kmid, self.k5 = k1, kmid, k5
         grow = _w_init(init_mode, "grow")
@@ -149,10 +158,10 @@ class DenseChain(nn.Module):
         return ([c.weight for c in convs], [c.bias for c in convs],
                 self.conv5.weight, self.conv5.bias)
 
-    def forward(self, x, ep=None):
+    def forward(self, x, ep=None, stripe=0):
         """ep: optional fused coupling epilogue ``(mode, clamp, a, m)``
         applied to the chain output (see ops.dense_chain.ep_apply); not with
-        ``is_res``."""
+        ``is_res``. stripe: x is W-packed with images of that width."""
         if ep is not None and self.is_res:
             raise ValueError("ep epilogue requires is_res=False")
         convs = self._convs()
@@ -160,15 +169,20 @@ class DenseChain(nn.Module):
         if spatial and self.k5 == "t" and self.gc <= _dc.GC_MAX and x.dim() == 5:
             mode, clamp, a, m = ep if ep is not None else ("none", 1.0, None, None)
             ws, bs, w5, b5 = self.weights()
-            kind = _cv.pick(self.variants, mode, w5.shape[-1])
+            P = _dc.pick_pack_w(x.shape[0], x.shape[3]) if self.pack_w else 1
+            kind = _cv.pick(self.variants, mode, w5.shape[-1], stripe, P)
             if kind == "ride":
                 y = _cv.dense_chain_ride(x, ws, bs, w5, b5, mode, clamp, a, m)
             elif kind == "v3":
                 y = _cv.dense_chain_v3(x, ws, bs, w5, b5)
             else:
                 y = _dc.dense_chain_t_ep(x, ws, bs, w5, b5, mode, clamp, a, m,
-                                         save_feats=self.save_feats)
+                                         save_feats=self.save_feats, stripe=stripe,
+                                         pack=kind == "pack")
             return y + x if self.is_res else y
+        if stripe:
+            raise ValueError("a W-packed input needs the whole-chain kernel's stripe masks; "
+                             "this chain takes another route")
         if spatial and self.gc == _dc.GC_MAX and self.k5 != "t":
             x1234 = _dc.fused_dense_spatial(x, [c.weight for c in convs], [c.bias for c in convs])
             y = self.conv5(torch.cat([x, x1234], dim=-1))
@@ -197,8 +211,8 @@ class D2DT(nn.Module):
         super().__init__()
         self.chain = DenseChain(c_in, c_out, gc, "s", "t", init_mode, generator=generator)
 
-    def forward(self, x, ep=None):  # (B,T,H,W,C)
-        return self.chain(x, ep=ep)
+    def forward(self, x, ep=None, stripe=0):  # (B,T,H,W,C)
+        return self.chain(x, ep=ep, stripe=stripe)
 
     def weights(self):
         return self.chain.weights()

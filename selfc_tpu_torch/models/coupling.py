@@ -15,6 +15,14 @@ accumulator, and the log-jacobian is recovered as sum(log(exp(+-s))). With
 the same input, run as one pair with the y2 combine
 (``ops/chain_variants.py:fused_hg_pair``, kernel B7; JAX ``use_hg``). Every
 other subnet family takes the plain branch above, as in the JAX package.
+
+``forward(pair, rev, stripe)``: with ``stripe`` > 0 the pair arrives
+W-packed with images of that width (``models/inv_nets.py`` packs the chain
+of blocks once), and F, G and H take the stripe to the chain kernel's
+masks. The plain branch and the pair have none, and raise under a stripe, as
+the JAX coupling does: an unmasked route would mix neighbouring images. The
+log-jacobian is then normalised by the packed batch; the net rescales the
+sum.
 """
 
 from __future__ import annotations
@@ -40,10 +48,16 @@ class InvBlockExp(nn.Module):
         self.use_ep = getattr(type(self.F), "SUPPORTS_EP", False)
         self.variants = frozenset()  # the nets set it from network_G.chain_variants
 
-    def forward(self, pair, rev: bool = False):
-        """pair: (x1 (B,T,H,W,s1), x2 (B,T,H,W,s2)), both contiguous.
-        Returns ((y1, y2), log_jac)."""
+    def forward(self, pair, rev: bool = False, stripe: int = 0):
+        """pair: (x1 (B,T,H,W,s1), x2 (B,T,H,W,s2)), both contiguous, W-packed
+        with images ``stripe`` wide when it is > 0. Returns ((y1, y2),
+        log_jac)."""
         x1, x2 = pair
+        if stripe and not self.use_ep:
+            raise RuntimeError("a W-packed coupling needs the chain kernel's stripe masks: "
+                               "the plain branch would mix neighbouring images")
+        if stripe and "hg" in self.variants:
+            raise RuntimeError("a W-packed coupling cannot take the H/G pair: it has no stripe masks")
         if not self.use_ep:
             return self._plain(x1, x2, rev)
         if "hg" in self.variants and not rev:
@@ -53,13 +67,13 @@ class InvBlockExp(nn.Module):
             y2, s_exp = _cv.fused_hg_pair(x1, x2, *self.H.weights(), *self.G.weights(), self.clamp, True)
             y1 = self.F(y2, ep=("sub_from", 1.0, x1, None))
         elif not rev:
-            y1 = self.F(x2, ep=("add", 1.0, x1, None))
-            s_exp = self.H(y1, ep=("sig_exp", self.clamp, None, None))
-            y2 = self.G(y1, ep=("mul_add", 1.0, x2, s_exp))
+            y1 = self.F(x2, ep=("add", 1.0, x1, None), stripe=stripe)
+            s_exp = self.H(y1, ep=("sig_exp", self.clamp, None, None), stripe=stripe)
+            y2 = self.G(y1, ep=("mul_add", 1.0, x2, s_exp), stripe=stripe)
         else:
-            s_exp = self.H(x1, ep=("sig_exp_neg", self.clamp, None, None))
-            y2 = self.G(x1, ep=("sub_mul", 1.0, x2, s_exp))
-            y1 = self.F(y2, ep=("sub_from", 1.0, x1, None))
+            s_exp = self.H(x1, ep=("sig_exp_neg", self.clamp, None, None), stripe=stripe)
+            y2 = self.G(x1, ep=("sub_mul", 1.0, x2, s_exp), stripe=stripe)
+            y1 = self.F(y2, ep=("sub_from", 1.0, x1, None), stripe=stripe)
         jac = torch.sum(torch.log(s_exp.float())) / (x1.shape[0] * x1.shape[1])
         return (y1, y2), jac
 

@@ -31,6 +31,10 @@ def define_G(opt, device=None, generator=None):
     # the opt-in chain schedules (ops/chain_variants.py; the JAX package's
     # SELFC_TPU_PALLAS_HG / _RIDE / _V3): an unknown name raises in the net
     variants = net.get("chain_variants") or ()
+    # W-packing of narrow training latents (on unless false: the JAX
+    # package's SELFC_TPU_PALLAS_PACK_W=0 turns it off)
+    pack = net.get("pack_w")
+    pack = True if pack is None else bool(pack)
     if model_type in ("SelfC_GMM", "SelfC_SR", "SelfC_Contra_UP"):
         nll_enabled = bool(net.get("nll_enabled"))
         lam_cond = (opt.get("train") or {}).get("lambda_cond_prob")
@@ -55,6 +59,7 @@ def define_G(opt, device=None, generator=None):
             deform_radius=net.get("deform_radius"),
             frames=_clip_frames(opt),
             chain_variants=variants,
+            pack_w=pack,
             device=device,
             generator=generator,
         )
@@ -79,6 +84,7 @@ def define_G(opt, device=None, generator=None):
             frames=_clip_frames(opt),
             save_chain_feats=True if save_feats is None else bool(save_feats),
             chain_variants=variants,
+            pack_w=pack,
             device=device,
             generator=generator,
         )

@@ -20,6 +20,14 @@ Both take channels-last video ``(B, T, H, W, C)``. Methods:
 
 Randomness is explicit: ``decode`` takes the standard-normal noise ``eps``
 of shape ``(B,T,h,w,hf_dim,gmm_k)``, or a ``torch.Generator`` to draw it.
+
+W-packing (``pack_w``, on by default as in the JAX package; the config's
+``network_G.pack_w``): the coupling chain of D2DT blocks lays P images of
+the batch side by side along W once for the whole chain of blocks
+(``dense_chain.pick_pack_w``: P = 4 at the 4x training latent 36x36, 2 at
+the codec's 72x72), runs every block under the stripe and unpacks at the
+end (JAX ``_chain_pair``); the prior's chains pack call by call, since its
+global aggregations between them are not per pixel.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch.nn as nn
 
 from .. import resolve_device
 from ..ops.chain_variants import parse_variants
+from ..ops.dense_chain import pack_w, pick_pack_w, unpack_w
 from ..ops.freq import freq_forward, freq_inverse
 from ..ops.gmm import gmm_neg_log_likelihood, gmm_sample, split_params
 from ..ops.quantize import quantize_ste
@@ -48,10 +57,11 @@ class _CouplingNet(nn.Module):
     def __init__(self, scale, block_num, subnet_type, init_mode, stp_blk_num,
                  fh_loss, gmm_k, global_module, stp_hidden_c, stp_gc,
                  save_chain_feats, device, generator, deform_radius=None, frames=3,
-                 chain_variants=()):
+                 chain_variants=(), pack_w=True):
         super().__init__()
         device = resolve_device(device)
         self.scale = scale
+        self.subnet_type = subnet_type
         self.block_num = tuple(block_num)
         self.fh_loss = fh_loss
         self.gmm_k = gmm_k
@@ -70,6 +80,7 @@ class _CouplingNet(nn.Module):
             gc=stp_gc, deform_radius=deform_radius, frames=frames, generator=generator,
         )
         self.save_chain_feats = bool(save_chain_feats)
+        self.pack_w = bool(pack_w)
         self.set_chain_variants(chain_variants)
         self.to(device)
 
@@ -80,14 +91,21 @@ class _CouplingNet(nn.Module):
         self.chain_variants = parse_variants(names)
         self._configure_chains()
 
+    def set_pack_w(self, on: bool):
+        """Turn W-packing (``network_G.pack_w``) on or off on a built net."""
+        self.pack_w = bool(on)
+        self._configure_chains()
+
     def _configure_chains(self):
         """Hand the chain options to every chain and coupling block:
-        ``save_chain_feats`` (training memory against backward time) and
-        ``chain_variants`` (the opt-in schedules); see blocks.DenseChain."""
+        ``save_chain_feats`` (training memory against backward time),
+        ``chain_variants`` (the opt-in schedules) and ``pack_w``; see
+        blocks.DenseChain."""
         for mod in self.modules():
             if isinstance(mod, DenseChain):
                 mod.save_feats = self.save_chain_feats
                 mod.variants = self.chain_variants
+                mod.pack_w = self.pack_w
             elif isinstance(mod, InvBlockExp):
                 mod.variants = self.chain_variants
 
@@ -97,10 +115,25 @@ class _CouplingNet(nn.Module):
                 for i in (reversed(order) if rev else order)]
 
     def _chain(self, pair, rev: bool):
+        """The coupling blocks on the pair, W-packed once for all of them
+        where the subnets are D2DT chains, packing is on, "hg" is off and
+        ``pick_pack_w`` gives P > 1 (JAX ``_chain_pair``). Every block then
+        normalises its log-jacobian by the packed batch B/P, so the sum is
+        divided by P."""
+        x1, x2 = pair
+        P = 1
+        if (x1.dim() == 5 and self.subnet_type == "D2DTNet" and self.pack_w
+                and "hg" not in self.chain_variants):
+            P = pick_pack_w(x1.shape[0], x1.shape[3])
+        stripe = x1.shape[3] if P > 1 else 0
+        if P > 1:
+            pair = (pack_w(x1, P), pack_w(x2, P))
         jac = 0.0
         for blk in self._blocks(rev):
-            pair, j = blk(pair, rev)
+            pair, j = blk(pair, rev, stripe)
             jac = jac + j
+        if P > 1:
+            return (unpack_w(pair[0], P), unpack_w(pair[1], P)), jac / P
         return pair, jac
 
     def encode(self, x):
@@ -154,11 +187,11 @@ class SelfCNetGMM(_CouplingNet):
                  stp_blk_num: int = 6, fh_loss: str = "gmm", gmm_k: int = 5,
                  global_module: str = "nonlocal", nll_enabled: bool = False,
                  save_chain_feats: bool = True, deform_radius=None, frames: int = 3,
-                 chain_variants=(), device=None, generator=None):
+                 chain_variants=(), pack_w: bool = True, device=None, generator=None):
         super().__init__(scale, block_num, subnet_type, init_mode, stp_blk_num,
                          fh_loss, gmm_k, global_module, 64, 32,
                          save_chain_feats, device, generator, deform_radius, frames,
-                         chain_variants)
+                         chain_variants, pack_w)
         # the forward conditional NLL is off by default, as in the trained
         # snapshot; set True to restore the loss_c term
         self.nll_enabled = nll_enabled
@@ -203,11 +236,11 @@ class SelfCNetCodec(_CouplingNet):
                  global_module: str = "nonlocal", stp_hidden_c: int = 24,
                  stp_denseblock_innerc: int = 12, deart_net: bool = False,
                  deform_radius=None, frames: int = 3, save_chain_feats: bool = True,
-                 chain_variants=(), device=None, generator=None):
+                 chain_variants=(), pack_w: bool = True, device=None, generator=None):
         super().__init__(scale, block_num, subnet_type, init_mode, stp_blk_num,
                          fh_loss, gmm_k, global_module, stp_hidden_c,
                          stp_denseblock_innerc, save_chain_feats, device,
-                         generator, deform_radius, frames, chain_variants)
+                         generator, deform_radius, frames, chain_variants, pack_w)
         self.deart_net = bool(deart_net)
         if self.deart_net:
             # created after the coupling blocks and the prior, as in the JAX setup()

@@ -22,6 +22,27 @@ budgets) are left out, as for B1: the Hopper kernels take any B, T, H, W. The
 gates that are part of the design stay: ``c_out <= 10`` for the ride, and the
 pair only for subnets with the fused epilogues.
 
+W-packing (``network_G.pack_w``, on by default as in the JAX package) meets
+the variants as it does there. Under a stripe (the coupling chain packed
+once, ``models/inv_nets.py``) only B1 runs, with its stripe masks: no ride,
+no v3 (JAX ``_fused_chain_ep.prim``), and the pair is refused
+(``models/coupling.py``: it has no masks; the nets do not pack with "hg").
+Outside a stripe a chain tries v3 (no epilogue), then the ride, then a
+packed B1 (P > 1), then B1. The route at the training latent W = 36
+(P = 4), the port's and the JAX package's:
+
+  ====================================  ==========  ===================================
+  chain                                  port        JAX package
+  ====================================  ==========  ===================================
+  coupling chain packed once (no "hg")   B1 + masks  B1 + masks
+  F with "hg" and "ride" (c_out 3)       ride        packed B1 (``ride_ok``'s W % 16)
+  no epilogue (the prior), "v3"          v3          packed B1 (``chain_v3_shapes_ok``)
+  no epilogue, otherwise                 packed B1   packed B1
+  ====================================  ==========  ===================================
+
+The two rows that differ compute the same function: the port keeps the
+decision of dropping the TPU's W gates.
+
 Gradients, as the JAX package takes them: a chain that took B8 or B9 keeps no
 features, and its backward recomputes them with B3 and runs B2 (the
 ``save_feats=False`` route of ``dense_chain_t_ep``). The pair is an
@@ -76,18 +97,21 @@ def parse_variants(names) -> frozenset:
     return frozenset(names)
 
 
-def pick(variants, mode, c_out) -> str:
-    """The schedule of one chain: "ride", "v3" or "v2" (B1). A chain with an
-    epilogue rides when "ride" is on and c_out <= 10 (JAX
-    ``_fused_chain_ep.prim``); one without tries v3, then the ride, then B1
-    (JAX ``_impl_best``). The H/G pair is the coupling's choice
-    (``models/coupling.py``)."""
-    ride = "ride" in variants and c_out <= RIDE_MAX_C_OUT
-    if mode != "none":
-        return "ride" if ride else "v2"
-    if "v3" in variants:
+def pick(variants, mode, c_out, stripe=0, P=1) -> str:
+    """The schedule of one chain: "ride", "v3", "pack" (B1 on the batch
+    W-packed P to a row) or "v2" (B1; under a ``stripe``, with its masks).
+    Under a stripe only B1 runs (JAX ``_fused_chain_ep.prim``). Otherwise a
+    chain with an epilogue rides when "ride" is on and c_out <= 10, one
+    without tries v3, then the ride (JAX ``_impl_best``); then P > 1 (the
+    caller's ``pick_pack_w``, 1 with packing off) packs. The H/G pair is the
+    coupling's choice (``models/coupling.py``)."""
+    if stripe:
+        return "v2"
+    if mode == "none" and "v3" in variants:
         return "v3"
-    return "ride" if ride else "v2"
+    if "ride" in variants and c_out <= RIDE_MAX_C_OUT:
+        return "ride"
+    return "pack" if P > 1 else "v2"
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,18 @@ Feature layouts: a feats tensor holds its four growth segments side by side,
 ``dense_chain_t_ep`` and ``fused_dense_spatial`` are differentiable on both
 devices through a ``torch.autograd.Function`` each: the kernels on a CUDA
 tensor, the plain PyTorch versions below on a CPU tensor, and only there.
+
+W-packing (JAX ``_pick_pack_w`` / ``_pack_w`` / ``stripe_w``): a batch of
+narrow images is laid side by side along W, ``(B,T,H,W,C) ->
+(B/P,T,H,P*W,C)``, so that the kernels' 16x16 tiles cover fewer pad
+columns (3x9 tiles over 48x144 for four 36x36 images, 75 % full, against
+3x3 over 48x48 each, 56 %). B1, B3 and B2 then take ``stripe_w = W`` and mask
+every 3x3 tap that would cross from one image into the next; conv5 and the
+epilogues are temporal and pointwise and need nothing. ``dense_chain_t_ep``
+takes inputs that arrive packed (``stripe``, the coupling chain packs once,
+``models/inv_nets.py``) or packs a call itself (``pack``). The plain version
+of a striped call unpacks, runs the per-image plain chain and packs again:
+it does not depend on the masks.
 """
 
 from __future__ import annotations
@@ -96,13 +108,20 @@ launches_spatial = 0
 launches_spatial_by_width: dict = {}
 launches_spatial_bwd = 0
 launches_spatial_bwd_by_width: dict = {}
+# the same calls of the forward chain, the adjoint and the spatial-only
+# forward by width and stripe (0: not W-packed): (C, c_out, gc, stripe_w) and
+# (C, gc, stripe_w)
+launches_by_stripe: dict = {}
+launches_bwd_by_stripe: dict = {}
+launches_feats_by_stripe: dict = {}
 
 
 def reset_launch_counts():
     global launches, launches_bwd, launches_feats, launches_spatial, launches_spatial_bwd
     launches = launches_bwd = launches_feats = launches_spatial = launches_spatial_bwd = 0
     for d in (launches_by_width, launches_bwd_by_width, launches_feats_by_width,
-              launches_spatial_by_width, launches_spatial_bwd_by_width):
+              launches_spatial_by_width, launches_spatial_bwd_by_width, launches_by_stripe,
+              launches_bwd_by_stripe, launches_feats_by_stripe):
         d.clear()
 
 
@@ -147,6 +166,44 @@ def padded_width(t, gc, P):
     return F.pad(t.reshape(*t.shape[:-1], 4, gc), (0, P - gc)).reshape(*t.shape[:-1], 4 * P)
 
 
+def pick_pack_w(B: int, W: int) -> int:
+    """Images laid side by side along W (JAX ``_pick_pack_w``, rule for
+    rule): none where W is a multiple of 16 and at least 96; else the first
+    of 8, 4, 2 that divides B and makes a packed row of 64..192 columns, a
+    multiple of 16; else 1."""
+    if W % 16 == 0 and W >= 96:
+        return 1
+    for P in (8, 4, 2):
+        if B % P == 0 and 64 <= P * W <= 192 and (P * W) % 16 == 0:
+            return P
+    return 1
+
+
+def pack_w(x, P):
+    """``(B,T,H,W,C) -> (B/P,T,H,P*W,C)``: batch entry ``b*P + p`` becomes
+    stripe p of packed entry b (JAX ``_pack_w``). A new contiguous tensor."""
+    B, T, H, W, C = x.shape
+    return (x.reshape(B // P, P, T, H, W, C).permute(0, 2, 3, 1, 4, 5)
+            .reshape(B // P, T, H, P * W, C))
+
+
+def unpack_w(y, P):
+    """The inverse of ``pack_w`` (JAX ``_unpack_w``)."""
+    Bp, T, H, PW, C = y.shape
+    return (y.reshape(Bp, T, H, P, PW // P, C).permute(0, 3, 1, 2, 4, 5)
+            .reshape(Bp * P, T, H, PW // P, C))
+
+
+def _stripes(x, stripe_w):
+    """The number of images a row of ``x (B,T,H,W,C)`` holds at stripe width
+    ``stripe_w`` (1 where ``stripe_w`` is 0: not packed); raises unless W is
+    a multiple of it."""
+    W = x.shape[3]
+    if stripe_w < 0 or (stripe_w and W % stripe_w):
+        raise ValueError(f"stripe_w {stripe_w}: W = {W} must be a multiple of it")
+    return W // stripe_w if stripe_w else 1
+
+
 def true_width(t, gc):
     """A feats-layout tensor ``(…,4P)`` (P >= gc lanes a growth segment, the
     first gc real) -> the concat ``(…,4gc)`` of the real lanes."""
@@ -161,8 +218,13 @@ def true_width(t, gc):
 # ---------------------------------------------------------------------------
 
 
-def chain_feats_plain(x, ws, bs):
-    """Plain version of the spatial-only forward: ``[x_1 | .. | x_4]``."""
+def chain_feats_plain(x, ws, bs, stripe_w=0):
+    """Plain version of the spatial-only forward: ``[x_1 | .. | x_4]``.
+    ``stripe_w``: x is W-packed with images of that width (unpacked, run
+    per image, packed again)."""
+    if stripe_w:
+        P = _stripes(x, stripe_w)
+        return pack_w(chain_feats_plain(unpack_w(x, P), ws, bs), P)
     B, T, H, W, C = x.shape
     feats = x.reshape(B * T, H, W, C).permute(0, 3, 1, 2)
     for w, b in zip(ws, bs):
@@ -185,22 +247,34 @@ def _conv5_ep_plain(x, feats, w5, b5, mode, clamp, a, m):
 
 
 def dense_chain_t_ep_plain(x, ws, bs, w5, b5, mode="none", clamp=1.0,
-                           a=None, m=None):
+                           a=None, m=None, stripe_w=0):
     """Plain PyTorch version of the chain, differentiable by autograd. The
     epilogue runs in fp32 and the result returns in x's dtype, as in the
-    kernel."""
+    kernel. ``stripe_w``: x (and a, m) are W-packed with images of that
+    width."""
+    if stripe_w:
+        P = _stripes(x, stripe_w)
+        n_aux = EP_AUX[mode]
+        a, m = (unpack_w(t, P) if i < n_aux else None for i, t in enumerate((a, m)))
+        return pack_w(dense_chain_t_ep_plain(unpack_w(x, P), ws, bs, w5, b5, mode, clamp, a, m), P)
     return _conv5_ep_plain(x, chain_feats_plain(x, ws, bs), w5, b5, mode,
                            clamp, a, m)
 
 
-def chain_spatial_bwd_plain(x, ws, bs, feats, g, dx0=None):
+def chain_spatial_bwd_plain(x, ws, bs, feats, g, dx0=None, stripe_w=0):
     """Plain version of the chain adjoint, written as the explicit sweep and
     not as autograd of the forward. ``feats`` and ``g`` (the gradient that
     reaches feats directly) are ``(B,T,H,W,4P)`` in either feats layout
     (pad lanes of g are ignored), ``dx0`` (optional) the gradient that
     reaches ``x`` directly. Returns ``(dx, dws, dbs)`` in the types of
     ``x``, ``ws``, ``bs``. The running gradient is fp32 whatever the inputs
-    are, and so are the products (bf16 inputs are widened first)."""
+    are, and so are the products (bf16 inputs are widened first).
+    ``stripe_w``: every tensor is W-packed with images of that width."""
+    if stripe_w:
+        P = _stripes(x, stripe_w)
+        un = lambda t: None if t is None else unpack_w(t, P)  # noqa: E731
+        dx, dws, dbs = chain_spatial_bwd_plain(un(x), ws, bs, un(feats), un(g), un(dx0))
+        return pack_w(dx, P), dws, dbs
     B, T, H, W, C = x.shape
     N, acc = B * T, _acc_dtype(x)
     gc = ws[0].shape[-1]
@@ -240,9 +314,9 @@ def _library(name):
     lib = build.load(name)
     if name == "dense_chain" and lib.selfc_dense_chain_forward.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.selfc_dense_chain_forward.argtypes = [P] * 15 + [I] * 8 + [ctypes.c_float, I, P]
+        lib.selfc_dense_chain_forward.argtypes = [P] * 15 + [I] * 8 + [ctypes.c_float, I, I, P]
         lib.selfc_dense_chain_forward.restype = I
-        lib.selfc_dense_chain_feats.argtypes = [P] * 10 + [I] * 6 + [P]
+        lib.selfc_dense_chain_feats.argtypes = [P] * 10 + [I] * 7 + [P]
         lib.selfc_dense_chain_feats.restype = I
         lib.selfc_dense_chain_padded_gc.argtypes = [I]
         lib.selfc_dense_chain_padded_gc.restype = I
@@ -250,7 +324,7 @@ def _library(name):
         lib.selfc_cuda_error_string.restype = ctypes.c_char_p
     if name == "dense_chain_bwd" and lib.selfc_dense_chain_spatial_backward.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.selfc_dense_chain_spatial_backward.argtypes = [P] * 17 + [I] * 8 + [P]
+        lib.selfc_dense_chain_spatial_backward.argtypes = [P] * 17 + [I] * 9 + [P]
         lib.selfc_dense_chain_spatial_backward.restype = I
         lib.selfc_dense_chain_bwd_padded_gc.argtypes = [I]
         lib.selfc_dense_chain_bwd_padded_gc.restype = I
@@ -286,10 +360,11 @@ def _check(name, t, shape, like, dtype=None):
         raise ValueError(f"{name}: must be aligned to 16 bytes (the kernels use vector loads)")
 
 
-def _validate_spatial(x, ws, bs):
+def _validate_spatial(x, ws, bs, stripe_w=0):
     """Raise on anything the spatial kernels do not take. Every tensor must
     be of x's dtype, on x's device, contiguous and aligned to 16 bytes; the
-    growth width gc (the weights' last axis) in 1..32."""
+    growth width gc (the weights' last axis) in 1..32; W a multiple of
+    ``stripe_w`` (0: not packed)."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"dense chain kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 5:
@@ -300,6 +375,7 @@ def _validate_spatial(x, ws, bs):
     gc = ws[0].shape[-1]
     if not 1 <= gc <= GC_MAX:
         raise ValueError(f"growth width {gc}: the kernels take 1..{GC_MAX}")
+    _stripes(x, stripe_w)
     _check("x", x, x.shape, x)
     for k in range(4):
         _check(f"w{k + 1}", ws[k], (3, 3, C + gc * k, gc), x)
@@ -308,10 +384,10 @@ def _validate_spatial(x, ws, bs):
         raise ValueError(f"B*T = {B * T} exceeds the kernel's grid limit 65535")
 
 
-def _validate(x, ws, bs, w5, b5, mode, a, m):
+def _validate(x, ws, bs, w5, b5, mode, a, m, stripe_w=0):
     """Raise on anything the forward kernels do not take. Tensors that
     require grad are fine: the gradient has kernels of its own."""
-    _validate_spatial(x, ws, bs)
+    _validate_spatial(x, ws, bs, stripe_w)
     B, T, H, W, C = x.shape
     c_out = w5.shape[-1]
     _check("w5", w5, (3, C + 4 * ws[0].shape[-1], c_out), x)
@@ -320,12 +396,13 @@ def _validate(x, ws, bs, w5, b5, mode, a, m):
         _check(name, t, (B, T, H, W, c_out), x)
 
 
-def _chain_cuda(x, ws, bs, w5, b5, mode, clamp, a, m):
+def _chain_cuda(x, ws, bs, w5, b5, mode, clamp, a, m, stripe_w=0):
     """The forward kernels: ``(out, feats)``, feats being the buffer the
     spatial layers wrote (a new one each call, so the caller may keep it),
-    ``(B,T,H,W,4*padded_gc(gc))`` with zeros in each segment's pad lanes."""
+    ``(B,T,H,W,4*padded_gc(gc))`` with zeros in each segment's pad lanes.
+    ``stripe_w``: x (and a, m) are W-packed with images of that width."""
     global launches
-    _validate(x, ws, bs, w5, b5, mode, a, m)
+    _validate(x, ws, bs, w5, b5, mode, a, m, stripe_w)
     B, T, H, W, C = x.shape
     c_out, gc = w5.shape[-1], ws[0].shape[-1]
     n_aux = EP_AUX[mode]
@@ -340,19 +417,21 @@ def _chain_cuda(x, ws, bs, w5, b5, mode, clamp, a, m):
         a.data_ptr() if n_aux >= 1 else None,
         m.data_ptr() if n_aux >= 2 else None,
         out.data_ptr(), B * T, T, H, W, C, gc, c_out, _EP_CODE[mode],
-        float(clamp), _DTYPE_CODE[x.dtype], _stream(x),
+        float(clamp), int(stripe_w), _DTYPE_CODE[x.dtype], _stream(x),
     )
     _raise_on(err, "dense chain", lib.selfc_cuda_error_string)
     launches += 1
     _count((C, c_out, gc), launches_by_width)
+    _count((C, c_out, gc, int(stripe_w)), launches_by_stripe)
     return out, feats
 
 
-def _feats_cuda(x, ws, bs):
+def _feats_cuda(x, ws, bs, stripe_w=0):
     """The spatial-only forward kernels: a new feats buffer
-    ``(B,T,H,W,4*padded_gc(gc))`` with zero pad lanes."""
+    ``(B,T,H,W,4*padded_gc(gc))`` with zero pad lanes. ``stripe_w``: x is
+    W-packed with images of that width."""
     global launches_feats
-    _validate_spatial(x, ws, bs)
+    _validate_spatial(x, ws, bs, stripe_w)
     B, T, H, W, C = x.shape
     gc = ws[0].shape[-1]
     lib = _library("dense_chain")
@@ -361,24 +440,26 @@ def _feats_cuda(x, ws, bs):
     err = lib.selfc_dense_chain_feats(
         x.data_ptr(), feats.data_ptr(),
         *(w.data_ptr() for w in ws), *(b.data_ptr() for b in bs),
-        B * T, H, W, C, gc, _DTYPE_CODE[x.dtype], _stream(x),
+        B * T, H, W, C, gc, int(stripe_w), _DTYPE_CODE[x.dtype], _stream(x),
     )
     _raise_on(err, "dense chain feats", lib.selfc_cuda_error_string)
     launches_feats += 1
     _count((C, gc), launches_feats_by_width)
+    _count((C, gc, int(stripe_w)), launches_feats_by_stripe)
     return feats
 
 
-def _bwd_cuda(x, ws, bs, feats, dfeats, dx):
+def _bwd_cuda(x, ws, bs, feats, dfeats, dx, stripe_w=0):
     """The adjoint kernels. ``feats`` is the forward kernels' buffer,
     ``dfeats`` an fp32 one of its shape, ``(B,T,H,W,4*padded_gc(gc))``, and
     ``dx (B,T,H,W,C)`` fp32; dfeats and dx hold, on entry, the gradients
     that reach feats and x directly (the pad lanes of dfeats must be
     finite: they meet zero weights); both are updated in place and dx ends
     as the whole gradient (``dx=None``: not wanted). Returns ``(dws, dbs)``
-    in the weights' dtype, at the true gc."""
+    in the weights' dtype, at the true gc. ``stripe_w``: every tensor is
+    W-packed with images of that width."""
     global launches_bwd
-    _validate_spatial(x, ws, bs)
+    _validate_spatial(x, ws, bs, stripe_w)
     B, T, H, W, C = x.shape
     gc = ws[0].shape[-1]
     P = feats.shape[-1] // 4 if feats.dim() == 5 else 0
@@ -407,11 +488,12 @@ def _bwd_cuda(x, ws, bs, feats, dfeats, dx):
         dfeats.data_ptr(), dx.data_ptr() if dx is not None else None,
         *(t.data_ptr() for t in dws), *(t.data_ptr() for t in dbs),
         partial.data_ptr(), groups, B * T, H, W, C, gc, int(dx is not None),
-        _DTYPE_CODE[x.dtype], _stream(x),
+        int(stripe_w), _DTYPE_CODE[x.dtype], _stream(x),
     )
     _raise_on(err, "dense chain backward", lib.selfc_bwd_cuda_error_string)
     launches_bwd += 1
     _count((C, gc), launches_bwd_by_width)
+    _count((C, gc, int(stripe_w)), launches_bwd_by_stripe)
     return dws, dbs
 
 
@@ -421,29 +503,29 @@ def _bwd_cuda(x, ws, bs, feats, dfeats, dx):
 # ---------------------------------------------------------------------------
 
 
-def chain_feats(x, ws, bs):
+def chain_feats(x, ws, bs, stripe_w=0):
     """The spatial-only forward ``[x_1 | .. | x_4]`` in its device's feats
     layout (not differentiable: it serves the backward of
     ``dense_chain_t_ep``; ``fused_dense_spatial`` is the differentiable
-    spatial chain)."""
+    spatial chain). ``stripe_w``: x is W-packed with images of that width."""
     if not x.is_cuda:
-        return chain_feats_plain(x, ws, bs)
-    return _feats_cuda(x, ws, bs)
+        return chain_feats_plain(x, ws, bs, stripe_w)
+    return _feats_cuda(x, ws, bs, stripe_w)
 
 
-def chain_spatial_bwd(x, ws, bs, feats, g, dx0=None):
+def chain_spatial_bwd(x, ws, bs, feats, g, dx0=None, stripe_w=0):
     """The adjoint of the four spatial convs; arguments and result as
     ``chain_spatial_bwd_plain``. On a CUDA tensor ``feats`` and ``g`` are in
     the kernels' layout, as ``chain_feats`` gives it there."""
     if not x.is_cuda:
-        return chain_spatial_bwd_plain(x, ws, bs, feats, g, dx0)
+        return chain_spatial_bwd_plain(x, ws, bs, feats, g, dx0, stripe_w)
     gc = ws[0].shape[-1]
     dfeats = g.to(torch.float32, copy=True)  # the kernels update both in place
     P = dfeats.shape[-1] // 4
     dfeats.view(*dfeats.shape[:-1], 4, P)[..., gc:] = 0
     dx = (torch.zeros(x.shape, dtype=torch.float32, device=x.device) if dx0 is None
           else dx0.to(torch.float32, copy=True))
-    dws, dbs = _bwd_cuda(x, ws, bs, feats, dfeats, dx)
+    dws, dbs = _bwd_cuda(x, ws, bs, feats, dfeats, dx, stripe_w)
     return dx.to(x.dtype), dws, dbs
 
 
@@ -480,19 +562,22 @@ class _DenseChainEp(torch.autograd.Function):
     kernel on a CUDA tensor);
     (3) conv5's adjoint as plain products (it is outside the kernels on the
     JAX side too), written into the fp32 ``dx`` / ``dfeats`` pair; (4) the
-    chain adjoint, in place on that pair; (5) dx rounded to x's dtype."""
+    chain adjoint, in place on that pair; (5) dx rounded to x's dtype.
+    ``stripe``: every tensor is W-packed with images of that width (JAX
+    ``_fused_chain_ep(..., stripe)``); the spatial steps take the stripe
+    masks, conv5 and the epilogue (temporal, pointwise) run unchanged."""
 
     @staticmethod
-    def forward(ctx, mode, clamp, save_feats, launch, x, w5, b5, a, m, *wbs):
+    def forward(ctx, mode, clamp, save_feats, launch, stripe, x, w5, b5, a, m, *wbs):
         ws, bs = list(wbs[:4]), list(wbs[4:])
         if x.is_cuda and launch is not None:  # another schedule: it keeps no features
             out, feats = launch(x, ws, bs, w5, b5, mode, clamp, a, m), None
         elif x.is_cuda:
-            out, feats = _chain_cuda(x, ws, bs, w5, b5, mode, clamp, a, m)
+            out, feats = _chain_cuda(x, ws, bs, w5, b5, mode, clamp, a, m, stripe)
         else:
-            feats = chain_feats_plain(x, ws, bs)
+            feats = chain_feats_plain(x, ws, bs, stripe)
             out = _conv5_ep_plain(x, feats, w5, b5, mode, clamp, a, m)
-        ctx.mode, ctx.clamp = mode, clamp
+        ctx.mode, ctx.clamp, ctx.stripe = mode, clamp, stripe
         n_aux = EP_AUX[mode]
         # the epilogue's derivative needs: out for the two exp modes, a and
         # m for the products
@@ -508,12 +593,12 @@ class _DenseChainEp(torch.autograd.Function):
     def backward(ctx, g):
         x, w5, b5, out, a, m, feats, *wbs = ctx.saved_tensors
         ws, bs = list(wbs[:4]), list(wbs[4:])
-        mode, clamp = ctx.mode, ctx.clamp
-        need = ctx.needs_input_grad  # (mode, clamp, save_feats, launch, x, w5, b5, a, m, *wbs)
-        need_x, need_a, need_m = need[4], need[7], need[8]
+        mode, clamp, stripe = ctx.mode, ctx.clamp, ctx.stripe
+        need = ctx.needs_input_grad  # (mode, clamp, save_feats, launch, stripe, x, w5, b5, a, m, *wbs)
+        need_x, need_a, need_m = need[5], need[8], need[9]
         acc = _acc_dtype(x)
         if feats is None:
-            feats = chain_feats(x, ws, bs)
+            feats = chain_feats(x, ws, bs, stripe)
         C = x.shape[-1]
 
         # (2) the epilogue
@@ -550,10 +635,10 @@ class _DenseChainEp(torch.autograd.Function):
 
         # (4) the four spatial convs
         if x.is_cuda:
-            dws, dbs = _bwd_cuda(x, ws, bs, feats, dfeats, dx)
+            dws, dbs = _bwd_cuda(x, ws, bs, feats, dfeats, dx, stripe)
         else:
-            dx, dws, dbs = chain_spatial_bwd_plain(x, ws, bs, feats, dfeats, dx)
-        return (None, None, None, None,
+            dx, dws, dbs = chain_spatial_bwd_plain(x, ws, bs, feats, dfeats, dx, stripe)
+        return (None, None, None, None, None,
                 dx.to(x.dtype) if need_x else None,
                 dw5.to(w5.dtype), db5.to(b5.dtype),
                 da.to(x.dtype) if da is not None and need_a else None,
@@ -562,7 +647,7 @@ class _DenseChainEp(torch.autograd.Function):
 
 
 def dense_chain_t_ep(x, ws, bs, w5, b5, mode="none", clamp=1.0, a=None,
-                     m=None, save_feats=True, launch=None):
+                     m=None, save_feats=True, launch=None, stripe=0, pack=False):
     """The chain with its epilogue, differentiable. A CUDA tensor goes to
     the kernels (or raises on what they do not take); a CPU tensor to the
     plain versions. Parameters are cast to x's dtype first, outside the
@@ -576,16 +661,32 @@ def dense_chain_t_ep(x, ws, bs, w5, b5, mode="none", clamp=1.0, a=None,
     ``launch``: the forward kernels of another schedule of the same function
     on a CUDA tensor (``ops/chain_variants.py``: B8, B9), called as
     ``_chain_cuda`` is and returning the output alone; the backward then
-    recomputes the features. None: B1."""
+    recomputes the features. None: B1.
+
+    ``stripe``: x (and a, m) arrive W-packed with images of that width (the
+    coupling chain packs once, ``models/inv_nets.py``); B1, B3 and B2 take
+    the stripe masks. Only B1 has them: ``launch`` must be None.
+
+    ``pack``: without a ``stripe``, pack the call itself where
+    ``pick_pack_w(B, W)`` gives P > 1 (x, a and m packed, the output
+    unpacked; autograd unpacks the gradients), as JAX ``_impl_best`` and
+    ``_fused_chain_ep`` do."""
     if mode not in EP_AUX:
         raise ValueError(mode)
-    dt = x.dtype
+    if stripe and launch is not None:
+        raise ValueError("under a stripe only B1 runs: the other schedules have no stripe masks")
     n_aux = EP_AUX[mode]
-    return _DenseChainEp.apply(
-        mode, float(clamp), bool(save_feats), launch, x, w5.to(dt), b5.to(dt),
+    P = pick_pack_w(x.shape[0], x.shape[3]) if pack and not stripe and x.dim() == 5 else 1
+    if P > 1:
+        stripe = x.shape[3]
+        x, a, m = (pack_w(t, P) if i <= n_aux else None for i, t in enumerate((x, a, m)))
+    dt = x.dtype
+    y = _DenseChainEp.apply(
+        mode, float(clamp), bool(save_feats), launch, int(stripe), x, w5.to(dt), b5.to(dt),
         a if n_aux >= 1 else None, m if n_aux >= 2 else None,
         *(w.to(dt) for w in ws), *(b.to(dt) for b in bs),
     )
+    return unpack_w(y, P) if P > 1 else y
 
 
 # ---------------------------------------------------------------------------

@@ -205,38 +205,43 @@ WIDTHS = ((3, 48, 32), (48, 3, 32), (64, 64, 32), (12, 3, 32), (3, 12, 32),
 
 
 def rehearse(shape=(2, 2, 9, 21), widths=WIDTHS,
-             dtypes=(torch.float32, torch.bfloat16), modes=tuple(dc.EP_AUX), seed=0) -> list[dict]:
+             dtypes=(torch.float32, torch.bfloat16), modes=tuple(dc.EP_AUX), seed=0,
+             stripe_w=0) -> list[dict]:
     """Every kernel against its plain version at an odd shape with two
     clips; call inside ``cpu_kernels()``. ``widths``: (C, c_out) or
     (C, c_out, gc). Returns one record a case: the errors relative to max
     |plain|. The kernels' feats buffers are held to the plain features laid
     out as theirs (zero pad lanes at gc < 32); the adjoint gets the plain
     features in that layout and a gradient whose pad lanes hold noise,
-    which must not reach any result."""
+    which must not reach any result. ``stripe_w``: the shape is a W-packed
+    batch of images that wide, and B1, B3 and B2 take the stripe masks
+    (held to the plain versions of the striped calls)."""
     rng = np.random.default_rng(seed)
+    sw = {"stripe_w": stripe_w}
     out = []
     for dtype in dtypes:
         for C, c_out, *gcs in widths:
             gc = gcs[0] if gcs else 32
             x, ws, bs, w5, b5, a, m = make_chain(rng, C, c_out, shape, "cpu", dtype, gc)
-            rec = {"dtype": str(dtype).split(".")[-1], "C": C, "c_out": c_out, "gc": gc}
+            rec = {"dtype": str(dtype).split(".")[-1], "C": C, "c_out": c_out, "gc": gc,
+                   "stripe_w": stripe_w}
             for mode in modes:
                 n_aux = dc.EP_AUX[mode]
                 aa, mm = (a if n_aux >= 1 else None), (m if n_aux >= 2 else None)
-                got, got_feats = dc._chain_cuda(x, ws, bs, w5, b5, mode, 0.8, aa, mm)
-                want = dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, mode, 0.8, aa, mm)
+                got, got_feats = dc._chain_cuda(x, ws, bs, w5, b5, mode, 0.8, aa, mm, **sw)
+                want = dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, mode, 0.8, aa, mm, **sw)
                 rec[f"forward_{mode}"] = rel_err(got, want)
-            feats = dc.padded_width(dc.chain_feats_plain(x, ws, bs), gc, dc.padded_gc(gc))
+            feats = dc.padded_width(dc.chain_feats_plain(x, ws, bs, **sw), gc, dc.padded_gc(gc))
             rec["forward_feats"] = rel_err(got_feats, feats)
-            rec["feats"] = rel_err(dc._feats_cuda(x, ws, bs), feats)
+            rec["feats"] = rel_err(dc._feats_cuda(x, ws, bs, **sw), feats)
             g = torch.from_numpy(rng.normal(0, 1, feats.shape).astype(np.float32))
             dx0 = torch.from_numpy(rng.normal(0, 1, x.shape).astype(np.float32))
-            want = dc.chain_spatial_bwd_plain(x, ws, bs, feats, g.to(dtype), dx0)
+            want = dc.chain_spatial_bwd_plain(x, ws, bs, feats, g.to(dtype), dx0, **sw)
             for need_dx in (False, True):
                 # copies: the kernels update both in place
                 dfeats = g.to(dtype).to(torch.float32, copy=True)
                 dx = dx0.clone() if need_dx else None
-                dws, dbs = dc._bwd_cuda(x, ws, bs, feats, dfeats, dx)
+                dws, dbs = dc._bwd_cuda(x, ws, bs, feats, dfeats, dx, **sw)
                 rec[f"dw_db_need_dx_{need_dx}"] = max(
                     rel_err(u, v) for u, v in zip(dws + dbs, want[1] + want[2]))
             rec["dx"] = rel_err(dx, want[0])
@@ -349,9 +354,20 @@ def rehearse_variants(shape=(2, 2, 9, 21), dtypes=(torch.float32, torch.bfloat16
     return out
 
 
+# W-packed batches: (packed shape, stripe_w). Four images of 9 columns a row
+# put stripe edges inside the 16-column tiles and inside a thread's 8
+# columns (9, 18, 27); two of 18 at the other side of a thread's block
+STRIPE_CASES = (((1, 2, 9, 36), 9), ((2, 1, 7, 36), 18))
+# (C, c_out, gc) under a stripe: the 4x training step's, the codec's
+STRIPE_WIDTHS = ((3, 48, 32), (48, 3, 32), (64, 64, 32), (3, 64, 32), (12, 3, 32), (3, 12, 32),
+                 (3, 24, 12), (24, 24, 12))
+
+
 def main() -> int:
     with tempfile.TemporaryDirectory() as tmp, cpu_kernels(Path(tmp)), torch.no_grad():
         records = rehearse() + rehearse_deform() + rehearse_temporal_conv() + rehearse_variants()
+        for shape, stripe_w in STRIPE_CASES:
+            records += rehearse(shape, STRIPE_WIDTHS, stripe_w=stripe_w)
     for rec in records:
         print(json.dumps(rec), flush=True)
         limit = 1e-5 if rec["dtype"] == "float32" else 3e-2

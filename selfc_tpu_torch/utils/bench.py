@@ -2,7 +2,14 @@
 deformable-conv inputs at the serving, training and codec shapes, and the
 cost models of the kernels (operations and bytes from shapes, at the chain's
 true growth width; the chain variants B8 and B9 compute B1's function and take
-its bound, B7 two chains and the combine) with the card's published peaks, for a roofline bound."""
+its bound, B7 two chains and the combine) with the card's published peaks, for a roofline bound.
+
+A W-packed call (``ops/dense_chain.py``: P images side by side along W under
+``stripe_w``) does the work of the unpacked call on the same images: its cost
+is the unpacked shape's, ``(B, T, H, W)`` with W the stripe, whatever columns
+the kernels' tiles pad to. The taps a stripe mask drops are the taps the
+unpacked call's zero padding drops, so the ``(3H-2)(3W-2)`` count below holds
+per image either way."""
 
 from __future__ import annotations
 
@@ -155,7 +162,8 @@ def chain_cost(B, T, H, W, C, c_out, n_aux, itemsize, gc=32):
     each multiply-add whose tap falls inside the clip; the taps that meet
     the zero padding are not counted: (3H-2)(3W-2) of 9HW for the four
     spatial convs, 3T-2 of 3T for conv5. Bytes: x, the parameters and the
-    epilogue operands read once, the output written once."""
+    epilogue operands read once, the output written once. A W-packed call:
+    pass the unpacked shape (the masked taps are the padding's)."""
     px = B * T * H * W
     inside_t = (3 * T - 2) / (3 * T)
     conv5 = px * 3 * (C + 4 * gc) * c_out * inside_t

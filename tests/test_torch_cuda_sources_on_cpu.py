@@ -13,6 +13,7 @@ another order), 3e-2 in bf16 (8 bits of mantissa, rounded at other places).
 
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -20,6 +21,7 @@ from selfc_tpu_torch.ops import deform as df
 from selfc_tpu_torch.ops import dense_chain as dc
 from selfc_tpu_torch.ops import temporal_conv as tc
 from selfc_tpu_torch.tools import cpu_rehearsal
+from selfc_tpu_torch.utils.bench import make_chain
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -49,7 +51,8 @@ def _errors(rec):
 
 def test_rewrite_finds_every_launch():
     from selfc_tpu_torch.kernels import build
-    for name, n_launches in (("dense_chain", 3), ("dense_chain_bwd", 3), ("deform", 4),
+    # dense_chain: the spatial layer with and without the stripe masks, conv5 twice
+    for name, n_launches in (("dense_chain", 4), ("dense_chain_bwd", 3), ("deform", 4),
                              ("temporal_conv", 1)):
         text, n = cpu_rehearsal.rewrite_launches((build.CSRC_DIR / f"{name}.cu").read_text())
         assert n == n_launches and "<<<" not in text
@@ -108,6 +111,63 @@ def test_cpu_build_counts_as_a_launch_and_is_undone(cpu_built):
     with torch.no_grad():
         cpu_rehearsal.rehearse((1, 1, 3, 4), ((3, 3),), (torch.float32,), ("none",))
     assert (dc.launches, dc.launches_feats, dc.launches_bwd) == (1, 1, 2)
+
+
+# ---------------------------------------------------------------------------
+# W-packed batches: B1, B3 and B2 with the stripe masks (stripe_w)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", [
+    # (packed shape, stripe_w, C, c_out, gc, modes): four 9-column images a
+    # row (edges inside a tile and inside a thread's 8 columns), two of 18
+    ((1, 2, 9, 36), 9, 3, 48, 32, tuple(dc.EP_AUX)),
+    ((2, 1, 7, 36), 18, 64, 64, 32, ("sub_mul",)),
+    ((1, 2, 9, 36), 9, 24, 24, 12, ("none", "mul_add")),
+    ((2, 1, 7, 36), 18, 3, 24, 12, ("none",)),
+], ids=["gc32_every_epilogue", "gc32_64_64", "gc12_24_24", "gc12_3_24"])
+def test_cuda_sources_with_stripes_match_plain_fp32(cpu_built, case):
+    """Under a stripe the forward, its feats buffer, the spatial-only
+    forward and the adjoint (dx, dW, db) give what the plain versions of the
+    striped calls give (unpack, run per image, pack): no tap crosses an
+    image's edge, either way."""
+    shape, stripe_w, C, c_out, gc, modes = case
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse(shape, ((C, c_out, gc),), (torch.float32,), modes,
+                                        stripe_w=stripe_w)
+    errs = _errors(rec)
+    assert {"forward_feats", "feats", "dx", "dw_db_need_dx_True", "dw_db_need_dx_False"} <= set(errs)
+    assert all(v <= 1e-5 for v in errs.values()), rec
+
+
+def test_cuda_sources_with_stripes_match_plain_bf16(cpu_built):
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse((1, 2, 9, 36), ((48, 3, 32),), (torch.bfloat16,), ("sub_from",),
+                                        stripe_w=9)
+    assert "dx" in _errors(rec) and all(v <= 3e-2 for v in _errors(rec).values()), rec
+
+
+def test_unpacked_launch_is_unchanged_by_the_stripe_code(cpu_built):
+    """The same packed tensor without a stripe: the kernels take their
+    unmasked instantiations and give the plain unstriped chain, far from
+    the striped one; the striped launch is counted under its stripe."""
+    rng = np.random.default_rng(3)
+    x, ws, bs, w5, b5, a, _ = make_chain(rng, 3, 48, (1, 2, 9, 36), "cpu")
+    dc.reset_launch_counts()
+    with torch.no_grad():
+        got, feats = dc._chain_cuda(x, ws, bs, w5, b5, "add", 1.0, a, None)
+        striped, _ = dc._chain_cuda(x, ws, bs, w5, b5, "add", 1.0, a, None, stripe_w=9)
+        g = torch.from_numpy(rng.normal(0, 1, feats.shape).astype(np.float32))
+        dws, _ = dc._bwd_cuda(x, ws, bs, feats, g.clone(), None)
+    want = dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, "add", 1.0, a)
+    assert cpu_rehearsal.rel_err(got, want) <= 1e-5
+    assert cpu_rehearsal.rel_err(feats, dc.chain_feats_plain(x, ws, bs)) <= 1e-5
+    assert cpu_rehearsal.rel_err(dws[0], dc.chain_spatial_bwd_plain(x, ws, bs, feats, g)[1][0]) <= 1e-5
+    assert cpu_rehearsal.rel_err(striped, want) > 1e-2
+    assert dc.launches_by_stripe == {(3, 48, 32, 0): 1, (3, 48, 32, 9): 1}
+    assert dc.launches_bwd_by_stripe == {(3, 32, 0): 1}
+    with pytest.raises(ValueError, match="stripe_w"):
+        dc._chain_cuda(x, ws, bs, w5, b5, "add", 1.0, a, None, stripe_w=10)
 
 
 @pytest.mark.parametrize("case", [(2, 13, 21, 5, 3), (1, 9, 11, 32, 32), (1, 7, 6, 40, 36)],
