@@ -66,7 +66,7 @@ from selfc_tpu_torch.utils.bench import (
     DEART_C, DEART_DEC_SHAPE, DEART_TRAIN_SHAPE, PATH_WIDTHS, SERVE_SHAPE, STP_DEFORM_C,
     STP_DEFORM_SHAPE, SURROGATE_C, TRAIN_SHAPE, UVG_HW, chain_bound_ms, chain_bwd_bound_ms,
     chain_feats_bound_ms, deform_bound_ms, deform_tap_stats, hg_bound_ms, make_chain, make_deform,
-    make_temporal_conv, temporal_conv_bound_ms, time_cuda)
+    make_temporal_conv, tc_peak, temporal_conv_bound_ms, time_cuda)
 from selfc_tpu_torch.utils.metrics import psnr
 
 CHECK_WIDTHS = ((3, 48), (48, 3), (64, 64))           # coupling F/H/G and the prior
@@ -149,6 +149,12 @@ REPLACES_TC = "selfc_tpu/ops/pallas_kernels.py:109"
 # 131 -> 48, F 176 -> 3) and FeatureCollapseFast's (G/H 432 -> 768, F 1152 -> 48)
 TC_CHECKS = (((1, 3, 5, 7), 131, 48), ((2, 1, 6, 10), 176, 3), ((1, 3, 9, 11), 432, 768),
              ((2, 3, 4, 6), 1152, 48))
+# more (shape, C, Co) for the tile paths (each run unsplit and as this card's
+# plan splits it): 131 -> 48 over several blocks, the narrow tile 16 wide at
+# an odd bf16 width, T 130 (over the wide tile's 128 rows: runs of frames
+# with the frames beside them staged) and T 300 (the narrow tile's 256)
+TC_PATH_CHECKS = (((1, 7, 12, 20), 131, 48), ((1, 3, 10, 12), 41, 16), ((1, 130, 2, 3), 20, 24),
+                  ((1, 300, 1, 2), 36, 3))
 # the published SelfC_GMM with the subnet types whose chains reach B6
 SUBNET_TYPES = ("D2DLTInput", "FeatureCalapseBlock_Fast", "D2DTEnhanceInput")
 # (C, Co) of B6 in each: coupling G/H and F; and the frames' shrink (the
@@ -172,7 +178,10 @@ REPLACES_V3 = "selfc_tpu/ops/pallas_chain.py:890"
 # widths and the codec prior's growth 12
 HG_CHECKS = ((SERVE_SHAPE, 3, 48, 32), (TRAIN_SHAPE, 3, 48, 32), (CHECK_SHAPE, 3, 12, 32), (CHECK_SHAPE, 3, 48, 12))
 RIDE_CHECKS = ((CHECK_SHAPE, 48, 3, 32), (CHECK_SHAPE, 48, 6, 32), (CHECK_SHAPE, 48, 10, 32), ((2, 1, 20, 26), 48, 3, 32))
-V3_CHECKS = ((CHECK_SHAPE, 3, 64, 32), (CHECK_SHAPE, 64, 64, 32), (CHECK_SHAPE, 24, 24, 12))
+# B8 also at C + 3 gc over 526 (the earlier design's limit) with conv5 on the
+# narrow 8-column tile, and at an odd C with conv5 16 wide
+V3_CHECKS = ((CHECK_SHAPE, 3, 64, 32), (CHECK_SHAPE, 64, 64, 32), (CHECK_SHAPE, 24, 24, 12),
+             (CHECK_SHAPE, 440, 8, 32), (CHECK_SHAPE, 5, 16, 20))
 # calls of one GOP roundtrip of the published 4x net with all three: the pair
 # 8 forward (encode) + 8 reverse (decode), F 16 times on the ride, the prior's
 # 6 chains on v3, B1 none
@@ -1791,6 +1800,33 @@ def phase_kernels_temporal(device):
                               "slope": slope, "forward_err": e_fwd, **{f"{n}_rel_err": v for n, v in e_bwd.items()},
                               "same_bits_twice": same_bits, "launches_counted": counted, "ok": ok})
                 check(ok and np.isfinite(e_fwd + sum(e_bwd.values())), f"B6 agrees with its plain version: {cases[-1]}")
+    # every tile path, forced through the SM count the plan is given (1: K
+    # never split; this card's: these small shapes split), each twice: the
+    # same bits; the wrapper's count by (path, split) shows each ran
+    tc.reset_launch_counts()
+    paths = []
+    for dtype in (torch.float32, torch.bfloat16):
+        fp32 = dtype == torch.float32
+        for shape, C, co in TC_CHECKS + TC_PATH_CHECKS:
+            x, w, b, _ = make_temporal_conv(rng, shape, C, co, device, dtype)
+            want = tc.temporal_conv3_fused_plain(x, w, b, 0.2)
+            for sms in (1, None):
+                path = tc.plan(shape[0], shape[1], shape[2] * shape[3], C, co, x.element_size(),
+                               sms or tc._sm_count(x))
+                got = tc._forward_cuda(x, w, b, 0.2, False, sms)[0]
+                again = tc._forward_cuda(x, w, b, 0.2, False, sms)[0]
+                torch.cuda.synchronize()
+                e = deform_errors(got, want, fp32)
+                same_bits = torch.equal(got, again)
+                ok = e <= (FP32_LIMIT if fp32 else BF16_REL_LIMIT) and same_bits
+                paths.append({"dtype": str(dtype).split(".")[-1], "shape": list(shape), "C": C, "c_out": co,
+                              "path": path[0], "split": path[1], "forward_err": e, "same_bits_twice": same_bits})
+                check(ok and np.isfinite(e), f"B6 on a forced path agrees with its plain version: {paths[-1]}")
+    by_path = {f"{p}/{s}": n for (p, s), n in sorted(tc.launches_by_path.items())}
+    check({p for p, _ in tc.launches_by_path} == {"narrow", "wide"}
+          and all(any(p == q and (s > 1) == split for q, s in tc.launches_by_path)
+                  for p in ("narrow", "wide") for split in (False, True)),
+          f"B6 ran every tile path, unsplit and split: {by_path}")
     # on a CUDA tensor the wrapper launches or raises
     x, w, b, _ = make_temporal_conv(rng, (1, 3, 4, 5), 6, 4, device)
     before, refused = (tc.launches, tc.launches_bwd), []
@@ -1806,7 +1842,8 @@ def phase_kernels_temporal(device):
           f"the temporal conv refuses bad CUDA arguments: {refused}")
     emit("kernels_temporal", kernels=["temporal_conv3_fused", "temporal_conv3_fused_bwd"], n_cases=len(cases),
          fp32_limit=FP32_LIMIT, bf16_rel_limit=BF16_REL_LIMIT, bwd_fp32_rel_limit=BWD_FP32_REL_LIMIT,
-         bwd_bf16_rel_limit=BWD_BF16_REL_LIMIT, refused=refused, cases=cases)
+         bwd_bf16_rel_limit=BWD_BF16_REL_LIMIT, refused=refused, cases=cases, path_cases=paths,
+         launches_by_path=by_path)
     return worst
 
 
@@ -1973,18 +2010,22 @@ def phase_timing_temporal(device, counts, worst):
             plain = time_cuda(lambda: tc.temporal_conv3_fused_plain(x, w, b))
             library = time_cuda(lambda: library_temporal(ncdhw, lw, b))
         M = int(np.prod(shape))
-        bound, by = temporal_conv_bound_ms(M, *((co, C) if backward else (C, co)), T=T)
+        cin, cout = (co, C) if backward else (C, co)
+        bound, by = temporal_conv_bound_ms(M, cin, cout, T=T, peak=tc_peak(torch.float32))
+        bound_fma, _ = temporal_conv_bound_ms(M, cin, cout, T=T)
+        tile, split = tc.plan(B, T, shape[2] * shape[3], cin, cout, x.element_size(), tc._sm_count(x))
         rows.append({
             "name": f"temporal_conv3{'_dx' if backward else ''}[{C}->{co}]@{path}"
                     + ("/4" if shrink > 1 else ""),
             "route": "cuda", "source": SOURCE_TC, "replaces": REPLACES_TC, "launches": launches,
             "max_abs_err": max(err, worst.get((C, co), 0.0)), "ms": ms["median"], "plain_ms": plain["median"],
-            "bound_ms": bound, "bound_by": by, "library_ms": library["median"], "ms_min": ms["min"],
-            "plain_ms_min": plain["min"], "library_ms_min": library["min"],
-            "shape": list(shape) + [co if backward else C]})
+            "bound_ms": bound, "bound_by": by, "library_ms": library["median"], "bound_fma_ms": bound_fma,
+            "path": f"{tile}/{split}", "ms_min": ms["min"], "plain_ms_min": plain["min"],
+            "library_ms_min": library["min"], "shape": list(shape) + [co if backward else C]})
         del x, w, b, g, ncdhw, lw, got, want, lib
-    emit("timing_temporal", rows=[{k: r[k] for k in ("name", "launches", "ms", "ms_min", "plain_ms", "library_ms",
-                                                      "bound_ms", "bound_by")} for r in rows])
+    emit("timing_temporal", rows=[{k: r[k] for k in ("name", "launches", "path", "ms", "ms_min", "plain_ms",
+                                                      "library_ms", "bound_ms", "bound_fma_ms", "bound_by")}
+                                  for r in rows])
     return rows
 
 
@@ -2209,11 +2250,13 @@ def phase_kernels_variants(device):
                 check(ok and np.isfinite(err), f"B9 agrees with its plain version: {cases[-1]}")
         for shape, C, c_out, gc in V3_CHECKS:
             x, ws, bs, w5, b5, _, _ = make_chain(rng, C, c_out, shape, device, dtype, gc)
-            err, ok = within(cv._v3_cuda(x, ws, bs, w5, b5), cv.dense_chain_v3_plain(x, ws, bs, w5, b5), fp32)
+            got = cv._v3_cuda(x, ws, bs, w5, b5)
+            same_bits = torch.equal(got, cv._v3_cuda(x, ws, bs, w5, b5))
+            err, ok = within(got, cv.dense_chain_v3_plain(x, ws, bs, w5, b5), fp32)
             note("v3", C, c_out, err, fp32)
             cases.append({"kernel": "chain_v3", "dtype": name, "shape": list(shape), "C": C, "c_out": c_out,
-                          "gc": gc, "err": err, "ok": ok})
-            check(ok and np.isfinite(err), f"B8 agrees with its plain version: {cases[-1]}")
+                          "gc": gc, "err": err, "same_bits_twice": same_bits, "ok": ok and same_bits})
+            check(ok and same_bits and np.isfinite(err), f"B8 agrees with its plain version: {cases[-1]}")
     # the pair under autograd: one forward call, features twice (B3), the
     # adjoint twice (B2), G's conv5 again on the reverse (B6)
     args = chain_pair(rng, CHECK_SHAPE, 3, 48, 32, device)
@@ -2402,6 +2445,7 @@ def phase_timing_variants(device, serve, step, worst):
                     s = dc._chain_cuda(x, *h, "sig_exp", 1.0, None, None)[0]
                     return dc._chain_cuda(x, *g, "mul_add", 1.0, x2, s)[0]
                 bound, by = hg_bound_ms(*shape, C, c_out)
+                bound_fma = bound
                 name, source, replaces = f"fused_hg_pair[{C}->{c_out}]@{path}", SOURCE_HG, REPLACES_HG
             else:
                 key = (C, c_out, 32)
@@ -2418,7 +2462,11 @@ def phase_timing_variants(device, serve, step, worst):
                 lib_fn = ((lambda: library_chain(*lib_args) + lib_a) if aa is not None  # noqa: E731
                           else (lambda: library_chain(*lib_args)))
                 b1_fn = lambda: dc._chain_cuda(x, ws, bs, w5, b5, mode, 1.0, aa, None)  # noqa: E731
-                bound, by = chain_bound_ms(*shape, C, c_out, 1 if aa is not None else 0)
+                n_aux = 1 if aa is not None else 0
+                # B8 runs its products as 3xTF32; B9 as B1, fp32 FMAs
+                peak = tc_peak(torch.float32) if kind == "v3" else None
+                bound, by = chain_bound_ms(*shape, C, c_out, n_aux, peak=peak)
+                bound_fma = chain_bound_ms(*shape, C, c_out, n_aux)[0]
                 name = f"dense_chain_{kind}[{C}->{c_out}]@{path}"
                 source, replaces = (SOURCE_RIDE, REPLACES_RIDE) if kind == "ride" else (SOURCE_V3, REPLACES_V3)
             check(err <= FP32_LIMIT, f"{name} vs plain at the timed shape: {err}")
@@ -2427,10 +2475,11 @@ def phase_timing_variants(device, serve, step, worst):
                 "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,
                 "max_abs_err": max(err, worst.get((kind, C, c_out), 0.0)), "ms": ms["median"],
                 "plain_ms": plain["median"], "bound_ms": bound, "bound_by": by, "library_ms": library["median"],
-                "b1_ms": b1["median"], "ms_min": ms["min"], "plain_ms_min": plain["min"],
+                "bound_fma_ms": bound_fma, "b1_ms": b1["median"], "ms_min": ms["min"], "plain_ms_min": plain["min"],
                 "library_ms_min": library["min"], "b1_ms_min": b1["min"], "shape": list(shape) + [C]})
     emit("timing_variants", rows=[{k: r[k] for k in ("name", "launches", "ms", "ms_min", "b1_ms", "plain_ms",
-                                                      "library_ms", "bound_ms", "bound_by")} for r in rows])
+                                                      "library_ms", "bound_ms", "bound_fma_ms", "bound_by")}
+                                  for r in rows])
     return rows
 
 

@@ -9,138 +9,128 @@
 //
 // x (B,T,S,C) with S = H*W, w (3,C,Co) read as one (3C, Co) matrix, bias (Co)
 // or none, out (B,T,S,Co); act is LeakyReLU(negative_slope) or the identity.
-// As a product: M = B*T*S rows, N = Co, K = 3C, where row (b,t,s) reads the
-// rows (b,t-1,s), (b,t,s), (b,t+1,s) of x, i.e. the row r - S, r, r + S, and
-// zero where t-1 or t+1 leaves [0,T). The data gradient is this function
-// again: dx = temporal_conv3(dy, [w2^T, w1^T, w0^T]) with no bias (the wrapper
-// passes the flipped, transposed weights).
+// As a product: M = B*T*S rows, N = Co, K = 3C. The data gradient is this
+// function again: dx = temporal_conv3(dy, [w2^T, w1^T, w0^T]) with no bias
+// (the wrapper passes the flipped, transposed weights).
 //
-// What bounds it: arithmetic at the widths the nets give it (C 131..1152,
-// Co 3..768: 2 * 3C * Co operations a row against (C + Co) * 4 bytes), bytes
-// only at Co = 3.
+// What bounds it on this card: operations at the widths the nets give it (C
+// 131..1152, Co 48..768: 2 * 3C * Co operations a row against (C + Co) * 4
+// bytes; at 3xTF32's 495 / 3 TFLOP/s, bytes at 131 -> 48 too), bytes at
+// Co = 3 (reading x once: 0.038 ms at the serving latent's 176 channels,
+// NVIDIA H100 80GB HBM3). Measured (tools/tc_attribution.py), the mma.sync
+// issue sets the pace at the wide rows; at Co = 3 the staging does.
 //
-// Design, right and simple first (plain fp32 FMAs, no tensor cores, no TF32):
-// a block owns a 64-row x 64-column tile of the output. K is walked tap by tap
-// and, within a tap, in slabs of 16 input channels: the block stages the
-// slab's 64 x 16 activations (transposed, rows contiguous; a row whose
-// neighbour frame lies outside the clip stages zeros) and the 16 x 64 weights
-// in shared memory, and each of 256 threads accumulates a 4-row x 4-column
-// register tile. The ragged edges (rows past M, channels past C, columns past
-// Co) stage zeros and store nothing, so every B, T, S, C and Co is taken.
-// At Co = 3 a 64-column tile leaves 95 % of its FMAs idle; a narrow tile is
-// later work, as are wgmma and TMA.
+// The design before this one (plain fp32 FMAs from 4 x 4 register
+// tiles, one 64 x 64 output tile for every width, scalar staging transposed
+// into shared memory, nothing overlapped) took, on an NVIDIA H100 80GB HBM3 at
+// 700 W (chip_smoke.py's timing_temporal rows): serve 131->48 0.416 ms, 176->3
+// 0.494, serve/4 432->768 0.933, 1152->48 0.383; train 131->48 0.197 (dx
+// 0.209), 176->3 0.232 (dx 0.090), train/4 432->768 0.415 (dx 0.446),
+// 1152->48 0.250 (dx 0.088). At Co = 3, 61 of 64 columns did idle FMAs.
+//
+// This design (csrc/tc_mma.cuh, tc::tconv_block): tensor-core products
+// (3xTF32 for fp32, bf16 mma for bf16) fed by a 3-stage cp.async ring. A
+// block owns P pixels x all T frames of a clip, frames fastest, so the three
+// taps are shifts of one staged tile by a row and x is read from device
+// memory once; the taps beyond the clip read a zero row. The tile is chosen
+// from Co and M at launch (the wrapper's plan):
+//  - narrow, Co <= 16: 256 rows x one or two n8 columns, 8 warps, so every
+//    staged byte of x feeds all of N;
+//  - wide, Co > 16: 128 rows x 64 columns (or 48, where that pads Co less),
+//    8 warps of 32 x 32 (32 x 24);
+//  - split-K where the tiles do not fill the SMs: the K slabs are cut in
+//    `split` parts over blockIdx.y, each writes fp32 partial sums, and a
+//    second pass adds them in a fixed order and applies the epilogue (no
+//    atomics: a step repeats bit for bit).
+// Rows of x that are not 16-byte aligned (C % 4 != 0 in fp32, C % 8 != 0 in
+// bf16) are copied one element at a time, 4 bytes (cp.async) or 2 (a plain
+// load and store: cp.async copies 4, 8 or 16), a template flag; every B, T,
+// S, C and Co is taken.
 //
 // The epilogue adds the bias and applies the LeakyReLU on the fp32
 // accumulator; with a non-null mask it also writes mask = (acc >= 0), which
 // the backward needs at a slope <= 0 (the output cannot tell it there).
 //
-// fp32 and bf16 in and out (x, w, bias and out in one type), fp32 arithmetic
-// inside. Plain C interface (loaded with ctypes); the caller owns every buffer.
+// fp32 and bf16 in and out (x, w, bias and out in one type), fp32
+// accumulation. Plain C interface (loaded with ctypes); the caller owns every
+// buffer, the split-K scratch included.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "tc_mma.cuh"
+
 namespace {
 
-constexpr int BM = 64;         // output rows a block
-constexpr int BN = 64;         // output columns a block
-constexpr int BK = 16;         // input channels a slab
-constexpr int THREADS = 256;   // 16 x 16 threads, a 4 x 4 register tile each
-static_assert(THREADS == (BM / 4) * (BN / 4), "one 4 x 4 register tile a thread");
-static_assert(BM * BK == 4 * THREADS && BK * BN == 4 * THREADS, "four staged values a thread and operand");
+template <typename T, class Tile, int VA>
+__global__ void __launch_bounds__(Tile::THREADS, 2) temporal_conv3_kernel(tc::TconvArgs<T> p) {
+  extern __shared__ __align__(16) float dyn_smem[];
+  tc::tconv_block<T, Tile, VA>(p, reinterpret_cast<unsigned char*>(dyn_smem));
+}
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void from_f(float v, float* dst) { *dst = v; }
-__device__ __forceinline__ void from_f(float v, __nv_bfloat16* dst) { *dst = __float2bfloat16(v); }
-
+// out = act(bias + sum over the split's parts of partial), in a fixed order
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    temporal_conv3_kernel(const T* x, const T* w, const T* bias, T* out, uint8_t* mask, long long M, int T_len, int S, int C,
-                          int Co, int act, float slope) {
-  __shared__ __align__(16) float xs[BK][BM];   // activations, [channel][row]
-  __shared__ __align__(16) float ws[BK][BN];   // weights, [channel][column]
+__global__ void __launch_bounds__(256) split_reduce_kernel(const float* partial, const T* bias, T* out, uint8_t* mask, long long n, int Co,
+                                                           int split, int act, float slope) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n) return;
+  float v = 0.f;
+  for (int s = 0; s < split; ++s) v += partial[s * n + i];
+  if (bias) v += tc::to_f(bias[i % Co]);
+  if (mask) mask[i] = v >= 0.f ? 1 : 0;
+  if (act && !(v >= 0.f)) v *= slope;
+  tc::from_f(v, out + i);
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;      // register tile: rows 4ty.., columns 4tx..
-  const long long row0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+template <typename T, class Tile, int VA>
+int launch_tile(tc::TconvArgs<T> p, cudaStream_t stream) {
+  tc::tconv_tiling(p.Tlen, Tile::BM, p.TT, p.P, p.halo);
+  p.tiles_n = (p.Co + Tile::BN - 1) / Tile::BN;
+  p.tiles_s = (p.S + p.P - 1) / p.P;
+  p.tiles_t = (p.Tlen + p.TT - 1) / p.TT;
+  const long long blocks = (long long)p.B * p.tiles_t * p.tiles_s * p.tiles_n;
+  if (blocks > 0x7fffffffLL || p.split > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(temporal_conv3_kernel<T, Tile, VA>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)blocks, (unsigned)p.split);
+  temporal_conv3_kernel<T, Tile, VA><<<grid, Tile::THREADS, Tile::SMEM, stream>>>(p);
+  return (int)cudaGetLastError();
+}
 
-  // the row this thread stages, and the four channels of the slab it takes
-  const int lr = tid / 4, lc = 4 * (tid % 4);
-  const long long r = row0 + lr;
-  const bool row_ok = r < M;
-  const int t = row_ok ? (int)((r / S) % T_len) : 0;
-  // the weight row and four columns this thread stages
-  const int wk = tid / 16, wn = 4 * (tid % 16);
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k = 0; k < 3; ++k) {
-    const int tt = t + k - 1;
-    const bool src_ok = row_ok && tt >= 0 && tt < T_len;
-    const T* xrow = x + (src_ok ? (r + (long long)(k - 1) * S) * C : 0);
-    const T* wtap = w + (size_t)k * C * Co;
-    for (int c0 = 0; c0 < C; c0 += BK) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = c0 + lc + e;
-        xs[lc + e][lr] = (src_ok && c < C) ? to_f(xrow[c]) : 0.f;
-      }
-      {
-        const int c = c0 + wk;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int n = n0 + wn + e;
-          ws[wk][wn + e] = (c < C && n < Co) ? to_f(wtap[(size_t)c * Co + n]) : 0.f;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(&xs[kk][4 * ty]);
-        const float4 bv = *reinterpret_cast<const float4*>(&ws[kk][4 * tx]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bw[j];
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + 4 * tx + j;
-    if (n >= Co) continue;
-    const float bn = bias ? to_f(bias[n]) : 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long ro = row0 + 4 * ty + i;
-      if (ro >= M) continue;
-      float v = acc[i][j] + bn;
-      const size_t o = (size_t)ro * Co + n;
-      if (mask) mask[o] = v >= 0.f ? 1 : 0;
-      if (act && !(v >= 0.f)) v *= slope;
-      from_f(v, out + o);
-    }
-  }
+template <typename T, int VA>
+int launch_path(const tc::TconvArgs<T>& p, int path, cudaStream_t stream) {
+  if (path == 1) return tc::wide48(p.Co) ? launch_tile<T, tc::TileWide48, VA>(p, stream) : launch_tile<T, tc::TileWide, VA>(p, stream);
+  if (p.Co <= 8) return launch_tile<T, tc::TileNarrow8, VA>(p, stream);
+  return launch_tile<T, tc::TileNarrow16, VA>(p, stream);
 }
 
 template <typename T>
-int launch(const void* x, const void* w, const void* bias, void* out, void* mask, long long M, int T_len, int S, int C, int Co, int act,
-           float slope, cudaStream_t stream) {
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((Co + BN - 1) / BN));
-  temporal_conv3_kernel<T><<<grid, THREADS, 0, stream>>>((const T*)x, (const T*)w, (const T*)bias, (T*)out, (uint8_t*)mask, M, T_len, S,
-                                                         C, Co, act, slope);
+int launch(const void* x, const void* w, const void* bias, void* out, void* mask, void* scratch, int B, int T_len, int S, int C, int Co,
+           int act, float slope, int path, int split, cudaStream_t stream) {
+  tc::TconvArgs<T> p{};
+  p.src[0] = (const T*)x;
+  p.src[1] = (const T*)x;
+  p.ch[0] = C;
+  p.ch[1] = 0;
+  p.w = (const T*)w;
+  p.bias = (const T*)bias;
+  p.out = (T*)out;
+  p.mask = split > 1 ? nullptr : (uint8_t*)mask;
+  p.partial = split > 1 ? (float*)scratch : nullptr;
+  p.B = B, p.Tlen = T_len, p.S = S, p.Co = Co;
+  p.split = split;
+  p.act = split > 1 ? 0 : act;
+  p.slope = slope;
+  p.w_vec = tc::rows_aligned16(w, (size_t)Co * sizeof(T));
+  // 16-byte copies where every row allows them, else one element a copy
+  const int err = tc::rows_aligned16(x, (size_t)C * sizeof(T)) ? launch_path<T, 16>(p, path, stream)
+                                                                : launch_path<T, (int)sizeof(T)>(p, path, stream);
+  if (err != 0 || split == 1) return err;
+  const long long n = (long long)B * T_len * S * Co;
+  split_reduce_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>((const float*)scratch, (const T*)bias, (T*)out, (uint8_t*)mask, n,
+                                                                          Co, split, act, slope);
   return (int)cudaGetLastError();
 }
 
@@ -149,14 +139,18 @@ int launch(const void* x, const void* w, const void* bias, void* out, void* mask
 // dtype: 0 = float32, 1 = bfloat16, the type of x, w, bias and out. Shapes:
 // x (B,T,S,C), w (3,C,Co), bias (Co) or null, out (B,T,S,Co), mask (B,T,S,Co)
 // bytes or null. act: 0 = none, 1 = LeakyReLU with negative slope ``slope``.
-extern "C" int selfc_temporal_conv3(const void* x, const void* w, const void* bias, void* out, void* mask, int B, int T, int S, int C,
-                                    int Co, int act, float slope, int dtype, void* stream) {
+// path: 0 = narrow (Co <= 16), 1 = wide; split: parts of K (>= 1, at most
+// the ceil(C / slab) slabs), scratch (split, B*T*S, Co) fp32 when split > 1.
+extern "C" int selfc_temporal_conv3(const void* x, const void* w, const void* bias, void* out, void* mask, void* scratch, int B, int T,
+                                    int S, int C, int Co, int act, float slope, int dtype, int path, int split, void* stream) {
   const long long M = (long long)B * T * S;
-  if (M < 1 || T < 1 || S < 1 || C < 1 || Co < 1 || (M + BM - 1) / BM > 0x7fffffffLL || (Co + BN - 1) / BN > 65535)
+  const int bk = dtype == 1 ? tc::Elem<__nv_bfloat16>::BK : tc::Elem<float>::BK;
+  if (M < 1 || T < 1 || S < 1 || C < 1 || Co < 1 || (path != 0 && path != 1) || (path == 0 && Co > 16) || split < 1 ||
+      split > (C + bk - 1) / bk || (split > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(x, w, bias, out, mask, M, T, S, C, Co, act, slope, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, bias, out, mask, M, T, S, C, Co, act, slope, s);
+  if (dtype == 0) return launch<float>(x, w, bias, out, mask, scratch, B, T, S, C, Co, act, slope, path, split, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(x, w, bias, out, mask, scratch, B, T, S, C, Co, act, slope, path, split, s);
   return (int)cudaErrorInvalidValue;
 }
 

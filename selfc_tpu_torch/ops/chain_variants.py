@@ -177,8 +177,6 @@ def _library(name):
     if name == "chain_v3" and lib.selfc_chain_v3_forward.argtypes is None:
         lib.selfc_chain_v3_forward.argtypes = [P] * 13 + [I] * 8 + [P]
         lib.selfc_chain_v3_forward.restype = I
-        lib.selfc_chain_v3_tile_rows.argtypes = [I]
-        lib.selfc_chain_v3_tile_rows.restype = I
         lib.selfc_v3_cuda_error_string.argtypes = [I]
         lib.selfc_v3_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -255,8 +253,6 @@ def _v3_cuda(x, ws, bs, w5, b5, mode="none", clamp=1.0, a=None, m=None):
     B, T, H, W, C = x.shape
     gc, c_out = ws[0].shape[-1], w5.shape[-1]
     lib = _library("chain_v3")
-    if lib.selfc_chain_v3_tile_rows(C + 3 * gc) == 0:
-        raise ValueError(f"C + 3*gc = {C + 3 * gc}: one row of the v3 kernel's halo tile does not fit")
     feats = torch.empty((B, T, H, W, 4 * gc), dtype=x.dtype, device=x.device)
     out = torch.empty((B, T, H, W, c_out), dtype=x.dtype, device=x.device)
     err = lib.selfc_chain_v3_forward(

@@ -28,6 +28,7 @@ the JAX package computes them outside any Pallas kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -41,11 +42,23 @@ from .conv import temporal_conv3
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # calls that went to the CUDA kernel, in all and by the forward's (C, Co):
-# the forward, and the data gradient (one launch each)
+# the forward, and the data gradient (one call each); and every call by its
+# tile path and K split, (path, split) (a split call is two launches: the
+# parts, then their fixed-order sum with the epilogue)
 launches = 0
 launches_by_width: dict = {}
 launches_bwd = 0
 launches_bwd_by_width: dict = {}
+launches_by_path: dict = {}
+
+# the kernel's tiles (csrc/temporal_conv.cu): Co <= NARROW_MAX_CO takes the
+# narrow tile (256 rows, 8 or 16 columns), wider the wide one (128 rows, 48 or
+# 64 columns: the one that pads Co less, 64 on a tie)
+NARROW_MAX_CO = 16
+_TILE_ROWS = {"narrow": 256, "wide": 128}
+_WIDE_COLS = (64, 48)
+MAX_SPLIT = 8
+H100_SMS = 132   # the SM count a plan assumes for a CPU tensor (the rehearsal)
 
 
 def reset_launch_counts():
@@ -53,6 +66,37 @@ def reset_launch_counts():
     launches = launches_bwd = 0
     launches_by_width.clear()
     launches_bwd_by_width.clear()
+    launches_by_path.clear()
+
+
+def plan(B, T, S, C, Co, itemsize, sm_count):
+    """``(path, split)`` of one launch: the narrow tile at Co <= 16, else
+    the wide one; the K slabs (64 bytes of channels each) cut in 2, 4 or 8
+    parts while the tiles do not fill ``sm_count`` SMs (at least two slabs
+    a part). A block covers P pixels x all T frames of a clip (T above the
+    tile's rows: a run of them), as the kernel tiles."""
+    path = "narrow" if Co <= NARROW_MAX_CO else "wide"
+    rows = _TILE_ROWS[path]
+    tt, p = (T, rows // T) if T <= rows else (rows - 2, 1)
+    cols = min(_WIDE_COLS, key=lambda n: (-(-Co // n) * n, -n))   # the wide tile that pads Co least
+    tiles = B * -(-S // p) * -(-T // tt) * (1 if path == "narrow" else -(-Co // cols))
+    nslab = -(-C // (64 // itemsize))
+    split = 1
+    while tiles * split < sm_count and split * 2 <= MAX_SPLIT and 2 * split * 2 <= nslab:
+        split *= 2
+    return path, split
+
+
+@functools.lru_cache(maxsize=None)
+def _device_sms(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sm_count(x):
+    """The SMs a launch plans for: x's device's, an H100's for a CPU tensor."""
+    if not x.is_cuda:
+        return H100_SMS
+    return _device_sms(x.device.index if x.device.index is not None else torch.cuda.current_device())
 
 
 def _acc_dtype(t):
@@ -109,7 +153,7 @@ def _library():
     lib = build.load("temporal_conv")
     if lib.selfc_temporal_conv3.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.selfc_temporal_conv3.argtypes = [P] * 5 + [I] * 6 + [ctypes.c_float, I, P]
+        lib.selfc_temporal_conv3.argtypes = [P] * 6 + [I] * 6 + [ctypes.c_float, I, I, I, P]
         lib.selfc_temporal_conv3.restype = I
         lib.selfc_temporal_conv3_cuda_error_string.argtypes = [I]
         lib.selfc_temporal_conv3_cuda_error_string.restype = ctypes.c_char_p
@@ -146,23 +190,30 @@ def _validate(x, w, b):
         _check("b", b, (w.shape[-1],), x)
 
 
-def _launch(x, w, b, negative_slope, want_mask):
-    """One launch of the kernel: ``(out, mask)``, the mask (``y >= 0``, bool)
-    only with ``want_mask``."""
+def _launch(x, w, b, negative_slope, want_mask, sm_count=None):
+    """One call of the kernel: ``(out, mask)``, the mask (``y >= 0``, bool)
+    only with ``want_mask``. The tile path and the K split are planned for
+    ``sm_count`` SMs (default: x's device; a CPU tensor plans for an H100),
+    and a split call gets its fp32 scratch here."""
     _validate(x, w, b)
     B, T, H, W, C = x.shape
     co = w.shape[-1]
     lib = _library()
+    path, split = plan(B, T, H * W, C, co, x.element_size(), sm_count or _sm_count(x))
     out = torch.empty((B, T, H, W, co), dtype=x.dtype, device=x.device)
     mask = torch.empty(out.shape, dtype=torch.bool, device=x.device) if want_mask else None
+    scratch = (torch.empty((split, B * T * H * W, co), dtype=torch.float32, device=x.device)
+               if split > 1 else None)
     err = lib.selfc_temporal_conv3(
         x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
-        None if mask is None else mask.data_ptr(), B, T, H * W, C, co,
-        int(negative_slope is not None), 0.0 if negative_slope is None else float(negative_slope),
-        _DTYPE_CODE[x.dtype], _stream(x))
+        None if mask is None else mask.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        B, T, H * W, C, co, int(negative_slope is not None),
+        0.0 if negative_slope is None else float(negative_slope), _DTYPE_CODE[x.dtype],
+        int(path == "wide"), split, _stream(x))
     if err != 0:
         raise RuntimeError(f"temporal conv kernel launch failed: "
                            f"{lib.selfc_temporal_conv3_cuda_error_string(err).decode()} ({err})")
+    _count((path, split), launches_by_path)
     return out, mask
 
 
@@ -170,20 +221,20 @@ def _count(key, by_width):
     by_width[key] = by_width.get(key, 0) + 1
 
 
-def _forward_cuda(x, w, b, negative_slope, want_mask):
+def _forward_cuda(x, w, b, negative_slope, want_mask, sm_count=None):
     global launches
-    res = _launch(x, w, b, negative_slope, want_mask)
+    res = _launch(x, w, b, negative_slope, want_mask, sm_count)
     launches += 1
     _count((x.shape[-1], w.shape[-1]), launches_by_width)
     return res
 
 
-def _data_grad_cuda(dy, w):
+def _data_grad_cuda(dy, w, sm_count=None):
     """dx for the output gradient ``dy`` (x's dtype): the kernel on ``dy``
     with the flipped weights, counted as a backward launch under the
     forward's (C, Co)."""
     global launches_bwd
-    dx, _ = _launch(dy, _flipped(w), None, None, False)
+    dx, _ = _launch(dy, _flipped(w), None, None, False, sm_count)
     launches_bwd += 1
     _count((w.shape[1], w.shape[-1]), launches_bwd_by_width)
     return dx

@@ -9,13 +9,17 @@ are ``std::thread``s (one set a launch, walking over the blocks in order) with
 thread-local ``threadIdx`` / ``blockIdx``,
 ``__syncthreads`` is a ``std::barrier``, and every
 ``kernel<T><<<grid, block, smem, stream>>>(args);`` is rewritten into a call of
-a launcher. The resulting library has the same C interface, so the port's own
-wrappers drive it on CPU tensors (``cpu_kernels()`` below) and their results
-can be held against the plain PyTorch versions.
+a launcher. Each warp's 32 threads also share a barrier of their own, through
+which ``csrc/tc_mma.cuh``'s warp-collective tensor-core products are executed
+from the lanes' fragments; its ``cvt.rna.tf32`` is emulated and ``cp.async``
+is a plain copy. The resulting library has the same C interface, so the port's
+own wrappers drive it on CPU tensors (``cpu_kernels()`` below) and their
+results can be held against the plain PyTorch versions.
 
 This proves arithmetic, indexing, edge masks and barrier placement. It proves
 nothing of what only the GPU's compiler and hardware decide: registers, shared
-memory size, alignment faults, launch limits, speed.
+memory size, alignment faults, launch limits, speed, and the mma fragment
+layouts (the stand-in takes them from the PTX ISA, as the kernels do).
 
     python3 -m selfc_tpu_torch.tools.cpu_rehearsal      # needs g++ with C++20
 """
@@ -23,6 +27,7 @@ memory size, alignment faults, launch limits, speed.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import re
 import shutil
@@ -63,6 +68,7 @@ struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(8) float2 { float x, y; };
 struct alignas(8) uint2 { unsigned x, y; };
 inline float4 make_float4(float a, float b, float c, float d) { return float4{a, b, c, d}; }
+inline float2 make_float2(float a, float b) { return float2{a, b}; }
 using std::min;
 using std::max;
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
@@ -79,33 +85,135 @@ inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fe
 inline thread_local dim3 threadIdx, blockIdx, gridDim;
 inline thread_local std::barrier<>* block_barrier;
 inline void __syncthreads() { block_barrier->arrive_and_wait(); }
+// a warp: its lanes meet at a barrier of their own, and exchange fragments
+// through two buffers used in turns (a lane can refill one only after every
+// lane has passed the barrier of the exchange that read the other)
+struct WarpExchange { uint32_t a[2][32][32]; uint32_t b[2][32][16]; };
+inline thread_local std::barrier<>* warp_barrier;
+inline thread_local WarpExchange* warp_x;
+inline thread_local int warp_turn;
 template <typename F>
 void cpu_launch(dim3 grid, dim3 block, F body) {
   // one set of threads walks over the blocks in order; every block has a
-  // barrier of its own, which a thread leaves for good when its body returns
-  // (so a thread that returned early does not hold the others), and a second
-  // barrier keeps any thread from starting the next block, whose "shared"
-  // arrays are the same static storage, before all have left this one
+  // barrier of its own (and one a warp), which a thread leaves for good when
+  // its body returns (so a thread that returned early does not hold the
+  // others), and a second barrier keeps any thread from starting the next
+  // block, whose "shared" arrays are the same static storage, before all
+  // have left this one
   const int nt = block.x * block.y * block.z;
+  const int nw = (nt + 31) / 32;
   const size_t n_blocks = (size_t)grid.x * grid.y * grid.z;
-  std::vector<std::unique_ptr<std::barrier<>>> bars;
-  for (size_t b = 0; b < n_blocks; ++b) bars.push_back(std::make_unique<std::barrier<>>(nt));
+  std::vector<std::unique_ptr<std::barrier<>>> bars, wbars;
+  for (size_t b = 0; b < n_blocks; ++b) {
+    bars.push_back(std::make_unique<std::barrier<>>(nt));
+    for (int w = 0; w < nw; ++w) wbars.push_back(std::make_unique<std::barrier<>>(std::min(32, nt - 32 * w)));
+  }
+  std::vector<WarpExchange> xs(nw);
   std::barrier<> block_done(nt);
   std::vector<std::thread> threads;
   for (int t = 0; t < nt; ++t)
     threads.emplace_back([&, t] {
       threadIdx = dim3(t, 0, 0);
       gridDim = grid;
+      warp_x = &xs[t / 32];
       for (size_t b = 0; b < n_blocks; ++b) {
         blockIdx = dim3(b % grid.x, (b / grid.x) % grid.y, b / ((size_t)grid.x * grid.y));
         block_barrier = bars[b].get();
+        warp_barrier = wbars[b * nw + t / 32].get();
+        warp_turn = 0;
         body();
         bars[b]->arrive_and_drop();
+        warp_barrier->arrive_and_drop();
         block_done.arrive_and_wait();
       }
     });
   for (auto& th : threads) th.join();
 }
+// csrc/tc_mma.cuh's primitives: tensor-core products executed
+// warp-collectively from the 32 lanes' fragments (the PTX ISA's m16n8k8 tf32
+// and m16n8k16 bf16 layouts; a TF32 operand is read as its 19 high bits, as
+// the hardware reads it, so an unsplit fp32 product keeps ~3 digits),
+// cvt.rna.tf32 by rounding the mantissa to 10 bits, ties away from zero, and
+// cp.async as a plain copy (commit and wait: no-ops)
+#define SELFC_CPU_STANDIN 1
+namespace tc {
+inline uint32_t tf32_rna(float v) {
+  uint32_t u;
+  std::memcpy(&u, &v, 4);
+  if ((u & 0x7f800000u) != 0x7f800000u) u = (u + 0x1000u) & ~0x1fffu;   // inf and nan as they are
+  return u;
+}
+inline float tf32_bits(uint32_t u) { u &= ~0x1fffu; float f; std::memcpy(&f, &u, 4); return f; }
+inline float bf16_bits(uint32_t u) { u <<= 16; float f; std::memcpy(&f, &u, 4); return f; }
+// this lane's four outputs (rows g, g+8; columns 2t, 2t+1) of each m16 x n8
+// tile, after every lane has put its fragments in the exchange
+template <int MT, int NT, typename FA, typename FB>
+void warp_product(float (&acc)[MT][NT][4], int k_len, FA a_at, FB b_at) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  for (int m = 0; m < MT; ++m)
+    for (int n = 0; n < NT; ++n)
+      for (int i = 0; i < 4; ++i) {
+        const int r = g + 8 * (i / 2), c = 2 * t + i % 2;
+        float s = acc[m][n][i];
+        for (int k = 0; k < k_len; ++k) s += a_at(m, r, k) * b_at(n, k, c);
+        acc[m][n][i] = s;
+      }
+}
+template <int MT, int NT>
+void warp_mma_3xtf32(float (&acc)[MT][NT][4], const uint32_t (&ah)[MT][4], const uint32_t (&al)[MT][4], const uint32_t (&bh)[NT][2],
+                     const uint32_t (&bl)[NT][2]) {
+  static_assert(8 * MT <= 32 && 4 * NT <= 16, "the exchange buffers");
+  const int lane = threadIdx.x % 32, turn = warp_turn;
+  warp_turn ^= 1;
+  uint32_t* A = warp_x->a[turn][lane];
+  uint32_t* B = warp_x->b[turn][lane];
+  for (int m = 0; m < MT; ++m)
+    for (int i = 0; i < 4; ++i) A[8 * m + i] = ah[m][i], A[8 * m + 4 + i] = al[m][i];
+  for (int n = 0; n < NT; ++n)
+    for (int i = 0; i < 2; ++i) B[4 * n + i] = bh[n][i], B[4 * n + 2 + i] = bl[n][i];
+  warp_barrier->arrive_and_wait();
+  const auto& XA = warp_x->a[turn];
+  const auto& XB = warp_x->b[turn];
+  // A (16 x 8): element (r, k) in lane (r % 8) * 4 + k % 4, register r / 8 + 2 (k / 4);
+  // B (8 x 8): element (k, c) in lane 4c + k % 4, register k / 4
+  for (int pass = 0; pass < 3; ++pass) {   // lo*hi, hi*lo, hi*hi, as on the card
+    const int pa = pass == 0, pb = pass == 1;
+    warp_product<MT, NT>(
+        acc, 8, [&](int m, int r, int k) { return tf32_bits(XA[(r % 8) * 4 + k % 4][8 * m + 4 * pa + r / 8 + 2 * (k / 4)]); },
+        [&](int n, int k, int c) { return tf32_bits(XB[4 * c + k % 4][4 * n + 2 * pb + k / 4]); });
+  }
+}
+template <int MT, int NT>
+void warp_mma_bf16(float (&acc)[MT][NT][4], const uint32_t (&a)[MT][4], const uint32_t (&b)[NT][2]) {
+  static_assert(4 * MT <= 32 && 2 * NT <= 16, "the exchange buffers");
+  const int lane = threadIdx.x % 32, turn = warp_turn;
+  warp_turn ^= 1;
+  uint32_t* A = warp_x->a[turn][lane];
+  uint32_t* B = warp_x->b[turn][lane];
+  for (int m = 0; m < MT; ++m)
+    for (int i = 0; i < 4; ++i) A[4 * m + i] = a[m][i];
+  for (int n = 0; n < NT; ++n)
+    for (int i = 0; i < 2; ++i) B[2 * n + i] = b[n][i];
+  warp_barrier->arrive_and_wait();
+  const auto& XA = warp_x->a[turn];
+  const auto& XB = warp_x->b[turn];
+  // A (16 x 16): element (r, k) in lane (r % 8) * 4 + (k % 8) / 2, register
+  // r / 8 + 2 (k / 8), half k % 2; B (16 x 8): element (k, c) in lane
+  // 4c + (k % 8) / 2, register k / 8, half k % 2
+  auto half = [](uint32_t u, int k) { return bf16_bits(k % 2 ? u >> 16 : u & 0xffffu); };
+  warp_product<MT, NT>(
+      acc, 16, [&](int m, int r, int k) { return half(XA[(r % 8) * 4 + (k % 8) / 2][4 * m + r / 8 + 2 * (k / 8)], k); },
+      [&](int n, int k, int c) { return half(XB[4 * c + (k % 8) / 2][2 * n + k / 8], k); });
+}
+template <int BYTES>
+inline void cp_async(void* dst, const void* src, int src_bytes) {
+  std::memcpy(dst, src, src_bytes);
+  std::memset(static_cast<char*>(dst) + src_bytes, 0, BYTES - src_bytes);
+}
+inline void cp_async_commit() {}
+template <int N>
+inline void cp_async_wait() {}
+}  // namespace tc
 """
 
 CUDA_BF16_H = r"""
@@ -149,25 +257,33 @@ def rewrite_launches(source: str) -> tuple[str, int]:
     return _LAUNCH.subn(repl, source)
 
 
-def build_cpu_library(name: str, out_dir: Path) -> Path:
-    """Compile ``csrc/<name>.cu`` for the CPU into ``out_dir``."""
+def build_cpu_libraries(names, out_dir: Path) -> dict[str, Path]:
+    """Compile ``csrc/<name>.cu`` for the CPU into ``out_dir``, one ``g++``
+    a source, side by side. Returns {name: library}."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: the CUDA sources cannot be rehearsed on the CPU")
     out_dir = Path(out_dir)
     (out_dir / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
     (out_dir / "cuda_bf16.h").write_text(CUDA_BF16_H)
-    text, n = rewrite_launches((build.CSRC_DIR / f"{name}.cu").read_text())
-    if n == 0:
-        raise RuntimeError(f"{name}.cu: no kernel launch found to rewrite")
-    cpp, lib = out_dir / f"{name}.cpp", out_dir / f"lib{name}_cpu.so"
-    cpp.write_text(text)
-    res = subprocess.run([gxx, "-std=c++20", "-O2", "-fPIC", "-shared", f"-I{out_dir}",
-                          f"-I{build.CSRC_DIR}", "-o", str(lib),
-                          str(cpp), "-lpthread"], capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"g++ failed for {name}:\n{res.stderr}")
-    return lib
+    procs = {}
+    for name in names:
+        text, n = rewrite_launches((build.CSRC_DIR / f"{name}.cu").read_text())
+        if n == 0:
+            raise RuntimeError(f"{name}.cu: no kernel launch found to rewrite")
+        cpp, lib = out_dir / f"{name}.cpp", out_dir / f"lib{name}_cpu.so"
+        cpp.write_text(text)
+        procs[name] = (lib, subprocess.Popen(
+            [gxx, "-std=c++20", "-O2", "-fPIC", "-shared", f"-I{out_dir}", f"-I{build.CSRC_DIR}", "-o", str(lib),
+             str(cpp), "-lpthread"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failures = []
+    for name, (lib, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"g++ failed for {name}:\n{err}")
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return {name: lib for name, (lib, _) in procs.items()}
 
 
 @contextlib.contextmanager
@@ -180,7 +296,7 @@ def cpu_kernels(out_dir: Path):
     tensors. The public wrappers still take their plain versions for a CPU
     tensor: call the launch functions directly."""
     names = build.kernel_names()
-    libs = {n: build_cpu_library(n, out_dir) for n in names}
+    libs = build_cpu_libraries(names, out_dir)
     streams = dc._stream, tc._stream, cv._stream
     dc._stream = tc._stream = cv._stream = lambda x: None
     try:
@@ -280,6 +396,17 @@ def rehearse_deform(cases=DEFORM_CASES, dtypes=(torch.float32, torch.bfloat16), 
 # (both neighbour taps in the padding), C and Co not multiples of the 16-channel
 # slab or the 64-column tile, over one tile each, and Co 3
 TEMPORAL_CASES = ((1, 3, 5, 7, 9, 5), (2, 1, 4, 3, 6, 3), (1, 4, 3, 23, 37, 70), (2, 3, 2, 9, 19, 3))
+# the tile paths, each forced through the SM count the plan is given (a count
+# above the tiles splits K): (B, T, H, W, C, Co, sm_count). Narrow at Co 3 and
+# 16, wide at 70, unsplit and split; an odd C (131, the D2DLT families'
+# conv5: 4-byte fp32 copies, 2-byte bf16); a ragged M (pixels that fill no
+# tile, T 7); T over the wide tile's 128 rows and over the narrow tile's 256
+# (runs of frames, with the frames beside them staged)
+TEMPORAL_PATH_CASES = {
+    "narrow": (1, 3, 5, 7, 40, 3, 1), "narrow16": (1, 3, 4, 7, 40, 16, 1), "wide": (1, 3, 5, 7, 40, 70, 1),
+    "narrow_split": (1, 3, 5, 7, 70, 3, 10**6), "wide_split": (2, 3, 4, 5, 70, 70, 10**6),
+    "odd_c": (1, 3, 3, 5, 131, 48, 10**6), "ragged_m": (1, 7, 5, 5, 19, 20, 1),
+    "t_over_wide_tile": (1, 131, 1, 2, 12, 20, 1), "t_over_narrow_tile": (1, 260, 1, 2, 12, 3, 1)}
 
 
 def rehearse_temporal_conv(cases=TEMPORAL_CASES, dtypes=(torch.float32, torch.bfloat16),
@@ -287,25 +414,30 @@ def rehearse_temporal_conv(cases=TEMPORAL_CASES, dtypes=(torch.float32, torch.bf
     """The temporal conv's kernel against its plain version, forward at each
     slope (with the mask it writes at slope 0) and the data-gradient launch
     (the kernel with the flipped weights, no bias); call inside
-    ``cpu_kernels()``. One record a case: the errors relative to max
-    |plain|, and whether the mask is the plain one."""
+    ``cpu_kernels()``. A case may end in the SM count the launches plan for
+    (default an H100's). One record a case: the errors relative to max
+    |plain|, whether the mask is the plain one, the forward's (path, split)
+    and whether it gives the same bits twice."""
     rng = np.random.default_rng(seed)
     out = []
     for dtype in dtypes:
-        for B, T, H, W, C, co in cases:
+        for B, T, H, W, C, co, *sms in cases:
+            sm = sms[0] if sms else None
             mk = lambda *s: torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(dtype)  # noqa: E731
             x, w, b, dy = mk(B, T, H, W, C), mk(3, C, co) * (3 * C) ** -0.5, mk(co) * 0.1, mk(B, T, H, W, co)
             rec = {"kernel": "temporal_conv", "dtype": str(dtype).split(".")[-1], "shape": [B, T, H, W],
-                   "C": C, "c_out": co}
+                   "C": C, "c_out": co,
+                   "path": list(tc.plan(B, T, H * W, C, co, x.element_size(), sm or tc.H100_SMS))}
             for ns in slopes:
-                got, mask = tc._forward_cuda(x, w, b, ns, ns is not None and ns <= 0)
+                got, mask = tc._forward_cuda(x, w, b, ns, ns is not None and ns <= 0, sm)
                 want, want_mask = tc._plain(x, w, b, ns)
                 rec[f"forward_slope_{ns}"] = rel_err(got, want)
                 if mask is not None:
                     # a mask bit may differ only where the two sums straddle 0
                     rec["mask_same"] = bool(torch.equal(mask, want_mask) or
                                             (want[mask != want_mask].float().abs().max() < 1e-5).item())
-            rec["dx"] = rel_err(tc._data_grad_cuda(dy, w), tc.temporal_conv3_fused_plain(dy, tc._flipped(w)))
+            rec["same_bits"] = torch.equal(got, tc._forward_cuda(x, w, b, ns, False, sm)[0])
+            rec["dx"] = rel_err(tc._data_grad_cuda(dy, w, sm), tc.temporal_conv3_fused_plain(dy, tc._flipped(w)))
             out.append(rec)
     return out
 
@@ -316,6 +448,9 @@ def rehearse_temporal_conv(cases=TEMPORAL_CASES, dtypes=(torch.float32, torch.bf
 HG_WIDTHS = ((3, 48, 32), (3, 12, 32), (5, 7, 13), (4, 12, 20))
 RIDE_WIDTHS = ((48, 3, 32), (12, 3, 32), (6, 6, 16), (5, 10, 13), (9, 3, 24))
 V3_WIDTHS = ((3, 64, 32), (64, 64, 32), (24, 24, 12), (3, 24, 12), (32, 3, 32), (5, 7, 20))
+# B8 where the earlier design refused (C + 3 gc > 526: its halo tile held every
+# input channel), at conv5's narrow 16-column tile
+V3_WIDE_C = ((440, 16, 32),)
 
 
 def rehearse_variants(shape=(2, 2, 9, 21), dtypes=(torch.float32, torch.bfloat16), hg_widths=HG_WIDTHS,
@@ -363,16 +498,58 @@ STRIPE_WIDTHS = ((3, 48, 32), (48, 3, 32), (64, 64, 32), (3, 64, 32), (12, 3, 32
                  (3, 24, 12), (24, 24, 12))
 
 
+TF32_SPLIT_CPP = r"""
+#include <cstring>
+#include "cuda_runtime.h"
+#include "tc_mma.cuh"
+extern "C" void tf32_split(const float* a, float* hi, float* lo, int n) {
+  for (int i = 0; i < n; ++i) {
+    uint32_t h, l;
+    tc::split_tf32(a[i], h, l);
+    std::memcpy(&hi[i], &h, 4);
+    std::memcpy(&lo[i], &l, 4);
+  }
+}
+"""
+
+
+def tf32_split(values, out_dir: Path):
+    """``(hi, lo)``: the 3xTF32 split of ``csrc/tc_mma.cuh`` (``split_tf32``)
+    of a float32 array, compiled by g++ with the stand-in ``cvt.rna.tf32``
+    into ``out_dir``."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the split cannot be compiled for the CPU")
+    out_dir = Path(out_dir)
+    (out_dir / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
+    (out_dir / "cuda_bf16.h").write_text(CUDA_BF16_H)
+    (out_dir / "tf32_split.cpp").write_text(TF32_SPLIT_CPP)
+    lib = out_dir / "libtf32_split.so"
+    res = subprocess.run([gxx, "-std=c++20", "-O2", "-fPIC", "-shared", f"-I{out_dir}", f"-I{build.CSRC_DIR}",
+                          "-o", str(lib), str(out_dir / "tf32_split.cpp"), "-lpthread"], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ failed for the split:\n{res.stderr}")
+    fn = ctypes.CDLL(str(lib)).tf32_split
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    a = np.ascontiguousarray(values, np.float32)
+    hi, lo = np.empty_like(a), np.empty_like(a)
+    fn(a.ctypes.data, hi.ctypes.data, lo.ctypes.data, a.size)
+    return hi, lo
+
+
 def main() -> int:
     with tempfile.TemporaryDirectory() as tmp, cpu_kernels(Path(tmp)), torch.no_grad():
-        records = rehearse() + rehearse_deform() + rehearse_temporal_conv() + rehearse_variants()
+        records = (rehearse() + rehearse_deform() + rehearse_temporal_conv()
+                   + rehearse_temporal_conv(tuple(TEMPORAL_PATH_CASES.values()))
+                   + rehearse_variants() + rehearse_variants((1, 2, 9, 16), hg_widths=(), ride_widths=(),
+                                                             v3_widths=V3_WIDE_C))
         for shape, stripe_w in STRIPE_CASES:
             records += rehearse(shape, STRIPE_WIDTHS, stripe_w=stripe_w)
     for rec in records:
         print(json.dumps(rec), flush=True)
         limit = 1e-5 if rec["dtype"] == "float32" else 3e-2
         bad = {k: v for k, v in rec.items() if isinstance(v, float) and not v <= limit}
-        for flag in ("dweight_same_bits", "mask_same"):
+        for flag in ("dweight_same_bits", "mask_same", "same_bits"):
             if rec.get(flag) is False:
                 bad[flag] = False
         if bad:

@@ -18,9 +18,20 @@ import statistics
 import numpy as np
 import torch
 
-# NVIDIA H100 SXM data sheet, dense rates
+# NVIDIA H100 SXM data sheet, dense rates: fp32 outside the tensor cores
+# (FMA), bf16 and TF32 on them
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_TF32 = 495e12
+# an fp32 product as three TF32 products (the 3xTF32 split of csrc/tc_mma.cuh:
+# B6 and B8): the tensor cores' TF32 rate over 3
+PEAK_3XTF32 = PEAK_TF32 / 3
 PEAK_BYTES_PER_S = 3.35e12
+
+
+def tc_peak(dtype):
+    """The peak of the tensor-core kernels (B6, B8) for ``dtype``: 3xTF32
+    for fp32, bf16's rate for bf16."""
+    return PEAK_3XTF32 if dtype == torch.float32 else PEAK_FLOPS[dtype]
 
 # every (C, c_out) the SelfC_GMM 4x net launches: coupling H/G, coupling F,
 # the prior's body, the prior's head
@@ -236,8 +247,10 @@ def temporal_conv_cost(M, C, Co, itemsize, T=None):
     return ops, float(nbytes)
 
 
-def temporal_conv_bound_ms(M, C, Co, dtype=torch.float32, T=None):
-    return bound_ms(*temporal_conv_cost(M, C, Co, _itemsize(dtype), T), dtype)
+def temporal_conv_bound_ms(M, C, Co, dtype=torch.float32, T=None, peak=None):
+    """``peak``: the operations' rate (default the FMA rate of ``dtype``;
+    B6 runs at ``tc_peak(dtype)``)."""
+    return bound_ms(*temporal_conv_cost(M, C, Co, _itemsize(dtype), T), dtype, peak)
 
 
 def make_temporal_conv(rng, shape, C, c_out, device, dtype=torch.float32):
@@ -250,10 +263,11 @@ def make_temporal_conv(rng, shape, C, c_out, device, dtype=torch.float32):
     return mk(shape + (C,)), mk((3, C, c_out), (3 * C) ** -0.5), mk((c_out,), 0.1), mk(shape + (c_out,))
 
 
-def bound_ms(ops, nbytes, dtype=torch.float32):
+def bound_ms(ops, nbytes, dtype=torch.float32, peak=None):
     """(bound_ms, 'operations' | 'bytes'): the least time the card could
-    take for this work."""
-    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    take for this work, the operations at ``peak`` FLOP/s (default the
+    data sheet's rate for ``dtype``: fp32 outside the tensor cores)."""
+    t_ops = ops / (peak or PEAK_FLOPS[dtype]) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -262,10 +276,11 @@ def _itemsize(dtype):
     return torch.empty((), dtype=dtype).element_size()
 
 
-def chain_bound_ms(B, T, H, W, C, c_out, n_aux, dtype=torch.float32, gc=32):
+def chain_bound_ms(B, T, H, W, C, c_out, n_aux, dtype=torch.float32, gc=32, peak=None):
     """The bound at the chain's true growth width: the kernels' pad lanes
-    are work the function does not need."""
-    return bound_ms(*chain_cost(B, T, H, W, C, c_out, n_aux, _itemsize(dtype), gc), dtype)
+    are work the function does not need. ``peak``: as ``bound_ms`` (B8 runs
+    at ``tc_peak(dtype)``)."""
+    return bound_ms(*chain_cost(B, T, H, W, C, c_out, n_aux, _itemsize(dtype), gc), dtype, peak)
 
 
 def chain_feats_bound_ms(B, T, H, W, C, dtype=torch.float32, gc=32):

@@ -51,9 +51,10 @@ def _errors(rec):
 
 def test_rewrite_finds_every_launch():
     from selfc_tpu_torch.kernels import build
-    # dense_chain: the spatial layer with and without the stripe masks, conv5 twice
+    # dense_chain: the spatial layer with and without the stripe masks, conv5
+    # twice; temporal_conv: the tile kernel and the split-K sum
     for name, n_launches in (("dense_chain", 4), ("dense_chain_bwd", 3), ("deform", 4),
-                             ("temporal_conv", 1)):
+                             ("temporal_conv", 2)):
         text, n = cpu_rehearsal.rewrite_launches((build.CSRC_DIR / f"{name}.cu").read_text())
         assert n == n_launches and "<<<" not in text
 
@@ -222,8 +223,42 @@ def test_temporal_conv_cpu_build_counts_forward_and_backward_apart(cpu_built):
     tc.reset_launch_counts()
     with torch.no_grad():
         cpu_rehearsal.rehearse_temporal_conv(((1, 3, 2, 2, 4, 5),), (torch.float32,), (None,))
-    assert (tc.launches, tc.launches_bwd) == (1, 1)
-    assert tc.launches_by_width == {(4, 5): 1} and tc.launches_bwd_by_width == {(4, 5): 1}
+    # the forward, its repeat (the same-bits check) and dx
+    assert (tc.launches, tc.launches_bwd) == (2, 1)
+    assert tc.launches_by_width == {(4, 5): 2} and tc.launches_bwd_by_width == {(4, 5): 1}
+    assert tc.launches_by_path == {("narrow", 1): 3}
+
+
+# the tile path and K split each forced case takes (the plan, for the SM count
+# the case gives)
+TEMPORAL_PATHS = {"narrow": ("narrow", 1), "narrow16": ("narrow", 1), "wide": ("wide", 1),
+                  "narrow_split": ("narrow", 2), "wide_split": ("wide", 2), "odd_c": ("wide", 4),
+                  "ragged_m": ("wide", 1), "t_over_wide_tile": ("wide", 1), "t_over_narrow_tile": ("narrow", 1)}
+
+
+@pytest.mark.parametrize("name", sorted(cpu_rehearsal.TEMPORAL_PATH_CASES))
+def test_temporal_conv_cuda_source_paths_fp32(cpu_built, name):
+    """Every tile path of csrc/temporal_conv.cu, forced through the SM count
+    the plan is given: the narrow tile (8 and 16 columns), the wide one, K
+    split in parts summed by the second launch, C = 131 (4-byte copies), a
+    ragged M, T over the tile's rows; forward at each slope (and the mask),
+    dx, and the same bits twice."""
+    tc.reset_launch_counts()
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse_temporal_conv((cpu_rehearsal.TEMPORAL_PATH_CASES[name],), (torch.float32,))
+    assert tuple(rec["path"]) == TEMPORAL_PATHS[name] and tuple(rec["path"]) in tc.launches_by_path
+    errs = _errors(rec)
+    assert set(errs) == {"forward_slope_None", "forward_slope_0.2", "forward_slope_0.0", "dx"}
+    assert all(v <= 1e-5 for v in errs.values()) and rec["mask_same"] and rec["same_bits"], rec
+
+
+@pytest.mark.parametrize("name", ["narrow16", "odd_c", "t_over_wide_tile"])
+def test_temporal_conv_cuda_source_paths_bf16(cpu_built, name):
+    """bf16 mma products; C = 131 copies 2 bytes at a time (a plain load and
+    store: cp.async copies 4, 8 or 16)."""
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse_temporal_conv((cpu_rehearsal.TEMPORAL_PATH_CASES[name],), (torch.bfloat16,))
+    assert all(v <= 3e-2 for v in _errors(rec).values()) and rec["mask_same"] and rec["same_bits"], rec
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +297,16 @@ def test_variant_cuda_sources_match_plain_fp32(cpu_built, kind):
         assert {"y2_rev_True", "se_rev_True"} <= set(_errors(recs[0]))
     if kind == "ride":
         assert {f"forward_{m}" for m in dc.EP_AUX} == set(_errors(recs[0]))
+
+
+def test_v3_cuda_source_over_the_old_tile_limit(cpu_built):
+    """B8 at C + 3 gc > 526, where the earlier design's halo tile of every input
+    channel did not fit: the tile now holds one 16-channel slab (32 bf16)."""
+    with torch.no_grad():
+        recs = cpu_rehearsal.rehearse_variants((1, 2, 9, 16), (torch.float32, torch.bfloat16), hg_widths=(),
+                                               ride_widths=(), v3_widths=cpu_rehearsal.V3_WIDE_C)
+    assert [(r["dtype"], r["C"] + 3 * r["gc"] > 526) for r in recs] == [("float32", True), ("bfloat16", True)]
+    assert recs[0]["forward"] <= 1e-5 and recs[1]["forward"] <= 3e-2, recs
 
 
 def test_variant_cuda_sources_match_plain_bf16(cpu_built):

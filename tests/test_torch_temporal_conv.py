@@ -139,7 +139,25 @@ def test_cpu_tensor_takes_the_plain_version_and_counts_nothing():
     leaves = [t.requires_grad_(True) for t in _torch(x, w, b)]
     tc.temporal_conv3_fused(*leaves, negative_slope=0.2).sum().backward()
     assert (tc.launches, tc.launches_bwd) == (0, 0)
-    assert tc.launches_by_width == {} and tc.launches_bwd_by_width == {}
+    assert tc.launches_by_width == {} and tc.launches_bwd_by_width == {} and tc.launches_by_path == {}
+
+
+def test_plan_picks_the_tile_from_co_and_splits_k_only_on_a_short_grid():
+    """The kernel's tile path and K split (csrc/temporal_conv.cu) for an
+    H100's 132 SMs at the nets' latents: the narrow tile to Co = 16, K split
+    while the tiles fill fewer SMs than the card has, in at most 8 parts of
+    two 16-channel slabs or more."""
+    fp32 = 4
+    assert tc.plan(1, 7, 144 * 176, 176, 3, fp32, 132) == ("narrow", 1)
+    assert tc.plan(1, 7, 144 * 176, 131, 48, fp32, 132) == ("wide", 1)
+    assert tc.plan(1, 7, 36 * 44, 1152, 48, fp32, 132) == ("wide", 2)   # 88 tiles
+    assert tc.plan(8, 7, 9 * 9, 1152, 48, fp32, 132) == ("wide", 4)     # 40 tiles
+    assert tc.plan(8, 7, 9 * 9, 432, 768, fp32, 132) == ("wide", 1)     # 40 x 16 column tiles
+    assert tc.plan(8, 7, 9 * 9, 1152, 48, fp32, 1) == ("wide", 1)
+    assert tc.plan(1, 1, 1, 1152, 48, fp32, 10**6) == ("wide", 8)
+    assert tc.plan(1, 1, 1, 40, 3, fp32, 10**6) == ("narrow", 1)        # 3 slabs
+    assert tc.plan(1, 1, 1, 64, 16, fp32, 10**6) == ("narrow", 2)       # 4 slabs
+    assert tc.plan(1, 1, 1, 64, 16, 2, 10**6) == ("narrow", 1)          # 2 bf16 slabs of 32
 
 
 def test_flipped_weights_give_the_data_gradient():
