@@ -75,6 +75,7 @@ BLOCK_NUM, STP_BLK_NUM = [4, 4], 6   # the full depth of the published model
 FP32_LIMIT = 1e-4                # different summation order of the same fp32 products
 BF16_REL_LIMIT = 3e-2            # relative to max |ref|: bf16 keeps 8 bits of mantissa
 HR_LIMIT = 1e-3                  # kernel path against plain path through 16 coupling blocks
+TC_PEAK = tc_peak(torch.float32)  # the fp32 chain kernels' products: 3xTF32 on the tensor cores
 REPLACES = "selfc_tpu/ops/pallas_chain.py:386"
 REPLACES_BWD = "selfc_tpu/ops/pallas_chain.py:2012"
 REPLACES_FEATS = "selfc_tpu/ops/pallas_chain.py:2106"
@@ -106,6 +107,7 @@ TRAIN_PARAM_LIMIT = 2.0 * 1e-4
 # coupling's 12->3 and 3->12 with every epilogue
 GC_CHECKS = tuple((C, c_out, gc, ("none",)) for gc in (12, 24) for C, c_out in ((3, 24), (24, 24))) + (
     (12, 3, 32, tuple(dc.EP_AUX)), (3, 12, 32, tuple(dc.EP_AUX)))
+NAN_FEATS_GC = (12, 24, 32)       # growth widths of the NaN-prefilled feats check
 CODEC_T = 13                     # frames of the synthetic UVG clip: 5 segments, 2 groups of 4
 # chain launches of one test() on that clip: 2 encode calls x 4 blocks x 3
 # chains; 2 decode calls x (4 blocks x 3 + the prior's 4 at growth 12)
@@ -483,13 +485,14 @@ def phase_timing(device, model, counts, worst):
         ms = time_cuda(lambda: dc.dense_chain_t_ep(x, ws, bs, w5, b5, "mul_add", 1.0, a, m))
         plain = time_cuda(lambda: dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, "mul_add", 1.0, a, m))
         library = time_cuda(lambda: library_chain(*lib_args))
-        bound, by = chain_bound_ms(*SERVE_SHAPE, C, c_out, 2)
+        bound, by = chain_bound_ms(*SERVE_SHAPE, C, c_out, 2, peak=TC_PEAK)
         kernels.append({
             "name": f"dense_chain_t_ep[{C}->{c_out}]", "route": "cuda",
             "source": "selfc_tpu_torch/csrc/dense_chain.cu", "replaces": REPLACES,
             "launches": counts["by_width"].get((C, c_out, 32), 0),
             "max_abs_err": err, "ms": ms["median"], "plain_ms": plain["median"],
             "bound_ms": bound, "bound_by": by, "library_ms": library["median"],
+            "bound_fma_ms": chain_bound_ms(*SERVE_SHAPE, C, c_out, 2)[0],
             "ms_min": ms["min"], "plain_ms_min": plain["min"], "library_ms_min": library["min"],
             "shape": list(SERVE_SHAPE) + [C], "mode": "mul_add",
         })
@@ -874,6 +877,45 @@ def phase_kernels_gc(device):
     return worst
 
 
+def phase_kernels_nan_feats(device):
+    """B1's and B3's feats buffers filled with NaN before the launch come
+    back finite in every lane, exactly 0 in every pad lane and equal to the
+    plain features in the real ones (B1's conv5 and B2 multiply the pad
+    lanes by zero weights: a NaN left there would reach their outputs), at
+    growth 12, 24 and 32 (16- and 32-lane segments), fp32 and bf16; B1's
+    output, written over NaN, agrees with its plain version."""
+    rng = np.random.default_rng(150)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for gc in NAN_FEATS_GC:
+            x, ws, bs, w5, b5, a, m = make_chain(rng, 3, 12, CHECK_SHAPE, device, dtype, gc)
+            gcp = dc.padded_gc(gc)
+            pad = (torch.arange(4 * gcp, device=device) % gcp) >= gc
+            want = dc.padded_width(dc.chain_feats_plain(x, ws, bs), gc, gcp).float()
+            want_out = dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, "mul_add", 0.8, a, m).float()
+            for entry in ("forward", "feats"):
+                feats = torch.full((*x.shape[:4], 4 * gcp), float("nan"), dtype=dtype, device=device)
+                out = torch.full(want_out.shape, float("nan"), dtype=dtype, device=device)
+                if entry == "forward":
+                    dc._launch_forward(x, ws, bs, w5, b5, "mul_add", 0.8, a, m, feats, out)
+                else:
+                    dc._launch_feats(x, ws, bs, feats)
+                torch.cuda.synchronize()
+                err = (feats.float() - want).abs().max().item()
+                limit = FP32_LIMIT if dtype == torch.float32 else BF16_REL_LIMIT * want.abs().max().item()
+                rec = {"dtype": str(dtype).split(".")[-1], "gc": gc, "entry": entry,
+                       "finite": bool(torch.isfinite(feats).all()), "pads_zero": bool((feats[..., pad] == 0).all()),
+                       "feats_max_abs_err": err}
+                ok = rec["finite"] and rec["pads_zero"] and err <= limit
+                if entry == "forward":
+                    rec["out_max_abs_err"] = (out.float() - want_out).abs().max().item()
+                    ok = ok and rec["out_max_abs_err"] <= (
+                        FP32_LIMIT if dtype == torch.float32 else BF16_REL_LIMIT * want_out.abs().max().item())
+                cases.append(rec)
+                check(ok, f"a feats buffer that held NaN comes back clean: {rec}")
+    emit("kernels_nan_feats", shape=CHECK_SHAPE, n_cases=len(cases), cases=cases)
+
+
 def codec_options(**network):
     """The network of the published selfc_tpu/configs/test/test_codec_uvg_bf.yml
     (random weights instead of its .pth), built here; ``network`` overrides
@@ -1047,13 +1089,14 @@ def phase_timing_codec(device, model, split, x_enc, lr_dec, test_s, peak_gib, wo
         ms = time_cuda(lambda: dc.dense_chain_t_ep(x, ws, bs, w5, b5, mode, 1.0, a, m), iters=10)
         plain = time_cuda(lambda: dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, mode, 1.0, a, m), iters=10)
         library = time_cuda(lambda: library_chain(*lib_args), iters=10)
-        bound, by = chain_bound_ms(*shape, C, c_out, dc.EP_AUX[mode], gc=gc)
+        bound, by = chain_bound_ms(*shape, C, c_out, dc.EP_AUX[mode], gc=gc, peak=TC_PEAK)
         kernels.append({
             "name": f"dense_chain_t_ep[{C}->{c_out},gc{gc}]@codec", "route": "cuda",
             "source": SOURCE, "replaces": REPLACES,
             "launches": sum(split[part].get((C, c_out, gc), 0) for part in split),
             "max_abs_err": err, "ms": ms["median"], "plain_ms": plain["median"],
             "bound_ms": bound, "bound_by": by, "library_ms": library["median"],
+            "bound_fma_ms": chain_bound_ms(*shape, C, c_out, dc.EP_AUX[mode], gc=gc)[0],
             "ms_min": ms["min"], "plain_ms_min": plain["min"], "library_ms_min": library["min"],
             "shape": list(shape) + [C], "gc": gc, "mode": mode})
         del args, x, ws, bs, w5, b5, a, m, lib_args
@@ -1405,13 +1448,14 @@ def phase_timing_codec_train(device, tree, batch, counts, worst, worst_gc, worst
         sb_ms = time_cuda(lambda: torch.autograd.grad(out, leaves, gout, retain_graph=True), iters=10)
         sb_plain = time_cuda(lambda: torch.autograd.grad(out_p, leaves, gout, retain_graph=True), iters=10)
         sb_lib = time_cuda(lambda: torch.autograd.grad(lout, l2, lg, retain_graph=True), iters=10)
-        bound, by = chain_feats_bound_ms(*shape, C)
+        bound, by = chain_feats_bound_ms(*shape, C, peak=TC_PEAK)
         bb, bby = chain_bwd_bound_ms(*shape, C, dx_in=False)
         common = {"route": "cuda", "replaces": REPLACES_SPATIAL, "shape": list(shape) + [C], "gc": 32}
         kernels.append({
             "name": f"fused_dense_spatial[{C}]@codec_train", "source": SOURCE,
             "launches": counts["spatial"].get((C, 32), 0), "max_abs_err": worst["spatial"][C],
             "ms": s_ms["median"], "plain_ms": s_plain["median"], "bound_ms": bound, "bound_by": by,
+            "bound_fma_ms": chain_feats_bound_ms(*shape, C)[0],
             "library_ms": s_lib["median"], "ms_min": s_ms["min"], "plain_ms_min": s_plain["min"],
             "library_ms_min": s_lib["min"], **common})
         kernels.append({
@@ -2128,12 +2172,12 @@ def chain_rows(device, tag, shape, stripe, fwd_widths, spatial_widths, counts, w
     ncdhw = lambda t: t.permute(0, 4, 1, 2, 3).contiguous()  # noqa: E731
     rows = []
 
-    def row(name, source, replaces, launches, err, ms, plain, library, bound, gc, C):
+    def row(name, source, replaces, launches, err, ms, plain, library, bound, gc, C, bound_fma=None):
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
                      "max_abs_err": err, "ms": ms["median"], "plain_ms": plain["median"], "bound_ms": bound[0],
                      "bound_by": bound[1], "library_ms": library["median"], "ms_min": ms["min"],
                      "plain_ms_min": plain["min"], "library_ms_min": library["min"], "shape": list(shape) + [C],
-                     "stripe_w": stripe, "gc": gc})
+                     "stripe_w": stripe, "gc": gc, **({} if bound_fma is None else {"bound_fma_ms": bound_fma})})
 
     for C, c_out, gc in fwd_widths:
         args = make_chain(rng, C, c_out, shape, device, gc=gc)
@@ -2151,7 +2195,8 @@ def chain_rows(device, tag, shape, stripe, fwd_widths, spatial_widths, counts, w
         library = time_cuda(lambda: library_chain(*lib_args), iters=10)
         row(f"dense_chain_t_ep[{C}->{c_out},gc{gc}]@{tag}", SOURCE, REPLACES,
             counts["forward_stripe"].get((C, c_out, gc, stripe), 0), max(err, worst["forward"][(C, c_out, gc)]), ms, plain,
-            library, chain_bound_ms(*lat, C, c_out, 2, gc=gc), gc, C)
+            library, chain_bound_ms(*lat, C, c_out, 2, gc=gc, peak=TC_PEAK), gc, C,
+            chain_bound_ms(*lat, C, c_out, 2, gc=gc)[0])
         del args, x, ws, bs, w5, b5, a, m, lib_args
     for C, gc in spatial_widths:
         x, ws, bs, *_ = make_chain(rng, C, 3, shape, device, gc=gc)
@@ -2172,7 +2217,7 @@ def chain_rows(device, tag, shape, stripe, fwd_widths, spatial_widths, counts, w
             f_lib = time_cuda(lambda: library_feats(lx, lws, lbs), iters=10)
         row(f"chain_feats[{C},gc{gc}]@{tag}", SOURCE, REPLACES_FEATS,
             counts["feats_stripe"].get((C, gc, stripe), 0), worst["feats"][(C, gc)], f_ms, f_plain, f_lib,
-            chain_feats_bound_ms(*lat, C, gc=gc), gc, C)
+            chain_feats_bound_ms(*lat, C, gc=gc, peak=TC_PEAK), gc, C, chain_feats_bound_ms(*lat, C, gc=gc)[0])
         b_ms = time_cuda(lambda: dc.chain_spatial_bwd(x, ws, bs, feats, g, None, stripe), iters=10)
         b_plain = time_cuda(lambda: dc.chain_spatial_bwd_plain(x, ws, bs, feats, g, None, stripe), iters=10)
         b_lib = time_cuda(lambda: torch.autograd.grad(lfeats, leaves, lg, retain_graph=True), iters=10)
@@ -2463,9 +2508,8 @@ def phase_timing_variants(device, serve, step, worst):
                           else (lambda: library_chain(*lib_args)))
                 b1_fn = lambda: dc._chain_cuda(x, ws, bs, w5, b5, mode, 1.0, aa, None)  # noqa: E731
                 n_aux = 1 if aa is not None else 0
-                # B8 runs its products as 3xTF32; B9 as B1, fp32 FMAs
-                peak = tc_peak(torch.float32) if kind == "v3" else None
-                bound, by = chain_bound_ms(*shape, C, c_out, n_aux, peak=peak)
+                # B8 and B9 run their products as 3xTF32, as B1 does
+                bound, by = chain_bound_ms(*shape, C, c_out, n_aux, peak=TC_PEAK)
                 bound_fma = chain_bound_ms(*shape, C, c_out, n_aux)[0]
                 name = f"dense_chain_{kind}[{C}->{c_out}]@{path}"
                 source, replaces = (SOURCE_RIDE, REPLACES_RIDE) if kind == "ride" else (SOURCE_V3, REPLACES_V3)
@@ -2513,6 +2557,7 @@ def main():
     with torch.no_grad():
         worst = phase_kernels(device)
         worst_gc = phase_kernels_gc(device)
+        phase_kernels_nan_feats(device)
         worst_bwd = phase_kernels_bwd(device)
         worst_deform = phase_kernels_deform(device)
     worst_gc_bwd = phase_kernels_gc_bwd(device)

@@ -214,11 +214,11 @@ int hg_forward(const void* x, const void* x2, const void* const* hp, const void*
     a.b[0] = (const T*)hp[4 + layer];
     a.b[1] = (const T*)gp[4 + layer];
     if (gc == GC_MAX)
-      spatial_layer_kernel<T, GC_MAX, true, false, 2><<<grid, 4 * GC_MAX, 0, stream>>>(a);
+      spatial_layer_kernel<T, GC_MAX, true, 2><<<grid, 4 * GC_MAX, 0, stream>>>(a);
     else if (gc <= 16)
-      spatial_layer_kernel<T, 16, false, false, 2><<<grid, 4 * 16, 0, stream>>>(a);
+      spatial_layer_kernel<T, 16, false, 2><<<grid, 4 * 16, 0, stream>>>(a);
     else
-      spatial_layer_kernel<T, GC_MAX, false, false, 2><<<grid, 4 * GC_MAX, 0, stream>>>(a);
+      spatial_layer_kernel<T, GC_MAX, false, 2><<<grid, 4 * GC_MAX, 0, stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -12,28 +12,31 @@
 // What the TPU kernel does: conv5's output (3 of 128 lanes for the coupling's
 // F chain) rides the spatial convs, each feature's temporal-tap products
 // added as it is produced, so there is no conv5 pass over the [x | x1..x4]
-// concat and x4 is never stored. Here: spatial launch k computes x_k as B1
-// does, then multiplies the x_k it just computed (and launch 1 also x) by
-// w5's three taps in registers, 3 * c_out <= 30 accumulators a pixel, from a
-// copy of the tile's x_k in shared memory, and adds them into an fp32 partial
-// buffer of three planes (3, frames, H*W, c_out): plane k holds each source
-// frame's product with w5[k]. A pixel at frame t contributes to out(t-1),
-// out(t) and out(t+1), which threads of neighbouring frames also produce; one
-// plane a tap makes every entry the work of one thread a launch, so no
-// atomics are needed and a step repeats bit for bit. A short last launch sums
-// out(t) = b5 + P0(t-1) + P1(t) + P2(t+1) and applies the epilogue. x4 is
-// never written (the feats buffer holds x1..x3).
+// concat and x4 is never stored. Here: spatial launch k computes x_k on the
+// tensor cores as B1 does (csrc/tc_chain.cuh), then forms the three taps of
+// x_k's products with w5 by a second mma product, [tile pixels x GCP] @
+// [GCP x 3*c_out] (N padded to 16 or 32), from a copy of the tile's x_k in
+// shared memory (launch 1 also adds x's products, from the center-tap
+// fragments of each x slab it stages anyway), and adds them into an fp32
+// partial buffer of three planes (3, frames, H*W, c_out): plane k holds each
+// source frame's product with w5[k]. A pixel at frame t contributes to
+// out(t-1), out(t) and out(t+1), which blocks of neighbouring frames also
+// produce; one plane a tap makes every entry the work of one lane a launch, so
+// no atomics are needed and a step repeats bit for bit. A short last launch
+// sums out(t) = b5 + P0(t-1) + P1(t) + P2(t+1) and applies the epilogue. x4
+// is never written (the feats buffer holds x1..x3).
 //
-// Bound: arithmetic, as B1. Plain fp32 FMAs, no tensor cores; bf16 widened
-// on load and rounded once on store. Any B, T, H, W, C; growth width 1..32.
+// Bound: operations, as B1. 3xTF32 mma for fp32, bf16 mma for bf16 (the ride
+// product takes x_k as it is stored). Any B, T, H, W, C; growth width 1..32;
+// c_out 1..10.
 //
 // Plain C interface (loaded with ctypes); the caller owns every buffer.
 
-#include "chain_common.cuh"
+#include "tc_chain.cuh"
 
 namespace {
 
-using namespace chain;
+using namespace tc;
 
 constexpr int NFIN = 256;  // threads of a finishing block
 
@@ -58,36 +61,47 @@ __global__ void __launch_bounds__(NFIN) ride_finish_kernel(const float* partial,
   }
 }
 
+template <typename T, int GCP, int NR>
+int ride_layers(ChainLayerArgs<T> s, const void* const* ws, const void* const* bs, int frames, cudaStream_t stream) {
+  for (int layer = 0; layer < 4; ++layer) {
+    s.layer = layer;
+    s.w = (const T*)ws[layer];
+    s.b = (const T*)bs[layer];
+    s.w_vec = rows_aligned16(ws[layer], (size_t)s.gc * sizeof(T));
+    s.write_feats = layer < 3;  // x4 only rides
+    const int err = launch_chain_layer<T, GCP, false, NR>(s, frames, stream);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
 template <typename T>
 int ride_forward(const void* x, const void* const* ws, const void* const* bs, const void* w5, const void* b5, const void* a, const void* m, void* feats, float* partial, void* out, int frames, int Tn, int H, int W, int C, int gc, int c_out, int mode, float clamp, cudaStream_t stream) {
-  if (gc < 1 || gc > GC_MAX || c_out < 1 || c_out > MAX_RIDE) return (int)cudaErrorInvalidValue;
-  SpatialArgs<T> s{};
+  if (gc < 1 || gc > GC_MAX || c_out < 1 || c_out > RIDE_MAX || frames < 1 || Tn < 1 || frames % Tn != 0 || H < 1 || W < 1 || C < 1)
+    return (int)cudaErrorInvalidValue;
+  const int gcp = padded_gc(gc);
+  ChainLayerArgs<T> s{};
   s.x = (const T*)x;
-  s.feats[0] = s.feats[1] = (T*)feats;
+  s.feats = (T*)feats;
   s.H = H;
   s.W = W;
   s.C = C;
   s.gc = gc;
+  s.fc = 3 * gcp;
+  s.f_vec = 1;   // 3*GCP lanes: every feats row is 16-byte aligned
+  s.x_vec = rows_aligned16(x, (size_t)C * sizeof(T));
   s.w5 = (const T*)w5;
   s.partial = partial;
   s.c_out = c_out;
   s.ctot = C + 4 * gc;
   s.frames = frames;
-  const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, frames);
-  for (int layer = 0; layer < 4; ++layer) {
-    s.layer = layer;
-    s.w[0] = s.w[1] = (const T*)ws[layer];
-    s.b[0] = s.b[1] = (const T*)bs[layer];
-    s.write_feats = layer < 3;  // x4 only rides
-    if (gc == GC_MAX)
-      spatial_layer_kernel<T, GC_MAX, true, true, 1><<<grid, 4 * GC_MAX, 0, stream>>>(s);
-    else if (gc <= 16)
-      spatial_layer_kernel<T, 16, false, true, 1><<<grid, 4 * 16, 0, stream>>>(s);
-    else
-      spatial_layer_kernel<T, GC_MAX, false, true, 1><<<grid, 4 * GC_MAX, 0, stream>>>(s);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
+  // the three taps of c_out columns, padded to 16 or 32
+  int err;
+  if (3 * c_out <= 16)
+    err = gcp == 16 ? ride_layers<T, 16, 16>(s, ws, bs, frames, stream) : ride_layers<T, GC_MAX, 16>(s, ws, bs, frames, stream);
+  else
+    err = gcp == 16 ? ride_layers<T, 16, 32>(s, ws, bs, frames, stream) : ride_layers<T, GC_MAX, 32>(s, ws, bs, frames, stream);
+  if (err != 0) return err;
   const size_t n = (size_t)frames * H * W * c_out;
   size_t blocks = (n + NFIN - 1) / NFIN;
   if (blocks > 65535u * 8u) blocks = 65535u * 8u;
@@ -114,8 +128,8 @@ extern "C" int selfc_chain_ride_forward(const void* x, const void* w1, const voi
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int selfc_chain_ride_padded_gc(int gc) { return chain::padded_gc(gc); }
+extern "C" int selfc_chain_ride_padded_gc(int gc) { return tc::padded_gc(gc); }
 
-extern "C" int selfc_chain_ride_max_c_out() { return chain::MAX_RIDE; }
+extern "C" int selfc_chain_ride_max_c_out() { return tc::RIDE_MAX; }
 
 extern "C" const char* selfc_ride_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -28,186 +28,31 @@
 // 3->64 2.360 (B1 1.335); train 64->64 3.914 (B1 1.564), 3->64 1.304 (B1
 // 0.930). It refused C + 3 gc > 526.
 //
-// This design (csrc/tc_mma.cuh): tensor-core products (3xTF32 for fp32, bf16
-// mma for bf16) with the staging overlapped with the math.
-//  - A spatial layer: a block owns 8 x 16 output pixels of one frame and all
-//    gc (padded to 16 or 32) output channels; 4 warps of two tile rows, one
-//    m16 fragment a row. K is walked as (slab of 16 fp32 / 32 bf16 input
-//    channels) x (9 taps): for each slab the block stages, by cp.async into
-//    a 2-stage ring, the 10 x 18 halo tile of those channels ([pixel][c],
-//    80-byte rows so the fragment loads meet 32 banks) and, beside it, that
-//    slab's 9 x 16 weight rows of the (3,3,Cin,gc) layout as they lie (no
-//    weight is remapped). A tap's A fragment is the halo tile shifted by
-//    (dy, dx) pixels, which mma.sync reads through registers. The tile no
-//    longer depends on Cin, so every C and gc is taken.
+// This design: tensor-core products (3xTF32 for fp32, bf16 mma for bf16)
+// with the staging overlapped with the math.
+//  - The spatial layers: B1's tensor-core layer (csrc/tc_chain.cuh) on a
+//    feats buffer at the true width, (frames, H, W, 4*gc): segment j at
+//    lanes gc*j, no pad lanes. A block owns 8 x 16 output pixels of one
+//    frame and all gc (padded to 16 or 32) output channels; K is walked as
+//    (slab of 16 fp32 / 32 bf16 input channels) x (9 taps), the halo tile
+//    and the slab's weight rows staged by a cp.async ring. The tile does not
+//    depend on Cin, so every C and gc is taken.
 //  - conv5: the temporal-conv block loop B6 runs (tc::tconv_block) over two
 //    sources, [x | feats], K = 3 (C + 4 gc); taps beyond the clip read a zero
 //    row.
-// The bias and LeakyReLU are applied on the accumulators; each layer's
-// output goes into feats at its true width, (frames, H, W, 4*gc).
 //
 // Plain C interface (loaded with ctypes); the caller owns every buffer.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
-
-#include "tc_mma.cuh"
+#include "tc_chain.cuh"
 
 namespace {
 
-constexpr int GC_MAX = 32;
-constexpr int TH = 8, TW = 16;         // output tile: 8 rows x 16 columns, one m16 fragment a row
-constexpr int HWD = TW + 2;            // halo tile width ...
-constexpr int NPIX = (TH + 2) * HWD;   // ... and pixels
-constexpr int THREADS = 128;           // 4 warps, two tile rows each
-constexpr int STAGES = 2;
-constexpr float SLOPE = 0.2f;
-
-template <int GCP>
-struct SpatialSmem {
-  static constexpr int SN = tc::b_stride(GCP);
-  static constexpr int A_BYTES = NPIX * tc::ROW_STRIDE;
-  static constexpr int STAGE_BYTES = (A_BYTES + 9 * tc::ROW_BYTES * SN + 127) / 128 * 128;
-  static constexpr int SMEM = STAGES * STAGE_BYTES;
-};
-
-template <typename T>
-struct SpatialArgs {
-  const T* x;      // (frames, H, W, C)
-  T* feats;        // (frames, H, W, 4*gc): reads lanes < gc*layer, writes gc*layer ..
-  const T* w;      // (3, 3, C + gc*layer, gc)
-  const T* b;      // (gc)
-  int H, W, C, gc, layer;
-  int w_vec;       // the weight rows allow 16-byte copies
-};
-
-// One spatial layer. grid = (ceil(W/16), ceil(H/8), frames), 128 threads.
-template <typename T, int GCP, int VA>
-__global__ void __launch_bounds__(THREADS) v3_spatial_kernel(SpatialArgs<T> p) {
-  extern __shared__ __align__(16) float dyn_smem[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(dyn_smem);
-  using SM = SpatialSmem<GCP>;
-  constexpr int BK = tc::Elem<T>::BK, NT = GCP / 8, MT = 2, SN = SM::SN, ES = (int)sizeof(T);
-  constexpr int CPR = tc::ROW_BYTES / VA;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int H = p.H, W = p.W, C = p.C, gc = p.gc;
-  const int fc = 4 * gc, cf = gc * p.layer;   // feats width; the feats channels this layer reads
-  const int cin = C + cf;
-  const int tx0 = blockIdx.x * TW, ty0 = blockIdx.y * TH;
-  const size_t frame = blockIdx.z;
-  const T* xf = p.x + frame * H * W * C;
-  T* ff = p.feats + frame * H * W * fc;
-  const int ns0 = (C + BK - 1) / BK;
-  const int nslab = ns0 + (cf + BK - 1) / BK;
-
-  auto stage = [&](int slab, int st) {
-    unsigned char* as = smem + st * SM::STAGE_BYTES;
-    unsigned char* bs = as + SM::A_BYTES;
-    const bool fs = slab >= ns0;
-    const int c0 = (fs ? slab - ns0 : slab) * BK;
-    const int ch = fs ? cf : C;   // channels of this source
-    const int stride = fs ? fc : C;
-    const T* src = fs ? ff : xf;
-    // the halo tile of channels c0 .. c0+BK-1, zero outside the image
-    for (int i = tid; i < NPIX * CPR; i += THREADS) {
-      const int pix = i / CPR, ci = i % CPR;
-      const int iy = ty0 - 1 + pix / HWD, ix = tx0 - 1 + pix % HWD;
-      const int cc = c0 + ci * (VA / ES);
-      const bool inside = iy >= 0 && iy < H && ix >= 0 && ix < W;
-      const int vb = inside ? max(0, min(VA, (ch - cc) * ES)) : 0;
-      const T* gp = src + ((size_t)iy * W + ix) * stride + cc;
-      tc::stage_copy<VA>(as + pix * tc::ROW_STRIDE + ci * VA, vb ? (const void*)gp : (const void*)src, vb);
-    }
-    // the slab's weight rows (tap, c0 + kk), every output channel
-    const int wrow0 = fs ? C : 0;
-    if (p.w_vec) {
-      constexpr int CPB = GCP * ES / 16;
-      for (int i = tid; i < 9 * BK * CPB; i += THREADS) {
-        const int row = i / CPB, n = (i % CPB) * (16 / ES);
-        const int tap = row / BK, kk = row % BK;
-        const int vb = c0 + kk < ch ? max(0, min(16, (gc - n) * ES)) : 0;
-        const T* gp = p.w + ((size_t)tap * cin + wrow0 + c0 + kk) * gc + n;
-        tc::cp_async<16>(bs + (row * SN + n) * ES, vb ? (const void*)gp : (const void*)p.w, vb);
-      }
-    } else {
-      for (int i = tid; i < 9 * BK * GCP; i += THREADS) {
-        const int row = i / GCP, n = i % GCP;
-        const int tap = row / BK, kk = row % BK;
-        const int vb = c0 + kk < ch && n < gc ? ES : 0;
-        const T* gp = p.w + ((size_t)tap * cin + wrow0 + c0 + kk) * gc + n;
-        tc::stage_copy<ES>(bs + (row * SN + n) * ES, vb ? (const void*)gp : (const void*)p.w, vb);
-      }
-    }
-  };
-
-  // rows g and g+8 of fragment m: tile row 2*warp + m, columns g and g+8
-  int a0[MT], a1[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    a0[m] = ((2 * warp + m) * HWD + g) * tc::ROW_WORDS;
-    a1[m] = a0[m] + 8 * tc::ROW_WORDS;
-  }
-  float acc[MT][NT][4], part[MT][NT][4];
-  tc::zero(acc);
-
-  stage(0, 0);
-  tc::cp_async_commit();
-  for (int slab = 0; slab < nslab; ++slab) {
-    tc::cp_async_wait<0>();
-    __syncthreads();   // this slab landed; every warp is done with the stage refilled below
-    if (slab + 1 < nslab) stage(slab + 1, (slab + 1) % STAGES);
-    tc::cp_async_commit();
-    const unsigned char* as = smem + (slab % STAGES) * SM::STAGE_BYTES;
-    const T* bs = reinterpret_cast<const T*>(as + SM::A_BYTES);
-    const uint32_t* aw = reinterpret_cast<const uint32_t*>(as);
-    tc::zero(part);
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int shift = ((tap / 3) * HWD + tap % 3) * tc::ROW_WORDS;
-      tc::slab_mma<T, MT, NT, SN>(part, aw + shift, a0, a1, bs + tap * BK * SN, 0, g, t);
-    }
-    tc::add_into(acc, part);
-  }
-
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    const int oy = ty0 + 2 * warp + m;
-    if (oy >= H) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int ox = tx0 + g + 8 * h;
-      if (ox >= W) continue;
-      T* o = ff + ((size_t)oy * W + ox) * fc + cf;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int co = 8 * n + 2 * t + e;
-          if (co >= gc) continue;
-          const float v = acc[m][n][2 * h + e] + tc::to_f(p.b[co]);
-          tc::from_f(v >= 0.f ? v : SLOPE * v, o + co);
-        }
-    }
-  }
-}
+constexpr int GC_MAX = tc::GC_MAX;
 
 template <typename T, class Tile, int VA>
 __global__ void __launch_bounds__(Tile::THREADS, 2) v3_conv5_kernel(tc::TconvArgs<T> p) {
   extern __shared__ __align__(16) float dyn_smem[];
   tc::tconv_block<T, Tile, VA>(p, reinterpret_cast<unsigned char*>(dyn_smem));
-}
-
-template <typename T, int GCP, int VA>
-int spatial_at(const SpatialArgs<T>& p, int frames, cudaStream_t stream) {
-  constexpr int smem = SpatialSmem<GCP>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(v3_spatial_kernel<T, GCP, VA>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.W + TW - 1) / TW, (p.H + TH - 1) / TH, frames);
-  v3_spatial_kernel<T, GCP, VA><<<grid, THREADS, smem, stream>>>(p);
-  return (int)cudaGetLastError();
 }
 
 template <typename T, class Tile, int VA>
@@ -227,10 +72,21 @@ int conv5_at(tc::TconvArgs<T> p, cudaStream_t stream) {
 template <typename T, int VA>
 int v3_forward_va(const void* x, const void* const* ws, const void* const* bs, const void* w5, const void* b5, void* feats, void* out,
                   int frames, int Tn, int H, int W, int C, int gc, int c_out, cudaStream_t stream) {
+  tc::ChainLayerArgs<T> a{};
+  a.x = (const T*)x;
+  a.feats = (T*)feats;
+  a.H = H, a.W = W, a.C = C, a.gc = gc;
+  a.fc = 4 * gc;   // the true width
+  a.write_feats = 1;
+  a.x_vec = tc::rows_aligned16(x, (size_t)C * sizeof(T));
+  a.f_vec = tc::rows_aligned16(feats, (size_t)4 * gc * sizeof(T));
   for (int layer = 0; layer < 4; ++layer) {
-    SpatialArgs<T> p{(const T*)x, (T*)feats, (const T*)ws[layer], (const T*)bs[layer], H, W, C, gc, layer,
-                     tc::rows_aligned16(ws[layer], (size_t)gc * sizeof(T))};
-    const int err = gc <= 16 ? spatial_at<T, 16, VA>(p, frames, stream) : spatial_at<T, GC_MAX, VA>(p, frames, stream);
+    a.layer = layer;
+    a.w = (const T*)ws[layer];
+    a.b = (const T*)bs[layer];
+    a.w_vec = tc::rows_aligned16(ws[layer], (size_t)gc * sizeof(T));
+    const int err = gc <= 16 ? tc::launch_chain_layer<T, 16, false, 0, true>(a, frames, stream)
+                             : tc::launch_chain_layer<T, GC_MAX, false, 0, true>(a, frames, stream);
     if (err != 0) return err;
   }
   tc::TconvArgs<T> p{};
@@ -254,8 +110,8 @@ int v3_forward(const void* x, const void* const* ws, const void* const* bs, cons
                int frames, int Tn, int H, int W, int C, int gc, int c_out, cudaStream_t stream) {
   if (gc < 1 || gc > GC_MAX || frames < 1 || Tn < 1 || frames % Tn != 0 || H < 1 || W < 1 || C < 1 || c_out < 1)
     return (int)cudaErrorInvalidValue;
-  // 16-byte copies where every row of x and of feats allows them, else one
-  // element a copy
+  // conv5's copies: 16 bytes where every row of x and of feats allows them,
+  // else one element a copy
   if (tc::rows_aligned16(x, (size_t)C * sizeof(T)) && tc::rows_aligned16(feats, (size_t)4 * gc * sizeof(T)))
     return v3_forward_va<T, 16>(x, ws, bs, w5, b5, feats, out, frames, Tn, H, W, C, gc, c_out, stream);
   return v3_forward_va<T, (int)sizeof(T)>(x, ws, bs, w5, b5, feats, out, frames, Tn, H, W, C, gc, c_out, stream);

@@ -1,7 +1,9 @@
 // Tensor-core machinery the redesigned kernels share: csrc/temporal_conv.cu
-// (B6) and csrc/chain_v3.cu (B8). Both are products whose contraction walks
-// shifted taps of a staged tile: B6 and B8's conv5 the three frames of a
-// temporal conv, B8's spatial layers the nine pixels of a 3x3 conv.
+// (B6), csrc/chain_v3.cu (B8) and, through csrc/tc_chain.cuh,
+// csrc/dense_chain.cu (B1, B3) and csrc/chain_ride.cu (B9). All are products
+// whose contraction walks shifted taps of a staged tile: the conv5 of B6, B8
+// and B1 the three frames of a temporal conv, the spatial layers the nine
+// pixels of a 3x3 conv.
 //
 // Products: mma.sync on the tensor cores, fp32 accumulation.
 //  - fp32 operands take the 3xTF32 split (CUTLASS's fast-fp32 path): each
@@ -26,11 +28,13 @@
 // and in bf16 a plain 2-byte load and store (cp.async copies 4, 8 or 16
 // bytes). A copy fetches only its valid bytes and zero-fills the rest.
 //
-// The temporal-conv block loop (tconv_block) serves B6 and B8's conv5: a
-// block owns P pixels x TT frames of one clip (frames fastest, so a tap is a
-// shift by one row of the staged tile) and walks K in slabs of 64 bytes of
-// channels (16 fp32, 32 bf16) of one or two sources; each staged slab feeds
-// all three taps, so x is read from device memory once a block.
+// The temporal-conv block loop (tconv_block) serves B6 and the conv5 of B8
+// and B1: a block owns P pixels x TT frames of one clip (frames fastest, so a
+// tap is a shift by one row of the staged tile) and walks K in slabs of 64
+// bytes of channels (16 fp32, 32 bf16) of one or two sources; each staged
+// slab feeds all three taps, so x is read from device memory once a block.
+// B1's conv5 (CHAIN) reads its second source in the padded feats layout and
+// applies the coupling epilogue on the fp32 accumulators.
 //
 // On the CPU (tools/cpu_rehearsal.py) the primitives below the
 // SELFC_CPU_STANDIN guard come from the rehearsal's stand-in header: the
@@ -127,6 +131,29 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void from_f(float v, float* dst) { *dst = v; }
 __device__ __forceinline__ void from_f(float v, __nv_bfloat16* dst) { *dst = __float2bfloat16(v); }
+
+// The coupling epilogues of the dense chain (ops/dense_chain.py:EP_AUX),
+// applied to conv5's fp32 output y with a and m read as fp32.
+enum EpMode { EP_NONE = 0, EP_ADD = 1, EP_SUB_FROM = 2, EP_SIG_EXP = 3, EP_SIG_EXP_NEG = 4, EP_MUL_ADD = 5, EP_SUB_MUL = 6 };
+
+__device__ __forceinline__ float ep_apply(float y, int mode, float clamp, float a, float m) {
+  switch (mode) {
+    case EP_ADD:
+      return a + y;
+    case EP_SUB_FROM:
+      return a - y;
+    case EP_SIG_EXP:
+      return expf(clamp * (2.f / (1.f + expf(-y)) - 1.f));
+    case EP_SIG_EXP_NEG:
+      return expf(-clamp * (2.f / (1.f + expf(-y)) - 1.f));
+    case EP_MUL_ADD:
+      return a * m + y;
+    case EP_SUB_MUL:
+      return (a - y) * m;
+    default:
+      return y;
+  }
+}
 
 // Copy VB bytes to shared memory, of which `valid` are read from src (the
 // rest zero); VB = 2 is a plain load and store (bf16 rows of an odd width).
@@ -280,6 +307,15 @@ struct TconvArgs {
   int act;           // LeakyReLU of negative slope `slope`
   float slope;
   int w_vec;         // the weight rows allow 16-byte copies
+  // B1's conv5 (tconv_block's CHAIN): src[1] is a feats buffer whose lane
+  // seg_gcp*j + l holds the chain's channel seg_gc*j + l (l < seg_gc; the
+  // lanes above are pads and meet zero rows); the epilogue ep_mode with a
+  // and m (as out, or null) follows the bias
+  int seg_gcp, seg_gc;
+  const T* ep_a;
+  const T* ep_m;
+  int ep_mode;
+  float ep_clamp;
 };
 
 // Warps WM x WN, each MT m16 x NT n8 fragments: BM x BN outputs a block.
@@ -335,16 +371,39 @@ __device__ __forceinline__ void store_pair(T* dst, const float (&v)[2], bool pai
 
 // Stages K slab `slab` of a block's tile into ring stage `st`: the A rows
 // q = p*NF + j (pixel p, frame t0 - halo + j) that lie in the clip, by
-// copies of VA bytes (this thread: copy tid % CPR of every RSTEP-th row),
-// and the slab's weight rows of the three taps, columns n0 .. n0+BN.
-template <typename T, class Tile, int VA>
+// copies of VA bytes (CHAIN: the feats source's by 16; this thread: copy
+// tid % CPR of every RSTEP-th row), and the slab's weight rows of the three
+// taps, columns n0 .. n0+BN.
+template <typename T, class Tile, int VA, bool CHAIN>
 struct TconvStager {
-  static constexpr int BK = Elem<T>::BK, CPR = ROW_BYTES / VA, RSTEP = Tile::THREADS / CPR, ES = (int)sizeof(T);
+  static constexpr int BK = Elem<T>::BK, ES = (int)sizeof(T);
   const TconvArgs<T>& p;
   unsigned char* smem;
   int tid, t0, halo, NF, pv, P;
   size_t row_base;   // row of (clip b, frame 0, pixel s0)
   int n0, ns0, ctot;
+
+  template <int VB>
+  __device__ __forceinline__ void stage_a(unsigned char* as, const T* src, int ch, int c0) const {
+    constexpr int CPR = ROW_BYTES / VB, RSTEP = Tile::THREADS / CPR;
+    const int ci = tid % CPR;
+    const int cc = c0 + ci * (VB / ES);   // first channel of this thread's copies
+    const int valid_bytes = max(0, min(VB, (ch - cc) * ES));
+    const int nrows = P * NF, Tl = p.Tlen, S = p.S;
+    const int dp = RSTEP / NF, dj = RSTEP % NF;   // a step of RSTEP rows in (pixel, frame)
+    int q = tid / CPR;
+    int pp = q / NF, j = q % NF;
+    for (; q < nrows; q += RSTEP) {
+      const int f = t0 - halo + j;
+      if (pp < pv && f >= 0 && f < Tl) {
+        const T* gp = src + (row_base + (size_t)f * S + pp) * ch + cc;
+        stage_copy<VB>(as + q * ROW_STRIDE + ci * VB, valid_bytes ? (const void*)gp : (const void*)src, valid_bytes);
+      }
+      pp += dp;
+      j += dj;
+      if (j >= NF) j -= NF, ++pp;
+    }
+  }
 
   __device__ __forceinline__ void operator()(int slab, int st) const {
     unsigned char* as = smem + st * Tile::STAGE_BYTES;
@@ -355,48 +414,51 @@ struct TconvStager {
     const int c0 = (second ? slab - ns0 : slab) * BK;
     const int ch = second ? p.ch[1] : p.ch[0];
     const T* src = second ? p.src[1] : p.src[0];
-    const int ci = tid % CPR;
-    const int cc = c0 + ci * (VA / ES);   // first channel of this thread's copies
-    const int valid_bytes = max(0, min(VA, (ch - cc) * ES));
-    const int nrows = P * NF, Tl = p.Tlen, S = p.S;
-    const int dp = RSTEP / NF, dj = RSTEP % NF;   // a step of RSTEP rows in (pixel, frame)
-    int q = tid / CPR;
-    int pp = q / NF, j = q % NF;
-    for (; q < nrows; q += RSTEP) {
-      const int f = t0 - halo + j;
-      if (pp < pv && f >= 0 && f < Tl) {
-        const T* gp = src + (row_base + (size_t)f * S + pp) * ch + cc;
-        stage_copy<VA>(as + q * ROW_STRIDE + ci * VA, valid_bytes ? (const void*)gp : (const void*)src, valid_bytes);
-      }
-      pp += dp;
-      j += dj;
-      if (j >= NF) j -= NF, ++pp;
+    if constexpr (CHAIN && VA != 16) {
+      if (second)
+        stage_a<16>(as, src, ch, c0);
+      else
+        stage_a<VA>(as, src, ch, c0);
+    } else {
+      stage_a<VA>(as, src, ch, c0);
     }
     const int wrow0 = second ? p.ch[0] : 0, Co = p.Co;
+    // the weight row of staged channel c0 + kk, or -1 (beyond the source, or
+    // CHAIN's pad lane)
+    auto wrow = [&](int kk) {
+      const int c = c0 + kk;
+      if (c >= ch) return -1;
+      if (CHAIN && second) {
+        const int l = c % p.seg_gcp;
+        return l < p.seg_gc ? wrow0 + p.seg_gc * (c / p.seg_gcp) + l : -1;
+      }
+      return wrow0 + c;
+    };
     if (p.w_vec) {
       constexpr int CPB = Tile::BN * ES / 16;   // 16-byte copies a weight row
       for (int i = tid; i < 3 * BK * CPB; i += Tile::THREADS) {
         const int row = i / CPB, cj = i % CPB;
-        const int tap = row / BK, kk = row % BK;
+        const int tap = row / BK, r = wrow(row % BK);
         const int n = n0 + cj * (16 / ES);
-        const int vb = c0 + kk < ch ? max(0, min(16, (Co - n) * ES)) : 0;
-        const T* gp = p.w + ((size_t)tap * ctot + wrow0 + c0 + kk) * Co + n;
+        const int vb = r >= 0 ? max(0, min(16, (Co - n) * ES)) : 0;
+        const T* gp = p.w + ((size_t)tap * ctot + max(r, 0)) * Co + n;
         cp_async<16>(bs + (row * Tile::SN + cj * (16 / ES)) * ES, vb ? (const void*)gp : (const void*)p.w, vb);
       }
     } else {
       for (int i = tid; i < 3 * BK * Tile::BN; i += Tile::THREADS) {
         const int row = i / Tile::BN, nn = i % Tile::BN;
-        const int tap = row / BK, kk = row % BK;
+        const int tap = row / BK, r = wrow(row % BK);
         const int n = n0 + nn;
-        const int vb = c0 + kk < ch && n < Co ? ES : 0;
-        const T* gp = p.w + ((size_t)tap * ctot + wrow0 + c0 + kk) * Co + n;
+        const int vb = r >= 0 && n < Co ? ES : 0;
+        const T* gp = p.w + ((size_t)tap * ctot + max(r, 0)) * Co + n;
         stage_copy<ES>(bs + (row * Tile::SN + nn) * ES, vb ? (const void*)gp : (const void*)p.w, vb);
       }
     }
   }
 };
 
-template <typename T, class Tile, int VA>
+// CHAIN: B1's conv5 (the feats remap and the coupling epilogue of TconvArgs).
+template <typename T, class Tile, int VA, bool CHAIN = false>
 __device__ __forceinline__ void tconv_block(const TconvArgs<T>& p, unsigned char* smem) {
   constexpr int MT = Tile::MT, NT = Tile::NT, SN = Tile::SN, BK = Elem<T>::BK;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -415,7 +477,8 @@ __device__ __forceinline__ void tconv_block(const TconvArgs<T>& p, unsigned char
   const int s0 = ts * P, t0 = tt_i * TT, n0 = tn * Tile::BN;
   const int NF = TT + 2 * halo;   // staged frames a pixel: rows p*NF + j hold frame t0 - halo + j
   const int pv = min(P, S - s0), tv = min(TT, Tl - t0);
-  const int ctot = p.ch[0] + p.ch[1];
+  // rows of one tap of w: CHAIN's feats source has seg_gc real lanes a segment
+  const int ctot = p.ch[0] + (CHAIN ? p.ch[1] / p.seg_gcp * p.seg_gc : p.ch[1]);
 
   // K slabs: the first source's, then the second's; this block's share
   const int ns0 = (p.ch[0] + BK - 1) / BK;
@@ -446,7 +509,7 @@ __device__ __forceinline__ void tconv_block(const TconvArgs<T>& p, unsigned char
   for (int i = tid; i < Tile::STAGES * (ROW_BYTES / 4); i += Tile::THREADS)
     reinterpret_cast<uint32_t*>(smem + (i / (ROW_BYTES / 4)) * Tile::STAGE_BYTES + Tile::BM * ROW_STRIDE)[i % (ROW_BYTES / 4)] = 0u;
 
-  const TconvStager<T, Tile, VA> stage{p, smem, tid, t0, halo, NF, pv, P, (size_t)b * Tl * S + s0, n0, ns0, ctot};
+  const TconvStager<T, Tile, VA, CHAIN> stage{p, smem, tid, t0, halo, NF, pv, P, (size_t)b * Tl * S + s0, n0, ns0, ctot};
   float acc[MT][NT][4], part[MT][NT][4];
   zero(acc);
 
@@ -494,6 +557,10 @@ __device__ __forceinline__ void tconv_block(const TconvArgs<T>& p, unsigned char
         for (int e = 0; e < 2; ++e) {
           if (e && !pair) break;
           if (p.bias) v[e] += to_f(p.bias[col + e]);
+          if constexpr (CHAIN) {
+            v[e] = ep_apply(v[e], p.ep_mode, p.ep_clamp, p.ep_a ? to_f(p.ep_a[o + e]) : 0.f, p.ep_m ? to_f(p.ep_m[o + e]) : 0.f);
+            continue;
+          }
           if (p.mask) p.mask[o + e] = v[e] >= 0.f ? 1 : 0;
           if (p.act && !(v[e] >= 0.f)) v[e] *= p.slope;
         }

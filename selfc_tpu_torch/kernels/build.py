@@ -99,13 +99,20 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def use_library(name: str, path=None) -> None:
-    """Make ``load(name)`` return the library at ``path`` instead of the one
-    built from ``csrc/<name>.cu`` (for timing a variant of a source);
-    ``path=None`` goes back to the one built from ``csrc/``."""
+    """Make ``load(name)`` return the library at ``path`` (or a
+    ``ctypes.CDLL`` already loaded) instead of the one built from
+    ``csrc/<name>.cu`` (for timing a variant of a source); ``path=None``
+    goes back to the one built from ``csrc/``."""
     if path is None:
         _loaded.pop(name, None)
     else:
-        _loaded[name] = ctypes.CDLL(str(path))
+        _loaded[name] = path if isinstance(path, ctypes.CDLL) else ctypes.CDLL(str(path))
+
+
+def in_use(name: str):
+    """The library ``load(name)`` returns now, or None where it would build
+    ``csrc/<name>.cu`` first."""
+    return _loaded.get(name)
 
 
 def build_log(name: str) -> str:

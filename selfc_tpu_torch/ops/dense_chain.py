@@ -22,22 +22,24 @@ the concat ``[x_1 | .. | x_4]`` of shape ``(B,T,H,W,4gc)``.
 On a CUDA tensor the work is done by the hand-written kernels of
 ``csrc/dense_chain.cu`` (forward, spatial-only forward) and
 ``csrc/dense_chain_bwd.cu`` (adjoint). The chain is bound by arithmetic on
-the card, not by bytes (a 64->64 chain does ~331k fp32 operations for each
-pixel and moves under 1 KB of it), so the kernels trade device memory for
+the card, not by bytes (a 64->64 chain does ~331k operations for each pixel
+and moves under 1 KB of it), so the kernels trade device memory for
 arithmetic: five launches write x_1..x_4 into channel slices of one
 preallocated ``(B,T,H,W,4*GCP)`` buffer (the concat is never assembled and
-no halo is recomputed), each thread keeps an 8x8 register tile of plain fp32
-FMAs fed from a 16-channel slab in shared memory, and the epilogue is
-applied where conv5's accumulator lives. ``GCP = padded_gc(gc)`` is gc
+no halo is recomputed). The forward's products run on the tensor cores
+(``csrc/tc_chain.cuh``, ``csrc/tc_mma.cuh``): 3xTF32 for fp32, which keeps
+fp32 accuracy, bf16 mma for bf16, sums in fp32, on 8 x 16-pixel spatial
+tiles; the epilogue is applied where conv5's accumulator lives.
+``GCP = padded_gc(gc)`` is gc
 rounded up to 16 or 32: every kernel takes any gc in 1..32 and remaps the
 weights while staging them (a growth segment's pad lanes meet zero
 weights), without a padded weight copy. The adjoint keeps the same layout:
 the running gradient is an fp32 ``dx (…,C)`` / ``dfeats (…,4*GCP)`` pair in
 device memory, swept k = 4..1 by one data-gradient and one weight-gradient
 launch a layer, the latter reduced over blocks in a fixed order (the same
-bits on every run); dW and db come out at the true gc. No tensor cores and
-no TF32: fp32 stays fp32; bf16 tensors are widened on load and rounded once
-on store.
+bits on every run); dW and db come out at the true gc. The adjoint runs
+plain fp32 FMAs (no tensor cores, no TF32); bf16 tensors are widened on load
+and rounded once on store.
 
 Feature layouts: a feats tensor holds its four growth segments side by side,
 ``P >= gc`` lanes each with the first gc real. The plain versions write
@@ -51,9 +53,10 @@ tensor, the plain PyTorch versions below on a CPU tensor, and only there.
 
 W-packing (JAX ``_pick_pack_w`` / ``_pack_w`` / ``stripe_w``): a batch of
 narrow images is laid side by side along W, ``(B,T,H,W,C) ->
-(B/P,T,H,P*W,C)``, so that the kernels' 16x16 tiles cover fewer pad
-columns (3x9 tiles over 48x144 for four 36x36 images, 75 % full, against
-3x3 over 48x48 each, 56 %). B1, B3 and B2 then take ``stripe_w = W`` and mask
+(B/P,T,H,P*W,C)``, so that the kernels' tiles cover fewer pad columns
+(the adjoint's 16x16 tiles: 3x9 over 48x144 for four 36x36 images, 75 %
+full, against 3x3 over 48x48 each, 56 %; the forward's 8 x 16 tiles 90 %
+full against 68 %). B1, B3 and B2 then take ``stripe_w = W`` and mask
 every 3x3 tap that would cross from one image into the next; conv5 and the
 epilogues are temporal and pointwise and need nothing. ``dense_chain_t_ep``
 takes inputs that arrive packed (``stripe``, the coupling chain packs once,
@@ -405,11 +408,22 @@ def _chain_cuda(x, ws, bs, w5, b5, mode, clamp, a, m, stripe_w=0):
     _validate(x, ws, bs, w5, b5, mode, a, m, stripe_w)
     B, T, H, W, C = x.shape
     c_out, gc = w5.shape[-1], ws[0].shape[-1]
+    feats = torch.empty((B, T, H, W, 4 * padded_gc(gc)), dtype=x.dtype, device=x.device)
+    out = torch.empty((B, T, H, W, c_out), dtype=x.dtype, device=x.device)
+    _launch_forward(x, ws, bs, w5, b5, mode, clamp, a, m, feats, out, stripe_w)
+    launches += 1
+    _count((C, c_out, gc), launches_by_width)
+    _count((C, c_out, gc, int(stripe_w)), launches_by_stripe)
+    return out, feats
+
+
+def _launch_forward(x, ws, bs, w5, b5, mode, clamp, a, m, feats, out, stripe_w=0):
+    """The forward kernels into the buffers ``feats`` and ``out`` (whatever
+    they held: every lane is written), uncounted; the caller validated."""
+    B, T, H, W, C = x.shape
+    c_out, gc = w5.shape[-1], ws[0].shape[-1]
     n_aux = EP_AUX[mode]
     lib = _library("dense_chain")
-    feats = torch.empty((B, T, H, W, 4 * lib.selfc_dense_chain_padded_gc(gc)),
-                        dtype=x.dtype, device=x.device)
-    out = torch.empty((B, T, H, W, c_out), dtype=x.dtype, device=x.device)
     err = lib.selfc_dense_chain_forward(
         x.data_ptr(), feats.data_ptr(),
         *(w.data_ptr() for w in ws), *(b.data_ptr() for b in bs),
@@ -420,10 +434,6 @@ def _chain_cuda(x, ws, bs, w5, b5, mode, clamp, a, m, stripe_w=0):
         float(clamp), int(stripe_w), _DTYPE_CODE[x.dtype], _stream(x),
     )
     _raise_on(err, "dense chain", lib.selfc_cuda_error_string)
-    launches += 1
-    _count((C, c_out, gc), launches_by_width)
-    _count((C, c_out, gc, int(stripe_w)), launches_by_stripe)
-    return out, feats
 
 
 def _feats_cuda(x, ws, bs, stripe_w=0):
@@ -434,19 +444,25 @@ def _feats_cuda(x, ws, bs, stripe_w=0):
     _validate_spatial(x, ws, bs, stripe_w)
     B, T, H, W, C = x.shape
     gc = ws[0].shape[-1]
-    lib = _library("dense_chain")
-    feats = torch.empty((B, T, H, W, 4 * lib.selfc_dense_chain_padded_gc(gc)),
-                        dtype=x.dtype, device=x.device)
-    err = lib.selfc_dense_chain_feats(
-        x.data_ptr(), feats.data_ptr(),
-        *(w.data_ptr() for w in ws), *(b.data_ptr() for b in bs),
-        B * T, H, W, C, gc, int(stripe_w), _DTYPE_CODE[x.dtype], _stream(x),
-    )
-    _raise_on(err, "dense chain feats", lib.selfc_cuda_error_string)
+    feats = torch.empty((B, T, H, W, 4 * padded_gc(gc)), dtype=x.dtype, device=x.device)
+    _launch_feats(x, ws, bs, feats, stripe_w)
     launches_feats += 1
     _count((C, gc), launches_feats_by_width)
     _count((C, gc, int(stripe_w)), launches_feats_by_stripe)
     return feats
+
+
+def _launch_feats(x, ws, bs, feats, stripe_w=0):
+    """The spatial-only forward kernels into the buffer ``feats`` (whatever
+    it held), uncounted; the caller validated."""
+    B, T, H, W, C = x.shape
+    lib = _library("dense_chain")
+    err = lib.selfc_dense_chain_feats(
+        x.data_ptr(), feats.data_ptr(),
+        *(w.data_ptr() for w in ws), *(b.data_ptr() for b in bs),
+        B * T, H, W, C, ws[0].shape[-1], int(stripe_w), _DTYPE_CODE[x.dtype], _stream(x),
+    )
+    _raise_on(err, "dense chain feats", lib.selfc_cuda_error_string)
 
 
 def _bwd_cuda(x, ws, bs, feats, dfeats, dx, stripe_w=0):

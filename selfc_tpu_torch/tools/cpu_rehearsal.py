@@ -7,12 +7,13 @@ stand-in headers (``cuda_runtime.h``, ``cuda_bf16.h``): ``__global__`` and
 another, so a static array is a block's shared memory), the threads of a block
 are ``std::thread``s (one set a launch, walking over the blocks in order) with
 thread-local ``threadIdx`` / ``blockIdx``,
-``__syncthreads`` is a ``std::barrier``, and every
-``kernel<T><<<grid, block, smem, stream>>>(args);`` is rewritten into a call of
-a launcher. Each warp's 32 threads also share a barrier of their own, through
-which ``csrc/tc_mma.cuh``'s warp-collective tensor-core products are executed
-from the lanes' fragments; its ``cvt.rna.tf32`` is emulated and ``cp.async``
-is a plain copy. The resulting library has the same C interface, so the port's
+``__syncthreads`` is a barrier (its waiters yield a few times, then sleep),
+and every ``kernel<T><<<grid, block, smem, stream>>>(args);`` (in a source or
+in a header of ``csrc/``) is rewritten into a call of a launcher. Each warp's
+32 threads also share a barrier of their own, through which
+``csrc/tc_mma.cuh``'s warp-collective tensor-core products are executed from
+the lanes' fragments; its ``cvt.rna.tf32`` is emulated and ``cp.async`` is a
+plain copy. The resulting library has the same C interface, so the port's
 own wrappers drive it on CPU tensors (``cpu_kernels()`` below) and their
 results can be held against the plain PyTorch versions.
 
@@ -55,6 +56,7 @@ CUDA_RUNTIME_H = r"""
 #include <cstdint>
 #include <cstring>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 #define __global__
@@ -82,14 +84,46 @@ constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 template <typename F>
 inline cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
+// a barrier whose waiters first yield the core a few times (a round that
+// ends soon costs no futex sleep and wake-up) and then sleep, so that a
+// block's threads, which far outnumber the cores, do not keep them busy
+// while other processes wait for them. arrive_and_drop: the thread leaves
+// for good (it counts as arrived in this round and is no longer expected in
+// the next ones).
+class SpinBarrier {
+ public:
+  explicit SpinBarrier(int n) : expected_(n) {}
+  void arrive_and_wait() {
+    const unsigned g = gen_.load(std::memory_order_acquire);
+    if (arrive(false)) return;
+    for (int i = 0; i < 16 && gen_.load(std::memory_order_acquire) == g; ++i) std::this_thread::yield();
+    for (unsigned now = gen_.load(std::memory_order_acquire); now == g; now = gen_.load(std::memory_order_acquire))
+      gen_.wait(now, std::memory_order_acquire);
+  }
+  void arrive_and_drop() { arrive(true); }
+ private:
+  bool arrive(bool drop) {   // true where this arrival ends the round
+    std::lock_guard<std::mutex> lock(mu_);
+    if (drop) --expected_;
+    else ++arrived_;
+    if (arrived_ < expected_ || expected_ == 0) return false;
+    arrived_ = 0;
+    gen_.fetch_add(1, std::memory_order_release);
+    gen_.notify_all();
+    return true;
+  }
+  std::mutex mu_;
+  int expected_, arrived_ = 0;
+  std::atomic<unsigned> gen_{0};
+};
 inline thread_local dim3 threadIdx, blockIdx, gridDim;
-inline thread_local std::barrier<>* block_barrier;
+inline thread_local SpinBarrier* block_barrier;
 inline void __syncthreads() { block_barrier->arrive_and_wait(); }
 // a warp: its lanes meet at a barrier of their own, and exchange fragments
 // through two buffers used in turns (a lane can refill one only after every
 // lane has passed the barrier of the exchange that read the other)
 struct WarpExchange { uint32_t a[2][32][32]; uint32_t b[2][32][16]; };
-inline thread_local std::barrier<>* warp_barrier;
+inline thread_local SpinBarrier* warp_barrier;
 inline thread_local WarpExchange* warp_x;
 inline thread_local int warp_turn;
 template <typename F>
@@ -103,13 +137,13 @@ void cpu_launch(dim3 grid, dim3 block, F body) {
   const int nt = block.x * block.y * block.z;
   const int nw = (nt + 31) / 32;
   const size_t n_blocks = (size_t)grid.x * grid.y * grid.z;
-  std::vector<std::unique_ptr<std::barrier<>>> bars, wbars;
+  std::vector<std::unique_ptr<SpinBarrier>> bars, wbars;
   for (size_t b = 0; b < n_blocks; ++b) {
-    bars.push_back(std::make_unique<std::barrier<>>(nt));
-    for (int w = 0; w < nw; ++w) wbars.push_back(std::make_unique<std::barrier<>>(std::min(32, nt - 32 * w)));
+    bars.push_back(std::make_unique<SpinBarrier>(nt));
+    for (int w = 0; w < nw; ++w) wbars.push_back(std::make_unique<SpinBarrier>(std::min(32, nt - 32 * w)));
   }
   std::vector<WarpExchange> xs(nw);
-  std::barrier<> block_done(nt);
+  SpinBarrier block_done(nt);
   std::vector<std::thread> threads;
   for (int t = 0; t < nt; ++t)
     threads.emplace_back([&, t] {
@@ -146,16 +180,15 @@ inline uint32_t tf32_rna(float v) {
 inline float tf32_bits(uint32_t u) { u &= ~0x1fffu; float f; std::memcpy(&f, &u, 4); return f; }
 inline float bf16_bits(uint32_t u) { u <<= 16; float f; std::memcpy(&f, &u, 4); return f; }
 // this lane's four outputs (rows g, g+8; columns 2t, 2t+1) of each m16 x n8
-// tile, after every lane has put its fragments in the exchange
-template <int MT, int NT, typename FA, typename FB>
-void warp_product(float (&acc)[MT][NT][4], int k_len, FA a_at, FB b_at) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+// tile, after every lane has put its fragments in the exchange: a[m][h][k]
+// holds row g + 8h of A, b[n][k][c] column 2t + c of B
+template <int MT, int NT, int K>
+void warp_product(float (&acc)[MT][NT][4], const float (&a)[MT][2][K], const float (&b)[NT][K][2]) {
   for (int m = 0; m < MT; ++m)
     for (int n = 0; n < NT; ++n)
       for (int i = 0; i < 4; ++i) {
-        const int r = g + 8 * (i / 2), c = 2 * t + i % 2;
         float s = acc[m][n][i];
-        for (int k = 0; k < k_len; ++k) s += a_at(m, r, k) * b_at(n, k, c);
+        for (int k = 0; k < K; ++k) s += a[m][i / 2][k] * b[n][k][i % 2];
         acc[m][n][i] = s;
       }
 }
@@ -163,7 +196,7 @@ template <int MT, int NT>
 void warp_mma_3xtf32(float (&acc)[MT][NT][4], const uint32_t (&ah)[MT][4], const uint32_t (&al)[MT][4], const uint32_t (&bh)[NT][2],
                      const uint32_t (&bl)[NT][2]) {
   static_assert(8 * MT <= 32 && 4 * NT <= 16, "the exchange buffers");
-  const int lane = threadIdx.x % 32, turn = warp_turn;
+  const int lane = threadIdx.x % 32, turn = warp_turn, g = lane >> 2, t = lane & 3;
   warp_turn ^= 1;
   uint32_t* A = warp_x->a[turn][lane];
   uint32_t* B = warp_x->b[turn][lane];
@@ -175,18 +208,25 @@ void warp_mma_3xtf32(float (&acc)[MT][NT][4], const uint32_t (&ah)[MT][4], const
   const auto& XA = warp_x->a[turn];
   const auto& XB = warp_x->b[turn];
   // A (16 x 8): element (r, k) in lane (r % 8) * 4 + k % 4, register r / 8 + 2 (k / 4);
-  // B (8 x 8): element (k, c) in lane 4c + k % 4, register k / 4
-  for (int pass = 0; pass < 3; ++pass) {   // lo*hi, hi*lo, hi*hi, as on the card
-    const int pa = pass == 0, pb = pass == 1;
-    warp_product<MT, NT>(
-        acc, 8, [&](int m, int r, int k) { return tf32_bits(XA[(r % 8) * 4 + k % 4][8 * m + 4 * pa + r / 8 + 2 * (k / 4)]); },
-        [&](int n, int k, int c) { return tf32_bits(XB[4 * c + k % 4][4 * n + 2 * pb + k / 4]); });
+  // B (8 x 8): element (k, c) in lane 4c + k % 4, register k / 4; [0] hi, [1] lo
+  float a[2][MT][2][8], b[2][NT][8][2];
+  for (int p = 0; p < 2; ++p) {
+    for (int m = 0; m < MT; ++m)
+      for (int h = 0; h < 2; ++h)
+        for (int k = 0; k < 8; ++k) a[p][m][h][k] = tf32_bits(XA[g * 4 + k % 4][8 * m + 4 * p + h + 2 * (k / 4)]);
+    for (int n = 0; n < NT; ++n)
+      for (int k = 0; k < 8; ++k)
+        for (int c = 0; c < 2; ++c) b[p][n][k][c] = tf32_bits(XB[4 * (2 * t + c) + k % 4][4 * n + 2 * p + k / 4]);
   }
+  // lo*hi, hi*lo, hi*hi, as on the card
+  warp_product<MT, NT, 8>(acc, a[1], b[0]);
+  warp_product<MT, NT, 8>(acc, a[0], b[1]);
+  warp_product<MT, NT, 8>(acc, a[0], b[0]);
 }
 template <int MT, int NT>
 void warp_mma_bf16(float (&acc)[MT][NT][4], const uint32_t (&a)[MT][4], const uint32_t (&b)[NT][2]) {
   static_assert(4 * MT <= 32 && 2 * NT <= 16, "the exchange buffers");
-  const int lane = threadIdx.x % 32, turn = warp_turn;
+  const int lane = threadIdx.x % 32, turn = warp_turn, g = lane >> 2, t = lane & 3;
   warp_turn ^= 1;
   uint32_t* A = warp_x->a[turn][lane];
   uint32_t* B = warp_x->b[turn][lane];
@@ -201,9 +241,14 @@ void warp_mma_bf16(float (&acc)[MT][NT][4], const uint32_t (&a)[MT][4], const ui
   // r / 8 + 2 (k / 8), half k % 2; B (16 x 8): element (k, c) in lane
   // 4c + (k % 8) / 2, register k / 8, half k % 2
   auto half = [](uint32_t u, int k) { return bf16_bits(k % 2 ? u >> 16 : u & 0xffffu); };
-  warp_product<MT, NT>(
-      acc, 16, [&](int m, int r, int k) { return half(XA[(r % 8) * 4 + (k % 8) / 2][4 * m + r / 8 + 2 * (k / 8)], k); },
-      [&](int n, int k, int c) { return half(XB[4 * c + (k % 8) / 2][2 * n + k / 8], k); });
+  float fa[MT][2][16], fb[NT][16][2];
+  for (int m = 0; m < MT; ++m)
+    for (int h = 0; h < 2; ++h)
+      for (int k = 0; k < 16; ++k) fa[m][h][k] = half(XA[g * 4 + (k % 8) / 2][4 * m + h + 2 * (k / 8)], k);
+  for (int n = 0; n < NT; ++n)
+    for (int k = 0; k < 16; ++k)
+      for (int c = 0; c < 2; ++c) fb[n][k][c] = half(XB[4 * (2 * t + c) + (k % 8) / 2][2 * n + k / 8], k);
+  warp_product<MT, NT, 16>(acc, fa, fb);
 }
 template <int BYTES>
 inline void cp_async(void* dst, const void* src, int src_bytes) {
@@ -257,24 +302,29 @@ def rewrite_launches(source: str) -> tuple[str, int]:
     return _LAUNCH.subn(repl, source)
 
 
-def build_cpu_libraries(names, out_dir: Path) -> dict[str, Path]:
-    """Compile ``csrc/<name>.cu`` for the CPU into ``out_dir``, one ``g++``
-    a source, side by side. Returns {name: library}."""
+def build_cpu_libraries(names, out_dir: Path, csrc_dir: Path = build.CSRC_DIR) -> dict[str, Path]:
+    """Compile ``<csrc_dir>/<name>.cu`` for the CPU into ``out_dir``, one
+    ``g++`` a source, side by side; the headers ``<csrc_dir>/*.cuh`` are
+    rewritten beside them (a header may launch a kernel too). Returns {name:
+    library}."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: the CUDA sources cannot be rehearsed on the CPU")
-    out_dir = Path(out_dir)
+    out_dir, csrc_dir = Path(out_dir), Path(csrc_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
     (out_dir / "cuda_bf16.h").write_text(CUDA_BF16_H)
+    for header in csrc_dir.glob("*.cuh"):
+        (out_dir / header.name).write_text(rewrite_launches(header.read_text())[0])
     procs = {}
     for name in names:
-        text, n = rewrite_launches((build.CSRC_DIR / f"{name}.cu").read_text())
+        text, n = rewrite_launches((csrc_dir / f"{name}.cu").read_text())
         if n == 0:
             raise RuntimeError(f"{name}.cu: no kernel launch found to rewrite")
         cpp, lib = out_dir / f"{name}.cpp", out_dir / f"lib{name}_cpu.so"
         cpp.write_text(text)
         procs[name] = (lib, subprocess.Popen(
-            [gxx, "-std=c++20", "-O2", "-fPIC", "-shared", f"-I{out_dir}", f"-I{build.CSRC_DIR}", "-o", str(lib),
+            [gxx, "-std=c++20", "-O2", "-fPIC", "-shared", f"-I{out_dir}", "-o", str(lib),
              str(cpp), "-lpthread"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     failures = []
     for name, (lib, proc) in procs.items():
@@ -287,17 +337,20 @@ def build_cpu_libraries(names, out_dir: Path) -> dict[str, Path]:
 
 
 @contextlib.contextmanager
-def cpu_kernels(out_dir: Path):
+def cpu_kernels(out_dir: Path, csrc_dir: Path = build.CSRC_DIR, names=None):
     """Inside, the launch functions of ``ops.dense_chain`` (``_chain_cuda``,
     ``_feats_cuda``, ``_bwd_cuda``), ``ops.deform`` (``_forward_cuda``,
     ``_backward_cuda``), ``ops.temporal_conv`` (``_forward_cuda``,
     ``_data_grad_cuda``) and ``ops.chain_variants`` (``_hg_cuda``,
     ``_ride_cuda``, ``_v3_cuda``) run the CPU builds of the CUDA sources on CPU
     tensors. The public wrappers still take their plain versions for a CPU
-    tensor: call the launch functions directly."""
-    names = build.kernel_names()
-    libs = build_cpu_libraries(names, out_dir)
+    tensor: call the launch functions directly. ``csrc_dir``: the sources
+    to build (a mutated copy of ``csrc/``); ``names``: which of them
+    (default all). On leaving, each library in use before is put back."""
+    names = build.kernel_names() if names is None else list(names)
+    libs = build_cpu_libraries(names, out_dir, csrc_dir)
     streams = dc._stream, tc._stream, cv._stream
+    before = {n: build.in_use(n) for n in names}
     dc._stream = tc._stream = cv._stream = lambda x: None
     try:
         for n, lib in libs.items():
@@ -305,8 +358,8 @@ def cpu_kernels(out_dir: Path):
         yield
     finally:
         dc._stream, tc._stream, cv._stream = streams
-        for n in names:
-            build.use_library(n)
+        for n, lib in before.items():
+            build.use_library(n, lib)
 
 
 def rel_err(got, want):
@@ -496,6 +549,23 @@ STRIPE_CASES = (((1, 2, 9, 36), 9), ((2, 1, 7, 36), 18))
 # (C, c_out, gc) under a stripe: the 4x training step's, the codec's
 STRIPE_WIDTHS = ((3, 48, 32), (48, 3, 32), (64, 64, 32), (3, 64, 32), (12, 3, 32), (3, 12, 32),
                  (3, 24, 12), (24, 24, 12))
+
+
+# the 3xTF32 split's low part; one_tf32_pass_sources() zeroes it
+SPLIT_LO = "  lo = tf32_rna(v - __uint_as_float(hi));\n"
+
+
+def one_tf32_pass_sources(dst: Path) -> Path:
+    """A copy of ``csrc/`` in ``dst`` whose products keep one TF32 pass of
+    the three (each operand's low part zeroed in ``split_tf32``): the
+    precision the fp32 kernels would have without the split."""
+    dst = Path(dst)
+    shutil.copytree(build.CSRC_DIR, dst, dirs_exist_ok=True)
+    header = (dst / "tc_mma.cuh").read_text()
+    if header.count(SPLIT_LO) != 1:
+        raise RuntimeError(f"tc_mma.cuh no longer holds exactly one {SPLIT_LO!r}")
+    (dst / "tc_mma.cuh").write_text(header.replace(SPLIT_LO, "  lo = 0u;\n"))
+    return dst
 
 
 TF32_SPLIT_CPP = r"""

@@ -1,18 +1,23 @@
-"""Where a tensor-core kernel (B6, B8) spends its time: the mma products or
-the rest (staging, the ring's barriers, fragment loads and splits, the
-epilogue).
+"""Where a tensor-core kernel (B1, B3, B4's forward, B6, B8, B9) spends its
+time: the mma products or the rest (staging, the ring's barriers, fragment
+loads and splits, the epilogue); and what another tile would cost the
+spatial layers of B1, B3 and B9.
 
 The machine with the GPU has no kernel profiler, so this script builds
-variants of ``csrc/temporal_conv.cu`` and ``csrc/chain_v3.cu`` against text
-substitutions of their shared header ``csrc/tc_mma.cuh``, and times each at
-the rows ``chip_smoke.py`` times, beside the unchanged sources (``base``):
+variants of ``csrc/temporal_conv.cu``, ``csrc/chain_v3.cu``,
+``csrc/dense_chain.cu`` and ``csrc/chain_ride.cu`` against text
+substitutions of their shared headers ``csrc/tc_mma.cuh`` and
+``csrc/tc_chain.cuh``, and times each at the rows ``chip_smoke.py`` times,
+beside the unchanged sources (``base``):
 
   - ``no_mma``: every slab's products skipped (staging, ring, epilogue);
   - ``no_mma_keep_frags``: the fragments still loaded and split, the mma
     instruction replaced by an empty one that keeps its operands alive;
-  - ``one_pass``: one TF32 product per tile instead of the three of 3xTF32.
+  - ``one_pass``: one TF32 product per tile instead of the three of 3xTF32;
+  - ``tile_12x8`` (B1, B3, B4, B9): the chain layer on a tile of 12 x 8
+    pixels and 3 warps instead of its 8 x 16 and 4.
 
-The variants compute wrong values on purpose; only their times mean
+The mma variants compute wrong values on purpose; only their times mean
 anything. Run from the repo root on a machine with an NVIDIA Hopper GPU:
 
     python3 -m selfc_tpu_torch.tools.tc_attribution
@@ -31,14 +36,17 @@ import torch
 
 from selfc_tpu_torch.kernels import build
 from selfc_tpu_torch.ops import chain_variants as cv
+from selfc_tpu_torch.ops import dense_chain as dc
 from selfc_tpu_torch.ops import temporal_conv as tc
-from selfc_tpu_torch.utils.bench import SERVE_SHAPE, TRAIN_SHAPE, make_chain, make_temporal_conv, time_cuda
+from selfc_tpu_torch.utils.bench import (CODEC_DEC_SHAPE, CODEC_TRAIN_LAT, CODEC_WIDTHS, PATH_WIDTHS, SERVE_SHAPE,
+                                         SURROGATE_C, TRAIN_SHAPE, make_chain, make_temporal_conv, time_cuda)
 
 SLAB_BODY = "  constexpr int KS = Elem<T>::BK / Elem<T>::KSTEP;\n"
 MMA_TF32 = ('''      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, '''
             '''{%0,%1,%2,%3};\\n"\n''')
 SMALL_TERMS = ("    for (int n = 0; n < NT; ++n) mma_tf32(acc[m][n], al[m], bh[n]);",
                "    for (int n = 0; n < NT; ++n) mma_tf32(acc[m][n], ah[m], bl[n]);")
+TILE = "using SpatialTile = ChainTile<8, 16, 4>;"
 
 # (path, (B,T,H,W), C, Co, dx) of chip_smoke.py's B6 rows: the serving and
 # training latents, FeatureCollapseFast's 4x smaller ones, forward and dx
@@ -52,13 +60,41 @@ B8_ROWS = [("serve", SERVE_SHAPE, 64, 64), ("serve", SERVE_SHAPE, 3, 64),
            ("train", TRAIN_SHAPE, 64, 64), ("train", TRAIN_SHAPE, 3, 64)]
 
 
-def variants(header: str) -> dict[str, str]:
+def _packed(shape):
+    """A training latent W-packed as the nets pack it: (shape, stripe)."""
+    P = dc.pick_pack_w(shape[0], shape[3])
+    return (shape[0] // P, shape[1], shape[2], P * shape[3]), shape[3]
+
+
+TRAIN_PACKED, CODEC_PACKED = _packed(TRAIN_SHAPE), _packed(CODEC_TRAIN_LAT)
+# (path, shape, stripe, C, c_out, gc) of chip_smoke.py's B1 rows
+B1_ROWS = ([("serve", SERVE_SHAPE, 0, C, c_out, 32) for C, c_out in PATH_WIDTHS]
+           + [(tag, *sh, C, c_out, 32) for tag, sh in (("train", (TRAIN_SHAPE, 0)), ("train_packed", TRAIN_PACKED))
+              for C, c_out in PATH_WIDTHS]
+           + [("codec", CODEC_DEC_SHAPE, 0, *w) for w in CODEC_WIDTHS]
+           + [(tag, *sh, *w) for tag, sh in (("codec_train", (CODEC_TRAIN_LAT, 0)), ("codec_train_packed", CODEC_PACKED))
+              for w in CODEC_WIDTHS])
+# (path, shape, stripe, C, gc) of the B3 rows, then B4's forward (B3's entry, gc 32)
+B3_ROWS = ([(tag, *sh, C, 32) for tag, sh in (("train", (TRAIN_SHAPE, 0)), ("train_packed", TRAIN_PACKED))
+            for C in (3, 48, 64)]
+           + [(tag, *sh, C, 12) for tag, sh in (("codec_train", (CODEC_TRAIN_LAT, 0)),
+                                                ("codec_train_packed", CODEC_PACKED)) for C in (3, 24)]
+           + [("codec_train B4", CODEC_TRAIN_LAT, 0, C, 32) for C in SURROGATE_C])
+B9_ROWS = [("serve", SERVE_SHAPE, 48, 3), ("train", TRAIN_SHAPE, 48, 3)]
+MMA_VARIANTS = ("base", "no_mma", "no_mma_keep_frags", "one_pass")
+TILE_VARIANTS = ("tile_12x8",)
+
+
+def variants(header: str, chain_header: str) -> dict[str, dict[str, str]]:
+    """{variant: {header name: text}}."""
     for pattern in (SLAB_BODY, MMA_TF32, *SMALL_TERMS):
         if header.count(pattern) != 1:
-            raise SystemExit(f"the header no longer holds exactly one {pattern!r}")
+            raise SystemExit(f"tc_mma.cuh no longer holds exactly one {pattern!r}")
+    if chain_header.count(TILE) != 1:
+        raise SystemExit(f"tc_chain.cuh no longer holds exactly one {TILE!r}")
     start = header.index(SLAB_BODY)
     end = header.index("\n}\n", start)
-    return {
+    mma = {
         "base": header,
         "no_mma": header[:start] + "  (void)acc, (void)as, (void)a0, (void)a1, (void)bs, (void)n0w, (void)g, (void)t;"
         + header[end:],
@@ -66,6 +102,23 @@ def variants(header: str) -> dict[str, str]:
         "one_pass": header.replace(SMALL_TERMS[0], "    for (int n = 0; n < NT; ++n) {}")
         .replace(SMALL_TERMS[1], "    for (int n = 0; n < NT; ++n) {}"),
     }
+    out = {name: {"tc_mma.cuh": text, "tc_chain.cuh": chain_header} for name, text in mma.items()}
+    out["tile_12x8"] = {"tc_mma.cuh": header,
+                        "tc_chain.cuh": chain_header.replace(TILE, "using SpatialTile = ChainTile<12, 8, 3>;")}
+    return out
+
+
+def _sources(name):
+    return ("dense_chain", "chain_ride") if name in TILE_VARIANTS else ("temporal_conv", "chain_v3", "dense_chain",
+                                                                         "chain_ride")
+
+
+def _time(row, fn, lib_name, tmp, names):
+    """Print ``row`` with fn's median ms on each variant's build of lib_name."""
+    for name in names:
+        build.use_library(lib_name, Path(tmp) / name / f"lib{lib_name}.so")
+        row[name] = time_cuda(fn)["median"]
+    print(json.dumps(row), flush=True)
 
 
 def main():
@@ -78,13 +131,16 @@ def main():
     print(json.dumps({"device": smi}), flush=True)
     nvcc = build.find_nvcc()
     dev = torch.device("cuda")
+    libs = ("temporal_conv", "chain_v3", "dense_chain", "chain_ride")
     with tempfile.TemporaryDirectory(dir=build.PKG_DIR) as tmp, torch.no_grad():
         procs = {}
-        for name, text in variants((build.CSRC_DIR / "tc_mma.cuh").read_text()).items():
+        for name, headers in variants((build.CSRC_DIR / "tc_mma.cuh").read_text(),
+                                      (build.CSRC_DIR / "tc_chain.cuh").read_text()).items():
             d = Path(tmp) / name
             d.mkdir()
-            (d / "tc_mma.cuh").write_text(text)
-            for src in ("temporal_conv", "chain_v3"):
+            for h, text in headers.items():
+                (d / h).write_text(text)
+            for src in _sources(name):
                 shutil.copy(build.CSRC_DIR / f"{src}.cu", d)
                 procs[(name, src)] = subprocess.Popen(
                     [nvcc, *build.NVCC_FLAGS, "-o", str(d / f"lib{src}.so"), str(d / f"{src}.cu")],
@@ -93,28 +149,35 @@ def main():
             log, _ = proc.communicate()
             if proc.returncode:
                 raise SystemExit(f"nvcc failed for {key}:\n{log}")
-        names = sorted({n for n, _ in procs})
         rng = np.random.default_rng(0)
+        chain_names = MMA_VARIANTS + TILE_VARIANTS
         try:
             for path, shape, C, co, dx in B6_ROWS:
                 x, w, b, g = make_temporal_conv(rng, shape, C, co, dev)
                 if dx:   # the data gradient: the conv of g with the flipped weights
                     x, w, b = g, tc._flipped(w), None
-                row = {"kernel": "B6", "row": f"{path} {C}->{co}{' dx' if dx else ''}"}
-                for name in names:
-                    build.use_library("temporal_conv", Path(tmp) / name / "libtemporal_conv.so")
-                    row[name] = time_cuda(lambda: tc._launch(x, w, b, None, False))["median"]
-                print(json.dumps(row), flush=True)
+                _time({"kernel": "B6", "row": f"{path} {C}->{co}{' dx' if dx else ''}"},
+                      lambda: tc._launch(x, w, b, None, False), "temporal_conv", tmp, MMA_VARIANTS)
             for path, shape, C, c_out in B8_ROWS:
                 x, ws, bs, w5, b5, _, _ = make_chain(rng, C, c_out, shape, dev)
-                row = {"kernel": "B8", "row": f"{path} {C}->{c_out}"}
-                for name in names:
-                    build.use_library("chain_v3", Path(tmp) / name / "libchain_v3.so")
-                    row[name] = time_cuda(lambda: cv._v3_cuda(x, ws, bs, w5, b5))["median"]
-                print(json.dumps(row), flush=True)
+                _time({"kernel": "B8", "row": f"{path} {C}->{c_out}"}, lambda: cv._v3_cuda(x, ws, bs, w5, b5),
+                      "chain_v3", tmp, MMA_VARIANTS)
+            for path, shape, stripe, C, c_out, gc in B1_ROWS:
+                x, ws, bs, w5, b5, a, m = make_chain(rng, C, c_out, shape, dev, gc=gc)
+                _time({"kernel": "B1", "row": f"{path} {C}->{c_out} gc{gc}"},
+                      lambda: dc._chain_cuda(x, ws, bs, w5, b5, "mul_add", 1.0, a, m, stripe), "dense_chain", tmp,
+                      chain_names)
+            for path, shape, stripe, C, gc in B3_ROWS:
+                x, ws, bs, *_ = make_chain(rng, C, 3, shape, dev, gc=gc)
+                _time({"kernel": "B3", "row": f"{path} {C} gc{gc}"},
+                      lambda: dc._feats_cuda(x, ws, bs, stripe), "dense_chain", tmp, chain_names)
+            for path, shape, C, c_out in B9_ROWS:
+                x, ws, bs, w5, b5, a, _ = make_chain(rng, C, c_out, shape, dev)
+                _time({"kernel": "B9", "row": f"{path} {C}->{c_out}"},
+                      lambda: cv._ride_cuda(x, ws, bs, w5, b5, "add", 1.0, a, None), "chain_ride", tmp, chain_names)
         finally:
-            build.use_library("temporal_conv")
-            build.use_library("chain_v3")
+            for name in libs:
+                build.use_library(name)
 
 
 if __name__ == "__main__":

@@ -29,8 +29,8 @@ PEAK_BYTES_PER_S = 3.35e12
 
 
 def tc_peak(dtype):
-    """The peak of the tensor-core kernels (B6, B8) for ``dtype``: 3xTF32
-    for fp32, bf16's rate for bf16."""
+    """The peak of the tensor-core kernels (B1, B3, B6, B8, B9) for
+    ``dtype``: 3xTF32 for fp32, bf16's rate for bf16."""
     return PEAK_3XTF32 if dtype == torch.float32 else PEAK_FLOPS[dtype]
 
 # every (C, c_out) the SelfC_GMM 4x net launches: coupling H/G, coupling F,
@@ -278,14 +278,15 @@ def _itemsize(dtype):
 
 def chain_bound_ms(B, T, H, W, C, c_out, n_aux, dtype=torch.float32, gc=32, peak=None):
     """The bound at the chain's true growth width: the kernels' pad lanes
-    are work the function does not need. ``peak``: as ``bound_ms`` (B8 runs
-    at ``tc_peak(dtype)``)."""
+    are work the function does not need. ``peak``: as ``bound_ms`` (B1, B8
+    and B9 run at ``tc_peak(dtype)``)."""
     return bound_ms(*chain_cost(B, T, H, W, C, c_out, n_aux, _itemsize(dtype), gc), dtype, peak)
 
 
-def chain_feats_bound_ms(B, T, H, W, C, dtype=torch.float32, gc=32):
-    """Also the bound of the v1 spatial chain's forward (gc 32)."""
-    return bound_ms(*chain_feats_cost(B, T, H, W, C, _itemsize(dtype), gc), dtype)
+def chain_feats_bound_ms(B, T, H, W, C, dtype=torch.float32, gc=32, peak=None):
+    """Also the bound of the v1 spatial chain's forward (gc 32). ``peak``:
+    as ``bound_ms`` (B3 runs at ``tc_peak(dtype)``)."""
+    return bound_ms(*chain_feats_cost(B, T, H, W, C, _itemsize(dtype), gc), dtype, peak)
 
 
 def chain_bwd_bound_ms(B, T, H, W, C, dtype=torch.float32, gc=32, dx_in=True):

@@ -51,11 +51,11 @@ def _errors(rec):
 
 def test_rewrite_finds_every_launch():
     from selfc_tpu_torch.kernels import build
-    # dense_chain: the spatial layer with and without the stripe masks, conv5
-    # twice; temporal_conv: the tile kernel and the split-K sum
-    for name, n_launches in (("dense_chain", 4), ("dense_chain_bwd", 3), ("deform", 4),
-                             ("temporal_conv", 2)):
-        text, n = cpu_rehearsal.rewrite_launches((build.CSRC_DIR / f"{name}.cu").read_text())
+    # dense_chain: conv5 (the spatial layer's launch is tc_chain.cuh's);
+    # temporal_conv: the tile kernel and the split-K sum
+    for name, n_launches in (("dense_chain.cu", 1), ("dense_chain_bwd.cu", 3), ("deform.cu", 4),
+                             ("temporal_conv.cu", 2), ("tc_chain.cuh", 1)):
+        text, n = cpu_rehearsal.rewrite_launches((build.CSRC_DIR / name).read_text())
         assert n == n_launches and "<<<" not in text
 
 
@@ -267,11 +267,12 @@ def test_temporal_conv_cuda_source_paths_bf16(cpu_built, name):
 
 
 def test_rewrite_finds_the_variant_launches():
-    """Three instantiations of the shared spatial layer in the pair and the
-    ride, their last launches, and v3's two (its dynamic shared memory
-    becomes static storage)."""
+    """Three instantiations of B7's spatial layer in the pair and its conv5
+    launches, the ride's finishing launch and v3's conv5 (their spatial
+    layers are tc_chain.cuh's; v3's dynamic shared memory becomes static
+    storage)."""
     from selfc_tpu_torch.kernels import build
-    for name, n_launches in (("chain_hg", 5), ("chain_ride", 4), ("chain_v3", 2)):
+    for name, n_launches in (("chain_hg", 5), ("chain_ride", 1), ("chain_v3", 1)):
         text, n = cpu_rehearsal.rewrite_launches((build.CSRC_DIR / f"{name}.cu").read_text())
         assert n == n_launches and "<<<" not in text and "extern __shared__" not in text
 
@@ -313,8 +314,8 @@ def test_variant_cuda_sources_match_plain_bf16(cpu_built):
     with torch.no_grad():
         recs = cpu_rehearsal.rehearse_variants(
             SHAPE, (torch.bfloat16,), hg_widths=((3, 12, 32),), ride_widths=((12, 3, 32),),
-            v3_widths=((3, 24, 12),), modes=("sub_from", "mul_add"))
-    assert len(recs) == 3 and all(all(v <= 3e-2 for v in _errors(r).values()) for r in recs), recs
+            v3_widths=((3, 24, 12), (5, 7, 13)), modes=("sub_from", "mul_add"))
+    assert len(recs) == 4 and all(all(v <= 3e-2 for v in _errors(r).values()) for r in recs), recs
 
 
 def test_variant_cpu_builds_count_their_calls(cpu_built):
@@ -326,3 +327,110 @@ def test_variant_cpu_builds_count_their_calls(cpu_built):
     assert (cv.launches_hg, cv.launches_ride, cv.launches_v3) == (2, 1, 1)
     assert cv.launches_hg_by_width == {(3, 5, 32, "forward"): 1, (3, 5, 32, "reverse"): 1}
     assert cv.launches_ride_by_width == {(4, 3, 12): 1} and cv.launches_v3_by_width == {(3, 4, 8): 1}
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core spatial layer of B1, B3 and B9 (csrc/tc_chain.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _seg_pads(gc):
+    gcp = dc.padded_gc(gc)
+    return (torch.arange(4 * gcp) % gcp) >= gc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("gc", [12, 13])
+def test_feats_buffer_that_held_nan_comes_back_clean(cpu_built, gc, dtype):
+    """B1's forward and B3 write every lane of their feats buffer: one filled
+    with NaN before the launch comes back finite, exactly 0 in the pad lanes
+    (which B1's conv5 and B2 multiply by zero weights) and the plain
+    features in the real ones; B1's output, written over NaN, is the plain
+    chain's."""
+    rng = np.random.default_rng(gc)
+    x, ws, bs, w5, b5, a, m = make_chain(rng, 5, 6, (1, 2, 7, 11), "cpu", dtype, gc)
+    want = dc.padded_width(dc.chain_feats_plain(x, ws, bs), gc, dc.padded_gc(gc))
+    want_out = dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, "mul_add", 0.8, a, m)
+    limit = 1e-5 if dtype == torch.float32 else 3e-2
+    with torch.no_grad():
+        for entry in ("forward", "feats"):
+            feats = torch.full(want.shape, float("nan"), dtype=dtype)
+            out = torch.full(want_out.shape, float("nan"), dtype=dtype)
+            if entry == "forward":
+                dc._launch_forward(x, ws, bs, w5, b5, "mul_add", 0.8, a, m, feats, out)
+                assert cpu_rehearsal.rel_err(out, want_out) <= limit, entry
+            else:
+                dc._launch_feats(x, ws, bs, feats)
+            assert torch.isfinite(feats).all() and (feats[..., _seg_pads(gc)] == 0).all(), entry
+            assert cpu_rehearsal.rel_err(feats, want) <= limit, entry
+
+
+def test_bf16_slab_over_two_growth_segments(cpu_built):
+    """bf16 at growth 12: a 32-lane slab of the feats buffer covers two
+    16-lane segments, whose weight rows are remapped lane by lane; forward,
+    B3 and B2 fed from the buffer."""
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse((1, 2, 7, 11), ((3, 24, 12),), (torch.bfloat16,), ("sub_mul",))
+    errs = _errors(rec)
+    assert {"forward_feats", "feats", "dx"} <= set(errs) and all(v <= 3e-2 for v in errs.values()), rec
+
+
+@pytest.mark.parametrize("shape,stripe_w", [((1, 2, 7, 48), 8), ((1, 2, 9, 48), 24)], ids=["stripe8", "stripe24"])
+def test_stripe_edges_on_fragment_columns(cpu_built, shape, stripe_w):
+    """Stripe edges where a fragment's 8-row halves start: at stripe 8 every
+    image edge falls on column 0 or 8 of the 16-wide tile, at stripe 24 on
+    column 8 (and 15 / 7 on the other side); forward, B3 and B2 fed from the
+    buffer, held to the plain striped calls."""
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse(shape, ((3, 48, 32), ), (torch.float32,), ("add",), stripe_w=stripe_w)
+    errs = _errors(rec)
+    assert {"forward_add", "feats", "dx", "dw_db_need_dx_True"} <= set(errs)
+    assert all(v <= 1e-5 for v in errs.values()), rec
+
+
+@pytest.mark.parametrize("c_out", [1, 10])
+def test_ride_narrowest_and_widest_c_out(cpu_built, c_out):
+    """The ride at one output column (its N padded 1 -> 16) and at the
+    widest it takes (3 x 10 -> 32), with every epilogue."""
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse_variants((1, 2, 7, 11), (torch.float32,), hg_widths=(),
+                                                 ride_widths=((6, c_out, 20),), v3_widths=())
+    assert {f"forward_{m}" for m in dc.EP_AUX} == set(_errors(rec))
+    assert all(v <= 1e-5 for v in _errors(rec).values()), rec
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 7, 17), (1, 2, 9, 21)], ids=["7x17", "9x21"])
+def test_odd_sizes_and_same_bits_twice(cpu_built, shape):
+    """The layer's 8 x 16 tile at odd sizes (ragged tiles both ways, one
+    frame row short of a tile and one over): B1's forward, B3 and B9
+    against their plain versions, each the same bits twice."""
+    from selfc_tpu_torch.ops import chain_variants as cv
+    rng = np.random.default_rng(7)
+    x, ws, bs, w5, b5, a, m = make_chain(rng, 6, 3, shape, "cpu", gc=20)
+    with torch.no_grad():
+        runs = {"forward": lambda: dc._chain_cuda(x, ws, bs, w5, b5, "mul_add", 0.8, a, m)[0],
+                "feats": lambda: dc._feats_cuda(x, ws, bs),
+                "ride": lambda: cv._ride_cuda(x, ws, bs, w5, b5, "mul_add", 0.8, a, m)}
+        wants = {"forward": dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, "mul_add", 0.8, a, m),
+                 "feats": dc.padded_width(dc.chain_feats_plain(x, ws, bs), 20, 32)}
+        wants["ride"] = wants["forward"]
+        for name, run in runs.items():
+            got = run()
+            assert cpu_rehearsal.rel_err(got, wants[name]) <= 1e-5, name
+            assert torch.equal(got, run()), name
+
+
+def test_one_tf32_pass_fails_the_fp32_limit(tmp_path):
+    """The guard on the 3xTF32 split: a copy of the sources whose products
+    keep one TF32 pass (each operand's low part zeroed) puts B3's features
+    beyond the 1e-5 fp32 limit that the sources as they are meet (the
+    rehearsal reads a TF32 operand as its 19 bits, as the card does)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the CUDA sources cannot be compiled for the CPU")
+    rng = np.random.default_rng(11)
+    x, ws, bs, *_ = make_chain(rng, 8, 3, (1, 1, 5, 9), "cpu")
+    want = dc.chain_feats_plain(x, ws, bs)
+    src = cpu_rehearsal.one_tf32_pass_sources(tmp_path / "csrc")
+    with cpu_rehearsal.cpu_kernels(tmp_path / "build", src, names=["dense_chain"]), torch.no_grad():
+        err = cpu_rehearsal.rel_err(dc._feats_cuda(x, ws, bs), want)
+    assert err > 1e-5, err
