@@ -30,7 +30,11 @@ fallback: without a CUDA device the script fails at once.
 
 ``--phases serve,train,codec,codec_train,deart,subnets,variants`` (the default) picks
 the paths; ``--phases kernels`` only builds the kernels and checks them
-against their plain versions.
+against their plain versions. ``--parent DIR`` (a checkout of another commit
+whose kernels have the same C interfaces, or its ``selfc_tpu_torch/csrc``
+alone under that path) builds that tree's kernels too and times the B2 and
+B7 rows, both training steps and the variants' roundtrip and step with its
+kernels and with this tree's in turns (theirs, ours, ours, theirs).
 
 Last lines of the output: a ``{"kernels": [...]}`` object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -42,6 +46,7 @@ import argparse
 import contextlib
 from collections import Counter
 import json
+from pathlib import Path
 import subprocess
 import sys
 import time
@@ -205,6 +210,54 @@ STRIPE_CHECKS = (tuple((TRAIN_PACKED, TRAIN_STRIPE, C, c_out, 32) for C, c_out i
 # relative l2): the same products, the weight gradient's sums over other tiles
 PACK_GRAD_L2_LIMIT = 1e-5
 ALL_PHASES = ("serve", "train", "codec", "codec_train", "deart", "subnets", "variants")
+
+
+# {library name: path} built from --parent's sources; empty: no comparison
+PARENT_LIBS: dict = {}
+
+
+def build_parent(parent):
+    """Build every ``selfc_tpu_torch/csrc/*.cu`` of the checkout ``parent``
+    (against its own headers) into ``build/parent/``, one nvcc a source,
+    side by side."""
+    src = Path(parent) / "selfc_tpu_torch" / "csrc"
+    out = build.BUILD_DIR / "parent"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = build.find_nvcc()
+    procs = {cu.stem: (out / f"lib{cu.stem}.so", subprocess.Popen(
+        [nvcc, *build.NVCC_FLAGS, "-o", str(out / f"lib{cu.stem}.so"), str(cu)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for cu in sorted(src.glob("*.cu"))}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc for the parent's {name}.cu:\n{log}")
+        check(name in build.kernel_names(), f"the parent's {name}.cu has no counterpart here")
+        PARENT_LIBS[name] = lib
+
+
+@contextlib.contextmanager
+def parent_tree(on):
+    """Inside (``on``): the parent tree's kernels in place of this tree's."""
+    if on:
+        for name, lib in PARENT_LIBS.items():
+            build.use_library(name, lib)
+    try:
+        yield
+    finally:
+        for name in PARENT_LIBS:
+            build.use_library(name)
+
+
+def against_parent(fn, iters=5):
+    """Median ms of ``fn()`` with the parent tree's kernels and with this
+    tree's in turns (parent, this, this, parent): ``{"parent": [..],
+    "this": [..]}``; None without ``--parent``."""
+    if not PARENT_LIBS:
+        return None
+    out = {"parent": [], "this": []}
+    for on in (True, False, False, True):
+        with parent_tree(on):
+            out["parent" if on else "this"].append(time_cuda(fn, iters=iters, warmup=1)["median"])
+    return out
 
 
 def check(ok, what):
@@ -824,6 +877,11 @@ def phase_timing_train(device, model, recompute, counts, worst, worst_bwd, worst
     turns = timed_in_turns(model, step_of(model), lambda: parts(model))
     step_ms, peak_saved = turns["packed"]["step_ms_median"], turns["packed"]["peak_device_memory_gib"]
     split = turns["packed"]["parts"]
+    vs_parent = {}
+    for packed in ((True, False) if PARENT_LIBS else ()):
+        model.net.set_pack_w(packed)
+        vs_parent["packed" if packed else "unpacked"] = against_parent(step_of(model))
+    model.net.set_pack_w(True)
     torch.cuda.reset_peak_memory_stats()
     step_r = time_cuda(step_of(recompute), iters=10, warmup=1)
     peak_recompute = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -837,7 +895,7 @@ def phase_timing_train(device, model, recompute, counts, worst, worst_bwd, worst
     n_bwd = sum(by_name[f"chain_spatial_bwd[{C},gc32]@train_packed"]["ms"]
                 * counts["backward_stripe"].get((C, 32, TRAIN_STRIPE), 0) for C in CHAIN_C) / 4
     emit("timing_train", shape=TRAIN_SHAPE, packed_shape=TRAIN_PACKED, step_ms=step_ms,
-         step_ms_unpacked=turns["unpacked"]["step_ms_median"], turns=turns,
+         step_ms_unpacked=turns["unpacked"]["step_ms_median"], turns=turns, step_ms_vs_parent=vs_parent,
          step_recompute_feats_ms=step_r["median"], step_recompute_feats_ms_min=step_r["min"],
          step_plain_ms=step_p["median"], step_plain_ms_min=step_p["min"],
          forward_ms=split["forward"], backward_ms=split["backward"], optimizer_ms=split["optimizer"],
@@ -1449,7 +1507,7 @@ def phase_timing_codec_train(device, tree, batch, counts, worst, worst_gc, worst
         sb_plain = time_cuda(lambda: torch.autograd.grad(out_p, leaves, gout, retain_graph=True), iters=10)
         sb_lib = time_cuda(lambda: torch.autograd.grad(lout, l2, lg, retain_graph=True), iters=10)
         bound, by = chain_feats_bound_ms(*shape, C, peak=TC_PEAK)
-        bb, bby = chain_bwd_bound_ms(*shape, C, dx_in=False)
+        bb, bby = chain_bwd_bound_ms(*shape, C, dx_in=False, peak=TC_PEAK)
         common = {"route": "cuda", "replaces": REPLACES_SPATIAL, "shape": list(shape) + [C], "gc": 32}
         kernels.append({
             "name": f"fused_dense_spatial[{C}]@codec_train", "source": SOURCE,
@@ -1462,7 +1520,8 @@ def phase_timing_codec_train(device, tree, batch, counts, worst, worst_gc, worst
             "name": f"fused_dense_spatial_bwd[{C}]@codec_train", "source": SOURCE_BWD,
             "launches": counts["spatial_bwd"].get((C, 32), 0), "max_abs_err": worst["spatial_bwd"][C],
             "ms": sb_ms["median"], "plain_ms": sb_plain["median"], "bound_ms": bb, "bound_by": bby,
-            "library_ms": sb_lib["median"], "ms_min": sb_ms["min"], "plain_ms_min": sb_plain["min"],
+            "bound_fma_ms": chain_bwd_bound_ms(*shape, C, dx_in=False)[0], "library_ms": sb_lib["median"],
+            "ms_min": sb_ms["min"], "plain_ms_min": sb_plain["min"],
             "library_ms_min": sb_lib["min"], **common})
         del x, ws, bs, leaves, l2, out, out_p, lout, gout, lg
 
@@ -2223,7 +2282,10 @@ def chain_rows(device, tag, shape, stripe, fwd_widths, spatial_widths, counts, w
         b_lib = time_cuda(lambda: torch.autograd.grad(lfeats, leaves, lg, retain_graph=True), iters=10)
         row(f"chain_spatial_bwd[{C},gc{gc}]@{tag}", SOURCE_BWD, REPLACES_BWD,
             counts["backward_stripe"].get((C, gc, stripe), 0), worst["bwd"][(C, gc)], b_ms, b_plain, b_lib,
-            chain_bwd_bound_ms(*lat, C, gc=gc), gc, C)
+            chain_bwd_bound_ms(*lat, C, gc=gc, peak=TC_PEAK), gc, C, chain_bwd_bound_ms(*lat, C, gc=gc)[0])
+        vs = against_parent(lambda: dc.chain_spatial_bwd(x, ws, bs, feats, g, None, stripe), iters=10)
+        if vs:
+            rows[-1]["vs_parent_ms"] = vs
         del x, ws, bs, feats, g, leaves, lfeats, lg
     return rows
 
@@ -2393,6 +2455,8 @@ def phase_variants(device):
             model.net.set_chain_variants(names)
             rt.setdefault(bool(names), []).append(
                 time_cuda(lambda: model.net.roundtrip(gop, eps=eps_gop), iters=5, warmup=1)["median"])
+        model.net.set_chain_variants(VARIANTS)
+        rt_parent = against_parent(lambda: model.net.roundtrip(gop, eps=eps_gop))
     del model, lr_k, hr_k, lr_p, hr_p, gop
 
     batch = train_batch(101)
@@ -2435,6 +2499,8 @@ def phase_variants(device):
         trainer.net.set_chain_variants(names)
         step_ms.setdefault(bool(names), []).append(
             time_cuda(lambda: trainer.optimize_parameters(N_TRAIN_STEPS, eps=eps), iters=5, warmup=1)["median"])
+    trainer.net.set_chain_variants(VARIANTS)
+    step_parent = against_parent(lambda: trainer.optimize_parameters(N_TRAIN_STEPS, eps=eps))
     del trainer
     emit("variants", chain_variants=VARIANTS, clip=clip.shape, batch=batch.shape, serve_s=serve_s,
          launches_test={k: {str(w): n for w, n in serve[k].items()} for k in VARIANT_LAUNCHES},
@@ -2447,7 +2513,8 @@ def phase_variants(device):
          gop_roundtrip_ms=float(np.median(rt[True])), gop_roundtrip_ms_b1=float(np.median(rt[False])),
          gop_roundtrip_ms_turns={"variants": rt[True], "b1": rt[False]},
          step_ms=float(np.median(step_ms[True])), step_ms_b1=float(np.median(step_ms[False])),
-         step_ms_turns={"variants": step_ms[True], "b1": step_ms[False]})
+         step_ms_turns={"variants": step_ms[True], "b1": step_ms[False]},
+         gop_roundtrip_ms_vs_parent=rt_parent, step_ms_vs_parent=step_parent)
     return serve, per_step[0]
 
 
@@ -2489,8 +2556,9 @@ def phase_timing_variants(device, serve, step, worst):
                 def b1_fn():
                     s = dc._chain_cuda(x, *h, "sig_exp", 1.0, None, None)[0]
                     return dc._chain_cuda(x, *g, "mul_add", 1.0, x2, s)[0]
-                bound, by = hg_bound_ms(*shape, C, c_out)
-                bound_fma = bound
+                # B7 runs its products as 3xTF32, as B1 does
+                bound, by = hg_bound_ms(*shape, C, c_out, peak=TC_PEAK)
+                bound_fma = hg_bound_ms(*shape, C, c_out)[0]
                 name, source, replaces = f"fused_hg_pair[{C}->{c_out}]@{path}", SOURCE_HG, REPLACES_HG
             else:
                 key = (C, c_out, 32)
@@ -2515,12 +2583,14 @@ def phase_timing_variants(device, serve, step, worst):
                 source, replaces = (SOURCE_RIDE, REPLACES_RIDE) if kind == "ride" else (SOURCE_V3, REPLACES_V3)
             check(err <= FP32_LIMIT, f"{name} vs plain at the timed shape: {err}")
             ms, plain, library, b1 = (time_cuda(f) for f in (fn, plain_fn, lib_fn, b1_fn))
+            vs = against_parent(fn, iters=10) if kind == "hg" else None
             rows.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,
                 "max_abs_err": max(err, worst.get((kind, C, c_out), 0.0)), "ms": ms["median"],
                 "plain_ms": plain["median"], "bound_ms": bound, "bound_by": by, "library_ms": library["median"],
                 "bound_fma_ms": bound_fma, "b1_ms": b1["median"], "ms_min": ms["min"], "plain_ms_min": plain["min"],
-                "library_ms_min": library["min"], "b1_ms_min": b1["min"], "shape": list(shape) + [C]})
+                "library_ms_min": library["min"], "b1_ms_min": b1["min"], "shape": list(shape) + [C],
+                **({"vs_parent_ms": vs} if vs else {})})
     emit("timing_variants", rows=[{k: r[k] for k in ("name", "launches", "ms", "ms_min", "b1_ms", "plain_ms",
                                                       "library_ms", "bound_ms", "bound_fma_ms", "bound_by")}
                                   for r in rows])
@@ -2531,7 +2601,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated: kernels (build and check only), " + ", ".join(ALL_PHASES))
-    want = set(ap.parse_args().phases.split(","))
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of another commit: time against its kernels in turns")
+    args = ap.parse_args()
+    want = set(args.phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
@@ -2552,6 +2625,10 @@ def main():
     ptxas = [ln.split(":", 1)[1].strip() for name in build.kernel_names()
              for ln in build.build_log(name).splitlines() if "registers" in ln]
     emit("build", seconds=time.time() - t0, libraries=build.kernel_names(), ptxas=ptxas)
+    if args.parent:
+        t0 = time.time()
+        build_parent(args.parent)
+        emit("build_parent", seconds=time.time() - t0, parent=args.parent, libraries=sorted(PARENT_LIBS))
 
     kernels = []
     with torch.no_grad():

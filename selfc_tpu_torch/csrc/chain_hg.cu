@@ -11,236 +11,240 @@
 //   y2 = (x2 - g5) * se        reverse
 //
 // and returns (y2, se). What the TPU kernel keeps out of memory, and so does
-// this one: the two chains read their input once a tile (one launch runs
-// layer k of both: the chain is a grid dimension, and the two blocks of a
-// tile read the same x rows one after the other, the second from L2), and
-// the combine runs on the fp32 conv5 accumulators, so exp(+-s) never goes to
-// device memory to be read back as the m operand of G's epilogue. Five
-// launches where the two epilogue chains make ten: four spatial layers over
-// two feats buffers in B1's (frames, H, W, 4*GCP) layout, then one conv5 +
-// combine launch that reads both buffers, holds h5 and g5 in registers and
-// writes y2 and se.
+// this one: the combine runs on the fp32 conv5 accumulators of both chains,
+// so exp(+-s) never goes to device memory to be read back as the m operand
+// of G's epilogue. Five launches where the two epilogue chains make ten:
 //
-// Bound: arithmetic, as B1 (two chains' FMAs over one input's bytes). The
-// spatial layers are B1's (csrc/chain_common.cuh); plain fp32 FMAs, no
-// tensor cores, bf16 widened on load and rounded once on store. Any B, T, H,
-// W, C; growth width 1..32; c_out any.
+//  - four spatial layers, each of both chains (csrc/tc_chain.cuh's layer,
+//    PAIR: blockIdx.z = 2 * frame + chain, the chain chosen by selects), into
+//    two feats buffers in B1's (frames, H, W, 4*GCP) layout, pad lanes
+//    written as 0; the two blocks of a tile read the same x rows one after
+//    the other, the second from L2;
+//  - conv5 + combine: B6's temporal-conv block loop (tc::tconv_block in
+//    csrc/tc_mma.cuh) over H's K slabs [x | feats_h], then G's [x | feats_g],
+//    each slab's products into a zeroed part added into that chain's fp32
+//    accumulators; the block holds h5 and g5 of the same outputs and writes
+//    y2 and se. x (C = 3 in the 4x net) is staged once a chain.
+//
+// Products: 3xTF32 mma.sync for fp32, bf16 mma for bf16, fp32 sums; the
+// sigmoid and exp in fp32 (the reverse's exp(-s) must invert the forward's).
+// Bound: operations, as B1 (two chains' products over one input's bytes).
+// Any B, T, H, W, C; growth width 1..32; c_out any.
 //
 // Plain C interface (loaded with ctypes); the caller owns every buffer.
 
-#include "chain_common.cuh"
+#include "tc_chain.cuh"
 
 namespace {
 
-using namespace chain;
+using namespace tc;
 
-constexpr int NTHREADS = 128;  // threads of a conv5 block
-constexpr int PIX5 = 256;      // conv5: most pixels a block handles
-constexpr int CO5 = 64;        // conv5: most output channels a block handles
+// conv5 of both chains (h over [x | feats_h], g over [x | feats_g]: the
+// same geometry, x, seg_gcp and seg_gc; their own src[1], w and bias) and
+// the combine.
+template <typename T>
+struct HgArgs {
+  TconvArgs<T> h, g;
+  const T* x2;
+  T* y2;
+  T* se;
+  float clamp;
+  int rev;
+};
 
-// conv5 of both chains + the combine. grid = (ceil(HW / (P*npg)),
-// ceil(c_out / 64), frames), block = npg*ng threads; thread (pg, cg): pixels
-// pg + j*npg (j < P), output channels co_base + 8*cg .. +7 of both chains.
-// The sources are x (read for both chains), feats_h and feats_g; a tap whose
-// frame lies outside the clip is skipped by the whole block.
-template <typename T, int P>
-__global__ void __launch_bounds__(NTHREADS) hg_conv5_kernel(const T* x, const T* fh, const T* fg, const T* hw5, const T* hb5, const T* gw5, const T* gb5, const T* x2, T* y2, T* se, int Tn, int HW, int C, int gc, int gcp, int c_out, int ng, int npg, float clamp, int rev) {
-  __shared__ float4 in_s[KC / 4][PIX5];
-  __shared__ __align__(16) float wh_s[KC][CO5];
-  __shared__ __align__(16) float wg_s[KC][CO5];
+template <typename T, class Tile, int VA>
+__global__ void __launch_bounds__(Tile::THREADS, 1) hg_conv5_kernel(HgArgs<T> p) {
+  extern __shared__ __align__(16) float dyn_smem[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(dyn_smem);
+  constexpr int MT = Tile::MT, NT = Tile::NT, SN = Tile::SN, BK = Elem<T>::BK;
+  const TconvArgs<T>& q = p.h;   // the geometry both chains share
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / Tile::WN, wn = warp % Tile::WN;
 
-  const int tid = threadIdx.x;
-  const int nthreads = ng * npg;
-  const int cg = tid % ng;
-  const int pg = tid / ng;
-  const int mt = npg * P;
-  const int pix0 = blockIdx.x * mt;
-  const int co_base = blockIdx.y * CO5;
-  const int nco = ng * 8;
-  const size_t frame = blockIdx.z;
-  const int t = (int)(frame % Tn);
-  const int fc = 4 * gcp;
-  const int ctot = C + 4 * gc;
+  // the block's tile: clip b, pixels s0.., frames t0..; columns n0..
+  int bid = blockIdx.x;
+  const int tn = bid % q.tiles_n;
+  bid /= q.tiles_n;
+  const int tt_i = bid % q.tiles_t;
+  bid /= q.tiles_t;
+  const int ts = bid % q.tiles_s;
+  const int b = bid / q.tiles_s;
+  const int TT = q.TT, P = q.P, halo = q.halo, Tl = q.Tlen, S = q.S, Co = q.Co;
+  const int s0 = ts * P, t0 = tt_i * TT, n0 = tn * Tile::BN;
+  const int NF = TT + 2 * halo;
+  const int pv = min(P, S - s0), tv = min(TT, Tl - t0);
+  const int ctot = q.ch[0] + q.ch[1] / q.seg_gcp * q.seg_gc;
+  const int ns0 = (q.ch[0] + BK - 1) / BK;
+  const int nsc = ns0 + (q.ch[1] + BK - 1) / BK;   // K slabs of one chain: H's are 0 .. nsc-1, G's nsc .. 2*nsc-1
 
-  float ah[P][8], ag[P][8];
+  int aoff[2][3][MT];
 #pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const int co = co_base + cg * 8 + q;
-    const float bh = co < c_out ? to_f(hb5[co]) : 0.f;
-    const float bg = co < c_out ? to_f(gb5[co]) : 0.f;
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < P; ++j) {
-      ah[j][q] = bh;
-      ag[j][q] = bg;
-    }
-  }
-
-  for (int dt = 0; dt < 3; ++dt) {
-    const int tt = t + dt - 1;
-    if (tt < 0 || tt >= Tn) continue;  // the same for every thread of the block
-    const size_t fsrc = frame + dt - 1;
-    for (int src = 0; src < 3; ++src) {  // 0: x (both chains), 1: feats_h, 2: feats_g
-      const bool use_h = src != 2, use_g = src != 1;
-      const int nsrc = src == 0 ? C : fc;
-      const T* base = src == 0 ? x + fsrc * HW * C : (src == 1 ? fh : fg) + fsrc * HW * fc;
-      for (int c0 = 0; c0 < nsrc; c0 += KC) {
-        const int kc = min(KC, nsrc - c0);
-        const int kc4 = (kc + 3) >> 2;
-        __syncthreads();
-        if ((nsrc & 3) == 0) {
-          for (int idx = tid; idx < mt * (KC / 4); idx += nthreads) {
-            const int c4 = idx & (KC / 4 - 1);
-            const int lp = idx / (KC / 4);
-            if (c4 >= kc4) continue;
-            const int gp = pix0 + lp;
-            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (gp < HW) v = load4(base + (size_t)gp * nsrc + c0 + c4 * 4);
-            in_s[c4][lp] = v;
-          }
-        } else {
-          for (int idx = tid; idx < mt * KC; idx += nthreads) {
-            const int c = idx & (KC - 1);
-            const int lp = idx / KC;
-            if (c >= kc4 * 4) continue;
-            const int gp = pix0 + lp;
-            float v = 0.f;
-            if (c < kc && gp < HW) v = to_f(base[(size_t)gp * nsrc + c0 + c]);
-            reinterpret_cast<float*>(&in_s[c >> 2][lp])[c & 3] = v;
-          }
-        }
-        const SlabRows sr = slab_rows(src != 0, c0, kc, C, gc, gcp);
-        for (int idx = tid; idx < KC * nco; idx += nthreads) {
-          const int col = idx % nco;
-          const int c = idx / nco;
-          const int co = co_base + col;
-          const bool real = c < sr.nreal && co < c_out;
-          const size_t off = ((size_t)dt * ctot + sr.row0 + c) * c_out + co;
-          if (use_h) wh_s[c][col] = real ? to_f(hw5[off]) : 0.f;
-          if (use_g) wg_s[c][col] = real ? to_f(gw5[off]) : 0.f;
-        }
-        __syncthreads();
-
-        for (int c4 = 0; c4 < kc4; ++c4) {
-          float in[P][4];
+    for (int h = 0; h < 2; ++h) {
+      const int r = (wm * MT + m) * 16 + g + 8 * h;
+      const int pp = r / TT, ft = r % TT;
+      const bool ok = pp < pv && ft < tv;
 #pragma unroll
-          for (int j = 0; j < P; ++j) {
-            const float4 v4 = in_s[c4][pg + j * npg];
-            in[j][0] = v4.x;
-            in[j][1] = v4.y;
-            in[j][2] = v4.z;
-            in[j][3] = v4.w;
-          }
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc) {
-            if (use_h) {
-              const float4 wa = *reinterpret_cast<const float4*>(&wh_s[c4 * 4 + cc][cg * 8]);
-              const float4 wb = *reinterpret_cast<const float4*>(&wh_s[c4 * 4 + cc][cg * 8 + 4]);
-#pragma unroll
-              for (int j = 0; j < P; ++j) {
-                const float v = in[j][cc];
-                ah[j][0] = fmaf(v, wa.x, ah[j][0]);
-                ah[j][1] = fmaf(v, wa.y, ah[j][1]);
-                ah[j][2] = fmaf(v, wa.z, ah[j][2]);
-                ah[j][3] = fmaf(v, wa.w, ah[j][3]);
-                ah[j][4] = fmaf(v, wb.x, ah[j][4]);
-                ah[j][5] = fmaf(v, wb.y, ah[j][5]);
-                ah[j][6] = fmaf(v, wb.z, ah[j][6]);
-                ah[j][7] = fmaf(v, wb.w, ah[j][7]);
-              }
-            }
-            if (use_g) {
-              const float4 wa = *reinterpret_cast<const float4*>(&wg_s[c4 * 4 + cc][cg * 8]);
-              const float4 wb = *reinterpret_cast<const float4*>(&wg_s[c4 * 4 + cc][cg * 8 + 4]);
-#pragma unroll
-              for (int j = 0; j < P; ++j) {
-                const float v = in[j][cc];
-                ag[j][0] = fmaf(v, wa.x, ag[j][0]);
-                ag[j][1] = fmaf(v, wa.y, ag[j][1]);
-                ag[j][2] = fmaf(v, wa.z, ag[j][2]);
-                ag[j][3] = fmaf(v, wa.w, ag[j][3]);
-                ag[j][4] = fmaf(v, wb.x, ag[j][4]);
-                ag[j][5] = fmaf(v, wb.y, ag[j][5]);
-                ag[j][6] = fmaf(v, wb.z, ag[j][6]);
-                ag[j][7] = fmaf(v, wb.w, ag[j][7]);
-              }
-            }
-          }
-        }
+      for (int k = 0; k < 3; ++k) {
+        const int f = t0 + ft + k - 1;
+        const int row = ok && f >= 0 && f < Tl ? pp * NF + ft + k - 1 + halo : Tile::BM;
+        aoff[h][k][m] = row * ROW_WORDS;
       }
     }
+
+  for (int i = tid; i < Tile::STAGES * (ROW_BYTES / 4); i += Tile::THREADS)
+    reinterpret_cast<uint32_t*>(smem + (i / (ROW_BYTES / 4)) * Tile::STAGE_BYTES + Tile::BM * ROW_STRIDE)[i % (ROW_BYTES / 4)] = 0u;
+
+  const size_t row_base = (size_t)b * Tl * S + s0;
+  const TconvStager<T, Tile, VA, true> stage_h{p.h, smem, tid, t0, halo, NF, pv, P, row_base, n0, ns0, ctot};
+  const TconvStager<T, Tile, VA, true> stage_g{p.g, smem, tid, t0, halo, NF, pv, P, row_base, n0, ns0, ctot};
+  auto stage = [&](int slab, int st) {
+    if (slab < nsc)
+      stage_h(slab, st);
+    else
+      stage_g(slab - nsc, st);
+  };
+  const int nslab = 2 * nsc;
+  float acc_h[MT][NT][4], acc_g[MT][NT][4], part[MT][NT][4];
+  zero(acc_h);
+  zero(acc_g);
+
+#pragma unroll
+  for (int s = 0; s < Tile::STAGES - 1; ++s) {
+    if (s < nslab) stage(s, s);
+    cp_async_commit();
+  }
+  for (int slab = 0; slab < nslab; ++slab) {
+    cp_async_wait<Tile::STAGES - 2>();
+    __syncthreads();   // this slab landed; every warp is done with the stage refilled below
+    const int next = slab + Tile::STAGES - 1;
+    if (next < nslab) stage(next, next % Tile::STAGES);
+    cp_async_commit();
+    const unsigned char* as = smem + (slab % Tile::STAGES) * Tile::STAGE_BYTES;
+    const T* bs = reinterpret_cast<const T*>(as + Tile::A_BYTES);
+    zero(part);
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      slab_mma<T, MT, NT, SN, true>(part, reinterpret_cast<const uint32_t*>(as), aoff[0][k], aoff[1][k], bs + k * BK * SN, wn * NT * 8, g, t);
+    if (slab < nsc)
+      add_into(acc_h, part);
+    else
+      add_into(acc_g, part);
   }
 
-  // the combine, on the fp32 accumulators
-  const float sgn = rev ? -1.f : 1.f;
+  // the combine: row (pixel, frame) of fragment row g / g+8, columns 2t, 2t+1
+  const float sgn = p.rev ? -1.f : 1.f;
 #pragma unroll
-  for (int j = 0; j < P; ++j) {
-    const int gp = pix0 + pg + j * npg;
-    if (gp < HW) {
-      const size_t o = (frame * HW + gp) * c_out;
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int co = co_base + cg * 8 + q;
-        if (co < c_out) {
-          const float e = expf(sgn * clamp * (2.f / (1.f + expf(-ah[j][q])) - 1.f));
-          const float xv = to_f(x2[o + co]);
-          const float y = rev ? (xv - ag[j][q]) * e : xv * e + ag[j][q];
-          from_f(y, y2 + o + co);
-          from_f(e, se + o + co);
+    for (int h = 0; h < 2; ++h) {
+      const int r = (wm * MT + m) * 16 + g + 8 * h;
+      const int pp = r / TT, ft = r % TT;
+      if (pp >= pv || ft >= tv) continue;
+      const size_t orow = row_base + (size_t)(t0 + ft) * S + pp;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int col = n0 + (wn * NT + n) * 8 + 2 * t;   // and col + 1
+        if (col >= Co) continue;
+        const size_t o = orow * Co + col;
+        const bool pair = col + 1 < Co;
+        float y[2], e[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (i && !pair) break;
+          const float h5 = acc_h[m][n][2 * h + i] + to_f(p.h.bias[col + i]);
+          const float g5 = acc_g[m][n][2 * h + i] + to_f(p.g.bias[col + i]);
+          e[i] = expf(sgn * p.clamp * (2.f / (1.f + expf(-h5)) - 1.f));
+          const float xv = to_f(p.x2[o + i]);
+          y[i] = p.rev ? (xv - g5) * e[i] : xv * e[i] + g5;
         }
+        store_pair(p.y2 + o, y, pair, Co);
+        store_pair(p.se + o, e, pair, Co);
       }
     }
+}
+
+template <typename T, class Tile, int VA>
+int conv5_at(HgArgs<T> p, cudaStream_t stream) {
+  TconvArgs<T>& q = p.h;
+  tconv_tiling(q.Tlen, Tile::BM, q.TT, q.P, q.halo);
+  q.tiles_n = (q.Co + Tile::BN - 1) / Tile::BN;
+  q.tiles_s = (q.S + q.P - 1) / q.P;
+  q.tiles_t = (q.Tlen + q.TT - 1) / q.TT;
+  const long long blocks = (long long)q.B * q.tiles_t * q.tiles_s * q.tiles_n;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(hg_conv5_kernel<T, Tile, VA>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  hg_conv5_kernel<T, Tile, VA><<<(unsigned)blocks, Tile::THREADS, Tile::SMEM, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int VA>
+int conv5(HgArgs<T>& p, cudaStream_t stream) {
+  const int Co = p.h.Co;
+  if (Co <= 8) return conv5_at<T, TileNarrow8, VA>(p, stream);
+  if (Co <= 16) return conv5_at<T, TileNarrow16, VA>(p, stream);
+  return wide48(Co) ? conv5_at<T, TileWide48, VA>(p, stream) : conv5_at<T, TileWide, VA>(p, stream);
+}
+
+template <typename T, int GCP>
+int spatial_layers_at(ChainLayerArgs<T> a, const void* const* hp, const void* const* gp, int frames, cudaStream_t stream) {
+  for (int layer = 0; layer < 4; ++layer) {
+    a.layer = layer;
+    a.w = (const T*)hp[layer];
+    a.b = (const T*)hp[4 + layer];
+    a.w_g = (const T*)gp[layer];
+    a.b_g = (const T*)gp[4 + layer];
+    a.w_vec = rows_aligned16(hp[layer], (size_t)a.gc * sizeof(T)) && rows_aligned16(gp[layer], (size_t)a.gc * sizeof(T));
+    const int err = launch_chain_layer<T, GCP, false, 0, false, true>(a, frames, stream);
+    if (err != 0) return err;
   }
+  return 0;
 }
 
 template <typename T>
 int hg_forward(const void* x, const void* x2, const void* const* hp, const void* const* gp, void* feats_h, void* feats_g, void* y2, void* se, int frames, int Tn, int H, int W, int C, int gc, int c_out, float clamp, int rev, cudaStream_t stream) {
-  if (gc < 1 || gc > GC_MAX) return (int)cudaErrorInvalidValue;
-  const int gcp = padded_gc(gc);
+  if (gc < 1 || gc > GC_MAX || frames < 1 || H < 1 || W < 1 || C < 1 || c_out < 1) return (int)cudaErrorInvalidValue;
+  if (Tn < 1 || frames % Tn != 0 || 2LL * frames > 65535) return (int)cudaErrorInvalidValue;
   // hp / gp: w1..w4, b1..b4, w5, b5 of H / G
-  SpatialArgs<T> a{};
+  const int gcp = padded_gc(gc);
+  ChainLayerArgs<T> a{};
   a.x = (const T*)x;
-  a.feats[0] = (T*)feats_h;
-  a.feats[1] = (T*)feats_g;
-  a.H = H;
-  a.W = W;
-  a.C = C;
-  a.gc = gc;
+  a.feats = (T*)feats_h;
+  a.feats_g = (T*)feats_g;
+  a.H = H, a.W = W, a.C = C, a.gc = gc, a.fc = 4 * gcp;
+  a.f_vec = 1;   // 4*GCP lanes: every feats row is 16-byte aligned
   a.write_feats = 1;
-  const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, frames * 2);
-  for (int layer = 0; layer < 4; ++layer) {
-    a.layer = layer;
-    a.w[0] = (const T*)hp[layer];
-    a.w[1] = (const T*)gp[layer];
-    a.b[0] = (const T*)hp[4 + layer];
-    a.b[1] = (const T*)gp[4 + layer];
-    if (gc == GC_MAX)
-      spatial_layer_kernel<T, GC_MAX, true, 2><<<grid, 4 * GC_MAX, 0, stream>>>(a);
-    else if (gc <= 16)
-      spatial_layer_kernel<T, 16, false, 2><<<grid, 4 * 16, 0, stream>>>(a);
-    else
-      spatial_layer_kernel<T, GC_MAX, false, 2><<<grid, 4 * GC_MAX, 0, stream>>>(a);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int co_blk = c_out < CO5 ? c_out : CO5;
-  const int ng = (co_blk + 7) / 8;
-  const int HW = H * W;
-  const int gy = (c_out + CO5 - 1) / CO5;
-  const T* hw5 = (const T*)hp[8];
-  const T* hb5 = (const T*)hp[9];
-  const T* gw5 = (const T*)gp[8];
-  const T* gb5 = (const T*)gp[9];
-  if (ng == 1) {
-    const int npg = NTHREADS;
-    const dim3 grid5((HW + npg * 2 - 1) / (npg * 2), gy, frames);
-    hg_conv5_kernel<T, 2><<<grid5, npg, 0, stream>>>((const T*)x, (const T*)feats_h, (const T*)feats_g, hw5, hb5, gw5, gb5, (const T*)x2, (T*)y2, (T*)se, Tn, HW, C, gc, gcp, c_out, ng, npg, clamp, rev);
-  } else {
-    int npg = NTHREADS / ng;
-    if (npg > PIX5 / 4) npg = PIX5 / 4;
-    const dim3 grid5((HW + npg * 4 - 1) / (npg * 4), gy, frames);
-    hg_conv5_kernel<T, 4><<<grid5, ng * npg, 0, stream>>>((const T*)x, (const T*)feats_h, (const T*)feats_g, hw5, hb5, gw5, gb5, (const T*)x2, (T*)y2, (T*)se, Tn, HW, C, gc, gcp, c_out, ng, npg, clamp, rev);
-  }
-  return (int)cudaGetLastError();
+  a.x_vec = rows_aligned16(x, (size_t)C * sizeof(T));
+  const int err = gcp == 16 ? spatial_layers_at<T, 16>(a, hp, gp, frames, stream) : spatial_layers_at<T, GC_MAX>(a, hp, gp, frames, stream);
+  if (err != 0) return err;
+
+  HgArgs<T> p{};
+  TconvArgs<T>& h = p.h;
+  h.src[0] = (const T*)x;
+  h.src[1] = (const T*)feats_h;
+  h.ch[0] = C;
+  h.ch[1] = 4 * gcp;
+  h.w = (const T*)hp[8];
+  h.bias = (const T*)hp[9];
+  h.B = frames / Tn, h.Tlen = Tn, h.S = H * W, h.Co = c_out;
+  h.split = 1;
+  h.w_vec = rows_aligned16(hp[8], (size_t)c_out * sizeof(T)) && rows_aligned16(gp[8], (size_t)c_out * sizeof(T));
+  h.seg_gcp = gcp, h.seg_gc = gc;
+  p.g = h;
+  p.g.src[1] = (const T*)feats_g;
+  p.g.w = (const T*)gp[8];
+  p.g.bias = (const T*)gp[9];
+  p.x2 = (const T*)x2;
+  p.y2 = (T*)y2;
+  p.se = (T*)se;
+  p.clamp = clamp;
+  p.rev = rev;
+  // x's rows by 16-byte copies where they allow them (the feats rows always do)
+  if (a.x_vec) return conv5<T, 16>(p, stream);
+  return conv5<T, (int)sizeof(T)>(p, stream);
 }
 
 }  // namespace
@@ -250,9 +254,10 @@ int hg_forward(const void* x, const void* x2, const void* const* hp, const void*
 // input; x2, y2, se (frames,H,W,c_out); H's and G's parameters in the order
 // w1..w4 (3,3,C+gc*k,gc), b1..b4 (gc), w5 (3,C+4*gc,c_out), b5 (c_out);
 // feats_h, feats_g (frames,H,W,4*GCP) scratch, written (GCP = 16 for gc <=
-// 16, else 32); frames = B*T with T = frames_per_clip; 1 <= gc <= 32;
-// rev 0: forward combine, 1: reverse. Returns the first cudaError_t a launch
-// reports, 0 when all five were accepted.
+// 16, else 32; pad lanes as 0); frames = B*T with T = frames_per_clip,
+// 2*frames <= 65535; 1 <= gc <= 32; rev 0: forward combine, 1: reverse.
+// Returns the first cudaError_t a launch reports, 0 when all five were
+// accepted.
 extern "C" int selfc_chain_hg_forward(const void* x, const void* x2, const void* hw1, const void* hw2, const void* hw3, const void* hw4, const void* hb1, const void* hb2, const void* hb3, const void* hb4, const void* hw5, const void* hb5, const void* gw1, const void* gw2, const void* gw3, const void* gw4, const void* gb1, const void* gb2, const void* gb3, const void* gb4, const void* gw5, const void* gb5, void* feats_h, void* feats_g, void* y2, void* se, int frames, int frames_per_clip, int H, int W, int C, int gc, int c_out, float clamp, int rev, int dtype, void* stream) {
   const void* hp[10] = {hw1, hw2, hw3, hw4, hb1, hb2, hb3, hb4, hw5, hb5};
   const void* gp[10] = {gw1, gw2, gw3, gw4, gb1, gb2, gb3, gb4, gw5, gb5};
@@ -262,6 +267,6 @@ extern "C" int selfc_chain_hg_forward(const void* x, const void* x2, const void*
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int selfc_chain_hg_padded_gc(int gc) { return chain::padded_gc(gc); }
+extern "C" int selfc_chain_hg_padded_gc(int gc) { return tc::padded_gc(gc); }
 
 extern "C" const char* selfc_hg_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -26,98 +26,71 @@
 // forward's layout: (frames,H,W,4*GCP), GCP = 16 for gc <= 16 and 32 above,
 // slot j in channels GCP*j .. GCP*j+gc-1 and pad lanes above. The weights are
 // read in their own layout (w_k (3,3,C+gc(k-1),gc)) and remapped while they
-// are staged, as in the forward: buffer lane GCP*j + l is weight row
-// C + gc*j + l for l < gc, and a pad lane meets zeros. dW and db are written
-// in that layout at the true gc. The input concat is cut into chunks of GCP
-// channels: x in runs of GCP (the last one may be short), feats one slot a
-// chunk; a pad lane of dfeats is never written and never read into a result.
-// FULL (gc == GCP == 32) fixes gc at compile time, so the remap folds away
-// and gc 32 runs the code of a kernel written for that one width.
+// are staged: buffer lane GCP*j + l is weight row C + gc*j + l for l < gc,
+// and a pad lane meets zeros. dW and db are written in that layout at the
+// true gc. The input concat is cut into chunks of GCP channels: x in runs of
+// GCP (the last one may be short), feats one slot a chunk.
 //
-// What bounds it: arithmetic. The two contractions of a layer each cost what
-// the layer's forward costs (twice the forward in all), on plain fp32 FMAs,
-// while every tensor is moved a few times at most.
+// What bounds it: operations. The two contractions of a layer each cost what
+// the layer's forward costs (twice the forward in all), while every tensor is
+// moved a few times at most. Every product runs on the tensor cores
+// (csrc/tc_mma.cuh): mma.sync m16n8k8 TF32 with the 3xTF32 split, fp32 sums.
+// The fragment loads split every operand value again, so the split is
+// tc::split_tf32_fast (a mask and a subtraction, no conversion; ~2^-20 of a
+// value kept where the rounded split keeps ~2^-22). dacc is fp32 in both
+// dtypes; bf16 x, feats and weights are widened to fp32 as they are staged
+// (exact in TF32), so a bf16 call computes what the fp32 products of its bf16
+// values give.
 //
-// The design follows the forward's memory layout instead of fusing the sweep
-// into one tile: the running gradient lives in device memory as fp32 (dx and
-// dfeats, split where the forward splits its two sources, so the 4*GCP feature
-// channels of a pixel are 16-byte aligned whatever C is) and the sweep is a
-// sequence of launches. Launch order gives the dependency: slot k of dfeats
-// is complete before layer k reads it, and layer k only adds to slots below k.
+// The running gradient lives in device memory as fp32 (dx and dfeats, split
+// where the forward splits its two sources, so the 4*GCP feature channels of
+// a pixel are 16-byte aligned whatever C is) and the sweep is a sequence of
+// launches. Launch order gives the dependency: slot k of dfeats is complete
+// before layer k reads it, and layer k only adds to slots below k. Slot k is
+// turned into dacc in place once it is complete (slot 4 by a short first
+// launch, slot k < 4 by layer k+1's data gradient, its last writer), pad
+// lanes written as 0; from then on both contractions stage dacc with
+// cp.async as it lies.
 //
-//   * data gradient, one launch a layer, gather form: a block owns 16x16
-//     pixels and GCP channels of dx or of one dfeats slot and sums over the 3x3
-//     neighbours of dacc with the weights transposed and flipped on the way
-//     into shared memory. Blocks write disjoint elements: no atomics, no
-//     halos, no overlap-add. Same register tiling as the forward (8 pixels x
-//     8 channels a thread, 16-channel slabs).
-//   * weight gradient, one launch a layer: the sum runs over every pixel of
-//     every frame, so a block walks over a strided share of 8x16 pixel tiles
-//     with 9 x 2 x 4 accumulators a thread (all taps, two input channels,
-//     four output channels; one 16-byte and three 8-byte shared loads per 72
-//     FMAs) and writes its partial sums to scratch. A second small launch
-//     adds the partials in a fixed order, so the result is the same bits on
-//     every run: no atomicAdd anywhere.
+//   * data gradient, one launch a layer, an implicit GEMM as the forward's
+//     layer (csrc/tc_chain.cuh): a block owns an 8 x 16-pixel tile and one
+//     chunk over a group of frames; M = the tile's pixels, N = the chunk's
+//     channels (8 or 16 for a short x chunk, else GCP), K = 9 taps x the GCP
+//     lanes of dacc. B holds w_k's rows of the chunk for the flipped tap,
+//     [tap][ci][16 co lanes] as they lie, staged once a block and read
+//     transposed by the fragment loads; A is dacc's halo tile (80-byte rows:
+//     a fragment's 8 rows meet 32 banks), shifted by the tap, one (frame,
+//     slab) after another through a 2-stage ring. The stripe masks point a
+//     lane's A row at the stage's zero row. Results are added into fp32 dx /
+//     dfeats in place: blocks write disjoint elements, no atomics.
+//   * weight gradient, one launch a layer: per tap a product with K = the
+//     pixels, dW_tap = in(shifted)^T . dacc. A block has one warp a tap (9
+//     warps): M = the chunk's channels (16 for a short x chunk, else GCP), N
+//     = GCP output lanes; it walks a strided share of 8 x 16 pixel tiles of
+//     every frame through a 2-stage cp.async ring ([pixel][channel] rows GCP
+//     + 8 words apart: a fragment's loads, read along pixels, meet 32 banks),
+//     each tile's products in a zeroed part added in fp32 (one accumulator
+//     over all of a step's 72,576 pixels would drift), and writes its partial
+//     sums to scratch. The chunks of a layer share the blocks, so a block
+//     walks more tiles and leaves fewer partials. A second small launch adds
+//     the partials in a fixed order, so dW and db are the same bits on every
+//     run: no atomicAdd anywhere. The stripe masks zero a lane's dacc operand
+//     for a pixel at an image edge where the warp's tap crosses it.
 //
-// All products are plain fp32 FMAs: no tensor cores, no TF32. bf16 tensors
-// are widened on load; dW and db are rounded once, by the reduction.
+// tools/tc_attribution.py times B2 with each of these choices undone
+// (rna_split, wg_one_block, dg_one_frame, wg_all_groups).
 //
 // Plain C interface (loaded with ctypes); the caller owns every buffer.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-
-#include <type_traits>
+#include "tc_chain.cuh"
 
 namespace {
 
-constexpr int GC_MAX = 32;          // widest growth the kernels take
-constexpr int KC = 16;              // data gradient: dacc channels staged per step (divides GCP)
-constexpr int TILE = 16;            // data gradient: TILE x TILE pixels a block
-constexpr int HALO = TILE + 2;
-constexpr int WG_TH = 8;            // weight gradient: rows of a pixel tile
-constexpr int WG_TW = 16;           // weight gradient: columns of a pixel tile
-constexpr int WG_HH = WG_TH + 2;
-constexpr int WG_HW = WG_TW + 2;
+using namespace tc;
+
 constexpr int RED_THREADS = 256;
-constexpr float SLOPE = 0.2f;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void from_f(float v, float* dst) { *dst = v; }
-__device__ __forceinline__ void from_f(float v, __nv_bfloat16* dst) { *dst = __float2bfloat16(v); }
-
-// Four consecutive elements as fp32; p is aligned to the four elements.
-__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);  // bf16 -> fp32 is a 16-bit shift
-  return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u), __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
-}
-
-// dacc of four consecutive channels: the gradient reaching a layer's output
-// times the LeakyReLU slope, chosen by the sign of the saved output (an
-// output of exactly 0 takes the 0.2 branch).
-template <typename T>
-__device__ __forceinline__ float4 dacc4(const float* dout, const T* out) {
-  float4 d = load4(dout);
-  const float4 f = load4(out);
-  d.x = f.x > 0.f ? d.x : SLOPE * d.x;
-  d.y = f.y > 0.f ? d.y : SLOPE * d.y;
-  d.z = f.z > 0.f ? d.z : SLOPE * d.z;
-  d.w = f.w > 0.f ? d.w : SLOPE * d.w;
-  return d;
-}
-
-// Four consecutive output channels co..co+3 of weight row `row` (n of them a
-// row), zero from n on; 16-byte loads when the rows allow them.
-template <typename T>
-__device__ __forceinline__ float4 weight4(const T* w, size_t row, int n, int co) {
-  const T* p = w + row * n + co;
-  if ((n & 3) == 0) return co < n ? load4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
-  return make_float4(co < n ? to_f(p[0]) : 0.f, co + 1 < n ? to_f(p[1]) : 0.f,
-                     co + 2 < n ? to_f(p[2]) : 0.f, co + 3 < n ? to_f(p[3]) : 0.f);
-}
+constexpr int DACC_THREADS = 256;
+constexpr int WG_WARPS = 9;   // weight gradient: a warp a tap
 
 // The chunk of [x | feats[slots < layer]] a block works on, GCP buffer
 // channels wide: chunks below x_chunks lie in x (the last one may be short),
@@ -128,6 +101,7 @@ struct Chunk {
   int n;        // real channels of the chunk, <= GCP
   int row0;     // first row on the weights' Cin axis
   int stride;   // channels of a pixel in its tensor
+  int slot;     // the feats slot (-1: x)
 };
 
 template <int GCP>
@@ -139,318 +113,408 @@ __device__ __forceinline__ Chunk chunk_of(int chunk, int x_chunks, int C, int gc
     k.n = min(GCP, C - k.c0);
     k.row0 = k.c0;
     k.stride = C;
+    k.slot = -1;
   } else {
-    const int slot = chunk - x_chunks;
-    k.c0 = slot * GCP;
+    k.slot = chunk - x_chunks;
+    k.c0 = k.slot * GCP;
     k.n = gc;
-    k.row0 = C + slot * gc;
+    k.row0 = C + k.slot * gc;
     k.stride = 4 * GCP;
   }
   return k;
 }
 
-// Data gradient of one layer:
-//   dst(q)[ci] += sum_{tap,co} dacc(q + tap' - 1)[co] * w[8 - tap'][ci][co]
-// (the forward's tap (dy,dx) seen from the input pixel is tap' = (2-dy,2-dx),
-// whose flat index is 8 - tap). dst is dx for a chunk of x, dfeats for a
-// chunk of feats. grid = (tiles_x * tiles_y, chunks, frames), block = 4*GCP.
-// Thread (pg, cg) as in the forward: row pg%16 of the tile, columns
-// 8*(pg/16) .. +7, channels 8*cg .. +7 of the chunk (cg < GCP/8). The sum
-// runs over the layer's GCP output lanes; those >= gc meet zero weights.
-// STRIPE: the adjoint of the forward's stripe masks (chain_common.cuh). Seen
-// from the input pixel q, the staged column dx_ holds dacc(q + dx_ - 1)
-// through the forward's tap 2 - dx_, and that pair was masked where the
-// output column q + dx_ - 1 lies in the next or the last stripe: the same
-// rule as the forward's, no dx_ = 0 term where q % WS == 0 and no dx_ = 2 term
-// where q % WS == WS - 1.
-template <typename T, int GCP, bool FULL, bool STRIPE>
-__global__ void __launch_bounds__(4 * GCP, 96 / GCP) data_grad_kernel(const T* feats, const T* w, float* dfeats, float* dx, int H, int W, int C, int gc_arg, int layer, int x_chunks, int stripe_w) {
-  const int gc = FULL ? GCP : gc_arg;
-  constexpr int NT = 4 * GCP;
-  constexpr int NCG = GCP / 8;
-  constexpr int FC = 4 * GCP;
-  __shared__ float4 in_s[KC / 4][HALO * HALO];
-  __shared__ __align__(16) float w_s[9][KC][GCP];
+__device__ __forceinline__ float lrelu_grad(float d, float out) { return out > 0.f ? d : CHAIN_SLOPE * d; }
 
-  const int tid = threadIdx.x;
-  const int cg = tid % NCG;
-  const int pg = tid / NCG;
-  const int row = pg & 15;
-  const int cb = (pg >> 4) * 8;
-  const int tiles_x = (W + TILE - 1) / TILE;
-  const int tx0 = (blockIdx.x % tiles_x) * TILE;
-  const int ty0 = (blockIdx.x / tiles_x) * TILE;
-  const size_t frame = blockIdx.z;
-  const Chunk ch = chunk_of<GCP>(blockIdx.y, x_chunks, C, gc);
-  const int cin = C + gc * layer;
-  const T* ff = feats + frame * H * W * FC + GCP * layer;       // the layer's saved output
-  const float* df = dfeats + frame * H * W * FC + GCP * layer;  // the gradient reaching it
-  float* dst = ch.in_x ? dx + frame * H * W * C : dfeats + frame * H * W * FC;
-  unsigned lmask = 0, rmask = 0;  // bit p: column tx0 + cb + p takes no dx_ = 0 / dx_ = 2 term
-  if (STRIPE) {
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const int r = (tx0 + cb + p) % stripe_w;
-      lmask |= (r == 0 ? 1u : 0u) << p;
-      rmask |= (r == stripe_w - 1 ? 1u : 0u) << p;
-    }
-  }
-
-  float acc[8][8];
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
-  }
-
-  for (int c0 = 0; c0 < GCP; c0 += KC) {
-    __syncthreads();  // the previous slab is consumed before it is overwritten
-    for (int idx = tid; idx < HALO * HALO * (KC / 4); idx += NT) {
-      const int c4 = idx & (KC / 4 - 1);
-      const int pix = idx / (KC / 4);
-      const int iy = ty0 - 1 + pix / HALO;
-      const int ix = tx0 - 1 + pix % HALO;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (iy >= 0 && iy < H && ix >= 0 && ix < W) {
-        const size_t off = ((size_t)iy * W + ix) * FC + c0 + c4 * 4;
-        v = dacc4(df + off, ff + off);
+// Rows of LANES elements into shared fp32 rows `sstride` words apart: row i
+// from row(i) (null: a zero row), lanes from n on zero. fp32 by cp.async (16
+// bytes a copy where vec, else 4); bf16 widened by plain loads and stores.
+// `any` is a valid address for the copies that read nothing.
+template <typename T, int LANES, int THREADS, class Row>
+__device__ __forceinline__ void stage_rows(float* s, int sstride, int nrows, Row row, int n, bool vec, const void* any, int tid) {
+  if constexpr (sizeof(T) == 4) {
+    if (vec) {
+      constexpr int CPR = LANES / 4;
+      for (int i = tid; i < nrows * CPR; i += THREADS) {
+        const int r = i / CPR, j = 4 * (i % CPR);
+        const T* src = row(r);
+        const int vb = src ? max(0, min(16, (n - j) * 4)) : 0;
+        cp_async<16>(s + r * sstride + j, vb ? (const void*)(src + j) : any, vb);
       }
-      in_s[c4][pix] = v;
-    }
-    // weights, transposed on the way in: w_s[tap'][co][ci]. Neighbouring
-    // threads take neighbouring ci, so the four stores of a thread meet no
-    // bank conflict. Rows of pad lanes (ci >= n) and columns co >= gc stage
-    // as zeros.
-    for (int idx = tid; idx < 9 * GCP * (KC / 4); idx += NT) {
-      const int ci = idx % GCP;
-      const int co4 = (idx / GCP) % (KC / 4);
-      const int tap = idx / (GCP * (KC / 4));
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      const size_t wrow = (size_t)(8 - tap) * cin + ch.row0 + ci;
-      if (ci < ch.n) v = FULL ? load4(w + wrow * GCP + c0 + co4 * 4) : weight4(w, wrow, gc, c0 + co4 * 4);
-      w_s[tap][co4 * 4 + 0][ci] = v.x;
-      w_s[tap][co4 * 4 + 1][ci] = v.y;
-      w_s[tap][co4 * 4 + 2][ci] = v.z;
-      w_s[tap][co4 * 4 + 3][ci] = v.w;
-    }
-    __syncthreads();
-
-    for (int dy = 0; dy < 3; ++dy) {
-      for (int c4 = 0; c4 < KC / 4; ++c4) {
-        float in[10][4];
-        const float4* rowp = &in_s[c4][(row + dy) * HALO + cb];
-#pragma unroll
-        for (int j = 0; j < 10; ++j) {
-          const float4 t = rowp[j];
-          in[j][0] = t.x;
-          in[j][1] = t.y;
-          in[j][2] = t.z;
-          in[j][3] = t.w;
-        }
-#pragma unroll
-        for (int dx_ = 0; dx_ < 3; ++dx_) {
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc) {
-            const float4 wa = *reinterpret_cast<const float4*>(&w_s[dy * 3 + dx_][c4 * 4 + cc][cg * 8]);
-            const float4 wb = *reinterpret_cast<const float4*>(&w_s[dy * 3 + dx_][c4 * 4 + cc][cg * 8 + 4]);
-#pragma unroll
-            for (int p = 0; p < 8; ++p) {
-              float v = in[p + dx_][cc];
-              if (STRIPE && dx_ != 1 && (((dx_ == 0 ? lmask : rmask) >> p) & 1u)) v = 0.f;
-              acc[p][0] = fmaf(v, wa.x, acc[p][0]);
-              acc[p][1] = fmaf(v, wa.y, acc[p][1]);
-              acc[p][2] = fmaf(v, wa.z, acc[p][2]);
-              acc[p][3] = fmaf(v, wa.w, acc[p][3]);
-              acc[p][4] = fmaf(v, wb.x, acc[p][4]);
-              acc[p][5] = fmaf(v, wb.y, acc[p][5]);
-              acc[p][6] = fmaf(v, wb.z, acc[p][6]);
-              acc[p][7] = fmaf(v, wb.w, acc[p][7]);
-            }
-          }
-        }
+    } else {
+      for (int i = tid; i < nrows * LANES; i += THREADS) {
+        const int r = i / LANES, j = i % LANES;
+        const T* src = row(r);
+        const int vb = src && j < n ? 4 : 0;
+        cp_async<4>(s + r * sstride + j, vb ? (const void*)(src + j) : any, vb);
       }
     }
-  }
-
-  const int oy = ty0 + row;
-  if (oy >= H) return;
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int ox = tx0 + cb + p;
-    if (ox < W) {
-      float* o = dst + ((size_t)oy * W + ox) * ch.stride + ch.c0 + cg * 8;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        if (cg * 8 + q < ch.n) o[q] += acc[p][q];
-      }
+  } else {
+    for (int i = tid; i < nrows * LANES; i += THREADS) {
+      const int r = i / LANES, j = i % LANES;
+      const T* src = row(r);
+      s[r * sstride + j] = src && j < n ? to_f(src[j]) : 0.f;
     }
   }
 }
 
-// Weight and bias gradient of one layer, partial sums of one block, in the
+// Slot `slot` of dfeats turned into that layer's dacc in place, pad lanes 0
+// (the top slot: the others are turned by the data gradient that completes them).
+template <typename T, int GCP>
+__global__ void __launch_bounds__(DACC_THREADS) dacc_kernel(const T* feats, float* dfeats, size_t pixels, int slot, int gc) {
+  constexpr int FC = 4 * GCP;
+  const size_t n = pixels * GCP;
+  for (size_t i = (size_t)blockIdx.x * DACC_THREADS + threadIdx.x; i < n; i += (size_t)gridDim.x * DACC_THREADS) {
+    const int l = (int)(i % GCP);
+    const size_t o = (i / GCP) * FC + GCP * slot + l;
+    dfeats[o] = l < gc ? lrelu_grad(dfeats[o], to_f(feats[o])) : 0.f;
+  }
+}
+
+template <typename T>
+struct BwdArgs {
+  const T* x;        // (frames, H, W, C)
+  const T* feats;    // (frames, H, W, 4*GCP)
+  const T* w;        // w_{layer+1} (3, 3, C + gc*layer, gc)
+  float* dfeats;     // (frames, H, W, 4*GCP)
+  float* dx;         // (frames, H, W, C)
+  float* partial;    // weight gradient: (groups, 9*(C + gc*layer)*gc + gc)
+  int frames, H, W, C, gc, layer, x_chunks, stripe_w;
+  int w_vec, x_vec;  // fp32 weight rows / x rows allow 16-byte copies
+};
+
+// ---------------------------------------------------------------------------
+// data gradient:
+//   dst(q)[ci] += sum_{tap,co} dacc(q + tap - 1)[co] * w[8 - tap][ci][co]
+// (the forward's tap (dy,dx) seen from the input pixel is (2-dy,2-dx), whose
+// flat index is 8 - tap). dst is dx for a chunk of x, dfeats for a chunk of
+// feats. grid = (tiles_x * tiles_y, chunks, frame groups), block =
+// SpatialTile: a block stages the weight rows of its chunk once, then walks
+// the (frame, slab) pairs of the frames blockIdx.z, blockIdx.z + gridDim.z,
+// ... through a 2-stage ring of dacc's halo tiles, the next pair's tile in
+// flight while the products of this one run.
+// STRIPE: seen from the input pixel q, the staged column dx holds dacc(q + dx
+// - 1) through the forward's tap 2 - dx, and that pair was masked where the
+// output column q + dx - 1 lies in the next or the last stripe: no dx = 0
+// term where q % WS == 0 and no dx = 2 term where q % WS == WS - 1, the
+// forward's rule by the lane's own column.
+// ---------------------------------------------------------------------------
+
+template <int GCP>
+struct DataGradSmem {
+  static constexpr int SLABS = GCP / 16;                       // K slabs of 16 dacc lanes
+  static constexpr int B_BYTES = 9 * GCP * ROW_STRIDE;         // a slab's [tap][ci][16 co lanes]
+  static constexpr int A_BYTES = (SpatialTile::A_BYTES + 127) / 128 * 128;   // a slab's halo tile
+  // the weights of every slab, then the ring's two halo tiles
+  static constexpr int SMEM = SLABS * B_BYTES + 2 * A_BYTES;
+  static constexpr int A0 = SLABS * B_BYTES;
+};
+
+// A data-gradient block's walk, with NTC n8 fragments of the chunk's
+// channels (a short x chunk takes fewer than GCP/8); the weights' copies are
+// in flight on entry.
+template <typename T, int GCP, bool STRIPE, int NTC>
+__device__ __forceinline__ void data_grad_walk(const BwdArgs<T>& p, const Chunk& ch, unsigned char* smem, int tx0, int ty0) {
+  using Tile = SpatialTile;
+  using SM = DataGradSmem<GCP>;
+  constexpr int MT = Tile::MT, TW = Tile::TW, HWD = Tile::HWD, FC = 4 * GCP;
+  constexpr int ZROW = Tile::NPIX * ROW_WORDS;   // the stage's zero row, in words
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int H = p.H, W = p.W, gc = p.gc;
+
+  // rows g and g+8 of fragment m: tile pixel r = (warp*MT + m)*16 + g (+8);
+  // STRIPE: bit 2m+h of lm / rm: that pixel's column takes no dx = 0 / dx = 2 term
+  int a0[MT], a1[MT];
+  unsigned lm = 0, rm = 0;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (warp * MT + m) * 16 + g + 8 * h;
+      const int off = ((r / TW) * HWD + r % TW) * ROW_WORDS;
+      if (h) a1[m] = off;
+      else a0[m] = off;
+      if (STRIPE) {
+        const int col = (tx0 + r % TW) % p.stripe_w;
+        lm |= (col == 0 ? 1u : 0u) << (2 * m + h);
+        rm |= (col == p.stripe_w - 1 ? 1u : 0u) << (2 * m + h);
+      }
+    }
+
+  // the (frame, slab) pairs of this block: pair u is slab u % SLABS of frame
+  // blockIdx.z + (u / SLABS) * gridDim.z
+  const int nu = ((p.frames - 1 - (int)blockIdx.z) / (int)gridDim.z + 1) * SM::SLABS;
+  auto frame_of = [&](int u) { return (size_t)blockIdx.z + (size_t)(u / SM::SLABS) * gridDim.z; };
+  auto stage = [&](int u, int st) {
+    const float* da = p.dfeats + frame_of(u) * H * W * FC + GCP * p.layer;
+    stage_halo<16, Tile>(smem + SM::A0 + st * SM::A_BYTES, da, GCP, FC, 16 * (u % SM::SLABS), tx0, ty0, H, W, tid);
+  };
+
+  float acc[MT][NTC][4], part[MT][NTC][4];
+  stage(0, 0);
+  cp_async_commit();
+  for (int u = 0; u < nu; ++u) {
+    cp_async_wait<0>();
+    __syncthreads();   // pair u landed; every warp is done with the stage refilled below
+    if (u + 1 < nu) stage(u + 1, (u + 1) & 1);
+    cp_async_commit();
+    const int s = u % SM::SLABS;
+    const float* af = reinterpret_cast<const float*>(smem + SM::A0 + (u & 1) * SM::A_BYTES);
+    const float* bsm = reinterpret_cast<const float*>(smem + s * SM::B_BYTES);
+    if (s == 0) zero(acc);
+    zero(part);
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dx = tap % 3;
+      const int shift = ((tap / 3) * HWD + dx) * ROW_WORDS;
+      const unsigned mask = STRIPE ? (dx == 0 ? lm : (dx == 2 ? rm : 0u)) : 0u;
+      int b0[MT], b1[MT];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        b0[m] = (mask >> (2 * m)) & 1u ? ZROW : shift + a0[m];
+        b1[m] = (mask >> (2 * m + 1)) & 1u ? ZROW : shift + a1[m];
+      }
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t ah[MT][4], al[MT][4], bh[NTC][2], bl[NTC][2];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float* r0 = af + b0[m] + 8 * ks;
+          const float* r1 = af + b1[m] + 8 * ks;
+          split_tf32_fast(r0[t], ah[m][0], al[m][0]);
+          split_tf32_fast(r1[t], ah[m][1], al[m][1]);
+          split_tf32_fast(r0[t + 4], ah[m][2], al[m][2]);
+          split_tf32_fast(r1[t + 4], ah[m][3], al[m][3]);
+        }
+#pragma unroll
+        for (int n = 0; n < NTC; ++n) {   // B (k = co, n = ci): row ci of the tap, read along co
+          const float* rn = bsm + (tap * GCP + 8 * n + g) * ROW_WORDS + 8 * ks;
+          split_tf32_fast(rn[t], bh[n][0], bl[n][0]);
+          split_tf32_fast(rn[t + 4], bh[n][1], bl[n][1]);
+        }
+        warp_mma_3xtf32<MT, NTC>(part, ah, al, bh, bl);
+      }
+    }
+    add_into(acc, part);
+    if (s < SM::SLABS - 1) continue;
+
+    // dst += acc; the slot this launch completes (layer - 1) becomes dacc of
+    // the layer below, pad lanes 0
+    const size_t fpix = frame_of(u) * H * W;
+    const bool last = !ch.in_x && ch.slot == p.layer - 1;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (warp * MT + m) * 16 + g + 8 * h;
+        const int oy = ty0 + r / TW, ox = tx0 + r % TW;
+        if (oy >= H || ox >= W) continue;
+        const size_t pix = fpix + (size_t)oy * W + ox;
+#pragma unroll
+        for (int n = 0; n < NTC; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ci = 8 * n + 2 * t + e;
+            const float v = acc[m][n][2 * h + e];
+            if (ch.in_x) {
+              if (ci < ch.n) p.dx[pix * p.C + ch.c0 + ci] += v;
+            } else {
+              float* d = p.dfeats + pix * FC + ch.c0 + ci;
+              if (last)
+                *d = ci < gc ? lrelu_grad(*d + v, to_f(p.feats[pix * FC + ch.c0 + ci])) : 0.f;
+              else if (ci < gc)
+                *d += v;
+            }
+          }
+      }
+  }
+}
+
+// Three blocks an SM: their shared memory leaves room for three, and the
+// bound keeps the stripe masks' per-tap offsets from taking 255 registers.
+template <typename T, int GCP, bool STRIPE>
+__global__ void __launch_bounds__(SpatialTile::THREADS, 3) data_grad_kernel(BwdArgs<T> p) {
+  extern __shared__ __align__(16) float dyn_smem[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(dyn_smem);
+  using Tile = SpatialTile;
+  using SM = DataGradSmem<GCP>;
+  constexpr int TW = Tile::TW, THREADS = Tile::THREADS;
+  constexpr int ZROW = Tile::NPIX * ROW_WORDS;
+  const int tid = threadIdx.x;
+  const int gc = p.gc;
+  const int tiles_x = (p.W + TW - 1) / TW;
+  const int tx0 = (blockIdx.x % tiles_x) * TW, ty0 = (blockIdx.x / tiles_x) * Tile::TH;
+  const Chunk ch = chunk_of<GCP>(blockIdx.y, p.x_chunks, p.C, gc);
+  const int cin = p.C + gc * p.layer;
+  // the chunk's channels the products read: a short x chunk's 8 or 16
+  const int nrow = !ch.in_x ? GCP : ch.n <= 8 ? 8 : (ch.n <= 16 ? 16 : GCP);
+
+  // the weight rows (tap, ci) = w[8 - tap][row0 + ci][16s ..], ci < nrow, of every slab
+#pragma unroll
+  for (int s = 0; s < SM::SLABS; ++s) {
+    float* bs = reinterpret_cast<float*>(smem + s * SM::B_BYTES);
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const T* w = p.w + ((size_t)(8 - tap) * cin + ch.row0) * gc + 16 * s;
+      stage_rows<T, 16, THREADS>(bs + tap * GCP * ROW_WORDS, ROW_WORDS, nrow, [&](int ci) { return ci < ch.n ? w + (size_t)ci * gc : nullptr; },
+                                 gc - 16 * s, p.w_vec, p.w, tid);
+    }
+  }
+  for (int i = tid; i < 2 * ROW_WORDS; i += THREADS)
+    reinterpret_cast<uint32_t*>(smem + SM::A0 + (i / ROW_WORDS) * SM::A_BYTES)[ZROW + i % ROW_WORDS] = 0u;
+
+  if (ch.in_x && ch.n <= 8)
+    data_grad_walk<T, GCP, STRIPE, 1>(p, ch, smem, tx0, ty0);
+  else if (GCP > 16 && ch.in_x && ch.n <= 16)
+    data_grad_walk<T, GCP, STRIPE, 2>(p, ch, smem, tx0, ty0);
+  else
+    data_grad_walk<T, GCP, STRIPE, GCP / 8>(p, ch, smem, tx0, ty0);
+}
+
+// ---------------------------------------------------------------------------
+// weight and bias gradient of one layer, partial sums of one block, in the
 // weights' own layout at the true gc:
 //   partial[g][(tap * cin + row0 + ci) * gc + co] = sum over the block's pixels p of
 //       [x | feats](p + tap - 1)[ci] * dacc(p)[co]
 //   partial[g][9 * cin * gc + co]  = sum over the block's pixels of dacc(p)[co]
-// for ci < n and co < gc (pad lanes are computed and dropped).
-// grid = (groups, chunks), block = GCP*GCP/8 (128 at GCP 32, 32 at 16). Block
-// (g, chunk) walks over the pixel tiles g, g + groups, ... of all frames.
-// Thread (cp, cq): input channels 2*cp, 2*cp + 1 of the chunk, output
-// channels 4*cq .. +3, all nine taps. Every thread of a block visits the same
-// pixels, so a tile that hangs over the edge of the image simply has fewer.
-// STRIPE: a product whose tap crosses a stripe edge is dropped (the forward
-// masked it): window column 0 where the pixel's column p % WS == 0, column 2
-// where p % WS == WS - 1. The order of the sums does not change.
-template <typename T, int GCP, bool FULL, bool STRIPE>
-__global__ void __launch_bounds__(GCP * GCP / 8, 96 / GCP) weight_grad_kernel(const T* x, const T* feats, const float* dfeats, float* partial, int frames, int H, int W, int C, int gc_arg, int layer, int x_chunks, int stripe_w) {
-  const int gc = FULL ? GCP : gc_arg;
-  constexpr int NT = GCP * GCP / 8;
-  constexpr int FC = 4 * GCP;
-  __shared__ __align__(16) float in_s[WG_HH * WG_HW][GCP];  // [pixel with halo][ci]
-  __shared__ __align__(16) float da_s[WG_TH * WG_TW][GCP];  // [pixel][co]
+// for ci < n and co < gc. grid = (groups, chunks), 9 warps: warp k computes
+// tap k. Block (g, chunk) walks over the pixel tiles g, g + groups, ... of all
+// frames. STRIPE: a product whose tap crosses a stripe edge is dropped (the
+// forward masked it): window column 0 where the pixel's column p % WS == 0,
+// column 2 where p % WS == WS - 1.
+// ---------------------------------------------------------------------------
 
-  const int tid = threadIdx.x;
-  const int cq = tid % (GCP / 4);
-  const int cp = tid / (GCP / 4);
-  const Chunk ch = chunk_of<GCP>(blockIdx.y, x_chunks, C, gc);
-  const int cin = C + gc * layer;
-  const int tiles_x = (W + WG_TW - 1) / WG_TW;
-  const int tiles_y = (H + WG_TH - 1) / WG_TH;
-  const int n_tiles = tiles_x * tiles_y * frames;
-  const bool vec = (ch.stride & 3) == 0;  // every pixel's channels start on a 4-element boundary
+template <int GCP>
+struct WeightGradSmem {
+  using Tile = SpatialTile;
+  static constexpr int SW = b_stride(GCP);   // words between staged rows (GCP + 8)
+  static constexpr int IN_FLOATS = Tile::NPIX * SW;                // [halo pixel][ci]
+  static constexpr int DA_FLOATS = Tile::TH * Tile::TW * SW;       // [tile pixel][co]
+  static constexpr int STAGE = ((IN_FLOATS + DA_FLOATS) * 4 + 127) / 128 * 128;
+  static constexpr int SMEM = 2 * STAGE;
+};
 
-  float acc[9][2][4];
-  float bsum[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int t = 0; t < 9; ++t) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[t][0][i] = acc[t][1][i] = 0.f;
-  }
+// The weight gradient's block with MT m16 fragments of the chunk's
+// channels (a short x chunk takes one where GCP is 32).
+template <typename T, int GCP, bool STRIPE, int MT>
+__device__ __forceinline__ void weight_grad_block(const BwdArgs<T>& p, const Chunk& ch, unsigned char* smem) {
+  using Tile = SpatialTile;
+  using SM = WeightGradSmem<GCP>;
+  constexpr int NT = GCP / 8, SW = SM::SW, TW = Tile::TW, HWD = Tile::HWD, FC = 4 * GCP;
+  constexpr int THREADS = WG_WARPS * 32;
+  const int tid = threadIdx.x, lane = tid & 31, tap = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int dy = tap / 3, dx = tap % 3;
+  const int H = p.H, W = p.W, gc = p.gc, layer = p.layer;
+  const int cin = p.C + gc * layer;
+  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + Tile::TH - 1) / Tile::TH;
+  const int n_tiles = tiles_x * tiles_y * p.frames;
+  const bool vec = sizeof(T) == 4 && (ch.in_x ? p.x_vec : 1);
+  const bool bias = blockIdx.y == 0 && tid < GCP;   // this thread sums db's lane tid
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+  auto stage = [&](int tile, int st) {
+    float* in_s = reinterpret_cast<float*>(smem + st * SM::STAGE);
+    float* da_s = in_s + SM::IN_FLOATS;
     const size_t frame = tile / (tiles_x * tiles_y);
     const int rem = tile % (tiles_x * tiles_y);
-    const int ty0 = (rem / tiles_x) * WG_TH;
-    const int tx0 = (rem % tiles_x) * WG_TW;
-    const int th = min(WG_TH, H - ty0);
-    const int tw = min(WG_TW, W - tx0);
-    const T* src = ch.in_x ? x + frame * H * W * C : feats + frame * H * W * FC;
-    const size_t foff = frame * H * W * FC + GCP * layer;
+    const int ty0 = (rem / tiles_x) * Tile::TH, tx0 = (rem % tiles_x) * TW;
+    const T* src = (ch.in_x ? p.x : p.feats) + frame * H * W * ch.stride + ch.c0;
+    auto in_row = [&](int i) -> const T* {
+      const int iy = ty0 - 1 + i / HWD, ix = tx0 - 1 + i % HWD;
+      return iy >= 0 && iy < H && ix >= 0 && ix < W ? src + ((size_t)iy * W + ix) * ch.stride : nullptr;
+    };
+    stage_rows<T, 16 * MT, THREADS>(in_s, SW, Tile::NPIX, in_row, ch.n, vec, src, tid);
+    const float* da = p.dfeats + frame * H * W * FC + GCP * layer;
+    auto da_row = [&](int i) -> const float* {
+      const int iy = ty0 + i / TW, ix = tx0 + i % TW;
+      return iy < H && ix < W ? da + ((size_t)iy * W + ix) * FC : nullptr;
+    };
+    stage_rows<float, GCP, THREADS>(da_s, SW, Tile::TH * TW, da_row, GCP, true, da, tid);
+  };
 
-    __syncthreads();  // the previous tile is consumed before it is overwritten
-    if (vec) {
-      for (int idx = tid; idx < WG_HH * WG_HW * (GCP / 4); idx += NT) {
-        const int c4 = idx % (GCP / 4);
-        const int pix = idx / (GCP / 4);
-        const int iy = ty0 - 1 + pix / WG_HW;
-        const int ix = tx0 - 1 + pix % WG_HW;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (c4 * 4 < ch.n && iy >= 0 && iy < H && ix >= 0 && ix < W) v = load4(src + ((size_t)iy * W + ix) * ch.stride + ch.c0 + c4 * 4);
-        *reinterpret_cast<float4*>(&in_s[pix][c4 * 4]) = v;
-      }
-    } else {
-      for (int idx = tid; idx < WG_HH * WG_HW * GCP; idx += NT) {
-        const int c = idx % GCP;
-        const int pix = idx / GCP;
-        const int iy = ty0 - 1 + pix / WG_HW;
-        const int ix = tx0 - 1 + pix % WG_HW;
-        float v = 0.f;
-        if (c < ch.n && iy >= 0 && iy < H && ix >= 0 && ix < W) v = to_f(src[((size_t)iy * W + ix) * ch.stride + ch.c0 + c]);
-        in_s[pix][c] = v;
-      }
+  float acc[MT][NT][4], part[MT][NT][4];
+  float bsum = 0.f;
+  zero(acc);
+  int tile = blockIdx.x;
+  if (tile < n_tiles) stage(tile, 0);
+  cp_async_commit();
+  for (int i = 0; tile < n_tiles; ++i, tile += gridDim.x) {
+    cp_async_wait<0>();
+    __syncthreads();   // tile i landed; every warp is done with the stage refilled below
+    if (tile + (int)gridDim.x < n_tiles) stage(tile + gridDim.x, (i + 1) & 1);
+    cp_async_commit();
+    const float* in_s = reinterpret_cast<const float*>(smem + (i & 1) * SM::STAGE);
+    const float* da_s = in_s + SM::IN_FLOATS;
+    // STRIPE: bit 2*hh + j of the mask: pixel column 8*hh + t + 4*j of the
+    // tile is at the stripe edge this warp's tap crosses
+    unsigned mask = 0;
+    if (STRIPE && dx != 1) {
+      const int tx0 = (tile % (tiles_x * tiles_y)) % tiles_x * TW;
+      const int edge = dx == 0 ? 0 : p.stripe_w - 1;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) mask |= ((tx0 + 8 * hh + t + 4 * j) % p.stripe_w == edge ? 1u : 0u) << (2 * hh + j);
     }
-    for (int idx = tid; idx < WG_TH * WG_TW * (GCP / 4); idx += NT) {
-      const int c4 = idx % (GCP / 4);
-      const int pix = idx / (GCP / 4);
-      const int iy = ty0 + pix / WG_TW;
-      const int ix = tx0 + pix % WG_TW;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (iy < H && ix < W) {
-        const size_t off = foff + ((size_t)iy * W + ix) * FC + c4 * 4;
-        v = dacc4(dfeats + off, feats + off);
+    zero(part);
+#pragma unroll 2
+    for (int ks = 0; ks < Tile::TH * 2; ++ks) {   // 8 pixels a k-step: tile row ks / 2, columns 8 * (ks % 2) ..
+      const int r = ks >> 1, hh = ks & 1;
+      const float* ap = in_s + ((r + dy) * HWD + 8 * hh + dx) * SW;   // A (m = ci, k = pixel)
+      const float* bp = da_s + (r * TW + 8 * hh) * SW;               // B (k = pixel, n = co)
+      uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        split_tf32_fast(ap[t * SW + 16 * m + g], ah[m][0], al[m][0]);
+        split_tf32_fast(ap[t * SW + 16 * m + g + 8], ah[m][1], al[m][1]);
+        split_tf32_fast(ap[(t + 4) * SW + 16 * m + g], ah[m][2], al[m][2]);
+        split_tf32_fast(ap[(t + 4) * SW + 16 * m + g + 8], ah[m][3], al[m][3]);
       }
-      *reinterpret_cast<float4*>(&da_s[pix][c4 * 4]) = v;
+      const bool m0 = STRIPE && ((mask >> (2 * hh)) & 1u), m1 = STRIPE && ((mask >> (2 * hh + 1)) & 1u);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float v0 = bp[t * SW + 8 * n + g], v1 = bp[(t + 4) * SW + 8 * n + g];
+        split_tf32_fast(m0 ? 0.f : v0, bh[n][0], bl[n][0]);
+        split_tf32_fast(m1 ? 0.f : v1, bh[n][1], bl[n][1]);
+      }
+      warp_mma_3xtf32<MT, NT>(part, ah, al, bh, bl);
     }
-    __syncthreads();
-
-    for (int py = 0; py < th; ++py) {
-      // the 3x3 window of the two input channels slides along the row
-      float2 win[3][3];
-#pragma unroll
-      for (int r = 0; r < 3; ++r) {
-        win[r][1] = *reinterpret_cast<const float2*>(&in_s[(py + r) * WG_HW + 0][cp * 2]);
-        win[r][2] = *reinterpret_cast<const float2*>(&in_s[(py + r) * WG_HW + 1][cp * 2]);
-      }
-      int sc = STRIPE ? tx0 % stripe_w : 0;  // the pixel's column in its stripe
-      for (int px = 0; px < tw; ++px) {
-#pragma unroll
-        for (int r = 0; r < 3; ++r) {
-          win[r][0] = win[r][1];
-          win[r][1] = win[r][2];
-          win[r][2] = *reinterpret_cast<const float2*>(&in_s[(py + r) * WG_HW + px + 2][cp * 2]);
-        }
-        const float4 d = *reinterpret_cast<const float4*>(&da_s[py * WG_TW + px][cq * 4]);
-        bsum[0] += d.x;
-        bsum[1] += d.y;
-        bsum[2] += d.z;
-        bsum[3] += d.w;
-        // masked: the pixel is at a stripe edge (every thread of the block
-        // visits the same pixel, so the branch does not diverge)
-        auto taps = [&](auto masked) {
-#pragma unroll
-          for (int r = 0; r < 3; ++r) {
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-              float2 v = win[r][c];
-              if (decltype(masked)::value && ((c == 0 && sc == 0) || (c == 2 && sc == stripe_w - 1))) v.x = v.y = 0.f;
-              float* a0 = acc[r * 3 + c][0];
-              float* a1 = acc[r * 3 + c][1];
-              a0[0] = fmaf(v.x, d.x, a0[0]);
-              a0[1] = fmaf(v.x, d.y, a0[1]);
-              a0[2] = fmaf(v.x, d.z, a0[2]);
-              a0[3] = fmaf(v.x, d.w, a0[3]);
-              a1[0] = fmaf(v.y, d.x, a1[0]);
-              a1[1] = fmaf(v.y, d.y, a1[1]);
-              a1[2] = fmaf(v.y, d.z, a1[2]);
-              a1[3] = fmaf(v.y, d.w, a1[3]);
-            }
-          }
-        };
-        if (STRIPE && (sc == 0 || sc == stripe_w - 1)) {
-          taps(std::true_type{});
-        } else {
-          taps(std::false_type{});
-        }
-        if (STRIPE) sc = sc + 1 == stripe_w ? 0 : sc + 1;
-      }
+    add_into(acc, part);
+    if (bias) {   // four sums in a fixed order: a short dependency chain
+      float s4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int q = 0; q < Tile::TH * TW; ++q) s4[q & 3] += da_s[q * SW + tid];
+      bsum += (s4[0] + s4[1]) + (s4[2] + s4[3]);
     }
   }
 
   const size_t n_w = (size_t)9 * cin * gc;
-  float* out = partial + (size_t)blockIdx.x * (n_w + gc);
+  float* out = p.partial + (size_t)blockIdx.x * (n_w + gc);
 #pragma unroll
-  for (int t = 0; t < 9; ++t) {
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int ci = cp * 2 + j;
-      if (ci >= ch.n) continue;
-      float* o = out + ((size_t)t * cin + ch.row0 + ci) * gc + cq * 4;
-      if (FULL) {
-        *reinterpret_cast<float4*>(o) = make_float4(acc[t][j][0], acc[t][j][1], acc[t][j][2], acc[t][j][3]);
-      } else {
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (cq * 4 + i < gc) o[i] = acc[t][j][i];
-        }
+      for (int i = 0; i < 4; ++i) {
+        const int ci = 16 * m + g + 8 * (i >> 1), co = 8 * n + 2 * t + (i & 1);
+        if (ci < ch.n && co < gc) out[((size_t)tap * cin + ch.row0 + ci) * gc + co] = acc[m][n][i];
       }
-    }
-  }
-  if (blockIdx.y == 0 && cp == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (cq * 4 + i < gc) out[n_w + cq * 4 + i] = bsum[i];
-    }
-  }
+  if (bias && tid < gc) out[n_w + tid] = bsum;
+}
+
+// Two blocks an SM: a few bytes of the accumulators spill, yet it ran faster
+// than one block an SM without a spill (tools/tc_attribution.py's
+// wg_one_block).
+template <typename T, int GCP, bool STRIPE>
+__global__ void __launch_bounds__(WG_WARPS * 32, 2) weight_grad_kernel(BwdArgs<T> p) {
+  extern __shared__ __align__(16) float dyn_smem[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(dyn_smem);
+  const Chunk ch = chunk_of<GCP>(blockIdx.y, p.x_chunks, p.C, p.gc);
+  if (GCP > 16 && ch.in_x && ch.n <= 16)
+    weight_grad_block<T, GCP, STRIPE, 1>(p, ch, smem);
+  else
+    weight_grad_block<T, GCP, STRIPE, GCP / 16>(p, ch, smem);
 }
 
 // dw[e] = sum_g partial[g][e] for e < n_w, db[e - n_w] for the gc after them,
@@ -469,44 +533,70 @@ __global__ void __launch_bounds__(RED_THREADS) reduce_partials_kernel(const floa
   }
 }
 
-template <typename T, int GCP, bool FULL, bool STRIPE>
-int chain_backward_at(const void* x, const void* feats, const void* const* ws, void* dfeats, void* dx, void* const* dws, void* const* dbs, void* partial, int groups, int frames, int H, int W, int C, int gc, int need_dx, int stripe_w, cudaStream_t stream) {
-  const int x_chunks = (C + GCP - 1) / GCP;
+template <typename T, int GCP, bool STRIPE>
+int chain_backward_at(BwdArgs<T> p, const void* const* ws, void* const* dws, void* const* dbs, int groups, int need_dx, cudaStream_t stream) {
+  const int x_chunks = (p.C + GCP - 1) / GCP;
   const int dx_chunks = need_dx ? x_chunks : 0;
-  const int tiles = ((W + TILE - 1) / TILE) * ((H + TILE - 1) / TILE);
+  const int tiles = ((p.W + SpatialTile::TW - 1) / SpatialTile::TW) * ((p.H + SpatialTile::TH - 1) / SpatialTile::TH);
+  const size_t pixels = (size_t)p.frames * p.H * p.W;
+  cudaError_t err = cudaFuncSetAttribute(weight_grad_kernel<T, GCP, STRIPE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         WeightGradSmem<GCP>::SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(data_grad_kernel<T, GCP, STRIPE>, cudaFuncAttributeMaxDynamicSharedMemorySize, DataGradSmem<GCP>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const long long dacc_blocks = ((long long)pixels * GCP + DACC_THREADS - 1) / DACC_THREADS;
+  dacc_kernel<T, GCP><<<(unsigned)min(dacc_blocks, 65535LL * 8), DACC_THREADS, 0, stream>>>(p.feats, p.dfeats, pixels, 3, p.gc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   for (int layer = 3; layer >= 0; --layer) {
-    const int n_w = 9 * (C + gc * layer) * gc;
-    weight_grad_kernel<T, GCP, FULL, STRIPE><<<dim3(groups, x_chunks + layer), GCP * GCP / 8, 0, stream>>>((const T*)x, (const T*)feats, (const float*)dfeats, (float*)partial, frames, H, W, C, gc, layer, x_chunks, stripe_w);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    reduce_partials_kernel<T><<<(n_w + gc + RED_THREADS - 1) / RED_THREADS, RED_THREADS, 0, stream>>>((const float*)partial, groups, n_w, gc, (T*)dws[layer], (T*)dbs[layer]);
+    const int n_w = 9 * (p.C + p.gc * layer) * p.gc;
+    p.layer = layer;
+    p.w = (const T*)ws[layer];
+    p.w_vec = sizeof(T) == 4 && p.gc % 4 == 0 && rows_aligned16(ws[layer], 16);
+    p.x_chunks = x_chunks;
+    // the weight gradient's blocks share `groups` among the chunks (one wave
+    // of two blocks an SM where groups is twice the SM count), each block a
+    // longer walk through the tiles and fewer partial sums to add
+    const int wg = max(1, groups / (x_chunks + layer));
+    weight_grad_kernel<T, GCP, STRIPE><<<dim3(wg, x_chunks + layer), WG_WARPS * 32, WeightGradSmem<GCP>::SMEM, stream>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    if (dx_chunks + layer == 0) continue;  // nothing below the first layer but x
-    data_grad_kernel<T, GCP, FULL, STRIPE><<<dim3(tiles, dx_chunks + layer, frames), 4 * GCP, 0, stream>>>((const T*)feats, (const T*)ws[layer], (float*)dfeats, (float*)dx, H, W, C, gc, layer, dx_chunks, stripe_w);
+    reduce_partials_kernel<T><<<(n_w + p.gc + RED_THREADS - 1) / RED_THREADS, RED_THREADS, 0, stream>>>(p.partial, wg, n_w, p.gc, (T*)dws[layer], (T*)dbs[layer]);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const int chunks = dx_chunks + layer;
+    if (chunks == 0) continue;  // nothing below the first layer but x
+    p.x_chunks = dx_chunks;
+    // frame groups: about two waves of three blocks an SM where groups is
+    // twice the SM count
+    const int fg = max(1, min(p.frames, (3 * groups + tiles * chunks - 1) / (tiles * chunks)));
+    data_grad_kernel<T, GCP, STRIPE><<<dim3(tiles, chunks, fg), SpatialTile::THREADS, DataGradSmem<GCP>::SMEM, stream>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
 }
 
-// The padded growth width of the feats buffer: the forward's rule
-// (dense_chain.cu:padded_gc), which the wrapper checks the two libraries share.
-inline int padded_gc(int gc) { return gc <= 16 ? 16 : GC_MAX; }
-
 template <typename T, bool STRIPE>
-int chain_backward_striped(const void* x, const void* feats, const void* const* ws, void* dfeats, void* dx, void* const* dws, void* const* dbs, void* partial, int groups, int frames, int H, int W, int C, int gc, int need_dx, int stripe_w, cudaStream_t stream) {
-  if (gc == GC_MAX) return chain_backward_at<T, GC_MAX, true, STRIPE>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, stripe_w, stream);
-  if (padded_gc(gc) == 16) return chain_backward_at<T, 16, false, STRIPE>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, stripe_w, stream);
-  return chain_backward_at<T, GC_MAX, false, STRIPE>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, stripe_w, stream);
+int chain_backward_striped(BwdArgs<T> p, const void* const* ws, void* const* dws, void* const* dbs, int groups, int need_dx, cudaStream_t stream) {
+  if (padded_gc(p.gc) == 16) return chain_backward_at<T, 16, STRIPE>(p, ws, dws, dbs, groups, need_dx, stream);
+  return chain_backward_at<T, GC_MAX, STRIPE>(p, ws, dws, dbs, groups, need_dx, stream);
 }
 
 template <typename T>
 int chain_backward(const void* x, const void* feats, const void* const* ws, void* dfeats, void* dx, void* const* dws, void* const* dbs, void* partial, int groups, int frames, int H, int W, int C, int gc, int need_dx, int stripe_w, cudaStream_t stream) {
-  if (gc < 1 || gc > GC_MAX) return (int)cudaErrorInvalidValue;
+  if (gc < 1 || gc > GC_MAX || frames < 1 || frames > 65535 || H < 1 || W < 1 || C < 1) return (int)cudaErrorInvalidValue;
   if (stripe_w < 0 || (stripe_w > 0 && W % stripe_w != 0)) return (int)cudaErrorInvalidValue;
-  if (stripe_w > 0) return chain_backward_striped<T, true>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, stripe_w, stream);
-  return chain_backward_striped<T, false>(x, feats, ws, dfeats, dx, dws, dbs, partial, groups, frames, H, W, C, gc, need_dx, 0, stream);
+  BwdArgs<T> p{};
+  p.x = (const T*)x;
+  p.feats = (const T*)feats;
+  p.dfeats = (float*)dfeats;
+  p.dx = (float*)dx;
+  p.partial = (float*)partial;
+  p.frames = frames, p.H = H, p.W = W, p.C = C, p.gc = gc, p.stripe_w = stripe_w;
+  p.x_vec = C % 4 == 0 && rows_aligned16(x, 16);
+  if (stripe_w > 0) return chain_backward_striped<T, true>(p, ws, dws, dbs, groups, need_dx, stream);
+  return chain_backward_striped<T, false>(p, ws, dws, dbs, groups, need_dx, stream);
 }
 
 }  // namespace
@@ -516,16 +606,17 @@ int chain_backward(const void* x, const void* feats, const void* const* ws, void
 // pointer is aligned to 16 bytes.
 // x (frames,H,W,C); feats (frames,H,W,4*GCP), the saved x1..x4 in the
 //   forward's layout (GCP = selfc_dense_chain_bwd_padded_gc(gc)); w_k (3,3,C+gc(k-1),gc);
-// dfeats (frames,H,W,4*GCP): on entry the gradient that reaches x1..x4 directly,
-//   overwritten with the running gradient (pad lanes are neither read into a
-//   result nor written);
+// dfeats (frames,H,W,4*GCP): on entry the gradient that reaches x1..x4 directly
+//   (pad lanes must be finite), overwritten: each slot ends as its layer's
+//   dacc, pad lanes 0;
 // dx (frames,H,W,C): on entry the gradient that reaches x directly, on return
 //   the whole gradient (untouched, and may be null, when need_dx is 0);
 // dw_k, db_k: written, shaped as w_k and (gc);
 // partial: scratch of groups * (9 * (C + 3 * gc) * gc + gc) floats, groups >= 1.
-// 1 <= gc <= 32. stripe_w: 0, or the width of one image of a W-packed batch
-// (W a multiple of it), whose forward masked the taps across stripe edges.
-// Returns the first cudaError_t a launch reports, 0 when all were accepted.
+// 1 <= gc <= 32, frames <= 65535. stripe_w: 0, or the width of one image of a
+// W-packed batch (W a multiple of it), whose forward masked the taps across
+// stripe edges. Returns the first cudaError_t a launch reports, 0 when all
+// were accepted.
 extern "C" int selfc_dense_chain_spatial_backward(const void* x, const void* feats, const void* w1, const void* w2, const void* w3, const void* w4, void* dfeats, void* dx, void* dw1, void* dw2, void* dw3, void* dw4, void* db1, void* db2, void* db3, void* db4, void* partial, int groups, int frames, int H, int W, int C, int gc, int need_dx, int stripe_w, int dtype, void* stream) {
   const void* ws[4] = {w1, w2, w3, w4};
   void* dws[4] = {dw1, dw2, dw3, dw4};
@@ -538,7 +629,7 @@ extern "C" int selfc_dense_chain_spatial_backward(const void* x, const void* fea
 }
 
 // The per-segment width of the feats / dfeats buffers this library reads for
-// growth width gc.
-extern "C" int selfc_dense_chain_bwd_padded_gc(int gc) { return padded_gc(gc); }
+// growth width gc (the forward's rule, tc::padded_gc).
+extern "C" int selfc_dense_chain_bwd_padded_gc(int gc) { return tc::padded_gc(gc); }
 
 extern "C" const char* selfc_bwd_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -1,7 +1,8 @@
 // The dense chain's spatial layer on the tensor cores: csrc/dense_chain.cu
-// (B1, and B3, its spatial-only entry) and csrc/chain_ride.cu (B9, with
-// conv5's taps riding the layer) in B1's padded feats layout, and
-// csrc/chain_v3.cu (B8) at the true width. One layer is
+// (B1, and B3, its spatial-only entry), csrc/chain_ride.cu (B9, with
+// conv5's taps riding the layer) and csrc/chain_hg.cu (B7, two chains a
+// launch) in B1's padded feats layout, and csrc/chain_v3.cu (B8) at the true
+// width. One layer is
 //
 //   x_{k+1} = lrelu(conv3x3([x | x_1 .. x_k], w_{k+1}) + b_{k+1}, 0.2)
 //
@@ -31,6 +32,12 @@
 //    column; a masked tap points the lane's A row at the stage's zero row (a
 //    select on an int a tap and fragment row, no branch in the mma loop), so
 //    it adds an exact 0 as the zero edge of the image does.
+//  - The pair (PAIR, B7): the H and G chains of a coupling block read one x;
+//    a launch runs layer k of both, blockIdx.z = 2 * frame + chain, the
+//    chain's weights, bias and feats buffer chosen by selects on that bit
+//    (a run-time index into the parameter struct puts it in a stack frame).
+//    The two blocks of a tile are neighbours in the grid, so the second
+//    reads x's rows from L2.
 //  - The ride (NR > 0, B9): after bias and LeakyReLU the tile's x_{k+1} goes
 //    into the ring's memory (free once the last slab is done) and a second
 //    product [tile pixels x GCP] @ [GCP x 3*c_out], N padded to NR = 16 or
@@ -85,6 +92,10 @@ struct ChainLayerArgs {
   T* feats;            // (frames, H, W, fc): segment j at lanes GCP*j (TRUE_WIDTH: gc*j)
   const T* w;          // w_{layer+1} (3, 3, C + gc*layer, gc)
   const T* b;          // (gc)
+  // PAIR: the second chain's feats buffer, w_{layer+1} and bias (G of B7)
+  T* feats_g;
+  const T* w_g;
+  const T* b_g;
   int H, W, C, gc, layer, fc;
   int write_feats;     // store x_{layer+1} into feats
   int stripe_w;        // STRIPE: the width of one image of a W-packed batch
@@ -140,7 +151,8 @@ __device__ __forceinline__ void stage_halo(unsigned char* as, const T* src, int 
 // Three blocks an SM where the ride is off (their shared memory leaves room
 // for three): without the bound, the stripe masks' per-tap offsets, kept in
 // registers across the slab loop, took 186 registers and left room for two.
-template <typename T, class Tile, int GCP, bool STRIPE, int NR, bool TRUE_WIDTH>
+// PAIR: two chains over one x, grid.z = 2 * frames (see the pair above).
+template <typename T, class Tile, int GCP, bool STRIPE, int NR, bool TRUE_WIDTH, bool PAIR>
 __global__ void __launch_bounds__(Tile::THREADS, NR > 0 ? 1 : 3) chain_layer_kernel(ChainLayerArgs<T> p) {
   extern __shared__ __align__(16) float dyn_smem[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(dyn_smem);
@@ -156,9 +168,12 @@ __global__ void __launch_bounds__(Tile::THREADS, NR > 0 ? 1 : 3) chain_layer_ker
   const int cf = seg * layer;              // the feats lanes this layer reads
   const int cin = C + gc * layer;    // rows of one tap of w
   const int tx0 = blockIdx.x * TW, ty0 = blockIdx.y * Tile::TH;
-  const size_t frame = blockIdx.z;
+  const bool second = PAIR && (blockIdx.z & 1);   // G's block of a pair
+  const size_t frame = PAIR ? blockIdx.z >> 1 : blockIdx.z;
+  const T* wp = second ? p.w_g : p.w;
+  const T* bp = second ? p.b_g : p.b;
   const T* xf = p.x + frame * H * W * C;
-  T* ff = p.feats + frame * H * W * fc;
+  T* ff = (second ? p.feats_g : p.feats) + frame * H * W * fc;
   const int ns0 = (C + BK - 1) / BK;
   const int nslab = ns0 + (cf + BK - 1) / BK;
   const int sb = p.stage_bytes;
@@ -194,19 +209,19 @@ __global__ void __launch_bounds__(Tile::THREADS, NR > 0 ? 1 : 3) chain_layer_ker
       for (int i = tid; i < BK * CPB; i += THREADS) {
         const int kk = i / CPB, n = (i % CPB) * (16 / ES), r = wrow(kk);
         const int vb = r >= 0 ? max(0, min(16, (gc - n) * ES)) : 0;
-        const T* gp = vb ? p.w + (size_t)r * gc + n : p.w;
+        const T* gp = vb ? wp + (size_t)r * gc + n : wp;
 #pragma unroll
         for (int tap = 0; tap < 9; ++tap)
-          cp_async<16>(bs + ((tap * BK + kk) * SN + n) * ES, vb ? (const void*)(gp + tap * tap_stride) : (const void*)p.w, vb);
+          cp_async<16>(bs + ((tap * BK + kk) * SN + n) * ES, vb ? (const void*)(gp + tap * tap_stride) : (const void*)wp, vb);
       }
     } else {
       for (int i = tid; i < BK * GCP; i += THREADS) {
         const int kk = i / GCP, n = i % GCP, r = wrow(kk);
         const int vb = r >= 0 && n < gc ? ES : 0;
-        const T* gp = vb ? p.w + (size_t)r * gc + n : p.w;
+        const T* gp = vb ? wp + (size_t)r * gc + n : wp;
 #pragma unroll
         for (int tap = 0; tap < 9; ++tap)
-          stage_copy<ES>(bs + ((tap * BK + kk) * SN + n) * ES, vb ? (const void*)(gp + tap * tap_stride) : (const void*)p.w, vb);
+          stage_copy<ES>(bs + ((tap * BK + kk) * SN + n) * ES, vb ? (const void*)(gp + tap * tap_stride) : (const void*)wp, vb);
       }
     }
     if constexpr (RIDE) {
@@ -291,7 +306,7 @@ __global__ void __launch_bounds__(Tile::THREADS, NR > 0 ? 1 : 3) chain_layer_ker
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int co = 8 * n + 2 * t + e;
-      const float bias = co < gc ? to_f(p.b[co]) : 0.f;
+      const float bias = co < gc ? to_f(bp[co]) : 0.f;
 #pragma unroll
       for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -386,19 +401,20 @@ __global__ void __launch_bounds__(Tile::THREADS, NR > 0 ? 1 : 3) chain_layer_ker
   }
 }
 
-// One spatial layer: a launch of chain_layer_kernel on SpatialTile.
-template <typename T, int GCP, bool STRIPE, int NR, bool TRUE_WIDTH = false>
+// One spatial layer: a launch of chain_layer_kernel on SpatialTile (PAIR:
+// of both chains of a pair, 2 * frames blocks along z).
+template <typename T, int GCP, bool STRIPE, int NR, bool TRUE_WIDTH = false, bool PAIR = false>
 int launch_chain_layer(ChainLayerArgs<T> p, int frames, cudaStream_t stream) {
   using Tile = SpatialTile;
   using SM = ChainSmem<T, Tile, GCP, NR>;
   const bool ride_x = NR > 0 && p.layer == 0;
   p.stage_bytes = SM::stage(ride_x);
   cudaError_t err =
-      cudaFuncSetAttribute(chain_layer_kernel<T, Tile, GCP, STRIPE, NR, TRUE_WIDTH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           SM::smem(NR > 0));
+      cudaFuncSetAttribute(chain_layer_kernel<T, Tile, GCP, STRIPE, NR, TRUE_WIDTH, PAIR>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, SM::smem(NR > 0));
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.W + Tile::TW - 1) / Tile::TW, (p.H + Tile::TH - 1) / Tile::TH, frames);
-  chain_layer_kernel<T, Tile, GCP, STRIPE, NR, TRUE_WIDTH><<<grid, Tile::THREADS, SM::smem(ride_x), stream>>>(p);
+  const dim3 grid((p.W + Tile::TW - 1) / Tile::TW, (p.H + Tile::TH - 1) / Tile::TH, frames * (PAIR ? 2 : 1));
+  chain_layer_kernel<T, Tile, GCP, STRIPE, NR, TRUE_WIDTH, PAIR><<<grid, Tile::THREADS, SM::smem(ride_x), stream>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,10 @@
 // Tensor-core machinery the redesigned kernels share: csrc/temporal_conv.cu
-// (B6), csrc/chain_v3.cu (B8) and, through csrc/tc_chain.cuh,
-// csrc/dense_chain.cu (B1, B3) and csrc/chain_ride.cu (B9). All are products
-// whose contraction walks shifted taps of a staged tile: the conv5 of B6, B8
-// and B1 the three frames of a temporal conv, the spatial layers the nine
-// pixels of a 3x3 conv.
+// (B6), csrc/chain_v3.cu (B8), csrc/dense_chain_bwd.cu (B2) and, through
+// csrc/tc_chain.cuh, csrc/dense_chain.cu (B1, B3), csrc/chain_ride.cu (B9)
+// and csrc/chain_hg.cu (B7). All are products whose contraction walks
+// shifted taps of a staged tile: the conv5 of B6, B7, B8 and B1 the three
+// frames of a temporal conv, the spatial layers and B2's data gradient the
+// nine pixels of a 3x3 conv, B2's weight gradient the pixels.
 //
 // Products: mma.sync on the tensor cores, fp32 accumulation.
 //  - fp32 operands take the 3xTF32 split (CUTLASS's fast-fp32 path): each
@@ -29,8 +30,9 @@
 // bytes). A copy fetches only its valid bytes and zero-fills the rest.
 //
 // The temporal-conv block loop (tconv_block) serves B6 and the conv5 of B8
-// and B1: a block owns P pixels x TT frames of one clip (frames fastest, so a
-// tap is a shift by one row of the staged tile) and walks K in slabs of 64
+// and B1 (B7's conv5 runs the same loop over two chains): a block owns P
+// pixels x TT frames of one clip (frames fastest, so a tap is a shift by
+// one row of the staged tile) and walks K in slabs of 64
 // bytes of channels (16 fp32, 32 bf16) of one or two sources; each staged
 // slab feeds all three taps, so x is read from device memory once a block.
 // B1's conv5 (CHAIN) reads its second source in the padded feats layout and
@@ -173,6 +175,17 @@ inline bool rows_aligned16(const void* base, size_t row_bytes) {
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
   hi = tf32_rna(v);
   lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// The split without conversions (B2's, whose fragment loads split every
+// operand value again, so that the conversions cost more than the mma): hi
+// is v truncated to TF32, lo the exact remainder, which the tensor core reads
+// truncated to TF32 too. Each operand keeps ~2^-20 of its value where the
+// rounded split keeps ~2^-22 (tools/tc_attribution.py's rna_split times B2
+// with the rounded one).
+__device__ __forceinline__ void split_tf32_fast(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
 // Fragments from shared memory. A (m16 x k): r0 / r1 point at rows g and g+8

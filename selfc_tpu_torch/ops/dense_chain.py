@@ -37,9 +37,9 @@ weights), without a padded weight copy. The adjoint keeps the same layout:
 the running gradient is an fp32 ``dx (…,C)`` / ``dfeats (…,4*GCP)`` pair in
 device memory, swept k = 4..1 by one data-gradient and one weight-gradient
 launch a layer, the latter reduced over blocks in a fixed order (the same
-bits on every run); dW and db come out at the true gc. The adjoint runs
-plain fp32 FMAs (no tensor cores, no TF32); bf16 tensors are widened on load
-and rounded once on store.
+bits on every run); dW and db come out at the true gc. The adjoint's
+products run on the tensor cores too (3xTF32, fp32 sums, in both dtypes:
+bf16 tensors are widened as they are staged, dW and db rounded once).
 
 Feature layouts: a feats tensor holds its four growth segments side by side,
 ``P >= gc`` lanes each with the first gc real. The plain versions write
@@ -91,8 +91,8 @@ EP_AUX = {"none": 0, "sig_exp": 0, "sig_exp_neg": 0, "add": 1,
 _EP_CODE = {"none": 0, "add": 1, "sub_from": 2, "sig_exp": 3,
             "sig_exp_neg": 4, "mul_add": 5, "sub_mul": 6}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# blocks that share the pixels of one weight-gradient launch, each with a
-# partial sum of its own: two for each of the card's 132 multiprocessors
+# blocks of one weight-gradient launch (shared among a layer's chunks), each
+# with a partial sum of its own: two for each of the card's 132 multiprocessors
 BWD_GROUPS = 264
 
 # calls that went to the CUDA kernels (one per call, whatever number of
@@ -469,9 +469,10 @@ def _bwd_cuda(x, ws, bs, feats, dfeats, dx, stripe_w=0):
     """The adjoint kernels. ``feats`` is the forward kernels' buffer,
     ``dfeats`` an fp32 one of its shape, ``(B,T,H,W,4*padded_gc(gc))``, and
     ``dx (B,T,H,W,C)`` fp32; dfeats and dx hold, on entry, the gradients
-    that reach feats and x directly (the pad lanes of dfeats must be
-    finite: they meet zero weights); both are updated in place and dx ends
-    as the whole gradient (``dx=None``: not wanted). Returns ``(dws, dbs)``
+    that reach feats and x directly (the pad lanes of dfeats are never
+    read); both are updated in place: dx ends as the whole gradient
+    (``dx=None``: not wanted), each slot of dfeats as its layer's gradient
+    behind the LeakyReLU, pad lanes 0. Returns ``(dws, dbs)``
     in the weights' dtype, at the true gc. ``stripe_w``: every tensor is
     W-packed with images of that width."""
     global launches_bwd

@@ -74,6 +74,7 @@ inline float2 make_float2(float a, float b) { return float2{a, b}; }
 using std::min;
 using std::max;
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0;
@@ -418,6 +419,36 @@ def rehearse(shape=(2, 2, 9, 21), widths=WIDTHS,
     return out
 
 
+def rehearse_bwd(shape, widths, dtypes=(torch.float32, torch.bfloat16), stripe_w=0, seed=0) -> list[dict]:
+    """B2 alone against the plain adjoint, fed the plain features in the
+    kernels' layout and a gradient whose pad lanes hold noise; call inside
+    ``cpu_kernels()``. ``widths``: (C, gc). One record a case: the errors
+    relative to max |plain| of dx, dW and db, and whether a second run gives
+    the same bits."""
+    rng = np.random.default_rng(seed)
+    sw = {"stripe_w": stripe_w}
+    out = []
+    for dtype in dtypes:
+        for C, gc in widths:
+            x, ws, bs, *_ = make_chain(rng, C, 3, shape, "cpu", dtype, gc)
+            feats = dc.padded_width(dc.chain_feats_plain(x, ws, bs, **sw), gc, dc.padded_gc(gc))
+            g = torch.from_numpy(rng.normal(0, 1, feats.shape).astype(np.float32))
+            dx0 = torch.from_numpy(rng.normal(0, 1, x.shape).astype(np.float32))
+            want = dc.chain_spatial_bwd_plain(x, ws, bs, feats, g.to(dtype), dx0, **sw)
+            runs = []
+            for _ in range(2):
+                dx = dx0.clone()
+                dws, dbs = dc._bwd_cuda(x, ws, bs, feats, g.to(dtype).to(torch.float32, copy=True), dx, **sw)
+                runs.append([dx, *dws, *dbs])
+            rec = {"kernel": "chain_bwd", "dtype": str(dtype).split(".")[-1], "C": C, "gc": gc, "stripe_w": stripe_w,
+                   "dx": rel_err(runs[0][0], want[0]),
+                   "dw": max(rel_err(u, v) for u, v in zip(runs[0][1:5], want[1])),
+                   "db": max(rel_err(u, v) for u, v in zip(runs[0][5:], want[2])),
+                   "same_bits": all(torch.equal(u, v) for u, v in zip(*runs))}
+            out.append(rec)
+    return out
+
+
 # (N, H, W, C, Cout) of the deformable conv: odd sizes, the JAX package's
 # kernel test shape, the de-artifact width, and C / Cout over one 32-channel slab
 DEFORM_CASES = ((2, 13, 21, 5, 3), (2, 12, 16, 8, 8), (1, 9, 11, 32, 32), (1, 7, 6, 40, 36))
@@ -551,20 +582,32 @@ STRIPE_WIDTHS = ((3, 48, 32), (48, 3, 32), (64, 64, 32), (3, 64, 32), (12, 3, 32
                  (3, 24, 12), (24, 24, 12))
 
 
-# the 3xTF32 split's low part; one_tf32_pass_sources() zeroes it
-SPLIT_LO = "  lo = tf32_rna(v - __uint_as_float(hi));\n"
+# B2 alone: (packed shape, stripe_w) with image edges where a fragment's
+# 8-pixel halves start (stripe 8: columns 0 and 8 of a 16-wide tile; stripe
+# 24: column 8) and (C, gc) at growth 32, 12 and 13 (16-lane segments; 13
+# stages its weight rows element by element)
+BWD_STRIPE_CASES = (((1, 2, 7, 48), 8), ((1, 2, 9, 48), 24))
+BWD_WIDTHS = ((3, 32), (24, 12), (5, 13))
+
+
+# the low part of the 3xTF32 splits (split_tf32, split_tf32_fast);
+# one_tf32_pass_sources() zeroes both
+SPLIT_LO = ("  lo = tf32_rna(v - __uint_as_float(hi));\n", "  lo = __float_as_uint(v - __uint_as_float(hi));\n")
 
 
 def one_tf32_pass_sources(dst: Path) -> Path:
     """A copy of ``csrc/`` in ``dst`` whose products keep one TF32 pass of
-    the three (each operand's low part zeroed in ``split_tf32``): the
-    precision the fp32 kernels would have without the split."""
+    the three (each operand's low part zeroed in ``split_tf32`` and
+    ``split_tf32_fast``): the precision the fp32 kernels would have without
+    the split."""
     dst = Path(dst)
     shutil.copytree(build.CSRC_DIR, dst, dirs_exist_ok=True)
     header = (dst / "tc_mma.cuh").read_text()
-    if header.count(SPLIT_LO) != 1:
-        raise RuntimeError(f"tc_mma.cuh no longer holds exactly one {SPLIT_LO!r}")
-    (dst / "tc_mma.cuh").write_text(header.replace(SPLIT_LO, "  lo = 0u;\n"))
+    for lo in SPLIT_LO:
+        if header.count(lo) != 1:
+            raise RuntimeError(f"tc_mma.cuh no longer holds exactly one {lo!r}")
+        header = header.replace(lo, "  lo = 0u;\n")
+    (dst / "tc_mma.cuh").write_text(header)
     return dst
 
 
@@ -615,6 +658,8 @@ def main() -> int:
                                                              v3_widths=V3_WIDE_C))
         for shape, stripe_w in STRIPE_CASES:
             records += rehearse(shape, STRIPE_WIDTHS, stripe_w=stripe_w)
+        for shape, stripe_w in BWD_STRIPE_CASES:
+            records += rehearse_bwd(shape, BWD_WIDTHS, stripe_w=stripe_w)
     for rec in records:
         print(json.dumps(rec), flush=True)
         limit = 1e-5 if rec["dtype"] == "float32" else 3e-2

@@ -1,21 +1,32 @@
-"""Where a tensor-core kernel (B1, B3, B4's forward, B6, B8, B9) spends its
+"""Where a tensor-core kernel (B1, B2, B3, B4, B6, B7, B8, B9) spends its
 time: the mma products or the rest (staging, the ring's barriers, fragment
 loads and splits, the epilogue); and what another tile would cost the
 spatial layers of B1, B3 and B9.
 
 The machine with the GPU has no kernel profiler, so this script builds
 variants of ``csrc/temporal_conv.cu``, ``csrc/chain_v3.cu``,
-``csrc/dense_chain.cu`` and ``csrc/chain_ride.cu`` against text
-substitutions of their shared headers ``csrc/tc_mma.cuh`` and
-``csrc/tc_chain.cuh``, and times each at the rows ``chip_smoke.py`` times,
-beside the unchanged sources (``base``):
+``csrc/dense_chain.cu``, ``csrc/chain_ride.cu``, ``csrc/chain_hg.cu`` and
+``csrc/dense_chain_bwd.cu`` against text substitutions of their shared
+headers ``csrc/tc_mma.cuh`` and ``csrc/tc_chain.cuh``, and times each at the
+rows ``chip_smoke.py`` times, beside the unchanged sources (``base``):
 
-  - ``no_mma``: every slab's products skipped (staging, ring, epilogue);
+  - ``no_mma``: every slab's products skipped (staging, ring, epilogue; B2's
+    fragments, loaded outside ``slab_mma``, fall away with its products);
   - ``no_mma_keep_frags``: the fragments still loaded and split, the mma
     instruction replaced by an empty one that keeps its operands alive;
   - ``one_pass``: one TF32 product per tile instead of the three of 3xTF32;
   - ``tile_12x8`` (B1, B3, B4, B9): the chain layer on a tile of 12 x 8
-    pixels and 3 warps instead of its 8 x 16 and 4.
+    pixels and 3 warps instead of its 8 x 16 and 4;
+  - B2's design choices undone, one at a time (``csrc/dense_chain_bwd.cu``):
+    ``rna_split`` (the rounded 3xTF32 split of the other kernels in place of
+    ``split_tf32_fast``), ``wg_one_block`` (the weight gradient bound to one
+    block an SM, no spill), ``dg_one_frame`` (a data-gradient block a frame,
+    the weights staged for each), ``wg_all_groups`` (every chunk of a layer
+    with all the weight gradient's groups, as many partial sums).
+
+B7's rows also list the base build's five launches one by one
+(``torch.profiler``): layer 0 is the one where a block could form both
+chains' products from one staged x.
 
 The mma variants compute wrong values on purpose; only their times mean
 anything. Run from the repo root on a machine with an NVIDIA Hopper GPU:
@@ -46,6 +57,7 @@ MMA_TF32 = ('''      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,
             '''{%0,%1,%2,%3};\\n"\n''')
 SMALL_TERMS = ("    for (int n = 0; n < NT; ++n) mma_tf32(acc[m][n], al[m], bh[n]);",
                "    for (int n = 0; n < NT; ++n) mma_tf32(acc[m][n], ah[m], bl[n]);")
+LARGE_TERM = "    for (int n = 0; n < NT; ++n) mma_tf32(acc[m][n], ah[m], bh[n]);"
 TILE = "using SpatialTile = ChainTile<8, 16, 4>;"
 
 # (path, (B,T,H,W), C, Co, dx) of chip_smoke.py's B6 rows: the serving and
@@ -81,13 +93,25 @@ B3_ROWS = ([(tag, *sh, C, 32) for tag, sh in (("train", (TRAIN_SHAPE, 0)), ("tra
                                                 ("codec_train_packed", CODEC_PACKED)) for C in (3, 24)]
            + [("codec_train B4", CODEC_TRAIN_LAT, 0, C, 32) for C in SURROGATE_C])
 B9_ROWS = [("serve", SERVE_SHAPE, 48, 3), ("train", TRAIN_SHAPE, 48, 3)]
+# (path, shape, stripe, C, gc) of the B2 rows (the adjoint of the B3 rows'
+# chains), then B4's backward (gc 32, no gradient reaching x directly)
+B2_ROWS = B3_ROWS
+B7_ROWS = [("serve", SERVE_SHAPE, 3, 48), ("train", TRAIN_SHAPE, 3, 48)]
 MMA_VARIANTS = ("base", "no_mma", "no_mma_keep_frags", "one_pass")
 TILE_VARIANTS = ("tile_12x8",)
+# B2's variants: (pattern, replacement) in csrc/dense_chain_bwd.cu
+B2_VARIANTS = {
+    "rna_split": ("split_tf32_fast(", "split_tf32("),
+    "wg_one_block": ("__launch_bounds__(WG_WARPS * 32, 2)", "__launch_bounds__(WG_WARPS * 32, 1)"),
+    "dg_one_frame": ("const int fg = max(1, min(p.frames, (3 * groups + tiles * chunks - 1) / (tiles * chunks)));",
+                     "const int fg = p.frames;"),
+    "wg_all_groups": ("const int wg = max(1, groups / (x_chunks + layer));", "const int wg = groups;"),
+}
 
 
 def variants(header: str, chain_header: str) -> dict[str, dict[str, str]]:
-    """{variant: {header name: text}}."""
-    for pattern in (SLAB_BODY, MMA_TF32, *SMALL_TERMS):
+    """{variant: {file name: text}}: the headers, and the source of a B2 variant."""
+    for pattern in (SLAB_BODY, MMA_TF32, *SMALL_TERMS, LARGE_TERM):
         if header.count(pattern) != 1:
             raise SystemExit(f"tc_mma.cuh no longer holds exactly one {pattern!r}")
     if chain_header.count(TILE) != 1:
@@ -96,8 +120,9 @@ def variants(header: str, chain_header: str) -> dict[str, dict[str, str]]:
     end = header.index("\n}\n", start)
     mma = {
         "base": header,
-        "no_mma": header[:start] + "  (void)acc, (void)as, (void)a0, (void)a1, (void)bs, (void)n0w, (void)g, (void)t;"
-        + header[end:],
+        "no_mma": (header[:start] + "  (void)acc, (void)as, (void)a0, (void)a1, (void)bs, (void)n0w, (void)g, (void)t;"
+                   + header[end:]).replace(SMALL_TERMS[0], "    for (int n = 0; n < NT; ++n) {}")
+        .replace(SMALL_TERMS[1], "    for (int n = 0; n < NT; ++n) {}").replace(LARGE_TERM, "    for (int n = 0; n < NT; ++n) {}"),
         "no_mma_keep_frags": header.replace(MMA_TF32, '      ""\n'),
         "one_pass": header.replace(SMALL_TERMS[0], "    for (int n = 0; n < NT; ++n) {}")
         .replace(SMALL_TERMS[1], "    for (int n = 0; n < NT; ++n) {}"),
@@ -105,12 +130,37 @@ def variants(header: str, chain_header: str) -> dict[str, dict[str, str]]:
     out = {name: {"tc_mma.cuh": text, "tc_chain.cuh": chain_header} for name, text in mma.items()}
     out["tile_12x8"] = {"tc_mma.cuh": header,
                         "tc_chain.cuh": chain_header.replace(TILE, "using SpatialTile = ChainTile<12, 8, 3>;")}
+    bwd = (build.CSRC_DIR / "dense_chain_bwd.cu").read_text()
+    for name in B2_VARIANTS:
+        out[name] = {"tc_mma.cuh": header, "tc_chain.cuh": chain_header, "dense_chain_bwd.cu": b2_variant(bwd, name)}
     return out
 
 
+def b2_variant(source: str, name: str) -> str:
+    """csrc/dense_chain_bwd.cu with one of its design choices undone."""
+    old, new = B2_VARIANTS[name]
+    if old not in source:
+        raise SystemExit(f"dense_chain_bwd.cu no longer holds {old!r}")
+    return source.replace(old, new)
+
+
 def _sources(name):
+    if name in B2_VARIANTS:
+        return ("dense_chain_bwd",)
     return ("dense_chain", "chain_ride") if name in TILE_VARIANTS else ("temporal_conv", "chain_v3", "dense_chain",
-                                                                         "chain_ride")
+                                                                         "chain_ride", "chain_hg", "dense_chain_bwd")
+
+
+def launch_ms(fn):
+    """Device ms of each kernel launch of one ``fn()`` call, in order."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = [getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0) for e in prof.events()]
+    return [t / 1e3 for t in times if t > 0]
 
 
 def _time(row, fn, lib_name, tmp, names):
@@ -131,7 +181,7 @@ def main():
     print(json.dumps({"device": smi}), flush=True)
     nvcc = build.find_nvcc()
     dev = torch.device("cuda")
-    libs = ("temporal_conv", "chain_v3", "dense_chain", "chain_ride")
+    libs = ("temporal_conv", "chain_v3", "dense_chain", "chain_ride", "chain_hg", "dense_chain_bwd")
     with tempfile.TemporaryDirectory(dir=build.PKG_DIR) as tmp, torch.no_grad():
         procs = {}
         for name, headers in variants((build.CSRC_DIR / "tc_mma.cuh").read_text(),
@@ -141,7 +191,8 @@ def main():
             for h, text in headers.items():
                 (d / h).write_text(text)
             for src in _sources(name):
-                shutil.copy(build.CSRC_DIR / f"{src}.cu", d)
+                if not (d / f"{src}.cu").exists():
+                    shutil.copy(build.CSRC_DIR / f"{src}.cu", d)
                 procs[(name, src)] = subprocess.Popen(
                     [nvcc, *build.NVCC_FLAGS, "-o", str(d / f"lib{src}.so"), str(d / f"{src}.cu")],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -175,6 +226,21 @@ def main():
                 x, ws, bs, w5, b5, a, _ = make_chain(rng, C, c_out, shape, dev)
                 _time({"kernel": "B9", "row": f"{path} {C}->{c_out}"},
                       lambda: cv._ride_cuda(x, ws, bs, w5, b5, "add", 1.0, a, None), "chain_ride", tmp, chain_names)
+            for path, shape, stripe, C, gc in B2_ROWS:
+                x, ws, bs, *_ = make_chain(rng, C, 3, shape, dev, gc=gc)
+                feats = dc._feats_cuda(x, ws, bs, stripe)
+                g = torch.from_numpy(rng.normal(0, 1, feats.shape).astype(np.float32)).to(dev)
+                _time({"kernel": "B2", "row": f"{path} {C} gc{gc}"},
+                      lambda: dc.chain_spatial_bwd(x, ws, bs, feats, g, None, stripe), "dense_chain_bwd", tmp,
+                      MMA_VARIANTS + tuple(B2_VARIANTS))
+            for path, shape, C, c_out in B7_ROWS:
+                x, hws, hbs, hw5, hb5, x2, _ = make_chain(rng, C, c_out, shape, dev)
+                _, gws, gbs, gw5, gb5, _, _ = make_chain(rng, C, c_out, shape, dev)
+                fn = lambda: cv._hg_cuda(x, x2, hws, hbs, hw5, hb5, gws, gbs, gw5, gb5, 1.0, False)  # noqa: E731
+                _time({"kernel": "B7", "row": f"{path} {C}->{c_out}"}, fn, "chain_hg", tmp, MMA_VARIANTS)
+                build.use_library("chain_hg", Path(tmp) / "base" / "libchain_hg.so")
+                print(json.dumps({"kernel": "B7", "row": f"{path} {C}->{c_out}", "base_launches_ms": launch_ms(fn)}),
+                      flush=True)
         finally:
             for name in libs:
                 build.use_library(name)

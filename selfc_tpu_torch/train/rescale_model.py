@@ -75,6 +75,10 @@ class RescaleModel:
         parameter initialisation and the generator the GMM prior draws its
         noise from. With ``opt['is_train']`` the optimizer is built from
         ``opt['train']``."""
+        if (opt.get("path") or {}).get("pretrain_model_G"):
+            raise NotImplementedError(
+                "path.pretrain_model_G: loading a checkpoint is not ported yet "
+                "(ROADMAP A18); load parameters with load_jax_params")
         cfg_seed = (opt.get("val") or {}).get("sample_seed")
         if cfg_seed is not None:
             rng_seed = int(cfg_seed)

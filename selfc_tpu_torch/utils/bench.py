@@ -200,8 +200,9 @@ def hg_cost(B, T, H, W, C, c_out, itemsize, gc=32):
     return ops, float(nbytes)
 
 
-def hg_bound_ms(B, T, H, W, C, c_out, dtype=torch.float32, gc=32):
-    return bound_ms(*hg_cost(B, T, H, W, C, c_out, _itemsize(dtype), gc), dtype)
+def hg_bound_ms(B, T, H, W, C, c_out, dtype=torch.float32, gc=32, peak=None):
+    """``peak``: as ``bound_ms`` (B7 runs at ``tc_peak(dtype)``)."""
+    return bound_ms(*hg_cost(B, T, H, W, C, c_out, _itemsize(dtype), gc), dtype, peak)
 
 
 def _spatial_macs(B, T, H, W, C, gc=32):
@@ -289,6 +290,7 @@ def chain_feats_bound_ms(B, T, H, W, C, dtype=torch.float32, gc=32, peak=None):
     return bound_ms(*chain_feats_cost(B, T, H, W, C, _itemsize(dtype), gc), dtype, peak)
 
 
-def chain_bwd_bound_ms(B, T, H, W, C, dtype=torch.float32, gc=32, dx_in=True):
-    """``dx_in=False``: the v1 spatial chain's backward."""
-    return bound_ms(*chain_bwd_cost(B, T, H, W, C, _itemsize(dtype), gc, dx_in), dtype)
+def chain_bwd_bound_ms(B, T, H, W, C, dtype=torch.float32, gc=32, dx_in=True, peak=None):
+    """``dx_in=False``: the v1 spatial chain's backward. ``peak``: as
+    ``bound_ms`` (B2 runs at ``tc_peak(dtype)``)."""
+    return bound_ms(*chain_bwd_cost(B, T, H, W, C, _itemsize(dtype), gc, dx_in), dtype, peak)

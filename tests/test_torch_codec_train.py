@@ -420,6 +420,22 @@ def test_codec_train_unported_options_raise(network, train, match):
         CodecModel(_train_opt(network, **train), device="cpu")
 
 
+@pytest.mark.parametrize("is_train", [True, False], ids=["train", "serve"])
+def test_codec_checkpoint_path_raises_naming_a18(monkeypatch, is_train):
+    """``path.pretrain_model_G``: the codec wrapper refuses the checkpoint it
+    cannot load yet (ROADMAP A18) before it builds a net or a surrogate."""
+    from selfc_tpu_torch.train import codec_model
+
+    def no_net(*args, **kwargs):
+        raise AssertionError("a net was built before the checkpoint path was refused")
+    monkeypatch.setattr(codec_model, "define_G", no_net)
+    opt = _train_opt({"block_num": [1, 1]})
+    opt["path"] = {"pretrain_model_G": "SelfC_GMM_Codec.pth"}
+    opt["is_train"] = is_train
+    with pytest.raises(NotImplementedError, match="A18"):
+        CodecModel(opt, device="cpu")
+
+
 @pytest.mark.parametrize("network,deart", [({"h265_deart": True}, False), ({"deart_net": True}, True)])
 def test_codec_train_builds_the_de_artifact_net_from_deart_net(network, deart):
     """``h265_deart`` alone builds the same net as without it (the JAX

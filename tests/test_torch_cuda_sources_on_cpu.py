@@ -52,8 +52,10 @@ def _errors(rec):
 def test_rewrite_finds_every_launch():
     from selfc_tpu_torch.kernels import build
     # dense_chain: conv5 (the spatial layer's launch is tc_chain.cuh's);
-    # temporal_conv: the tile kernel and the split-K sum
-    for name, n_launches in (("dense_chain.cu", 1), ("dense_chain_bwd.cu", 3), ("deform.cu", 4),
+    # dense_chain_bwd: the top slot's dacc, the weight gradient, its
+    # reduction and the data gradient; temporal_conv: the tile kernel and the
+    # split-K sum
+    for name, n_launches in (("dense_chain.cu", 1), ("dense_chain_bwd.cu", 4), ("deform.cu", 4),
                              ("temporal_conv.cu", 2), ("tc_chain.cuh", 1)):
         text, n = cpu_rehearsal.rewrite_launches((build.CSRC_DIR / name).read_text())
         assert n == n_launches and "<<<" not in text
@@ -267,12 +269,11 @@ def test_temporal_conv_cuda_source_paths_bf16(cpu_built, name):
 
 
 def test_rewrite_finds_the_variant_launches():
-    """Three instantiations of B7's spatial layer in the pair and its conv5
-    launches, the ride's finishing launch and v3's conv5 (their spatial
-    layers are tc_chain.cuh's; v3's dynamic shared memory becomes static
-    storage)."""
+    """B7's conv5 + combine, the ride's finishing launch and v3's conv5
+    (their spatial layers are tc_chain.cuh's; the dynamic shared memory of
+    B7's and v3's conv5 becomes static storage)."""
     from selfc_tpu_torch.kernels import build
-    for name, n_launches in (("chain_hg", 5), ("chain_ride", 1), ("chain_v3", 1)):
+    for name, n_launches in (("chain_hg", 1), ("chain_ride", 1), ("chain_v3", 1)):
         text, n = cpu_rehearsal.rewrite_launches((build.CSRC_DIR / f"{name}.cu").read_text())
         assert n == n_launches and "<<<" not in text and "extern __shared__" not in text
 
@@ -421,16 +422,54 @@ def test_odd_sizes_and_same_bits_twice(cpu_built, shape):
 
 
 def test_one_tf32_pass_fails_the_fp32_limit(tmp_path):
-    """The guard on the 3xTF32 split: a copy of the sources whose products
-    keep one TF32 pass (each operand's low part zeroed) puts B3's features
-    beyond the 1e-5 fp32 limit that the sources as they are meet (the
-    rehearsal reads a TF32 operand as its 19 bits, as the card does)."""
+    """The guard on the 3xTF32 splits: a copy of the sources whose products
+    keep one TF32 pass (each operand's low part zeroed, in both splits) puts
+    B3's features beyond the 1e-5 fp32 limit and the adjoint's (B2's) dx, dW
+    and db beyond 1e-4 of max |plain| (chip_smoke.py's fp32 limit for the
+    adjoint), which the sources as they are meet (the rehearsal reads a TF32
+    operand as its 19 bits, as the card does)."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: the CUDA sources cannot be compiled for the CPU")
     rng = np.random.default_rng(11)
     x, ws, bs, *_ = make_chain(rng, 8, 3, (1, 1, 5, 9), "cpu")
     want = dc.chain_feats_plain(x, ws, bs)
     src = cpu_rehearsal.one_tf32_pass_sources(tmp_path / "csrc")
-    with cpu_rehearsal.cpu_kernels(tmp_path / "build", src, names=["dense_chain"]), torch.no_grad():
+    with cpu_rehearsal.cpu_kernels(tmp_path / "build", src, names=["dense_chain", "dense_chain_bwd"]), torch.no_grad():
         err = cpu_rehearsal.rel_err(dc._feats_cuda(x, ws, bs), want)
+        (rec,) = cpu_rehearsal.rehearse_bwd((1, 1, 5, 9), ((8, 32),), (torch.float32,))
     assert err > 1e-5, err
+    assert min(_errors(rec).values()) > 1e-4, rec
+
+
+# ---------------------------------------------------------------------------
+# B2 (csrc/dense_chain_bwd.cu) and B7 (csrc/chain_hg.cu) on the tensor cores
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,stripe", [(torch.float32, 0), (torch.bfloat16, 1)], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("C,gc", [(3, 32), (24, 12), (5, 13)], ids=["gc32", "gc12", "gc13"])
+def test_chain_bwd_stripe_edges_on_fragment_columns(cpu_built, C, gc, dtype, stripe):
+    """B2 alone under stripe 8 (fp32) and 24 (bf16), whose image edges fall
+    where a fragment's 8-pixel halves start (the data gradient's rows, the
+    weight gradient's k columns): dx, dW and db against the plain adjoint of
+    the striped call, fed a gradient with noise in its pad lanes, and the
+    same bits twice. gc 13 stages its weight rows element by element."""
+    limit = 1e-5 if dtype == torch.float32 else 3e-2
+    shape, sw = cpu_rehearsal.BWD_STRIPE_CASES[stripe]
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse_bwd(shape, ((C, gc),), (dtype,), stripe_w=sw)
+    errs = _errors(rec)
+    assert set(errs) == {"dx", "dw", "db"} and all(v <= limit for v in errs.values()) and rec["same_bits"], rec
+
+
+@pytest.mark.parametrize("C,c_out,gc", [(3, 48, 32), (5, 7, 13)], ids=["3_48_32", "odd_5_7_13"])
+def test_hg_cuda_source_bf16(cpu_built, C, c_out, gc):
+    """B7 in bf16, forward and reverse combine, at the 4x pair's width and an
+    odd one (gc 13: 16-lane segments; c_out 7 on conv5's narrow tile)."""
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse_variants((1, 2, 7, 11), (torch.bfloat16,), hg_widths=((C, c_out, gc),),
+                                                 ride_widths=(), v3_widths=())
+    errs = _errors(rec)
+    assert {"y2_rev_False", "y2_rev_True", "se_rev_False", "se_rev_True"} == set(errs)
+    assert all(v <= 3e-2 for v in errs.values()), rec
+
