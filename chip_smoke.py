@@ -32,9 +32,10 @@ fallback: without a CUDA device the script fails at once.
 the paths; ``--phases kernels`` only builds the kernels and checks them
 against their plain versions. ``--parent DIR`` (a checkout of another commit
 whose kernels have the same C interfaces, or its ``selfc_tpu_torch/csrc``
-alone under that path) builds that tree's kernels too and times the B2 and
-B7 rows, both training steps and the variants' roundtrip and step with its
-kernels and with this tree's in turns (theirs, ours, ours, theirs).
+alone under that path) builds that tree's kernels too and times the B2,
+B5 and B7 rows, both training steps and the variants' roundtrip and step with
+its kernels and with this tree's in turns (theirs, ours, ours, theirs); B5's
+backward through the parent's own C interface.
 
 Last lines of the output: a ``{"kernels": [...]}`` object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -44,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 from collections import Counter
 import json
 from pathlib import Path
@@ -70,7 +72,8 @@ from selfc_tpu_torch.utils.bench import (
     CLIP_HW, CODEC_DEC_SHAPE, CODEC_ENC_SHAPE, CODEC_TRAIN_LAT, CODEC_TRAIN_SHAPE, CODEC_WIDTHS,
     DEART_C, DEART_DEC_SHAPE, DEART_TRAIN_SHAPE, PATH_WIDTHS, SERVE_SHAPE, STP_DEFORM_C,
     STP_DEFORM_SHAPE, SURROGATE_C, TRAIN_SHAPE, UVG_HW, chain_bound_ms, chain_bwd_bound_ms,
-    chain_feats_bound_ms, deform_bound_ms, deform_tap_stats, hg_bound_ms, make_chain, make_deform,
+    chain_feats_bound_ms, deform_all_to_one, deform_bound_fma_ms, deform_bound_ms, deform_tap_stats, hg_bound_ms,
+    make_chain, make_deform,
     make_temporal_conv, tc_peak, temporal_conv_bound_ms, time_cuda)
 from selfc_tpu_torch.utils.metrics import psnr
 
@@ -142,6 +145,9 @@ REPLACES_DEFORM = "selfc_tpu/ops/deform.py:177"
 DEFORM_CHECKS = (((2, 13, 21), 5, 3), ((2, 12, 16), 8, 8), (DEART_TRAIN_SHAPE, DEART_C, DEART_C),
                  (DEART_DEC_SHAPE, DEART_C, DEART_C), (STP_DEFORM_SHAPE, STP_DEFORM_C, STP_DEFORM_C))
 DEFORM_SPREAD = 7.0              # px: the checks' offsets, so that taps leave the frame
+# (shape, C, Cout) of the check whose every tap samples next to one pixel
+# (utils/bench.py:deform_all_to_one): four pixels take 9 N H W contributions to dx
+DEFORM_ALL_TO_ONE = ((2, 24, 32), 32, 32)
 DEART_OFFSET_STD = 2.0           # px: the de-artifact net's seeded offsets are scaled to this spread
 # launches of the de-artifact net: B5 9 a decode call (3 output frames x 3
 # pairs), so 18 a test() and 9 each way a training step; B1 one 3->32 and one
@@ -236,15 +242,59 @@ def build_parent(parent):
 
 @contextlib.contextmanager
 def parent_tree(on):
-    """Inside (``on``): the parent tree's kernels in place of this tree's."""
+    """Inside (``on``): the parent tree's kernels in place of this tree's
+    (but B5's, whose backward's C interface changed: ``ParentDeform`` calls it)."""
+    names = [n for n in PARENT_LIBS if n != "deform"]
     if on:
-        for name, lib in PARENT_LIBS.items():
-            build.use_library(name, lib)
+        for name in names:
+            build.use_library(name, PARENT_LIBS[name])
     try:
         yield
     finally:
-        for name in PARENT_LIBS:
+        for name in names:
             build.use_library(name)
+
+
+class ParentDeform:
+    """The parent tree's B5 through its own C interface (the forward's is
+    this tree's; its backward took an fp32 dx zeroed by the caller, into which
+    it added, and one scratch of partial sums over 64-pixel tiles)."""
+
+    def __init__(self, path):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        self.lib = ctypes.CDLL(str(path))
+        self.lib.selfc_deform_forward.argtypes = [P] * 5 + [I] * 6 + [P]
+        self.lib.selfc_deform_backward.argtypes = [P] * 10 + [I] * 7 + [P]
+
+    def forward(self, x, off, mask, w):
+        N, H, W, C = x.shape
+        out = torch.empty((N, H, W, w.shape[-1]), dtype=x.dtype, device=x.device)
+        err = self.lib.selfc_deform_forward(x.data_ptr(), off.data_ptr(), mask.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                            N, H, W, C, w.shape[-1], dc._DTYPE_CODE[x.dtype], dc._stream(x))
+        check(err == 0, f"the parent's B5 forward: error {err}")
+        return out
+
+    def backward(self, x, off, mask, w, g):
+        N, H, W, C = x.shape
+        c_out = w.shape[-1]
+        dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        doff, dmask, dw = (torch.empty_like(t) for t in (off, mask, w))
+        groups = max(1, min(264, -(-N * H * W // 64)))   # the parent wrapper's rule
+        partial = torch.empty(groups * 9 * C * c_out, dtype=torch.float32, device=x.device)
+        err = self.lib.selfc_deform_backward(
+            x.data_ptr(), off.data_ptr(), mask.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(), doff.data_ptr(),
+            dmask.data_ptr(), dw.data_ptr(), partial.data_ptr(), groups, N, H, W, C, c_out, dc._DTYPE_CODE[x.dtype],
+            dc._stream(x))
+        check(err == 0, f"the parent's B5 backward: error {err}")
+        return dx.to(x.dtype), doff, dmask, dw
+
+
+def in_turns(this, parent, iters):
+    """Median ms of two callables in turns (parent, this, this, parent)."""
+    out = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        out[who].append(time_cuda(parent if who == "parent" else this, iters=iters, warmup=1)["median"])
+    return out
 
 
 def against_parent(fn, iters=5):
@@ -1596,15 +1646,19 @@ def deform_errors(got, want, fp32):
 def phase_kernels_deform(device):
     """B5 forward and backward against the composition and the closed-form
     adjoint on the card, fp32 and bf16: offsets uniform in +-7 px (taps
-    leave the frame), the mask in [0, 2]; dweight the same bits twice, and
-    dx's run-to-run difference (atomics) reported. Zero offsets with mask 1
-    must give the port's conv2d. On a CUDA tensor the op launches or raises."""
+    leave the frame), the mask in [0, 2], and once with every tap sampling
+    next to one pixel; dx and dweight (all four gradients) the same bits
+    twice. Zero offsets with mask 1 must give the port's conv2d. On a CUDA
+    tensor the op launches or raises."""
     rng = np.random.default_rng(70)
     cases, worst = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         fp32 = dtype == torch.float32
-        for shape, C, c_out in DEFORM_CHECKS:
+        for shape, C, c_out in DEFORM_CHECKS + (DEFORM_ALL_TO_ONE,):
+            all_to_one = (shape, C, c_out) == DEFORM_ALL_TO_ONE
             x, off, mask, w, g = make_deform(rng, shape, C, c_out, device, dtype, DEFORM_SPREAD)
+            if all_to_one:
+                off = deform_all_to_one(shape, (shape[1] // 2, shape[2] // 2)).to(device, dtype)
             corners, outside = deform_tap_stats(off)
             e_fwd = deform_errors(df.deform_conv2d(x, off, mask, w), df.deform_conv2d_plain(x, off, mask, w), fp32)
             got = df._backward_cuda(x, off, mask, w, g)
@@ -1612,17 +1666,17 @@ def phase_kernels_deform(device):
             want = df.deform_conv2d_bwd_plain(x, off, mask, w, g)
             torch.cuda.synchronize()
             e_bwd = {n: rel_err(u, v) for n, u, v in zip(("dx", "doffset", "dmask", "dweight"), got, want)}
-            same_bits = torch.equal(got[3], again[3])
-            dx_repeat = (got[0].float() - again[0].float()).abs().max().item()
+            same_bits = {n: torch.equal(u, v) for n, u, v in zip(("dx", "doffset", "dmask", "dweight"), got, again)}
             ok = (e_fwd <= (FP32_LIMIT if fp32 else BF16_REL_LIMIT)
-                  and max(e_bwd.values()) <= (BWD_FP32_REL_LIMIT if fp32 else BWD_BF16_REL_LIMIT) and same_bits)
-            if fp32:
+                  and max(e_bwd.values()) <= (BWD_FP32_REL_LIMIT if fp32 else BWD_BF16_REL_LIMIT) and all(same_bits.values()))
+            if fp32 and not all_to_one:
                 worst[(tuple(shape), C, c_out)] = {
                     "forward": e_fwd, "backward": max((u.float() - v.float()).abs().max().item()
                                                       for u, v in zip(got, want))}
             cases.append({"dtype": str(dtype).split(".")[-1], "shape": list(shape), "C": C, "c_out": c_out,
-                          "forward_err": e_fwd, **{f"{n}_rel_err": v for n, v in e_bwd.items()},
-                          "dweight_same_bits_twice": same_bits, "dx_run_to_run_max_abs": dx_repeat,
+                          "all_to_one": all_to_one, "forward_err": e_fwd, **{f"{n}_rel_err": v for n, v in e_bwd.items()},
+                          "dx_same_bits_twice": same_bits["dx"], "dweight_same_bits_twice": same_bits["dweight"],
+                          "doffset_dmask_same_bits_twice": same_bits["doffset"] and same_bits["dmask"],
                           "corners_inside_per_tap": corners, "taps_with_a_corner_outside": outside, "ok": ok})
             check(ok and np.isfinite(e_fwd + sum(e_bwd.values())),
                   f"B5 agrees with its plain versions: {cases[-1]}")
@@ -1788,6 +1842,10 @@ def phase_codec_deart_train(device, base):
     kern.optimize_parameters(0, codec_out=shared)
     log_k, grads_k = dict(kern.get_current_log()), all_grads(kern)
     del kern
+    repeats = {det: repeated_codec_step(device, tree, batch, net_opt, shared, det) for det in (True, False)}
+    same_loss, differ = repeats[True]
+    check(same_loss and not differ, f"a repeated de-artifact step (cuDNN's deterministic algorithms) gives the same "
+                                    f"loss and parameters bit for bit: differing {differ[:5]}")
     plain = new_codec_trainer(device, tree, batch, net_opt)
     with plain_chain_on_card():
         before = (df.launches, df.launches_bwd, dc.launches, dc.launches_bwd)
@@ -1796,6 +1854,7 @@ def phase_codec_deart_train(device, base):
               "the plain path launches no kernel")
     log_p, grads_p = dict(plain.get_current_log()), all_grads(plain)
     del plain
+    n_leaves = len(grads_p)
     loss_rel = abs(log_k["loss"] - log_p["loss"]) / abs(log_p["loss"])
     grad_l2 = (sum((grads_k[k] - g).pow(2).sum().item() for k, g in grads_p.items())
                / sum(g.pow(2).sum().item() for g in grads_p.values())) ** 0.5
@@ -1814,33 +1873,66 @@ def phase_codec_deart_train(device, base):
          launches_b5_per_step={"forward": DEART_B5_STEP, "backward": DEART_B5_STEP}, logs=logs,
          loss_rel_err_kernel_vs_plain=loss_rel, loss_rel_limit=TRAIN_LOSS_REL_LIMIT,
          grad_l2_rel_err_kernel_vs_plain=grad_l2, grad_l2_limit=TRAIN_GRAD_L2_LIMIT,
-         grad_l2_rel_err_deart_leaves=grad_l2_deart, step_ms=step["median"], step_ms_min=step["min"],
+         grad_l2_rel_err_deart_leaves=grad_l2_deart, repeat_bit_identical_cudnn_deterministic=True,
+         repeat_cudnn_default={"same_loss": repeats[False][0], "params_differing": len(repeats[False][1]),
+                               "params": n_leaves},
+         step_ms=step["median"], step_ms_min=step["min"],
          clips_per_s=CODEC_TRAIN_SHAPE[0] * 1e3 / step["median"], peak_device_memory_gib=peak,
          without_deart=base)
     return counts
 
 
+def repeated_codec_step(device, tree, batch, net_opt, codec_out, deterministic):
+    """The first codec training step twice from the same parameters and codec
+    output, with cuDNN's deterministic convolution algorithms or its default
+    ones (whose gradients do not repeat bit for bit in the codec step, with
+    or without the de-artifact net): (the same loss, the parameters that
+    differ after the step)."""
+    runs = []
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        for _ in range(2):
+            m = new_codec_trainer(device, tree, batch, net_opt)
+            m.optimize_parameters(0, codec_out=codec_out)
+            runs.append((dict(m.get_current_log())["loss"],
+                         {k: p.detach().clone() for k, p in m.params.named_parameters()}))
+            del m
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (l0, p0), (l1, p1) = runs
+    return l0 == l1, [k for k in p0 if not torch.equal(p0[k], p1[k])]
+
+
 def phase_timing_deform(device, counts_test, counts_train, worst):
     """B5 forward at the decode and training shapes and its backward at the
     training shape: ms beside the bound (for this run's offsets: 3 px, the
-    de-artifact net's spread) and the plain version's ms. No single PyTorch
-    call computes the function (torchvision is not installed): library_ms
-    is null."""
+    de-artifact net's spread): ``bound_ms`` with the contraction at the
+    tensor cores' rate and the sample at the FMA rate, ``bound_fma_ms`` all
+    of it at the FMA rate; the plain version's ms; under ``--parent`` the
+    parent tree's kernel in turns. Launches: a ``test()`` (decode) or a
+    training step. No single PyTorch call computes the function
+    (torchvision is not installed): library_ms is null."""
     rng = np.random.default_rng(71)
+    parent = ParentDeform(PARENT_LIBS["deform"]) if "deform" in PARENT_LIBS else None
+    per_step = lambda d: d.get((DEART_C, DEART_C), 0) // (N_CODEC_STEPS + 1)  # noqa: E731
     rows = []
     for shape, backward, launches in ((DEART_DEC_SHAPE, False, counts_test["b5"].get((DEART_C, DEART_C), 0)),
-                                      (DEART_TRAIN_SHAPE, False, counts_train["forward"].get((DEART_C, DEART_C), 0)),
-                                      (DEART_TRAIN_SHAPE, True, counts_train["backward"].get((DEART_C, DEART_C), 0))):
+                                      (DEART_TRAIN_SHAPE, False, per_step(counts_train["forward"])),
+                                      (DEART_TRAIN_SHAPE, True, per_step(counts_train["backward"]))):
         x, off, mask, w, g = make_deform(rng, shape, DEART_C, DEART_C, device, spread=3.0)
         corners, _ = deform_tap_stats(off)
         iters = 10 if shape == DEART_DEC_SHAPE else 20
         with torch.no_grad():
             if backward:
-                ms = time_cuda(lambda: df._backward_cuda(x, off, mask, w, g), iters=iters)
+                this = lambda: df._backward_cuda(x, off, mask, w, g)  # noqa: E731
                 plain = time_cuda(lambda: df.deform_conv2d_bwd_plain(x, off, mask, w, g), iters=5, warmup=1)
+                theirs = parent and (lambda: parent.backward(x, off, mask, w, g))
             else:
-                ms = time_cuda(lambda: df._forward_cuda(x, off, mask, w), iters=iters)
+                this = lambda: df._forward_cuda(x, off, mask, w)  # noqa: E731
                 plain = time_cuda(lambda: df.deform_conv2d_plain(x, off, mask, w), iters=5, warmup=1)
+                theirs = parent and (lambda: parent.forward(x, off, mask, w))
+            ms = time_cuda(this, iters=iters)
+            vs = in_turns(this, theirs, iters) if parent else None
         bound, by = deform_bound_ms(*shape, DEART_C, DEART_C, corners=corners, backward=backward)
         err = worst[(tuple(shape), DEART_C, DEART_C)]["backward" if backward else "forward"]
         rows.append({
@@ -1849,10 +1941,13 @@ def phase_timing_deform(device, counts_test, counts_train, worst):
             "route": "cuda", "source": SOURCE_DEFORM, "replaces": REPLACES_DEFORM, "launches": launches,
             "max_abs_err": err, "ms": ms["median"], "plain_ms": plain["median"], "bound_ms": bound,
             "bound_by": by, "library_ms": None, "ms_min": ms["min"], "plain_ms_min": plain["min"],
-            "shape": list(shape) + [DEART_C], "corners_inside_per_tap": corners})
+            "bound_fma_ms": deform_bound_fma_ms(*shape, DEART_C, DEART_C, corners=corners, backward=backward)[0],
+            "launches_of": "test()" if shape == DEART_DEC_SHAPE else "step",
+            "shape": list(shape) + [DEART_C], "corners_inside_per_tap": corners,
+            **({"vs_parent_ms": vs} if vs else {})})
         del x, off, mask, w, g
-    emit("timing_deform", rows=[{k: r[k] for k in ("name", "ms", "ms_min", "plain_ms", "bound_ms", "bound_by")}
-                                for r in rows])
+    emit("timing_deform", rows=[{k: r.get(k) for k in ("name", "ms", "ms_min", "plain_ms", "bound_ms", "bound_by",
+                                                      "bound_fma_ms", "launches", "vs_parent_ms")} for r in rows])
     return rows
 
 

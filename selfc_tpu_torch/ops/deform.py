@@ -14,8 +14,10 @@ where they fall outside the frame. The bias, where there is one, is added
 outside the kernel, as the JAX package's Pallas path adds it.
 
 On a CUDA tensor ``deform_conv2d`` runs the hand-written kernels of
-``csrc/deform.cu`` (forward; backward as a data-gradient kernel, a
-weight-gradient kernel and a fixed-order reduction) or raises. There is no
+``csrc/deform.cu`` (forward; backward as one pass over pixel tiles that
+forms dmask, doffset, dx in 64-bit fixed point and per-block sums of dW, a
+fixed-order reduction of those sums, and the conversion of dx) or raises.
+Both directions give the same bits on every run. There is no
 shape gate that falls back to the composition, unlike the JAX package's
 ``deform_pallas_ok``: the kernels take any N, H, W, C and Cout. On a CPU
 tensor it runs the plain versions below, the composition forward and the
@@ -36,12 +38,9 @@ from . import dense_chain as dc
 
 K = 3
 KK = K * K
-# blocks that share the pixels of one weight-gradient launch, each with a
-# partial sum of its own: two for each of the card's 132 multiprocessors
-BWD_GROUPS = 264
 
 # calls that went to the CUDA kernels, in all and by (C, Cout): the forward,
-# and the backward (one call makes its three launches)
+# and the backward (one call makes its four launches)
 launches = 0
 launches_by_width: dict = {}
 launches_bwd = 0
@@ -204,10 +203,10 @@ def _library():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.selfc_deform_forward.argtypes = [P] * 5 + [I] * 6 + [P]
         lib.selfc_deform_forward.restype = I
-        lib.selfc_deform_backward.argtypes = [P] * 10 + [I] * 7 + [P]
+        lib.selfc_deform_backward.argtypes = [P] * 12 + [I] * 6 + [P]
         lib.selfc_deform_backward.restype = I
-        lib.selfc_deform_pixels_per_block.argtypes = []
-        lib.selfc_deform_pixels_per_block.restype = I
+        lib.selfc_deform_backward_tiles.argtypes = [I] * 3
+        lib.selfc_deform_backward_tiles.restype = I
         lib.selfc_deform_cuda_error_string.argtypes = [I]
         lib.selfc_deform_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -258,28 +257,30 @@ def _forward_cuda(x, offset, mask, weight):
 
 
 def _backward_cuda(x, offset, mask, weight, g):
-    """``(dx, doffset, dmask, dweight)`` in the inputs' dtype. dx is summed
-    in fp32 with atomics (its order changes from run to run); dweight by
-    per-block partial sums added in a fixed order (the same bits every run)."""
+    """``(dx, doffset, dmask, dweight)`` in the inputs' dtype, the same bits
+    on every run: dx summed in 64-bit fixed point (integer atomics, whose
+    order does not matter), dweight by per-tile partial sums added in a
+    fixed order."""
     global launches_bwd
     _validate(x, offset, mask, weight)
     N, H, W, C = x.shape
     c_out = weight.shape[-1]
     _check("g", g, (N, H, W, c_out), x)
     lib = _library()
-    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    doffset, dmask, dweight = (torch.empty_like(t) for t in (offset, mask, weight))
-    tiles = -(-N * H * W // lib.selfc_deform_pixels_per_block())
-    groups = max(1, min(BWD_GROUPS, tiles))
-    partial = torch.empty(groups * KK * C * c_out, dtype=torch.float32, device=x.device)
+    dx, doffset, dmask, dweight = (torch.empty_like(t) for t in (x, offset, mask, weight))
+    partial = torch.empty(lib.selfc_deform_backward_tiles(N, H, W) * KK * C * c_out, dtype=torch.float32,
+                          device=x.device)
+    dx_fixed = torch.empty(N * H * W * C, dtype=torch.int64, device=x.device)
+    bound = torch.empty(4, dtype=torch.int32, device=x.device)
     err = lib.selfc_deform_backward(
         x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(), g.data_ptr(),
         dx.data_ptr(), doffset.data_ptr(), dmask.data_ptr(), dweight.data_ptr(),
-        partial.data_ptr(), groups, N, H, W, C, c_out, dc._DTYPE_CODE[x.dtype], dc._stream(x))
+        dx_fixed.data_ptr(), partial.data_ptr(), bound.data_ptr(), N, H, W, C, c_out,
+        dc._DTYPE_CODE[x.dtype], dc._stream(x))
     dc._raise_on(err, "deformable conv backward", lib.selfc_deform_cuda_error_string)
     launches_bwd += 1
     dc._count((C, c_out), launches_bwd_by_width)
-    return dx.to(x.dtype), doffset, dmask, dweight
+    return dx, doffset, dmask, dweight
 
 
 # ---------------------------------------------------------------------------

@@ -45,7 +45,7 @@ from selfc_tpu_torch.ops import chain_variants as cv
 from selfc_tpu_torch.ops import deform as df
 from selfc_tpu_torch.ops import dense_chain as dc
 from selfc_tpu_torch.ops import temporal_conv as tc
-from selfc_tpu_torch.utils.bench import make_chain, make_deform
+from selfc_tpu_torch.utils.bench import deform_all_to_one, make_chain, make_deform
 
 CUDA_RUNTIME_H = r"""
 #pragma once
@@ -69,8 +69,11 @@ struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c 
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(8) float2 { float x, y; };
 struct alignas(8) uint2 { unsigned x, y; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return float4{a, b, c, d}; }
 inline float2 make_float2(float a, float b) { return float2{a, b}; }
+inline uint2 make_uint2(unsigned a, unsigned b) { return uint2{a, b}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return uint4{a, b, c, d}; }
 using std::min;
 using std::max;
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
@@ -85,6 +88,25 @@ constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 template <typename F>
 inline cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+  std::atomic_ref<unsigned> a(*p);
+  unsigned cur = a.load();
+  while (cur < v && !a.compare_exchange_weak(cur, v)) {}
+  return cur;
+}
+inline long long __float2ll_rn(float v) { return std::llrint(v); }   // to nearest, ties to even
+inline float __ll2float_rn(long long v) { return (float)v; }         // to nearest
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) { std::memset(p, v, n); return 0; }
+constexpr int cudaDevAttrMultiProcessorCount = 16;
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 132; return 0; }   // an H100's SMs
+// the order cpu_launch walks a grid's blocks in: 1 = last block first (set
+// through ctypes: a result that depends on it depends on the blocks' order)
+inline int cpu_blocks_reversed = 0;
+extern "C" __attribute__((visibility("default"))) void selfc_cpu_reverse_blocks(int on) { cpu_blocks_reversed = on; }
 // a barrier whose waiters first yield the core a few times (a round that
 // ends soon costs no futex sleep and wake-up) and then sleep, so that a
 // block's threads, which far outnumber the cores, do not keep them busy
@@ -129,7 +151,8 @@ inline thread_local WarpExchange* warp_x;
 inline thread_local int warp_turn;
 template <typename F>
 void cpu_launch(dim3 grid, dim3 block, F body) {
-  // one set of threads walks over the blocks in order; every block has a
+  // one set of threads walks over the blocks in order (or, with
+  // cpu_blocks_reversed, in reverse order); every block has a
   // barrier of its own (and one a warp), which a thread leaves for good when
   // its body returns (so a thread that returned early does not hold the
   // others), and a second barrier keeps any thread from starting the next
@@ -151,7 +174,8 @@ void cpu_launch(dim3 grid, dim3 block, F body) {
       threadIdx = dim3(t, 0, 0);
       gridDim = grid;
       warp_x = &xs[t / 32];
-      for (size_t b = 0; b < n_blocks; ++b) {
+      for (size_t i = 0; i < n_blocks; ++i) {
+        const size_t b = cpu_blocks_reversed ? n_blocks - 1 - i : i;
         blockIdx = dim3(b % grid.x, (b / grid.x) % grid.y, b / ((size_t)grid.x * grid.y));
         block_barrier = bars[b].get();
         warp_barrier = wbars[b * nw + t / 32].get();
@@ -449,29 +473,55 @@ def rehearse_bwd(shape, widths, dtypes=(torch.float32, torch.bfloat16), stripe_w
     return out
 
 
+@contextlib.contextmanager
+def blocks_reversed(name):
+    """Inside, the CPU build of ``csrc/<name>.cu`` (in use: call inside
+    ``cpu_kernels()``) walks every grid's blocks last first."""
+    fn = build.load(name).selfc_cpu_reverse_blocks
+    fn.argtypes = [ctypes.c_int]
+    fn(1)
+    try:
+        yield
+    finally:
+        fn(0)
+
+
 # (N, H, W, C, Cout) of the deformable conv: odd sizes, the JAX package's
-# kernel test shape, the de-artifact width, and C / Cout over one 32-channel slab
-DEFORM_CASES = ((2, 13, 21, 5, 3), (2, 12, 16, 8, 8), (1, 9, 11, 32, 32), (1, 7, 6, 40, 36))
+# kernel test shape, the de-artifact width, C / Cout over one 32-channel slab,
+# C not a multiple of the mma's K step (8 in fp32, 16 in bf16), the STP prior's 64
+DEFORM_CASES = ((2, 13, 21, 5, 3), (2, 12, 16, 8, 8), (1, 9, 11, 32, 32), (1, 7, 6, 40, 36), (1, 5, 9, 12, 7),
+                (1, 5, 6, 64, 64))
 
 
-def rehearse_deform(cases=DEFORM_CASES, dtypes=(torch.float32, torch.bfloat16), seed=0) -> list[dict]:
+def rehearse_deform(cases=DEFORM_CASES, dtypes=(torch.float32, torch.bfloat16), seed=0,
+                    all_to_one=False, g_scale=1.0) -> list[dict]:
     """The deformable conv's kernels against its plain versions (offsets
     uniform in +-7 px, so taps leave the frame; the mask in [0, 2]); call
-    inside ``cpu_kernels()``. One record a case: the errors relative to max
-    |plain| of the forward and of each gradient, and whether dweight is the
-    same bits twice."""
+    inside ``cpu_kernels()``. ``all_to_one``: every tap of every pixel
+    samples next to one pixel (``deform_all_to_one``), whose dx takes
+    9 N H W contributions. ``g_scale`` scales the output gradient. One
+    record a case: the errors relative to max |plain| of the forward and of
+    each gradient, whether dweight is the same bits twice and whether all
+    four gradients are when the second run walks the blocks in reverse order."""
     rng = np.random.default_rng(seed)
     out = []
     for dtype in dtypes:
         for N, H, W, C, c_out in cases:
             x, off, mask, w, g = make_deform(rng, (N, H, W), C, c_out, "cpu", dtype)
-            rec = {"kernel": "deform", "dtype": str(dtype).split(".")[-1], "shape": [N, H, W], "C": C, "c_out": c_out}
+            if all_to_one:
+                off = deform_all_to_one((N, H, W), (H // 2, W // 2)).to(dtype)
+            g = (g.float() * g_scale).to(dtype)
+            rec = {"kernel": "deform", "dtype": str(dtype).split(".")[-1], "shape": [N, H, W], "C": C, "c_out": c_out,
+                   "all_to_one": all_to_one}
             rec["forward"] = rel_err(df._forward_cuda(x, off, mask, w), df.deform_conv2d_plain(x, off, mask, w))
             got = df._backward_cuda(x, off, mask, w, g)
             want = df.deform_conv2d_bwd_plain(x, off, mask, w, g)
             for name, u, v in zip(("dx", "doffset", "dmask", "dweight"), got, want):
                 rec[name] = rel_err(u, v)
-            rec["dweight_same_bits"] = torch.equal(got[3], df._backward_cuda(x, off, mask, w, g)[3])
+            with blocks_reversed("deform"):
+                again = df._backward_cuda(x, off, mask, w, g)
+            rec["dweight_same_bits"] = torch.equal(got[3], again[3])
+            rec["same_bits_blocks_reversed"] = all(torch.equal(u, v) for u, v in zip(got, again))
             out.append(rec)
     return out
 
@@ -652,7 +702,8 @@ def tf32_split(values, out_dir: Path):
 
 def main() -> int:
     with tempfile.TemporaryDirectory() as tmp, cpu_kernels(Path(tmp)), torch.no_grad():
-        records = (rehearse() + rehearse_deform() + rehearse_temporal_conv()
+        records = (rehearse() + rehearse_deform() + rehearse_deform(((2, 6, 7, 5, 3),), all_to_one=True)
+                   + rehearse_deform(((1, 6, 7, 8, 8),), (torch.float32,), g_scale=1e20) + rehearse_temporal_conv()
                    + rehearse_temporal_conv(tuple(TEMPORAL_PATH_CASES.values()))
                    + rehearse_variants() + rehearse_variants((1, 2, 9, 16), hg_widths=(), ride_widths=(),
                                                              v3_widths=V3_WIDE_C))
@@ -664,7 +715,7 @@ def main() -> int:
         print(json.dumps(rec), flush=True)
         limit = 1e-5 if rec["dtype"] == "float32" else 3e-2
         bad = {k: v for k, v in rec.items() if isinstance(v, float) and not v <= limit}
-        for flag in ("dweight_same_bits", "mask_same", "same_bits"):
+        for flag in ("dweight_same_bits", "same_bits_blocks_reversed", "mask_same", "same_bits"):
             if rec.get(flag) is False:
                 bad[flag] = False
         if bad:

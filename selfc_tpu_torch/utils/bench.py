@@ -125,6 +125,20 @@ def make_deform(rng, shape, C, c_out, device, dtype=torch.float32, spread=7.0):
             mk(rng.normal(0, 1, shape + (c_out,))))
 
 
+def deform_all_to_one(shape, target, frac=0.25):
+    """Offsets ``(N,H,W,18)`` for ``shape = (N,H,W)`` under which every tap
+    of every pixel samples at ``target + (frac, frac)``: each of the four
+    pixels around it takes 9 N H W contributions to dx."""
+    N, H, W = shape
+    k = np.arange(9)
+    dy = target[0] + frac - (np.arange(H)[:, None, None] + k // 3 - 1)
+    dx = target[1] + frac - (np.arange(W)[None, :, None] + k % 3 - 1)
+    off = np.empty((N, H, W, 18), np.float32)
+    off[..., 0::2] = np.broadcast_to(dy, (H, W, 9))
+    off[..., 1::2] = np.broadcast_to(dx, (H, W, 9))
+    return torch.from_numpy(off)
+
+
 def deform_tap_stats(offset):
     """``(corners, outside)`` of the offsets ``(N,H,W,18)`` of one
     deformable-conv call: the mean number of bilinear corners a tap finds
@@ -146,26 +160,42 @@ def deform_tap_stats(offset):
 
 
 def deform_cost(N, H, W, C, c_out, itemsize, corners=4.0, backward=False):
-    """(operations, bytes) of one deformable-conv call. ``corners``: the
-    mean number of bilinear corners a tap finds inside the frame for this
-    call's offsets (the kernels skip the others). Forward, a pixel and tap:
-    the contraction 2 C c_out, the sample 2 C a corner, the mask C. Backward:
-    the two contractions (dval and dW) 4 C c_out, and a channel 8 per corner
-    (the sample for dW, the sample and its two derivatives for dmask and
-    doffset, the scatter to dx) and 4 more. Bytes: every input read once
-    and every output written once, at ``itemsize``."""
+    """(contraction, sample, bytes) of one deformable-conv call: the
+    operations of the products and of the rest apart. ``corners``: the mean
+    number of bilinear corners a tap finds inside the frame for this call's
+    offsets (the kernels skip the others). Forward, a pixel and tap: the
+    contraction 2 C c_out, the sample 2 C a corner and C for the mask.
+    Backward: the two contractions (dval and dW) 4 C c_out; the rest 8 per
+    channel and corner (the sample for dW, the sample and its two
+    derivatives for dmask and doffset, the scatter to dx) and 4 more. Bytes:
+    every input read once and every output written once, at ``itemsize``."""
     px = N * H * W
     if backward:
-        ops = px * 9 * (4.0 * C * c_out + C * (8.0 * corners + 4.0))
+        contraction = px * 9 * 4.0 * C * c_out
+        sample = px * 9 * C * (8.0 * corners + 4.0)
         nbytes = itemsize * (px * (2 * C + 2 * 27 + c_out) + 2 * 9 * C * c_out)
     else:
-        ops = px * 9 * (2.0 * C * c_out + C * (2.0 * corners + 1.0))
+        contraction = px * 9 * 2.0 * C * c_out
+        sample = px * 9 * C * (2.0 * corners + 1.0)
         nbytes = itemsize * (px * (C + 27 + c_out) + 9 * C * c_out)
-    return ops, float(nbytes)
+    return contraction, sample, float(nbytes)
 
 
 def deform_bound_ms(N, H, W, C, c_out, dtype=torch.float32, corners=4.0, backward=False):
-    return bound_ms(*deform_cost(N, H, W, C, c_out, _itemsize(dtype), corners, backward), dtype)
+    """(bound_ms, 'operations' | 'bytes') of B5 on the tensor cores: the
+    contraction at ``tc_peak(dtype)`` plus the sample at the fp32 FMA rate
+    (the sample is FMA work in both dtypes), against the bytes."""
+    contraction, sample, nbytes = deform_cost(N, H, W, C, c_out, _itemsize(dtype), corners, backward)
+    t_ops = (contraction / tc_peak(dtype) + sample / PEAK_FLOPS[torch.float32]) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def deform_bound_fma_ms(N, H, W, C, c_out, dtype=torch.float32, corners=4.0, backward=False):
+    """The bound with every operation at the FMA rate of ``dtype`` (the
+    bound B5's rows gave before its products moved to the tensor cores)."""
+    contraction, sample, nbytes = deform_cost(N, H, W, C, c_out, _itemsize(dtype), corners, backward)
+    return bound_ms(contraction + sample, nbytes, dtype)
 
 
 def chain_cost(B, T, H, W, C, c_out, n_aux, itemsize, gc=32):

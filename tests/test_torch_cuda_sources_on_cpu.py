@@ -53,9 +53,11 @@ def test_rewrite_finds_every_launch():
     from selfc_tpu_torch.kernels import build
     # dense_chain: conv5 (the spatial layer's launch is tc_chain.cuh's);
     # dense_chain_bwd: the top slot's dacc, the weight gradient, its
-    # reduction and the data gradient; temporal_conv: the tile kernel and the
-    # split-K sum
-    for name, n_launches in (("dense_chain.cu", 1), ("dense_chain_bwd.cu", 4), ("deform.cu", 4),
+    # reduction and the data gradient; deform: the forward, and the
+    # backward's maxima for the fixed point, its pass over the tiles, the
+    # reduction of dW and dx's conversion; temporal_conv: the tile kernel and
+    # the split-K sum
+    for name, n_launches in (("dense_chain.cu", 1), ("dense_chain_bwd.cu", 4), ("deform.cu", 5),
                              ("temporal_conv.cu", 2), ("tc_chain.cuh", 1)):
         text, n = cpu_rehearsal.rewrite_launches((build.CSRC_DIR / name).read_text())
         assert n == n_launches and "<<<" not in text
@@ -191,6 +193,73 @@ def test_deform_cuda_source_matches_plain_bf16(cpu_built):
     with torch.no_grad():
         (rec,) = cpu_rehearsal.rehearse_deform(((2, 12, 16, 8, 8),), (torch.bfloat16,))
     assert all(v <= 3e-2 for v in _errors(rec).values()) and rec["dweight_same_bits"], rec
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_deform_gradients_same_bits_with_blocks_reversed(cpu_built, dtype):
+    """dx, doffset, dmask and dweight are the same bits when the stand-in
+    launcher walks the backward's blocks last first (72 here, one a tile
+    and tap): dx is summed in 64-bit fixed point, whose integer atomics give
+    the same sum in any order, and dW's per-tile partials are added in a
+    fixed order."""
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse_deform(((2, 13, 21, 5, 3),), (dtype,))
+    assert df._library().selfc_deform_backward_tiles(2, 13, 21) == 8
+    assert rec["same_bits_blocks_reversed"] and rec["dweight_same_bits"], rec
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_deform_every_offset_on_one_pixel(cpu_built, dtype):
+    """Every tap of every pixel samples next to one pixel, so each of the
+    four pixels around it takes 9 N H W contributions to dx (the fixed
+    point's scale leaves room for 36 N H W): the backward against the
+    closed-form adjoint, and the same bits with the blocks reversed."""
+    limit = 1e-5 if dtype == torch.float32 else 3e-2
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse_deform(((2, 6, 7, 5, 3),), (dtype,), all_to_one=True)
+    errs = _errors(rec)
+    assert set(errs) == {"forward", "dx", "doffset", "dmask", "dweight"}
+    assert all(v <= limit for v in errs.values()) and rec["same_bits_blocks_reversed"], rec
+
+
+@pytest.mark.parametrize("g_scale", [0.0, 1e20], ids=["zero", "1e20"])
+def test_deform_fixed_point_scale_follows_the_gradient(cpu_built, g_scale):
+    """The fixed point's exponent comes from the call's own maxima: an
+    output gradient of zero gives exact zeros, one of order 1e20 (a
+    negative exponent) the plain adjoint within the fp32 limit."""
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse_deform(((1, 6, 7, 8, 8),), (torch.float32,), g_scale=g_scale)
+    errs = _errors(rec)
+    assert all(v <= 1e-5 for v in errs.values()) and rec["same_bits_blocks_reversed"], rec
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", [(1, 5, 9, 12, 7), (1, 5, 6, 64, 64)], ids=["c12", "c64"])
+def test_deform_cuda_source_channels_off_the_k_step(cpu_built, case, dtype):
+    """C = 12 is not a multiple of the mma's K step (8 in fp32, 16 in bf16)
+    and ends a 32-channel slab early; C = Cout = 64 (the STP prior's width)
+    takes two slabs each way: forward and backward against the plain
+    versions."""
+    limit = 1e-5 if dtype == torch.float32 else 3e-2
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse_deform((case,), (dtype,))
+    errs = _errors(rec)
+    assert set(errs) == {"forward", "dx", "doffset", "dmask", "dweight"}
+    assert all(v <= limit for v in errs.values()) and rec["same_bits_blocks_reversed"], rec
+
+
+def test_deform_one_tf32_pass_fails_the_fp32_limit(tmp_path):
+    """The guard on B5's 3xTF32 splits: a copy of the sources whose products
+    keep one TF32 pass puts the forward and every gradient beyond the 1e-5
+    fp32 limit that the sources as they are meet."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the CUDA sources cannot be compiled for the CPU")
+    src = cpu_rehearsal.one_tf32_pass_sources(tmp_path / "csrc")
+    with cpu_rehearsal.cpu_kernels(tmp_path / "build", src, names=["deform"]), torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse_deform(((1, 9, 11, 32, 32),), (torch.float32,))
+    errs = _errors(rec)
+    assert set(errs) == {"forward", "dx", "doffset", "dmask", "dweight"}
+    assert min(errs.values()) > 1e-5, rec
 
 
 def test_deform_cpu_build_counts_a_call_each_way(cpu_built):
