@@ -6,7 +6,11 @@ Builds the CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, then drives the three main
 paths at full width: it serves a synthetic 10-frame clip at the Vid4 size
 through the SelfC_GMM 4x net (``RescaleModel``: feed_data -> test(gop=7),
-then downscale / upscale), it trains the same net for a few steps at the
+then downscale / upscale), it loads the trained checkpoint of runs/400k
+(iter 164,339) through the port's own msgpack reader and measures its HR
+and LR Y-PSNR / SSIM on the rendered synthetic val set (``cal_metric``, fp32
+and bf16, two sample seeds each; the checkpoint written back, its Adam state
+resumed for one step), it trains the same net for a few steps at the
 batch of the published training config (``optimize_parameters`` on 8 clips
 of 7 frames, 144 x 144), and it runs the compression eval of the published
 SelfC_GMM_Codec net (``CodecModel``: feed_data -> test() on a synthetic
@@ -28,7 +32,7 @@ It times the kernels beside their roofline bound.
 Prints one JSON line per phase; any failure exits non-zero. There is no CPU
 fallback: without a CUDA device the script fails at once.
 
-``--phases serve,train,codec,codec_train,deart,subnets,variants`` (the default) picks
+``--phases serve,quality,train,codec,codec_train,deart,subnets,variants`` (the default) picks
 the paths; ``--phases kernels`` only builds the kernels and checks them
 against their plain versions. ``--parent DIR`` (a checkout of another commit
 whose kernels have the same C interfaces, or its ``selfc_tpu_torch/csrc``
@@ -60,12 +64,16 @@ import torch.nn.functional as F
 from selfc_tpu_torch.codec import h265
 from selfc_tpu_torch.codec.pipeline import seg_add_pad
 from selfc_tpu_torch.config import dict_to_nonedict
+from selfc_tpu_torch.eval.rescaling import cal_metric
 from selfc_tpu_torch.kernels import build
 from selfc_tpu_torch.ops import chain_variants as cv
 from selfc_tpu_torch.ops import deform as df
 from selfc_tpu_torch.ops import dense_chain as dc
 from selfc_tpu_torch.ops import temporal_conv as tc
 from selfc_tpu_torch.ops.conv import conv2d
+from selfc_tpu_torch.tools.make_synth_data import render_val_set
+from selfc_tpu_torch.tools.precision_delta import quality_options
+from selfc_tpu_torch.train import checkpoint
 from selfc_tpu_torch.train.codec_model import CodecModel
 from selfc_tpu_torch.train.rescale_model import RescaleModel, clip_by_global_norm_
 from selfc_tpu_torch.utils.bench import (
@@ -75,7 +83,8 @@ from selfc_tpu_torch.utils.bench import (
     chain_feats_bound_ms, deform_all_to_one, deform_bound_fma_ms, deform_bound_ms, deform_tap_stats, hg_bound_ms,
     make_chain, make_deform,
     make_temporal_conv, tc_peak, temporal_conv_bound_ms, time_cuda)
-from selfc_tpu_torch.utils.metrics import psnr
+from selfc_tpu_torch.utils.jax_import import export_jax_params, flatten_tree
+from selfc_tpu_torch.utils.metrics import psnr, rgb_to_ycbcr
 
 CHECK_WIDTHS = ((3, 48), (48, 3), (64, 64))           # coupling F/H/G and the prior
 CHECK_SHAPE = (1, 3, 40, 52)     # odd sizes on purpose
@@ -215,7 +224,23 @@ STRIPE_CHECKS = (tuple((TRAIN_PACKED, TRAIN_STRIPE, C, c_out, 32) for C, c_out i
 # limits of a packed step against the unpacked one (the whole gradient,
 # relative l2): the same products, the weight gradient's sums over other tiles
 PACK_GRAD_L2_LIMIT = 1e-5
-ALL_PHASES = ("serve", "train", "codec", "codec_train", "deart", "subnets", "variants")
+# the first quality number: the trained SelfC_GMM of runs/400k (iter
+# 164,339) on the synthetic val set (4 clips of 7 frames, 576 x 704, seed 7)
+ROOT = Path(__file__).resolve().parent
+QUALITY_CKPT = "runs/400k/latest_G.msgpack"
+QUALITY_STATE = "runs/400k/latest.state"
+QUALITY_LEAVES = 354
+QUALITY_SEEDS = (0, 1)           # val.sample_seed: the GMM prior's noise at decode
+# fp32 floors, dB: a wrong load, or one that misses leaves, lands near 30;
+# the JAX run's last three validations read 55.64-55.95 (runs/400k/train_loop.log)
+QUALITY_HR_MIN, QUALITY_LR_MIN = 55.0, 52.0
+QUALITY_PATH_LIMIT = 0.005       # dB: kernel path against plain path on clip 0, one lr and eps
+# JAX on a TPU (runs/400k/precision_r05.log, tools/precision_delta.py): HR
+# PSNR / SSIM, LR PSNR / SSIM. Its "float32" row ran the convs at the TPU's
+# default precision, bf16 operands: a neighbour, not an oracle.
+QUALITY_TPU_ROWS = {"float32": (55.9950, 0.998962, 52.9436, 0.998103),
+                    "bfloat16": (55.6375, 0.998702, 51.5949, 0.997756)}
+ALL_PHASES = ("serve", "quality", "train", "codec", "codec_train", "deart", "subnets", "variants")
 
 
 # {library name: path} built from --parent's sources; empty: no comparison
@@ -553,6 +578,125 @@ def phase_roundtrip(device):
     check(np.isfinite(sr_bf).all(), "bf16 SR is finite")
     emit("roundtrip_bf16", psnr_bf16_vs_fp32=psnr(flat(sr_bf), flat(sr_k)).mean().item())
     return model, counts
+
+
+def y_psnr(a, b):
+    """cal_metric's "Y" PSNR of (B, T, H, W, 3) clips: the mean over frames
+    of the YCbCr PSNR."""
+    flat = lambda v: torch.as_tensor(v).reshape(-1, *v.shape[2:])  # noqa: E731
+    return psnr(rgb_to_ycbcr(flat(a)), rgb_to_ycbcr(flat(b))).mean().item()
+
+
+def phase_quality(device):
+    """The first quality numbers of the port: iter 164,339 loaded through
+    the stdlib msgpack reader into ``RescaleModel``, ``cal_metric`` over the
+    rendered val set in fp32 and bf16, each with two sample seeds; on clip
+    0 the kernel path against the plain path from one lr and eps; the
+    checkpoint written and read back; ``latest.state`` restored into a
+    trainer on the card for one step."""
+    out_dir = ROOT / "chiprun_out" / "quality"
+    t0 = time.time()
+    flat = flatten_tree(checkpoint.read_msgpack(str(ROOT / QUALITY_CKPT)))
+    read_s = time.time() - t0
+    check(len(flat) == QUALITY_LEAVES, f"{QUALITY_CKPT} holds {len(flat)} leaves")
+    t0 = time.time()
+    clips = list(render_val_set())
+    render_s = time.time() - t0
+    rows, models = {}, {}
+    # ---- the main path: counts set to 0 just before, read just after ----
+    dc.reset_launch_counts()
+    for dtype in ("float32", "bfloat16"):
+        for seed in QUALITY_SEEDS:
+            model = RescaleModel(quality_options(str(ROOT / QUALITY_CKPT), dtype, seed), device=device)
+            t0 = time.time()
+            metrics = cal_metric(clips, model, str(out_dir), save_images=False)
+            rows[dtype, seed] = {"s": time.time() - t0, "hr_psnr": metrics[0], "hr_ssim": metrics[1],
+                                 "lr_psnr": metrics[2], "lr_ssim": metrics[3]}
+            models[dtype, seed] = model
+    counts = {"total": dc.launches, "by_width": {str(k): n for k, n in dc.launches_by_width.items()}}
+    # ---------------------------------------------------------------------
+    check(counts["total"] == len(rows) * len(clips) * (6 * sum(BLOCK_NUM) + STP_BLK_NUM),
+          f"B1 calls of {len(rows)} evals of {len(clips)} one-GOP clips: {counts}")
+    for (dtype, seed), model in models.items():
+        check(all(np.array_equal(p.detach().cpu().numpy(), flat[k]) for k, p in model.net.named_parameters()),
+              f"every parameter is the checkpoint's array bit for bit ({dtype}, seed {seed})")
+    for dtype in QUALITY_TPU_ROWS:
+        a, b = rows[dtype, QUALITY_SEEDS[0]], rows[dtype, QUALITY_SEEDS[1]]
+        check(a["lr_psnr"] == b["lr_psnr"] and a["lr_ssim"] == b["lr_ssim"],
+              f"the LR does not depend on the sample seed ({dtype}): {a} {b}")
+    for seed in QUALITY_SEEDS:
+        r = rows["float32", seed]
+        check(r["hr_psnr"] >= QUALITY_HR_MIN and r["lr_psnr"] >= QUALITY_LR_MIN,
+              f"fp32 HR >= {QUALITY_HR_MIN} dB and LR >= {QUALITY_LR_MIN} dB (seed {seed}): {r}")
+    spread = {dtype: {k: max(rows[dtype, s][k] for s in QUALITY_SEEDS) - min(rows[dtype, s][k] for s in QUALITY_SEEDS)
+                      for k in ("hr_psnr", "hr_ssim", "lr_psnr", "lr_ssim")} for dtype in QUALITY_TPU_ROWS}
+
+    # clip 0: the kernel path against the plain path, one lr and one eps
+    model = models["float32", QUALITY_SEEDS[0]]
+    gt = clips[0]["GT"]
+    with torch.no_grad():
+        lr_ref = model.degrade(torch.from_numpy(gt).to(device)).cpu().numpy()
+    lr_k = model.downscale(gt)
+    model.generator.manual_seed(9)
+    hr_k = model.upscale(lr_k)
+    with plain_chain_on_card():
+        before = dc.launches
+        lr_p = model.downscale(gt)
+        model.generator.manual_seed(9)
+        hr_p = model.upscale(lr_k)
+        check(dc.launches == before, "the plain path launches no kernel")
+    path_rows = {"hr_psnr_kernel": y_psnr(hr_k, gt), "hr_psnr_plain": y_psnr(hr_p, gt),
+                 "lr_psnr_kernel": y_psnr(lr_k, lr_ref), "lr_psnr_plain": y_psnr(lr_p, lr_ref)}
+    for part in ("hr", "lr"):
+        gap = abs(path_rows[f"{part}_psnr_kernel"] - path_rows[f"{part}_psnr_plain"])
+        check(gap <= QUALITY_PATH_LIMIT, f"clip 0 {part.upper()} Y-PSNR: kernel path within "
+              f"{QUALITY_PATH_LIMIT} dB of the plain path: {path_rows}")
+
+    # the checkpoint written by the port and read back
+    saved = checkpoint.save_network(export_jax_params(model.net), str(out_dir), "roundtrip")
+    back = flatten_tree(checkpoint.load_network(saved, export_jax_params(model.net)))
+    check(all(np.array_equal(back[k], v) for k, v in flat.items()), "save_network then load_network: the same bits")
+    same_file = Path(saved).read_bytes() == (ROOT / QUALITY_CKPT).read_bytes()
+    del models, model
+
+    # latest.state into a trainer on the card, one step on a rendered batch
+    trainer = RescaleModel(dict_to_nonedict({**train_options(), "path": {
+        "pretrain_model_G": str(ROOT / QUALITY_CKPT)}}), device=device)
+    payload = trainer.resume_training(str(ROOT / QUALITY_STATE))
+    steps = {float(st["step"]) for st in trainer.optimizer.state.values()}
+    on_card = all(st["exp_avg"].device.type == "cuda" and st["exp_avg_sq"].device.type == "cuda"
+                  for st in trainer.optimizer.state.values())
+    check(len(trainer.optimizer.state) == QUALITY_LEAVES and len(steps) == 1 and on_card,
+          f"Adam's moments restored on the card for every parameter, one step {steps}")
+    B, T, S = TRAIN_SHAPE[0], TRAIN_SHAPE[1], 4 * TRAIN_SHAPE[2]
+    batch = np.concatenate([c["GT"] for c in render_val_set(clips=B, frames=T, h=S, w=S, seed=164339)])
+    trainer.feed_data({"GT": batch})
+    trainer.optimize_parameters(trainer.start_iter)
+    log = dict(trainer.get_current_log())
+    check(np.isfinite(log["loss"]) and log["skipped_nonfinite"] == 0.0, f"the resumed step's loss is finite: {log}")
+    del trainer
+
+    for dtype, tpu in QUALITY_TPU_ROWS.items():
+        for seed in QUALITY_SEEDS:
+            r = rows[dtype, seed]
+            print(f"quality card {dtype:9s} seed {seed}  HR {r['hr_psnr']:.4f} dB / {r['hr_ssim']:.6f}   "
+                  f"LR {r['lr_psnr']:.4f} dB / {r['lr_ssim']:.6f}", flush=True)
+        print(f"quality tpu  {dtype:9s}         HR {tpu[0]:.4f} dB / {tpu[1]:.6f}   "
+              f"LR {tpu[2]:.4f} dB / {tpu[3]:.6f}  (runs/400k/precision_r05.log)", flush=True)
+    emit("quality", checkpoint=QUALITY_CKPT, leaves=len(flat), read_s=read_s, render_s=render_s,
+         val_set={"clips": len(clips), "shape": list(clips[0]["GT"].shape), "seed": 7},
+         card={f"{dtype} seed {seed}": r for (dtype, seed), r in rows.items()}, seed_spread=spread,
+         jax_tpu_precision_r05={dtype: dict(zip(("hr_psnr", "hr_ssim", "lr_psnr", "lr_ssim"), v))
+                                for dtype, v in QUALITY_TPU_ROWS.items()},
+         fp32_gap_to_tpu={f"seed {seed}": {"hr_psnr": rows["float32", seed]["hr_psnr"] - QUALITY_TPU_ROWS["float32"][0],
+                                           "lr_psnr": rows["float32", seed]["lr_psnr"] - QUALITY_TPU_ROWS["float32"][2]}
+                          for seed in QUALITY_SEEDS},
+         limits={"hr_min": QUALITY_HR_MIN, "lr_min": QUALITY_LR_MIN, "kernel_vs_plain_db": QUALITY_PATH_LIMIT},
+         clip0_kernel_vs_plain=path_rows, launches=counts, roundtrip_same_bits=True,
+         roundtrip_same_file_bytes=same_file,
+         resume={"epoch": payload["epoch"], "iter": payload["iter"], "adam_step": steps.pop(),
+                 "batch": list(batch.shape), "log": log,
+                 "jax_last_logged_iter_164300": {"l_back_rec": 2.4367e-03, "l_forw_fit": 5.7226e-05}})
 
 
 def chain_error(args, mode, stripe=0):
@@ -2711,7 +2855,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     emit("device", kind=torch.cuda.get_device_name(0), nvidia_smi=smi,
-         torch=torch.__version__, cuda=torch.version.cuda)
+         torch=torch.__version__, cuda=torch.version.cuda, numpy=np.__version__)
 
     t0 = time.time()
     build.build()
@@ -2744,6 +2888,8 @@ def main():
             model, counts = phase_roundtrip(device)
             kernels += phase_timing(device, model, counts, worst)
         del model
+    if "quality" in want:
+        phase_quality(device)
     if "train" in want:
         trainer, recompute, counts, eps = phase_train(device)
         kernels += phase_timing_train(device, trainer, recompute, counts, worst, worst_bwd, worst_stripe, eps)

@@ -22,6 +22,7 @@ All host I/O is channels-last numpy ``(B, T, H, W, 3)``.
 
 from __future__ import annotations
 
+import logging
 import time
 from collections import OrderedDict
 
@@ -37,10 +38,13 @@ from ..codec.surrogate import (H265Surrogate, H265SurrogatePlain, h265_host_roun
                                mimick_and_swap, mimick_plain)
 from ..models import define_G
 from ..ops.quantize import quantize_ste
-from ..utils.jax_import import load_jax_params
+from ..utils.jax_import import export_jax_params, load_jax_params
+from . import checkpoint as ckpt
 from .losses import reconstruction_loss
 from .lr_schedule import multistep_restart
 from .rescale_model import build_adam, clip_by_global_norm_, make_degrade
+
+logger = logging.getLogger("base")
 
 
 class CodecModel:
@@ -52,11 +56,8 @@ class CodecModel:
         """``device=None`` means the GPU (raises without one). ``rng_seed``
         seeds the parameter initialisation, the generator a GMM prior or the
         codec-noise ablation draws from (the published codec prior, fh_loss
-        'l2', draws none) and the dynamic-q stream."""
-        if ((opt.get("path") or {}).get("pretrain_model_G")):
-            raise NotImplementedError(
-                "path.pretrain_model_G: loading a checkpoint is not ported yet "
-                "(ROADMAP A18); load parameters with load_jax_params")
+        'l2', draws none) and the dynamic-q stream. ``path.pretrain_model_G``
+        is loaded last (``load``)."""
         self.opt = opt
         self.is_train = bool(opt.get("is_train"))
         self.train_opt = opt.get("train") or {}
@@ -111,12 +112,14 @@ class CodecModel:
         self.log_dict = OrderedDict()
         self._raw_logs = None
         self.last_codec_host_seconds = 0.0
+        self.start_iter = self.start_epoch = 0
         if self.is_train:
             to = self.train_opt
             self.optimizer, self._clear_state_steps = build_adam(self.params.parameters(), to)
             self.lr_fn = multistep_restart(
                 to.get("lr_G") or 1e-4, to.get("lr_steps") or [], to.get("lr_gamma") or 0.5,
                 to.get("restarts"), to.get("restart_weights"), to.get("warmup_iter") or -1)
+        self.load()
 
     def load_jax_params(self, tree):
         """Parameters in the JAX package's tree (numpy leaves): the
@@ -127,6 +130,47 @@ class CodecModel:
             load_jax_params(self.params, {k: v for k, v in tree.items() if k in self.params})
         else:
             load_jax_params(self.net, tree)
+
+    def load(self):
+        """Load ``path.pretrain_model_G``, if it is set. A reference
+        ``.pth`` holds the net's keys alone (the surrogate's are skipped); a
+        msgpack checkpoint holds the ``{net[, surrogate]}`` tree, whose
+        parts this model has are merged (a surrogate in the file of a model
+        without one is dropped), or a bare net tree."""
+        path = (self.opt.get("path") or {}).get("pretrain_model_G")
+        if not path:
+            return
+        logger.info("Loading model for G [%s] ...", path)
+        host = export_jax_params(self.params)
+        if path.endswith(".pth"):
+            block_num = tuple(self.net_opt.get("block_num") or (4,))
+            host["net"] = ckpt.load_network(path, host["net"], "codec", block_num)
+        else:
+            raw = ckpt.read_msgpack(path)
+            if "net" in raw:
+                host = ckpt.merge(host, {k: v for k, v in raw.items() if k in host})
+            else:
+                host["net"] = ckpt.merge(host["net"], raw)
+        load_jax_params(self.params, host)
+
+    def save(self, iter_label):
+        return ckpt.save_network(export_jax_params(self.params), self.opt["path"]["models"], iter_label)
+
+    def save_training_state(self, epoch, it):
+        return ckpt.save_training_state(
+            self.opt["path"]["training_state"], epoch, it,
+            ckpt.adam_state(self.optimizer, self.params.named_parameters()))
+
+    def resume_training(self, state_path: str, restore_optimizer: bool = True):
+        """Epoch and iteration from a ``.state`` file, and with
+        ``restore_optimizer`` Adam's moments and step (``{net[,
+        surrogate]}`` names)."""
+        payload = ckpt.load_training_state(state_path)
+        self.start_epoch = payload["epoch"]
+        self.start_iter = payload["iter"]
+        if restore_optimizer and self.is_train:
+            ckpt.restore_adam(self.optimizer, self.params.named_parameters(), payload["opt_state"])
+        return payload
 
     # ------------------------------------------------------------------
     # eval

@@ -1,6 +1,7 @@
 """Rescaling model wrapper — the JAX package's ``RescaleModel`` for the
 SelfC_GMM model type: feed_data / optimize_parameters / test / downscale /
-upscale / get_current_log / get_current_visuals.
+upscale / get_current_log / get_current_visuals / load / save /
+save_training_state / resume_training.
 
 All host I/O is channels-last numpy ``(B, T, H, W, 3)``.
 """
@@ -18,7 +19,8 @@ from .. import resolve_device
 from ..models import define_G
 from ..ops.quantize import quantize_ste
 from ..ops.resize import area_down, gaussian_downsample
-from ..utils.jax_import import load_jax_params
+from ..utils.jax_import import export_jax_params, load_jax_params
+from . import checkpoint as ckpt
 from .losses import reconstruction_loss
 from .lr_schedule import cosine_restart, multistep_restart
 
@@ -74,11 +76,8 @@ class RescaleModel:
         ``val.sample_seed`` overrides ``rng_seed``: it seeds both the
         parameter initialisation and the generator the GMM prior draws its
         noise from. With ``opt['is_train']`` the optimizer is built from
-        ``opt['train']``."""
-        if (opt.get("path") or {}).get("pretrain_model_G"):
-            raise NotImplementedError(
-                "path.pretrain_model_G: loading a checkpoint is not ported yet "
-                "(ROADMAP A18); load parameters with load_jax_params")
+        ``opt['train']``. ``path.pretrain_model_G`` (a msgpack checkpoint or
+        a reference ``.pth``) is loaded last (``load``)."""
         cfg_seed = (opt.get("val") or {}).get("sample_seed")
         if cfg_seed is not None:
             rng_seed = int(cfg_seed)
@@ -94,14 +93,18 @@ class RescaleModel:
         self._net_cast = None
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(rng_seed)
+        self._arch = {"SelfC_GMM": "gmm", "SelfC_GMM_Codec": "codec", "SelfC": "haar",
+                      "IRN": "irn"}.get(opt["model"], "gmm")
         self.log_dict = OrderedDict()
         self._raw_logs = None
+        self.start_iter = self.start_epoch = 0
         if self.is_train:
             if self.train_opt.get("gan_weight"):
                 raise NotImplementedError(
                     "train.gan_weight: the adversarial branch is not ported "
                     "yet (ROADMAP A25)")
             self._build_optimizer()
+        self.load()
 
     def _build_optimizer(self):
         """``train.fused_optimizer`` is accepted and changes nothing: it
@@ -129,6 +132,38 @@ class RescaleModel:
         """Parameters in the JAX package's tree (numpy leaves) -> the net."""
         load_jax_params(self.net, tree)
         self._net_cast = None
+
+    def load(self):
+        """Load ``path.pretrain_model_G`` into the net, if it is set."""
+        path_opt = self.opt.get("path") or {}
+        if path_opt.get("pretrain_model_D"):
+            raise NotImplementedError(
+                "path.pretrain_model_D: the discriminator is not ported yet (ROADMAP A25)")
+        path = path_opt.get("pretrain_model_G")
+        if path:
+            logger.info("Loading model for G [%s] ...", path)
+            block_num = tuple(self.opt["network_G"].get("block_num") or (4, 4))
+            self.load_jax_params(ckpt.load_network(path, export_jax_params(self.net),
+                                                   self._arch, block_num))
+
+    def save(self, iter_label):
+        return ckpt.save_network(export_jax_params(self.net), self.opt["path"]["models"], iter_label)
+
+    def save_training_state(self, epoch, it):
+        return ckpt.save_training_state(
+            self.opt["path"]["training_state"], epoch, it,
+            ckpt.adam_state(self.optimizer, self.net.named_parameters()))
+
+    def resume_training(self, state_path: str, restore_optimizer: bool = True):
+        """Epoch and iteration from a ``.state`` file (the JAX package's or
+        the port's), and with ``restore_optimizer`` Adam's moments and step.
+        The reference restores no optimizer state: pass False to match it."""
+        payload = ckpt.load_training_state(state_path)
+        self.start_epoch = payload["epoch"]
+        self.start_iter = payload["iter"]
+        if restore_optimizer and self.is_train:
+            ckpt.restore_adam(self.optimizer, self.net.named_parameters(), payload["opt_state"])
+        return payload
 
     def _eval_dtype(self):
         """val.eval_dtype: bfloat16 switches the eval roundtrip to bf16

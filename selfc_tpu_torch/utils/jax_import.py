@@ -3,8 +3,9 @@
 The port stores every parameter in the JAX package's layout and under its
 tree names, so the bridge is a strict, rename-free copy: a nested (or flat,
 dot-joined) dict of numpy arrays in the flax tree's shape goes into the
-module's parameters. Reading the checkpoint file itself (flax msgpack) is
-the caller's business — this module imports neither jax nor flax.
+module's parameters (numpy leaves, or torch tensors: a bfloat16 leaf of a
+checkpoint is one). Reading the checkpoint file itself is
+``train/checkpoint.py``'s business.
 ``export_jax_params`` / ``export_jax_grads`` go the other way: the
 module's parameters, or their gradients, as a nested numpy tree under the
 JAX names, so the two stacks can be compared leaf by leaf. A tree of
@@ -45,19 +46,21 @@ def load_jax_params(module: torch.nn.Module, tree) -> None:
             f"unexpected {unexpected[:8]}"
             f"{'...' if len(unexpected) > 8 else ''} ({len(unexpected)})"
         )
-    arrays = {k: np.asarray(v) for k, v in flat.items()}
+    arrays = {k: v if isinstance(v, torch.Tensor) else torch.tensor(np.asarray(v))
+              for k, v in flat.items()}
     bad = [
-        f"{k}: got {arrays[k].shape}, expected {tuple(p.shape)}"
-        for k, p in params.items() if arrays[k].shape != tuple(p.shape)
+        f"{k}: got {tuple(arrays[k].shape)}, expected {tuple(p.shape)}"
+        for k, p in params.items() if arrays[k].shape != p.shape
     ]
     if bad:
         raise ValueError("parameter shapes differ: " + "; ".join(bad[:8]))
     with torch.no_grad():
         for k, p in params.items():
-            p.copy_(torch.tensor(arrays[k]).to(p.dtype))
+            p.copy_(arrays[k].to(p.dtype))
 
 
-def _nest(flat: dict) -> dict:
+def nest_tree(flat: dict) -> dict:
+    """{"a.b.c": leaf} -> the nested dict (``flatten_tree``'s inverse)."""
     tree: dict = {}
     for name, v in flat.items():
         *path, leaf = name.split(".")
@@ -71,13 +74,13 @@ def _nest(flat: dict) -> dict:
 def export_jax_params(module: torch.nn.Module) -> dict:
     """The module's parameters as a nested dict of fp32 numpy arrays
     (copies: a later step does not change them)."""
-    return _nest({k: p.detach().float().cpu().numpy().copy()
-                  for k, p in module.named_parameters()})
+    return nest_tree({k: p.detach().float().cpu().numpy().copy()
+                      for k, p in module.named_parameters()})
 
 
 def export_jax_grads(module: torch.nn.Module) -> dict:
     """The parameters' ``.grad`` in the same tree (zeros where there is
     none)."""
-    return _nest({k: (torch.zeros_like(p) if p.grad is None else p.grad)
-                  .detach().float().cpu().numpy().copy()
-                  for k, p in module.named_parameters()})
+    return nest_tree({k: (torch.zeros_like(p) if p.grad is None else p.grad)
+                      .detach().float().cpu().numpy().copy()
+                      for k, p in module.named_parameters()})

@@ -1,0 +1,150 @@
+"""Import a reference PyTorch ``.pth`` state dict into the JAX package's
+parameter tree (the port's copy of ``selfc_tpu/utils/torch_import.py``).
+
+The reference checkpoints (``{iter}_G.pth``) hold NCHW torch tensors; the
+tree is channels-last with temporal convs stored as ``(3, Cin, Cout)``
+matmuls. The kernel conversion is decided by the tensor's shape alone, the
+name mapping by per-architecture rules. As the reference's loader does, a
+``module.`` DDP prefix is stripped and the codec surrogate's keys are
+skipped. The SelfC_GMM (``gmm``) and SelfC_GMM_Codec (``codec``) nets are
+mapped; the Haar and IRN nets (``haar``, ``irn``) wait for ROADMAP A22.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+
+def convert_tensor(name: str, w: np.ndarray) -> np.ndarray:
+    """torch kernel -> the tree's kernel, by shape."""
+    w = np.asarray(w)
+    if w.ndim == 5:  # Conv3d (Co, Ci, kt, kh, kw)
+        kt, kh, kw = w.shape[2:]
+        if (kt, kh, kw) == (1, 1, 1):
+            return w[:, :, 0, 0, 0].T  # pointwise (Ci, Co)
+        if kh == 1 and kw == 1:  # temporal (3,1,1)
+            return w[:, :, :, 0, 0].transpose(2, 1, 0)  # (kt, Ci, Co)
+        if kt == 1:  # spatial (1,kh,kw)
+            return w[:, :, 0].transpose(2, 3, 1, 0)  # (kh, kw, Ci, Co)
+        return w.transpose(2, 3, 4, 1, 0)  # full (kt,kh,kw,Ci,Co)
+    if w.ndim == 4:  # Conv2d (Co, Ci, kh, kw)
+        if w.shape[2] == 1 and w.shape[3] == 1:
+            return w[:, :, 0, 0].T  # pointwise (Ci, Co)
+        return w.transpose(2, 3, 1, 0)
+    if w.ndim == 2:  # Linear (Co, Ci)
+        return w.T
+    return w  # biases etc.
+
+
+def _set(tree: dict, path: list, value):
+    d = tree
+    for k in path[:-1]:
+        d = d.setdefault(k, {})
+    d[path[-1]] = value
+
+
+_GLOBALAGG_FIELDS = {
+    "fc.weight": "fc_w",
+    "fc.bias": "fc_b",
+    "proj1.weight": "proj1_w",
+    "proj1.bias": "proj1_b",
+    "proj2.weight": "proj2_w",
+    "proj2.bias": "proj2_b",
+    "proj3.weight": "proj3_w",
+    "proj3.bias": "proj3_b",
+}
+
+
+def _map_globalagg(rest: str):
+    return [_GLOBALAGG_FIELDS[rest]]
+
+
+_DEFORM_AGG_FIELDS = {
+    "global_context_reallocator.0.weight": "realloc1_w",
+    "global_context_reallocator.0.bias": "realloc1_b",
+    "global_context_reallocator.2.weight": "realloc2_w",
+    "global_context_reallocator.2.bias": "realloc2_b",
+    "offset_conv.weight": "offset_w",
+    "offset_conv.bias": "offset_b",
+    "modulator_conv.weight": "modulator_w",
+    "modulator_conv.bias": "modulator_b",
+    "regular_conv.weight": "regular_w",
+    "regular_conv.bias": "regular_b",
+}
+
+
+def _map_dense(rest: str):
+    # "conv3.weight" -> ["chain", "conv3", "weight"]
+    conv, leaf = rest.split(".")
+    return ["chain", conv, leaf]
+
+
+def map_reference_key(key: str, arch: str, block_num=(4, 4)):
+    """Reference state-dict key -> its path in the tree (a list of str), or
+    None to skip it. ``arch``: 'gmm' or 'codec'. ``block_num`` places the
+    Haar and IRN nets' blocks, which are not ported."""
+    if arch not in ("gmm", "codec"):
+        raise NotImplementedError(
+            f"arch {arch!r}: the Haar and IRN nets' checkpoints are not ported yet (ROADMAP A22)")
+    key = re.sub(r"^module\.", "", key)
+    if "Quantization_H265_Suggrogate" in key or "Quantization_H265" in key:
+        return None  # the reference skips surrogate keys on load
+    if "haar_weights" in key:
+        return None  # fixed buffers, not parameters
+
+    m = re.match(r"operations\.(\d+)\.([FGH])\.(.*)", key)
+    if m:
+        # operations.0 is the (parameter-free) FrequencyAnalyzer
+        return [f"inv_blocks_{int(m.group(1)) - 1}", m.group(2)] + _map_dense(m.group(3))
+
+    m = re.match(r"stp_net\.(local_m\d)\.(.*)", key)
+    if m:
+        return ["stp_net", m.group(1)] + _map_dense(m.group(2))
+    m = re.match(r"stp_net\.(global_m\d)\.(.*)", key)
+    if m:
+        return ["stp_net", m.group(1)] + _map_globalagg(m.group(2))
+    m = re.match(r"stp_net\.other_stp_modules\.(\d+)\.(.*)", key)
+    if m:
+        n, rest = int(m.group(1)), m.group(2)
+        if rest.startswith("conv"):
+            return ["stp_net", f"other_local_{n // 2}"] + _map_dense(rest)
+        return ["stp_net", f"other_global_{n // 2}"] + _map_globalagg(rest)
+    m = re.match(r"stp_net\.(?:tail_gmm|tail)\.(\d+)\.(.*)", key)
+    if m:
+        seq_idx, leaf = int(m.group(1)), m.group(2)
+        return ["stp_net", f"tail_{(seq_idx - 1) // 2}", leaf]
+    m = re.match(r"deart_net\.(\d+)\.(.*)", key)
+    if m:
+        n, rest = int(m.group(1)), m.group(2)
+        if rest.startswith("conv"):
+            return [f"deart_{n}"] + _map_dense(rest)
+        if rest in _DEFORM_AGG_FIELDS:  # GroupedGlobalDeformAgg
+            return [f"deart_{n}", _DEFORM_AGG_FIELDS[rest]]
+        raise KeyError(f"unmapped deart_net key: {key}")
+    raise KeyError(f"unmapped reference key: {key}")
+
+
+def import_state_dict(state_dict, arch: str, block_num=(4, 4)) -> dict:
+    """torch state dict (name -> tensor or array) -> the nested tree, fp32
+    numpy leaves."""
+    tree: dict = {}
+    for k, v in state_dict.items():
+        path = map_reference_key(k, arch, block_num)
+        if path is None:
+            continue
+        arr = v.detach().cpu().float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        _set(tree, path, np.asarray(convert_tensor(k, arr), np.float32))
+    return tree
+
+
+def load_pth(path: str, arch: str, block_num=(4, 4)) -> dict:
+    """A reference ``.pth`` (a plain state dict, or one under
+    ``state_dict``) -> the nested tree. Loaded with ``weights_only``: the
+    file may hold tensors and containers, nothing that runs code."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return import_state_dict(sd, arch, block_num)

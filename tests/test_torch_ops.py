@@ -43,6 +43,21 @@ def test_freq_forward(k):
 
 
 @pytest.mark.parametrize("k", [2, 4])
+def test_freq_forward_bf16_rounds_once_as_jax(k):
+    """In bf16 the JAX package's one strided conv sums in fp32 and rounds
+    once; so does the port. Where the two fp32 sums straddle a bf16
+    rounding boundary the results are one bf16 step apart; a second
+    rounding (the high frequencies from a bf16-rounded mean) puts many more
+    elements off."""
+    x = np.random.default_rng(3).random((1, 3, 32, 48, 3), dtype=np.float32)
+    got = tfreq.freq_forward(torch.from_numpy(x).to(torch.bfloat16), k).float().numpy()
+    want = np.asarray(jfreq.freq_forward(jnp.asarray(x, jnp.bfloat16), k).astype(jnp.float32))
+    step = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    assert np.all(np.abs(got - want) <= step)
+    assert np.mean(got != want) < 1e-3
+
+
+@pytest.mark.parametrize("k", [2, 4])
 def test_freq_inverse(k):
     y = _rand(1, (1, 2, 4, 3, 3 * (k * k + 1)))
     _close(tfreq.freq_inverse(torch.from_numpy(y), k),

@@ -316,22 +316,6 @@ def test_nonfinite_loss_skips_the_update(slice_pair):
     assert all(torch.equal(after[k], moments[k]) for k in moments)
 
 
-@pytest.mark.parametrize("is_train", [True, False], ids=["train", "serve"])
-def test_checkpoint_path_raises_naming_a18(monkeypatch, is_train):
-    """``path.pretrain_model_G`` names a checkpoint the port cannot load yet:
-    the wrapper raises (ROADMAP A18) before it builds a net, where it would
-    otherwise serve or train random weights without a word."""
-    from selfc_tpu_torch.train import rescale_model
-
-    def no_net(*args, **kwargs):
-        raise AssertionError("a net was built before the checkpoint path was refused")
-    monkeypatch.setattr(rescale_model, "define_G", no_net)
-    opt = _opt(path={"pretrain_model_G": "SelfC_GMM.pth"}, is_train=is_train)
-    opt["network_G"]["block_num"] = [1, 1]
-    with pytest.raises(NotImplementedError, match="A18"):
-        RescaleModel(opt, device="cpu")
-
-
 def test_unported_training_options_raise():
     with pytest.raises(NotImplementedError, match="A25"):
         RescaleModel(_opt({"gan_weight": 0.01}), device="cpu")
