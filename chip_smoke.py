@@ -28,11 +28,17 @@ Both training steps run W-packed, as by default (``network_G.pack_w``: every
 chain of the 4x step as 2 rows of 4 images at stripe 36, the codec's coupling
 and prior chains 2 to a row at stripe 72, B1, B3 and B2 with their stripe
 masks), and once more with ``pack_w: false``, timed beside it in turns.
+The codec's training step also runs pipelined (``train.codec_pipeline``),
+timed in turns with the serial one. Last, the port's entry points run as a
+user runs them, each a subprocess: ``python -m selfc_tpu_torch.cli.train``
+resumes the 400k run of runs/400k for 200 steps on its rendered train set
+packed in memory, ``cli.test_rescaling`` measures the committed and the
+written checkpoint, ``cli.test_compression`` runs the codec eval.
 It times the kernels beside their roofline bound.
 Prints one JSON line per phase; any failure exits non-zero. There is no CPU
 fallback: without a CUDA device the script fails at once.
 
-``--phases serve,quality,train,codec,codec_train,deart,subnets,variants`` (the default) picks
+``--phases serve,quality,train,codec,codec_train,deart,subnets,variants,cli`` (the default) picks
 the paths; ``--phases kernels`` only builds the kernels and checks them
 against their plain versions. ``--parent DIR`` (a checkout of another commit
 whose kernels have the same C interfaces, or its ``selfc_tpu_torch/csrc``
@@ -48,13 +54,19 @@ and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import ast
 import contextlib
 import ctypes
 from collections import Counter
 import json
+import os
 from pathlib import Path
+import re
+import shutil
+import string
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -64,6 +76,7 @@ import torch.nn.functional as F
 from selfc_tpu_torch.codec import h265
 from selfc_tpu_torch.codec.pipeline import seg_add_pad
 from selfc_tpu_torch.config import dict_to_nonedict
+from selfc_tpu_torch.data.packed import write_packed
 from selfc_tpu_torch.eval.rescaling import cal_metric
 from selfc_tpu_torch.kernels import build
 from selfc_tpu_torch.ops import chain_variants as cv
@@ -71,7 +84,7 @@ from selfc_tpu_torch.ops import deform as df
 from selfc_tpu_torch.ops import dense_chain as dc
 from selfc_tpu_torch.ops import temporal_conv as tc
 from selfc_tpu_torch.ops.conv import conv2d
-from selfc_tpu_torch.tools.make_synth_data import render_val_set
+from selfc_tpu_torch.tools.make_synth_data import render_clip, render_val_set, to_uint8
 from selfc_tpu_torch.tools.precision_delta import quality_options
 from selfc_tpu_torch.train import checkpoint
 from selfc_tpu_torch.train.codec_model import CodecModel
@@ -240,7 +253,29 @@ QUALITY_PATH_LIMIT = 0.005       # dB: kernel path against plain path on clip 0,
 # default precision, bf16 operands: a neighbour, not an oracle.
 QUALITY_TPU_ROWS = {"float32": (55.9950, 0.998962, 52.9436, 0.998103),
                     "bfloat16": (55.6375, 0.998702, 51.5949, 0.997756)}
-ALL_PHASES = ("serve", "quality", "train", "codec", "codec_train", "deart", "subnets", "variants")
+N_PIPE_STEPS = 4                 # timed steps of each turn of the pipelined codec step (after 1 warm-up)
+CLI_NAME = "SelfC_large_GMM_400k"
+CLI_TRAIN_YML = "selfc_tpu/configs/train/train_rescaling_400k_packed.yml"
+CLI_CODEC_YML = "selfc_tpu/configs/test/test_codec_uvg_bf.yml"
+CLI_TRAIN_SET = {"clips": 48, "frames": 20, "h": 208, "w": 208, "seed": 0}   # tools/train400k_loop.sh:129-130, 240 clips cut to 48
+CLI_VAL_SET = {"clips": 4, "frames": 7, "h": 576, "w": 704, "seed": 7}      # tools/train400k_loop.sh:136-137
+CLI_CODEC_SET = {"clips": 2, "frames": 5, "h": 256, "w": 256, "seed": 13}   # MS-SSIM needs 176 px
+CLI_RESUME_ITER = 164339
+CLI_STEPS = 200
+CLI_PRINT_FREQ = 50
+CLI_WORKERS = 6                  # loader threads (the YAML's 3; the card's machine has 8 cores)
+CLI_RNG_SEED = 0                 # the items' crops and flips keyed by (seed, epoch, index): calls repeat
+CLI_QUALITY = {"hr": (55.7945, 1e-3), "lr": (53.0392, 1e-4)}   # fp32 seed 0 on the card (PERF.md §2)
+# the written checkpoint (iter 164,539), fp32 seed 0: seeded items repeat the
+# run bit for bit (55.228582 dB in four runs on one H100, PERF.md §2); the
+# bf16 training costs the fp32 eval 0.57 dB, fp32 training gains 1.1
+CLI_TRAINED_HR = (55.2286, 0.1)
+# 11 steps in (iter 164,350): 55.19 dB with Adam's state restored, 54.16
+# without it (the fresh moments' first steps are ~lr x sign(g))
+CLI_EARLY_ITER, CLI_EARLY_HR_MIN = 164350, 54.7
+CLI_LOSS_RANGES = {"l_back_rec": (1.5e-3, 5e-3), "l_forw_fit": (2e-5, 1.3e-4)}
+CLI_TIMEOUT = 600
+ALL_PHASES = ("serve", "quality", "train", "codec", "codec_train", "deart", "subnets", "variants", "cli")
 
 
 # {library name: path} built from --parent's sources; empty: no comparison
@@ -2836,10 +2871,410 @@ def phase_timing_variants(device, serve, step, worst):
     return rows
 
 
+def phase_codec_pipeline(device, tree, batch):
+    """``train.codec_pipeline`` at the published batch. Under cuDNN's
+    deterministic algorithms the first pipelined update, retired by
+    ``flush_pipeline()``, against the serial step: the same logs and
+    parameters, bit for bit. Then the serial and the pipelined step in
+    turns (serial, pipelined, pipelined, serial), each turn 1 warm-up call
+    and N_PIPE_STEPS timed ones (host clock, synchronised at the end; a
+    pipelined turn's timed calls retire N_PIPE_STEPS updates), with each
+    call's host codec wall time and the wait it cost the step."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        serial = new_codec_trainer(device, tree, batch)
+        serial.optimize_parameters(0)
+        log_s = dict(serial.get_current_log())
+        want = {k: p.detach().clone() for k, p in serial.params.named_parameters()}
+        del serial
+        pipe = new_codec_trainer(device, tree, batch, codec_pipeline=True)
+        pipe.optimize_parameters(0)
+        check(not pipe.get_current_log(), "the first pipelined call queues its batch and updates nothing")
+        pipe.flush_pipeline()
+        log_p = dict(pipe.get_current_log())
+        differ = [k for k, p in pipe.params.named_parameters() if not torch.equal(p.detach(), want[k])]
+        del pipe, want
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(not differ and log_p == log_s,
+          f"the first pipelined update is the serial step's bits: {len(differ)} leaves differ, logs {log_p} / {log_s}")
+
+    out = {"zlib": pipeline_turns(device, tree, batch)}
+    # what the pipelined step loses to: a host codec that holds the
+    # interpreter lock (zlib's numpy work), or the pipeline itself. The same
+    # turns with a stand-in that sleeps the zlib codec's median wall time
+    # (the lock free; the clip comes back rounded), and with the codec's
+    # output given (no host codec at all)
+    nap = float(np.median([t for r in out["zlib"]["serial"]["turns"] for t in r["codec_tot_s"]]))
+    out["sleep"] = pipeline_turns(device, tree, batch, host_codec=sleeping_codec(nap))
+    out["sleep"]["sleep_s"] = nap
+    n, t, h, w, _ = CODEC_TRAIN_SHAPE
+    scale = codec_train_options()["scale"]
+    fed = np.random.default_rng(27).random((n, t, h // scale, w // scale, 3), dtype=np.float32)
+    out["fed"] = pipeline_turns(device, tree, batch, codec_out=fed)
+    emit("codec_pipeline", batch=CODEC_TRAIN_SHAPE, first_update_same_bits=True, under="cudnn.deterministic",
+         steps_per_turn=N_PIPE_STEPS, order="serial, pipelined, pipelined, serial",
+         host_codec=h265.codec_backend() or "stand-in", **out)
+    return out
+
+
+def sleeping_codec(seconds):
+    """A host codec that sleeps ``seconds`` (holding no interpreter lock)
+    and gives the clip back rounded to 8 bits: ``CodecModel._host_codec``'s
+    contract."""
+    def host_codec(lr_q, q):
+        t0 = time.perf_counter()
+        time.sleep(seconds)
+        out = torch.from_numpy(np.round(np.asarray(lr_q, np.float32) * 255.0) / 255.0).pin_memory()
+        return out, 0.0, time.perf_counter() - t0
+    return host_codec
+
+
+def pipeline_turns(device, tree, batch, host_codec=None, codec_out=None):
+    """The serial and the pipelined codec step in turns (serial, pipelined,
+    pipelined, serial), each turn 1 warm-up call and N_PIPE_STEPS timed ones
+    (host clock, synchronised at the end; a pipelined turn's timed calls
+    retire N_PIPE_STEPS updates), with each call's host codec wall time and
+    the wait it cost the step. ``host_codec`` replaces the models' host
+    codec; ``codec_out`` is given to every call in place of one."""
+    models = {False: new_codec_trainer(device, tree, batch),
+              True: new_codec_trainer(device, tree, batch, codec_pipeline=True)}
+    if host_codec is not None:
+        for model in models.values():
+            model._host_codec = host_codec
+    turns = {False: [], True: []}
+    for pipelined in (False, True, True, False):
+        model = models[pipelined]
+        model.optimize_parameters(1, codec_out=codec_out)
+        torch.cuda.synchronize()
+        tot, wait = [], []
+        t0 = time.perf_counter()
+        for step in range(2, 2 + N_PIPE_STEPS):
+            model.optimize_parameters(step, codec_out=codec_out)
+            tot.append(model.last_codec_total_seconds)
+            wait.append(model.last_codec_host_seconds)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / N_PIPE_STEPS
+        if pipelined:
+            model.flush_pipeline()
+        log = dict(model.get_current_log())
+        check(np.isfinite(log["loss"]) and log["skipped_nonfinite"] == 0.0, f"the timed steps are finite: {log}")
+        turns[pipelined].append({"step_ms": ms, "codec_tot_s": tot, "codec_wait_s": wait})
+    del models
+    out = {}
+    for pipelined, rows in turns.items():
+        out["pipelined" if pipelined else "serial"] = {
+            "step_ms": [r["step_ms"] for r in rows],
+            "step_ms_median": float(np.median([r["step_ms"] for r in rows])),
+            "codec_tot_s_median": float(np.median([t for r in rows for t in r["codec_tot_s"]])),
+            "codec_wait_s_median": float(np.median([t for r in rows for t in r["codec_wait_s"]])),
+            "turns": rows}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# cli: the port's entry points as a user runs them
+# ---------------------------------------------------------------------------
+
+# Runs a CLI module as ``python -m`` does and writes the kernel launch
+# counts of the whole process (the CLI's path: counts start at 0) at its exit.
+CLI_RUNNER = """
+import json, runpy, sys
+from selfc_tpu_torch.ops import chain_variants as cv, deform as df, dense_chain as dc, temporal_conv as tc
+module, counts_path = sys.argv[1], sys.argv[2]
+sys.argv = [module] + sys.argv[3:]
+try:
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+finally:
+    def w(d):
+        return {str(k): n for k, n in d.items()}
+    with open(counts_path, "w") as f:
+        json.dump({"B1": dc.launches, "B1_by_width": w(dc.launches_by_width),
+                   "B1_by_stripe": w(dc.launches_by_stripe), "B3": dc.launches_feats,
+                   "B2": dc.launches_bwd, "B2_by_width": w(dc.launches_bwd_by_width),
+                   "B4": dc.launches_spatial, "B4_bwd": dc.launches_spatial_bwd,
+                   "B5": df.launches, "B5_bwd": df.launches_bwd, "B6": tc.launches,
+                   "B6_bwd": tc.launches_bwd, "B7": cv.launches_hg, "B8": cv.launches_v3,
+                   "B9": cv.launches_ride}, f)
+"""
+
+
+def run_cli(work, module, args, device, tag=""):
+    """``python -m module args --device ...`` in ``work`` (a subprocess, this
+    checkout on its path): ``(launch counts, seconds)``; a failure shows the
+    end of its stderr."""
+    short = module.rsplit(".", 1)[1] + tag
+    counts_path = work / f"{short}_counts.json"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", CLI_RUNNER, module, str(counts_path), *args,
+                           "--device", str(device)],
+                          cwd=work, env=env, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    seconds = time.time() - t0
+    check(proc.returncode == 0, f"{module} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(counts_path.read_text()), seconds
+
+
+def render_packed(out, clips, frames, h, w, seed):
+    """The synthetic set of ``tools/make_synth_data.py`` (one generator over
+    the clips, frames rounded to uint8 as its PNG writer does) packed in
+    memory as ``tools/pack_dataset.py`` packs the PNGs."""
+    rng = np.random.default_rng(seed)
+    return write_packed(str(out), ((f"clip{v:03d}", [to_uint8(f) for f in render_clip(rng, frames, h, w)])
+                                   for v in range(clips)))
+
+
+def format_regex(fmt):
+    """A root CLI's format string as a regex, a field by its presentation type."""
+    kinds = {"d": r"[ \d,]+", "e": r"-?(?:\d\.\d+e[+-]\d+|nan|inf)", "f": r"-?\d+\.\d+", "s": r"\S+ *"}
+    out = ""
+    for literal, field, spec, _ in string.Formatter().parse(fmt):
+        out += re.escape(literal)
+        if field is not None:
+            out += kinds.get((spec or "")[-1:], r".*?")
+    return out
+
+
+def root_formats(path):
+    """The string constants with a replacement field in a root source file."""
+    return {n.value for n in ast.walk(ast.parse((ROOT / path).read_text()))
+            if isinstance(n, ast.Constant) and isinstance(n.value, str) and "{" in n.value}
+
+
+def log_messages(directory, prefix):
+    (path,) = Path(directory).glob(f"{prefix}_*.log")
+    return [ln.split(" - INFO: ", 1)[1] for ln in path.read_text().splitlines() if " - INFO: " in ln], path
+
+
+def averaged(msgs, part):
+    fmt = f"Averaged {part} results for all datasets, PSNR {{:.6f}}dB, SSIM {{:.6f}}"
+    hits = [re.fullmatch(format_regex(fmt), m) for m in msgs]
+    vals = [tuple(float(v) for v in re.findall(r"-?\d+\.\d+", m)) for m, h in zip(msgs, hits) if h]
+    check(len(vals) == 1, f"one '{fmt}' line: {msgs[-4:]}")
+    return vals[0]
+
+
+def step_logs(lines):
+    """``(iters, logs)`` of ``cli.train``'s step lines."""
+    logs = [{k: float(v) for k, v in re.findall(r"(\w+): (\S+) ", m.split("> ", 1)[1])} for m in lines]
+    iters = [int(re.search(r"iter:\s*([\d,]+),", m).group(1).replace(",", "")) for m in lines]
+    return iters, logs
+
+
+def cli_train_yaml(work, train_dir, val_dir, extra=None):
+    """The 400k run's YAML with dataroot_GT (train and val), path.resume_state,
+    logger.print_freq, n_workers and rng_seed changed, and ``extra``
+    (``{"a.b": value}``); returns (path, the changes)."""
+    import yaml
+
+    opt = yaml.safe_load((ROOT / CLI_TRAIN_YML).read_text())
+    changes = {"datasets.train.dataroot_GT": str(train_dir), "datasets.val1.dataroot_GT": str(val_dir),
+               "path.resume_state": str(ROOT / QUALITY_STATE), "logger.print_freq": CLI_PRINT_FREQ,
+               "datasets.train.n_workers": CLI_WORKERS, "datasets.train.rng_seed": CLI_RNG_SEED,
+               **(extra or {})}
+    for key, v in changes.items():
+        *head, last = key.split(".")
+        d = opt
+        for k in head:
+            d = d[k]
+        d[last] = v
+    path = work / "train_400k.yml"
+    path.write_text(yaml.safe_dump(opt))
+    return path, changes
+
+
+def cli_test_yaml(work, name, src, datasets, pretrain, **top):
+    """A test YAML: ``src``'s model and network_G, the given datasets and
+    checkpoint."""
+    import yaml
+
+    base = yaml.safe_load((ROOT / src).read_text())
+    opt = {"name": name, "model": base["model"], "distortion": base["distortion"], "scale": base["scale"],
+           "datasets": datasets, "network_G": base["network_G"], "path": {"pretrain_model_G": pretrain}, **top}
+    path = work / f"{name}.yml"
+    path.write_text(yaml.safe_dump(opt))
+    return path
+
+
+def phase_cli(device):
+    """The port's entry points as a user runs them, each a subprocess in a
+    temporary working directory (``parse`` roots experiments/ and results/
+    at the cwd): the 400k run resumed at iter 164,339 by ``cli.train`` for
+    CLI_STEPS steps on the rendered train set, ``cli.test_rescaling`` on the
+    committed checkpoint and on the one the run wrote, ``cli.test_compression``
+    on the published codec net (random weights) with the zlib stand-in. The
+    run's items are seeded (``rng_seed``), so it repeats; the checkpoint it
+    writes 11 steps in is measured in this process, which tells a resume
+    that restored Adam's state from one that did not."""
+    t_phase = time.time()
+    work = Path(tempfile.mkdtemp(prefix="selfc_cli_"))
+    try:
+        t0 = time.time()
+        train_dir, val_dir, codec_dir = work / "train_packed", work / "val_packed", work / "codec_packed"
+        render_packed(train_dir, **CLI_TRAIN_SET)
+        render_packed(val_dir, **CLI_VAL_SET)
+        render_packed(codec_dir, **CLI_CODEC_SET)
+        render_s = time.time() - t0
+        models = work / "experiments" / CLI_NAME / "models"
+        models.mkdir(parents=True)
+        shutil.copyfile(ROOT / QUALITY_CKPT, models / f"{CLI_RESUME_ITER}_G.msgpack")
+        yml, changes = cli_train_yaml(work, train_dir, val_dir, {"logger.save_checkpoint_freq": CLI_PRINT_FREQ})
+        last = CLI_RESUME_ITER + CLI_STEPS
+
+        counts_train, train_s = run_cli(work, "selfc_tpu_torch.cli.train", ["-opt", str(yml), "--max-iters", str(last)],
+                                        device)
+        msgs, _ = log_messages(work / "experiments" / CLI_NAME, f"train_{CLI_NAME}")
+        check(any(m.startswith(f"Resuming training from epoch: ") and m.endswith(f"iter: {CLI_RESUME_ITER}.")
+                  for m in msgs), "the run resumed iter 164,339")
+        fmts = root_formats("train.py")
+        step_re = re.compile(format_regex("<epoch:{:3d}, iter:{:8,d}, lr:{:.3e}> ")
+                             + "(?:" + format_regex("{:s}: {:.4e} ") + ")+$")
+        lines = [m for m in msgs if m.startswith("<epoch:")]
+        check({"<epoch:{:3d}, iter:{:8,d}, lr:{:.3e}> ", "{:s}: {:.4e} "} <= fmts
+              and all(step_re.match(m) for m in lines), f"the step lines are train.py's: {lines[:1]}")
+        iters, logs = step_logs(lines)
+        want_iters = list(range(CLI_RESUME_ITER - CLI_RESUME_ITER % CLI_PRINT_FREQ + CLI_PRINT_FREQ, last + 1,
+                                CLI_PRINT_FREQ))
+        check(iters == want_iters, f"logged iterations {iters} (expected {want_iters})")
+        check(all(np.isfinite(v) for lg in logs for v in lg.values())
+              and all(lg["skipped_nonfinite"] == 0.0 for lg in logs), f"every logged value finite, none skipped: {logs}")
+        means = {k: float(np.mean([lg[k] for lg in logs])) for k in CLI_LOSS_RANGES}
+        for k, (lo, hi) in CLI_LOSS_RANGES.items():
+            check(lo <= means[k] <= hi, f"mean logged {k} {means[k]} within [{lo}, {hi}]")
+        written = models / "latest_G.msgpack"
+        check(written.exists(), "the run wrote latest_G.msgpack")
+        flat = flatten_tree(checkpoint.read_msgpack(str(written)))
+        start = flatten_tree(checkpoint.read_msgpack(str(ROOT / QUALITY_CKPT)))
+        check(len(flat) == QUALITY_LEAVES and all(np.isfinite(v).all() for v in flat.values())
+              and any(not np.array_equal(v, start[k]) for k, v in flat.items()),
+              "latest_G.msgpack: every leaf finite, the weights moved")
+
+        val = {"val1": {"name": "synthval", "mode": "LQGTVID_packed", "dataroot_GT": str(val_dir), "video_len": 7}}
+        quality = {}
+        counts_eval = {}
+        for tag, ckpt in (("committed", ROOT / QUALITY_CKPT), ("written", written)):
+            name = f"test_400k_{tag}"
+            tyml = cli_test_yaml(work, name, CLI_TRAIN_YML, val, str(ckpt), val={"sample_seed": 0})
+            counts_eval[tag], secs = run_cli(work, "selfc_tpu_torch.cli.test_rescaling",
+                                             ["-opt", str(tyml), "--no-images"], device, f"_{tag}")
+            msgs, _ = log_messages(work / "results" / name, f"test_{name}")
+            hr, lr = averaged(msgs, "HR"), averaged(msgs, "LR")
+            quality[tag] = {"hr_psnr": hr[0], "hr_ssim": hr[1], "lr_psnr": lr[0], "lr_ssim": lr[1], "s": secs}
+        q = quality["committed"]
+        for part in ("hr", "lr"):
+            ref, tol = CLI_QUALITY[part]
+            check(abs(q[f"{part}_psnr"] - ref) <= tol, f"{part.upper()} Y-PSNR of iter 164,339 through the test "
+                  f"CLI {q[f'{part}_psnr']} within {tol} dB of {ref}")
+        ref, tol = CLI_TRAINED_HR
+        check(abs(quality["written"]["hr_psnr"] - ref) <= tol,
+              f"the written checkpoint's HR {quality['written']['hr_psnr']} within {tol} dB of {ref}")
+        early = val_quality(models / f"{CLI_EARLY_ITER}_G.msgpack", device, work / "q")
+        check(early["hr_psnr"] >= CLI_EARLY_HR_MIN,
+              f"iter {CLI_EARLY_ITER}'s HR {early['hr_psnr']} >= {CLI_EARLY_HR_MIN} dB (Adam's state restored)")
+
+        name = "test_codec_cli"
+        cset = {"test_1": {"name": "synthcodec", "mode": "LQGTVID_packed", "dataroot_GT": str(codec_dir),
+                           "video_len": CLI_CODEC_SET["frames"], "batch_size": 1}}
+        cyml = cli_test_yaml(work, name, CLI_CODEC_YML, cset, None, val={"standin_codec": "zlib"})
+        counts_codec, codec_s = run_cli(work, "selfc_tpu_torch.cli.test_compression", ["-opt", str(cyml), "--no-images"],
+                                        device)
+        (path,) = (work / "results" / name).glob(f"test_{name}_*.log")
+        text = path.read_text()
+        cfmts = root_formats("test_compression.py")
+        per_clip = next(f for f in cfmts if f.startswith("{:20s} - video_distor_loss"))
+        n_clip = len(re.findall(format_regex(per_clip), text))
+        n_avg = {p: len(re.findall(format_regex(next(f for f in cfmts if f.startswith(p))), text))
+                 for p in ("----Average PSNR/SSIM results for {}", "----Average Compression results for {}")}
+        rate = h265.rate_source("zlib")
+        check(n_clip == CLI_CODEC_SET["clips"] and all(n == 2 for n in n_avg.values()) and f"[rate: {rate}]" in text,
+              f"test_compression's lines parse: {n_clip} clip lines, {n_avg} average lines")
+        avg_line = re.search(format_regex(next(f for f in cfmts if f.startswith("----Average PSNR/SSIM"))), text)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(counts_train["B1"] >= 1 and counts_train["B2"] >= 1
+          and all(c["B1"] >= 1 for c in (*counts_eval.values(), counts_codec)),
+          f"the CLIs' paths launched B1 (the train CLI B2 too): {counts_train} {counts_eval} {counts_codec}")
+    emit("cli", phase_s=time.time() - t_phase, render_s=render_s,
+         train_set={**CLI_TRAIN_SET, "cut": "the first 48 of tools/train400k_loop.sh's 240 clips (one rng stream)"},
+         val_set=CLI_VAL_SET, yaml=CLI_TRAIN_YML, yaml_changes=changes, max_iters=last,
+         train={"s": train_s, "logs": dict(zip(iters, logs)), "mean": means, "limits": CLI_LOSS_RANGES,
+                "loader_share_data_s_over_wall_s": [lg["data_s"] / lg["wall_s"] for lg in logs if "wall_s" in lg],
+                "launches": counts_train},
+         rescaling=quality, rescaling_reference=CLI_QUALITY, rescaling_launches=counts_eval,
+         written_reference=CLI_TRAINED_HR, early={"iter": CLI_EARLY_ITER, **early, "min": CLI_EARLY_HR_MIN},
+         compression={"s": codec_s, "yaml": CLI_CODEC_YML, "set": CLI_CODEC_SET, "rate_source": rate, "clip_lines": n_clip,
+                      "average_lines": n_avg, "average": avg_line.group(0) if avg_line else None,
+                      "launches": counts_codec})
+
+
+# resume_study (not in the default run): what 200 resumed steps cost the
+# trained net's HR PSNR. {variant: (train clips, YAML changes beyond the cli
+# phase's)}: the cli phase's run, the 400k run's whole train set, Adam's
+# state not restored, fp32 training
+RESUME_STUDY = {"seeded_48": (48, {}), "seeded_240": (240, {}),
+                "fresh_adam_48": (48, {"train.resume_optimizer": False}),
+                "fp32_48": (48, {"train.mixed_precision": False})}
+RESUME_STUDY_EVERY = 50          # steps between the checkpoints measured
+
+
+def val_quality(ckpt, device, out_dir, dtype="float32"):
+    """HR / LR Y-PSNR / SSIM (``cal_metric``, sample seed 0) of a 4x
+    checkpoint over the rendered val set, in this process."""
+    model = RescaleModel(quality_options(str(ckpt), dtype, 0), device=device)
+    m = cal_metric(list(render_val_set()), model, str(out_dir), save_images=False)
+    return {"hr_psnr": m[0], "hr_ssim": m[1], "lr_psnr": m[2], "lr_ssim": m[3]}
+
+
+def phase_resume_study(device):
+    """``--phases resume_study``: each variant of RESUME_STUDY resumes iter
+    164,339 through ``cli.train`` for CLI_STEPS steps as the cli phase does,
+    a checkpoint every RESUME_STUDY_EVERY steps; each checkpoint's HR / LR
+    Y-PSNR / SSIM (sample seed 0) over the rendered val set in fp32 and in
+    bf16, measured in this process (``cal_metric``, as the ``quality``
+    phase)."""
+    work = Path(tempfile.mkdtemp(prefix="selfc_study_"))
+    try:
+        val_dir = work / "val_packed"
+        render_packed(val_dir, **CLI_VAL_SET)
+
+        def quality(ckpt):
+            return {dtype: val_quality(ckpt, device, work / "q", dtype) for dtype in ("float32", "bfloat16")}
+
+        start = quality(ROOT / QUALITY_CKPT)
+        emit("resume_study_start", iter=CLI_RESUME_ITER, **start)
+        sets = {}
+        last = CLI_RESUME_ITER + CLI_STEPS
+        for name, (n_clips, extra) in RESUME_STUDY.items():
+            if n_clips not in sets:
+                sets[n_clips] = work / f"train_{n_clips}"
+                render_packed(sets[n_clips], **dict(CLI_TRAIN_SET, clips=n_clips))
+            run = work / name
+            models = run / "experiments" / CLI_NAME / "models"
+            models.mkdir(parents=True)
+            shutil.copyfile(ROOT / QUALITY_CKPT, models / f"{CLI_RESUME_ITER}_G.msgpack")
+            yml, changes = cli_train_yaml(run, sets[n_clips], val_dir,
+                                          {"logger.save_checkpoint_freq": RESUME_STUDY_EVERY, **extra})
+            _, secs = run_cli(run, "selfc_tpu_torch.cli.train", ["-opt", str(yml), "--max-iters", str(last)], device)
+            msgs, _ = log_messages(run / "experiments" / CLI_NAME, f"train_{CLI_NAME}")
+            iters, logs = step_logs([m for m in msgs if m.startswith("<epoch:")])
+            ckpts = sorted((int(p.name.split("_")[0]), p) for p in models.glob("*_G.msgpack")
+                           if p.name.split("_")[0].isdigit() and int(p.name.split("_")[0]) > CLI_RESUME_ITER)
+            ckpts.append((last, models / "latest_G.msgpack"))
+            emit("resume_study", variant=name, train_clips=n_clips, yaml_changes=changes, train_s=secs,
+                 mean={k: float(np.mean([lg[k] for lg in logs])) for k in CLI_LOSS_RANGES},
+                 skipped=sum(lg["skipped_nonfinite"] for lg in logs),
+                 step_s=[lg["step_s"] for lg in logs],
+                 quality={str(it): quality(p) for it, p in ckpts})
+            shutil.rmtree(run, ignore_errors=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
-                    help="comma-separated: kernels (build and check only), " + ", ".join(ALL_PHASES))
+                    help="comma-separated: kernels (build and check only), " + ", ".join(ALL_PHASES)
+                    + "; resume_study (a study of the resumed run, not in the default run)")
     ap.add_argument("--parent", default=None,
                     help="a checkout of another commit: time against its kernels in turns")
     args = ap.parse_args()
@@ -2907,6 +3342,7 @@ def main():
         tree, batch, counts = phase_codec_train(device)
         rows, base_train = phase_timing_codec_train(device, tree, batch, counts, worst_gc_bwd, worst_gc, worst_stripe)
         kernels += rows
+        phase_codec_pipeline(device, tree, batch)
         del tree, batch
     if "deart" in want:
         counts_test = phase_codec_deart(device, base_codec)
@@ -2920,6 +3356,11 @@ def main():
         serve_var, step_var = phase_variants(device)
         with torch.no_grad():
             kernels += phase_timing_variants(device, serve_var, step_var, worst_var)
+
+    if "cli" in want:
+        phase_cli(device)
+    if "resume_study" in want:
+        phase_resume_study(device)
 
     for k in kernels:
         check(k["launches"] >= 1, f"the main path launched {k['name']}")

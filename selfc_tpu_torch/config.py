@@ -7,8 +7,13 @@
   and ``network_G.pack_w`` (W-packing of narrow latents, on unless false;
   ``SELFC_TPU_PALLAS_PACK_W=0``); ``models/factory.py`` reads them.
 * ``parse(path, is_train)``: loads YAML, injects per-dataset scale/phase,
-  expands experiment/result paths, applies debug-mode frequency overrides.
-  ``gpu_ids`` is accepted and ignored.
+  expands experiment/result paths (``path.experiments_root``, ``models``,
+  ``training_state``, ``log``, ``val_images`` under ``experiments/<name>``
+  of the working directory when training, ``results_root`` and ``log``
+  under ``results/<name>`` when not), applies debug-mode frequency
+  overrides. ``gpu_ids`` is accepted and ignored.
+* ``check_resume(opt, iter)``: points ``path.pretrain_model_G`` at the
+  resumed iteration's checkpoint.
 
 PyYAML is imported inside ``parse`` only: a caller that builds its option
 dict in Python (``dict_to_nonedict``) does not need it.
@@ -79,3 +84,10 @@ def parse(opt_path: str, is_train: bool = True):
         opt["path"]["log"] = results_root
 
     return dict_to_nonedict(opt)
+
+
+def check_resume(opt, resume_iter):
+    """Re-point ``path.pretrain_model_G`` at the resume checkpoint,
+    ``{path.models}/{resume_iter}_G.msgpack`` (reference options.py:105-119)."""
+    if opt["path"]["resume_state"]:
+        opt["path"]["pretrain_model_G"] = osp.join(opt["path"]["models"], f"{resume_iter}_G.msgpack")

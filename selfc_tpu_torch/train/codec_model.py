@@ -10,6 +10,8 @@ split at the codec, as the JAX package's: the encode runs once under
 autograd, its quantised LR goes to the host codec, and the loss's one
 ``backward`` pulls the encode's gradients through the graph autograd kept
 (the JAX package carries the encode's VJP residuals across the same split).
+``train.codec_pipeline`` overlaps batch i's host codec with update i-1 on the
+device, its encode-side gradients one update stale (``_optimize_pipelined``).
 
 Eval (``test``) is the streaming pipeline (``codec/pipeline.py``) through a
 live x265 stream (or its stand-in) with segments of 3 frames and spatial
@@ -25,6 +27,7 @@ from __future__ import annotations
 import logging
 import time
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -38,6 +41,7 @@ from ..codec.surrogate import (H265Surrogate, H265SurrogatePlain, h265_host_roun
                                mimick_and_swap, mimick_plain)
 from ..models import define_G
 from ..ops.quantize import quantize_ste
+from ..parallel.dist import all_reduce_grads, finite_everywhere, frames_to_device
 from ..utils.jax_import import export_jax_params, load_jax_params
 from . import checkpoint as ckpt
 from .losses import reconstruction_loss
@@ -61,11 +65,6 @@ class CodecModel:
         self.opt = opt
         self.is_train = bool(opt.get("is_train"))
         self.train_opt = opt.get("train") or {}
-        if self.is_train and self.train_opt.get("codec_pipeline"):
-            raise NotImplementedError(
-                "train.codec_pipeline: the one-step-stale pipelined step is not "
-                "ported yet (ROADMAP A16', the pipelined step); the serial "
-                "split-at-codec step is")
         self.device = resolve_device(device)
         self.net_opt = opt["network_G"]
         self.scale = opt["scale"]
@@ -109,10 +108,17 @@ class CodecModel:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(rng_seed)
         self._q_seed = rng_seed
+        self._encoder = _EncodeLF(self.net, self._mp)
         self.log_dict = OrderedDict()
         self._raw_logs = None
-        self.last_codec_host_seconds = 0.0
+        self.last_codec_host_seconds = 0.0    # the host codec's wait the step paid
+        self.last_codec_total_seconds = 0.0   # the host codec's whole wall time
         self.start_iter = self.start_epoch = 0
+        # train.codec_pipeline: the batch in flight and the one thread that
+        # runs the host codec beside the device (see _optimize_pipelined)
+        self._pipeline = bool(self.is_train and self.train_opt.get("codec_pipeline"))
+        self._pending = None
+        self._codec_pool = ThreadPoolExecutor(max_workers=1) if self._pipeline else None
         if self.is_train:
             to = self.train_opt
             self.optimizer, self._clear_state_steps = build_adam(self.params.parameters(), to)
@@ -154,9 +160,11 @@ class CodecModel:
         load_jax_params(self.params, host)
 
     def save(self, iter_label):
+        self.flush_pipeline()
         return ckpt.save_network(export_jax_params(self.params), self.opt["path"]["models"], iter_label)
 
     def save_training_state(self, epoch, it):
+        self.flush_pipeline()
         return ckpt.save_training_state(
             self.opt["path"]["training_state"], epoch, it,
             ckpt.adam_state(self.optimizer, self.params.named_parameters()))
@@ -196,10 +204,10 @@ class CodecModel:
         gt = np.asarray(data["GT"])
         # kept on the host: the codec pipeline works on host numpy and moves
         # each chunk to the device itself; a training step takes it from the
-        # device
+        # device (uint8 cast there)
         self.real_H = np.ascontiguousarray(
             gt.astype(np.float32) / 255.0 if gt.dtype == np.uint8 else gt, np.float32)
-        self._hr = self._on_device(self.real_H) if self.is_train else None
+        self._hr = frames_to_device(gt, self.device) if self.is_train else None
         return gt.shape[1]
 
     def test(self):
@@ -208,6 +216,7 @@ class CodecModel:
         ``val.seg_batch`` (default 4) shape the device calls
         (``codec/pipeline.py``). The encode call hands the host only the
         quantised LR, the part of the latent the codec takes."""
+        self.flush_pipeline()
         x = self.real_H
 
         def encode_fn(chunk):
@@ -244,25 +253,38 @@ class CodecModel:
 
     def _encode_lf(self, hr):
         """The encode half the host codec depends on: HR -> LF (3 ch)."""
-        if self._mp:
-            hr = hr.to(torch.bfloat16)
-        y, _ = self.net.encode(hr)
-        return y[..., :3]
+        return self._encoder(hr)
+
+    @staticmethod
+    def _lr_q(lf):
+        """The host codec's input: the 255-level rounding, in fp32 whatever
+        lf's type."""
+        with torch.no_grad():
+            return torch.round(torch.clamp(lf.float(), 0.0, 1.0) * 255.0) / 255.0
+
+    def _host_codec(self, lr_q, q):
+        """``(codec output as a host tensor, bpp, seconds)`` of the quantised
+        LR (host numpy) through the host codec."""
+        t0 = time.perf_counter()
+        codec_np, bpp = h265_host_roundtrip(lr_q, q, self._h265_keyint, self.scale,
+                                            stand_in=self._standin_codec)
+        out = torch.from_numpy(codec_np)
+        if self.device.type == "cuda":
+            out = out.pin_memory()   # so that the copy to the card does not block the host
+        return out, bpp, time.perf_counter() - t0
 
     def codec_span(self, lf, q):
         """The quantised LR through the host codec: ``(codec_out on the
-        device, bpp)``. The 255-level rounding is fp32 whatever lf's type;
-        without the h265 noise type the span is zeros and 0 bpp."""
-        with torch.no_grad():
-            lr_q = torch.round(torch.clamp(lf.float(), 0.0, 1.0) * 255.0) / 255.0
+        device, bpp)``. Without the h265 noise type the span is zeros and 0
+        bpp."""
+        lr_q = self._lr_q(lf)
         if self.noise_type != "h265":
             return torch.zeros_like(lr_q), 0.0
         t0 = time.perf_counter()
-        codec_np, bpp = h265_host_roundtrip(lr_q.cpu().numpy(), q, self._h265_keyint, self.scale,
-                                            stand_in=self._standin_codec)
+        codec_out, bpp, _ = self._host_codec(lr_q.cpu().numpy(), q)
         # includes the device -> host read of lr_q
-        self.last_codec_host_seconds = time.perf_counter() - t0
-        return torch.from_numpy(codec_np).to(self.device), bpp
+        self.last_codec_host_seconds = self.last_codec_total_seconds = time.perf_counter() - t0
+        return codec_out.to(self.device), bpp
 
     def _distort_lr(self, lr_q, codec_out, q_value):
         """The quantised LR -> the codec-distorted LR and the mimick loss."""
@@ -308,7 +330,9 @@ class CodecModel:
         inside the loss (the same gradients, one more encode). ``codec_out``
         (optional, ``(B,T,h,w,3)``) stands in for the host codec's output
         (its bpp is then logged as 0). A non-finite loss skips the whole
-        update (``skipped_nonfinite`` in the log)."""
+        update (``skipped_nonfinite`` in the log). With
+        ``train.codec_pipeline`` (and the h265 noise type) the call is the
+        pipelined step, ``_optimize_pipelined``."""
         if not self.is_train:
             raise RuntimeError("optimize_parameters needs opt['is_train']")
         split = self.train_opt.get("codec_split") or "residual"
@@ -316,12 +340,9 @@ class CodecModel:
             raise ValueError(f"train.codec_split {split!r}")
         lr_value = self.lr_fn(step)
         q = self._draw_q(step) if isinstance(self.q, list) else self.q
-        if step in self._clear_state_steps:
-            self.optimizer.state.clear()
+        if self._pipeline and self.noise_type == "h265":
+            return self._optimize_pipelined(step, lr_value, q, split, codec_out)
         hr = self._hr
-        with torch.no_grad():
-            ref_l = self.degrade(hr)
-        self.optimizer.zero_grad(set_to_none=True)
         with torch.set_grad_enabled(split == "residual"):
             lf = self._encode_lf(hr)
         if codec_out is None:
@@ -330,19 +351,109 @@ class CodecModel:
             codec_out, img_bpp = torch.as_tensor(codec_out, dtype=torch.float32, device=self.device), 0.0
         if split == "reencode":
             lf = self._encode_lf(hr)
+        self._update(step, lr_value, q, hr, lf, codec_out, img_bpp)
+
+    def _update(self, step, lr_value, q, hr, lf, codec_out, img_bpp, snapshot=None):
+        """The loss from the encode's ``lf``, its backward, and clip + Adam.
+        ``snapshot``: the parameter copies an encode ran through
+        (``_optimize_pipelined``); their gradients are added onto the live
+        parameters' before the clip. The backward, the all-reduce and the
+        clip are queued before the step's one read of the device (whether
+        the loss is finite on every process); a loss that is not skips
+        Adam's step, the moments and the count included."""
+        if step in self._clear_state_steps:
+            self.optimizer.state.clear()
+        with torch.no_grad():
+            ref_l = self.degrade(hr)
+        self.optimizer.zero_grad(set_to_none=True)
         loss, logs = self._loss(lf, hr, ref_l, codec_out, q)
-        ok = bool(torch.isfinite(loss))
+        loss.backward()
+        if snapshot is not None:
+            live = dict(self.net.named_parameters())
+            pairs = [(live[name], s.grad) for name, s in snapshot.items() if s.grad is not None]
+            both = [(p.grad, g) for p, g in pairs if p.grad is not None]
+            if both:
+                torch._foreach_add_(*map(list, zip(*both)))
+            for p, g in pairs:
+                if p.grad is None:
+                    p.grad = g
+        params = list(self.params.parameters())
+        all_reduce_grads(params)
+        clip = self.train_opt.get("gradient_clipping")
+        if clip:
+            self.grad_norm = clip_by_global_norm_(params, float(clip))
+        ok = finite_everywhere(loss)
         if ok:
-            loss.backward()
-            clip = self.train_opt.get("gradient_clipping")
-            if clip:
-                self.grad_norm = clip_by_global_norm_(list(self.params.parameters()), float(clip))
             for group in self.optimizer.param_groups:
                 group["lr"] = lr_value
             self.optimizer.step()
         logs = {k: v.detach() for k, v in logs.items()}
         logs["skipped_nonfinite"] = torch.full_like(logs["loss"], 0.0 if ok else 1.0)
         self._raw_logs, self._raw_logs_lr, self._raw_logs_bpp = logs, lr_value, img_bpp
+
+    # -- train.codec_pipeline ------------------------------------------
+    def _optimize_pipelined(self, step, lr_value, q, split, codec_out=None):
+        """The one-step-stale pipelined step (the JAX package's
+        ``_optimize_pipelined``). A call encodes this batch at the live
+        parameters, reads its quantised LR (the call's one read of the
+        device: it waits for this encode and for the update queued by the
+        call before), hands it to the host codec thread, and then retires
+        the batch before it (``_retire``): it waits for that batch's codec
+        output, usually ready by then, and queues its update. That update
+        runs on the device while this batch is in the host codec: a step
+        takes about encode + max(host codec, update) instead of their sum.
+        Logs and img_bpp lag one call; ``flush_pipeline`` retires the batch
+        in flight.
+
+        Update i takes its decode side (prior, surrogate, decode) at the
+        parameters after update i-1. Its encode side: under
+        ``codec_split: residual`` the gradient through batch i's encode at
+        the parameters it ran at, those before update i-1 (the encode runs
+        through copies taken then, since Adam changes the live tensors in
+        place, which autograd refuses and detaching would get wrong); under
+        ``reencode`` the encode runs again at the live parameters in the
+        retire. ``codec_out`` (optional) stands in for the host codec's
+        output, as in the serial step."""
+        hr = self._hr
+        snapshot = None
+        if split == "residual":
+            names, params = zip(*self.net.named_parameters())
+            with torch.no_grad():   # x * 1 copies every value's bits, in one multi-tensor launch
+                copies = torch._foreach_mul(list(params), 1.0)
+            snapshot = {k: c.requires_grad_() for k, c in zip(names, copies)}
+            lf = torch.func.functional_call(
+                self._encoder, {f"net.{k}": v for k, v in snapshot.items()}, (hr,))
+        else:
+            with torch.no_grad():
+                lf = self._encode_lf(hr)
+        if codec_out is None:
+            fut = self._codec_pool.submit(self._host_codec, self._lr_q(lf).cpu().numpy(), q)
+        else:
+            fut = self._codec_pool.submit(lambda c=torch.as_tensor(codec_out, dtype=torch.float32): (c, 0.0, 0.0))
+        prev = self._pending
+        self._pending = dict(step=step, lr_value=lr_value, q=q, hr=hr, split=split,
+                             lf=lf if split == "residual" else None, snapshot=snapshot, fut=fut)
+        if prev is not None:
+            self._retire(prev)
+
+    def _retire(self, p):
+        t0 = time.perf_counter()
+        codec_host, img_bpp, codec_wall = p["fut"].result()
+        # the wait this step paid against the codec's whole wall time: the
+        # difference is the overlap
+        self.last_codec_host_seconds = time.perf_counter() - t0
+        self.last_codec_total_seconds = codec_wall
+        codec_out = codec_host.to(self.device, non_blocking=True)
+        lf = p["lf"] if p["split"] == "residual" else self._encode_lf(p["hr"])
+        self._update(p["step"], p["lr_value"], p["q"], p["hr"], lf, codec_out, img_bpp, p["snapshot"])
+
+    def flush_pipeline(self):
+        """Retire the batch in flight, if any, so that what follows (a save,
+        an eval, a read of the parameters) sees its update. Nothing to do
+        without ``train.codec_pipeline``."""
+        p, self._pending = self._pending, None
+        if p is not None:
+            self._retire(p)
 
     def get_current_log(self):
         """The last step's losses as floats (one read from the device), with
@@ -371,3 +482,18 @@ class CodecModel:
             out["LR_ref"] = self.degrade(self._on_device(self.real_H)).cpu().numpy()
         out["GT"] = self.real_H
         return out
+
+
+class _EncodeLF(nn.Module):
+    """The encode half as a module's forward (HR -> LF, bf16 activations
+    under mixed precision), so that ``torch.func.functional_call`` can run
+    it through other parameter tensors."""
+
+    def __init__(self, net, mixed_precision: bool):
+        super().__init__()
+        self.net = net
+        self.mixed_precision = mixed_precision
+
+    def forward(self, hr):
+        y, _ = self.net.encode(hr.to(torch.bfloat16) if self.mixed_precision else hr)
+        return y[..., :3]

@@ -19,6 +19,7 @@ from .. import resolve_device
 from ..models import define_G
 from ..ops.quantize import quantize_ste
 from ..ops.resize import area_down, gaussian_downsample
+from ..parallel.dist import all_reduce_grads, finite_everywhere, frames_to_device
 from ..utils.jax_import import export_jax_params, load_jax_params
 from . import checkpoint as ckpt
 from .losses import reconstruction_loss
@@ -210,8 +211,7 @@ class RescaleModel:
         if t_cfg and clip_length < t_cfg:
             pad = np.repeat(gt[:, -1:], t_cfg - clip_length, axis=1)
             gt = np.concatenate([gt, pad], axis=1)
-        x = torch.from_numpy(np.ascontiguousarray(gt)).to(self.device)
-        self.real_H = x.float() / 255.0 if gt.dtype == np.uint8 else x.float()
+        self.real_H = frames_to_device(gt, self.device)
         return clip_length
 
     # ------------------------------------------------------------------
@@ -243,7 +243,10 @@ class RescaleModel:
         default it is drawn from the model's generator. A non-finite loss
         skips the whole update, parameters and moments
         (``skipped_nonfinite`` in the log); reading that decision is the
-        step's one synchronisation with the device."""
+        step's one synchronisation with the device. With more than one
+        process (``parallel/dist.py``) the gradients are averaged over them
+        before the clip, and a loss that is not finite on any rank skips
+        the update on all."""
         if not self.is_train:
             raise RuntimeError("optimize_parameters needs opt['is_train']")
         lr_value = self.lr_fn(step)
@@ -259,9 +262,10 @@ class RescaleModel:
             eps = torch.as_tensor(eps, dtype=torch.float32, device=self.device)
         self.optimizer.zero_grad(set_to_none=True)
         loss, logs, _ = self._pixel_losses(hr, ref_l, eps)
-        ok = bool(torch.isfinite(loss))
+        ok = finite_everywhere(loss)
         if ok:
             loss.backward()
+            all_reduce_grads(self.net.parameters())
             clip = self.train_opt.get("gradient_clipping")
             if clip:
                 self.grad_norm = clip_by_global_norm_(list(self.net.parameters()), float(clip))
