@@ -23,7 +23,10 @@ and it serves a GOP through and trains one step of the SelfC_GMM 4x net
 again with each of the subnet types whose chains reach the standalone
 temporal conv (kernel B6), and it serves a GOP and trains the published 4x
 net once more with the opt-in chain schedules (``network_G.chain_variants:
-[hg, ride, v3]``: kernels B7, B9 and B8 carry all 54 chains of a roundtrip).
+[hg, ride, v3]``: kernels B7, B9 and B8 carry all 54 chains of a roundtrip),
+and it serves a GOP through and trains the Haar-pyramid SelfC 4x net
+(model type SelfC: B1 at rows of 9 and 45 channels, B3, B2, B6) and runs the
+IRN x4 net on a DIV2K-size image (model type IRN: B4 on 4-D images).
 Both training steps run W-packed, as by default (``network_G.pack_w``: every
 chain of the 4x step as 2 rows of 4 images at stripe 36, the codec's coupling
 and prior chains 2 to a row at stripe 72, B1, B3 and B2 with their stripe
@@ -38,7 +41,7 @@ It times the kernels beside their roofline bound.
 Prints one JSON line per phase; any failure exits non-zero. There is no CPU
 fallback: without a CUDA device the script fails at once.
 
-``--phases serve,quality,train,codec,codec_train,deart,subnets,variants,cli`` (the default) picks
+``--phases serve,quality,train,codec,codec_train,deart,subnets,haar,variants,cli`` (the default) picks
 the paths; ``--phases kernels`` only builds the kernels and checks them
 against their plain versions. ``--parent DIR`` (a checkout of another commit
 whose kernels have the same C interfaces, or its ``selfc_tpu_torch/csrc``
@@ -79,6 +82,7 @@ from selfc_tpu_torch.config import dict_to_nonedict
 from selfc_tpu_torch.data.packed import write_packed
 from selfc_tpu_torch.eval.rescaling import cal_metric
 from selfc_tpu_torch.kernels import build
+from selfc_tpu_torch.models import define_G
 from selfc_tpu_torch.ops import chain_variants as cv
 from selfc_tpu_torch.ops import deform as df
 from selfc_tpu_torch.ops import dense_chain as dc
@@ -96,7 +100,7 @@ from selfc_tpu_torch.utils.bench import (
     chain_feats_bound_ms, deform_all_to_one, deform_bound_fma_ms, deform_bound_ms, deform_tap_stats, hg_bound_ms,
     make_chain, make_deform,
     make_temporal_conv, tc_peak, temporal_conv_bound_ms, time_cuda)
-from selfc_tpu_torch.utils.jax_import import export_jax_params, flatten_tree
+from selfc_tpu_torch.utils.jax_import import export_jax_params, flatten_tree, load_jax_params
 from selfc_tpu_torch.utils.metrics import psnr, rgb_to_ycbcr
 
 CHECK_WIDTHS = ((3, 48), (48, 3), (64, 64))           # coupling F/H/G and the prior
@@ -275,7 +279,34 @@ CLI_TRAINED_HR = (55.2286, 0.1)
 CLI_EARLY_ITER, CLI_EARLY_HR_MIN = 164350, 54.7
 CLI_LOSS_RANGES = {"l_back_rec": (1.5e-3, 5e-3), "l_forw_fit": (2e-5, 1.3e-4)}
 CLI_TIMEOUT = 600
-ALL_PHASES = ("serve", "quality", "train", "codec", "codec_train", "deart", "subnets", "variants", "cli")
+# the Haar-pyramid nets: SelfC 4x (model type SelfC) with the factory's
+# defaults (D2DTNet, block_num [4, 4], the STPNetSmall prior conditioned by
+# D2DT chains, stp_temporal_c 32, a 5-component GMM), and IRN x4 (model type
+# IRN) at the upstream IRN repo's widths (train_IRN_x4.yml: DBNet, [8, 8])
+HAAR_NET = {"which_model_G": {"subnet_type": "D2DTNet"}, "block_num": [4, 4], "scale": 4, "init": "xavier",
+            "stp_temporal_c": 32, "fh_loss": "gmm", "gmm_mixture_num": 5, "condition_func": "D2DTNet"}
+HAAR_N_PARAMS = 2_215_699
+IRN_NET = {"which_model_G": {"subnet_type": "DBNet"}, "block_num": [8, 8], "scale": 4, "init": "xavier"}
+IRN_N_PARAMS = 4_355_136
+IRN_IMAGE = (1, 1356, 2040, 3)   # a DIV2K validation image
+# the Haar net's latents by level (1: 12 channels at half size, 2: 48 at a
+# quarter, where the prior runs too) for one GOP at the Vid4 size and for the
+# published training batch
+HAAR_SERVE = {1: (1, 7, CLIP_HW[0] // 2, CLIP_HW[1] // 2), 2: SERVE_SHAPE}
+HAAR_TRAIN = {1: (8, 7, 2 * TRAIN_SHAPE[2], 2 * TRAIN_SHAPE[3]), 2: TRAIN_SHAPE}
+# (C, c_out, level) of its chains: the coupling's F and H / G at each level,
+# then the prior's four
+HAAR_WIDTHS = ((9, 3, 1), (3, 9, 1), (45, 3, 2), (3, 45, 2), (3, 12, 2), (12, 24, 2), (24, 48, 2), (48, 32, 2))
+HAAR_BLOCKS = 4                  # coupling blocks a level
+# chain calls: an encode runs three a block, a decode the prior's four and
+# three a block
+HAAR_ENC, HAAR_DEC = 3 * 2 * HAAR_BLOCKS, 4 + 3 * 2 * HAAR_BLOCKS
+# the IRN's levels (H, W of the image's half and quarter) and its B4 calls'
+# (C, level): F's input, G's and H's
+IRN_LEVELS = {1: (IRN_IMAGE[1] // 2, IRN_IMAGE[2] // 2), 2: (IRN_IMAGE[1] // 4, IRN_IMAGE[2] // 4)}
+IRN_WIDTHS = ((9, 1), (3, 1), (45, 2), (3, 2))
+INV_LIMIT = 1e-4                 # decode with the true HF against the input, fp32
+ALL_PHASES = ("serve", "quality", "train", "codec", "codec_train", "deart", "subnets", "haar", "variants", "cli")
 
 
 # {library name: path} built from --parent's sources; empty: no comparison
@@ -436,7 +467,7 @@ def seeded_tree(net, seed):
             std = 0.05
         else:
             std = float(np.prod(p.shape[:-1])) ** -0.5
-            if name.startswith("inv_blocks") and (".conv5." in name or ".conv6." in name):
+            if name.startswith(("inv_blocks", "level_blocks")) and (".conv5." in name or ".conv6." in name):
                 std *= 0.25
         tree[name] = rng.normal(0, std, tuple(p.shape)).astype(np.float32)
     return tree
@@ -2369,7 +2400,8 @@ def phase_timing_temporal(device, counts, worst):
     for (path, shrink, C, co, backward), launches in sorted(counts.items()):
         if not launches:
             continue
-        B, T, H, W = SERVE_SHAPE if path == "serve" else TRAIN_SHAPE
+        B, T, H, W = {"serve": SERVE_SHAPE, "train": TRAIN_SHAPE, "haar_train_1": HAAR_TRAIN[1],
+                      "haar_train_2": HAAR_TRAIN[2]}[path]
         shape = (B, T, H // shrink, W // shrink)
         x, w, b, g = make_temporal_conv(rng, shape, C, co, device)
         if backward:   # dx = the conv of g with the flipped weights, no bias
@@ -3270,6 +3302,384 @@ def phase_resume_study(device):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def phase_kernels_haar(device):
+    """The kernels at the Haar nets' widths against their plain versions,
+    fp32 and bf16, at odd sizes: B1 with every epilogue at each (C, c_out)
+    of HAAR_WIDTHS (rows of 9 and 45 values: no 16-byte multiple), B3 and B2
+    at each input width, B4 on 4-D images at the IRN's. Returns the worst
+    fp32 errors by kernel and width."""
+    rng = np.random.default_rng(150)
+    worst = {"forward": {}, "feats": {}, "bwd": {}, "spatial": {}}
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        fp32 = dtype == torch.float32
+        tag = str(dtype).split(".")[-1]
+        for C, c_out, _ in HAAR_WIDTHS:
+            x, ws, bs, w5, b5, a, m = make_chain(rng, C, c_out, CHECK_SHAPE, device, dtype)
+            errs = {}
+            for mode, n_aux in dc.EP_AUX.items():
+                aa, mm = (a if n_aux >= 1 else None), (m if n_aux >= 2 else None)
+                got = dc.dense_chain_t_ep(x, ws, bs, w5, b5, mode, 0.8, aa, mm)
+                errs[mode], ok = within(got, dc.dense_chain_t_ep_plain(x, ws, bs, w5, b5, mode, 0.8, aa, mm), fp32)
+                check(ok, f"B1 agrees with its plain version at a Haar width: {(tag, C, c_out, mode, errs[mode])}")
+            cases.append({"kernel": "dense_chain_t_ep", "dtype": tag, "C": C, "c_out": c_out,
+                          "max_abs_err": max(errs.values())})
+            if fp32:
+                worst["forward"][(C, c_out, 32)] = max(errs.values())
+        for C in sorted({C for C, _, _ in HAAR_WIDTHS}):
+            x, ws, bs, *_ = make_chain(rng, C, 3, CHECK_SHAPE, device, dtype)
+            want_f = dc.chain_feats_plain(x, ws, bs)
+            e_f, ok_f = within(dc.chain_feats(x, ws, bs), want_f, fp32)
+            g, dx0 = seeded_grads(rng, want_f, device, dtype), seeded_grads(rng, x, device)
+            want = dc.chain_spatial_bwd_plain(x, ws, bs, want_f, g, dx0)
+            got = dc.chain_spatial_bwd(x, ws, bs, want_f, g, dx0)
+            again = dc.chain_spatial_bwd(x, ws, bs, want_f, g, dx0)
+            torch.cuda.synchronize()
+            flat = lambda r: [r[0], *r[1], *r[2]]  # noqa: E731
+            e_dx, *e_p = [rel_err(u, v) for u, v in zip(flat(got), flat(want))]
+            same_bits = all(torch.equal(u, v) for u, v in zip(flat(got), flat(again)))
+            cases.append({"kernel": "chain_feats+chain_spatial_bwd", "dtype": tag, "C": C, "feats_max_abs_err": e_f,
+                          "dx_rel_err": e_dx, "dw_db_rel_err": max(e_p), "same_bits_twice": same_bits})
+            check(ok_f and max(e_dx, *e_p) <= (BWD_FP32_REL_LIMIT if fp32 else BWD_BF16_REL_LIMIT) and same_bits,
+                  f"B3 and B2 agree with their plain versions at a Haar width: {cases[-1]}")
+            if fp32:
+                worst["feats"][(C, 32)] = e_f
+                worst["bwd"][(C, 32)] = (got[0] - want[0]).abs().max().item()
+        for C in sorted({C for C, _ in IRN_WIDTHS}):
+            x, ws, bs, *_ = make_chain(rng, C, 3, CHECK_SHAPE, device, dtype)
+            img = x.reshape(-1, *x.shape[2:])            # (N, H, W, C): 4-D, as the IRN calls it
+            got = dc.fused_dense_spatial(img, ws, bs)
+            err, ok = within(got, dc.fused_dense_spatial_plain(img, ws, bs), fp32)
+            cases.append({"kernel": "fused_dense_spatial", "dtype": tag, "C": C, "shape": list(img.shape),
+                          "max_abs_err": err})
+            check(ok and got.shape == img.shape[:3] + (128,), f"B4 on a 4-D image agrees with its plain version: {cases[-1]}")
+            if fp32:
+                worst["spatial"][C] = err
+    emit("kernels_haar", kernels=["dense_chain_t_ep", "chain_feats", "chain_spatial_bwd", "fused_dense_spatial"],
+         shape=CHECK_SHAPE, n_cases=len(cases), fp32_limit=FP32_LIMIT, bf16_rel_limit=BF16_REL_LIMIT,
+         bwd_fp32_rel_limit=BWD_FP32_REL_LIMIT, bwd_bf16_rel_limit=BWD_BF16_REL_LIMIT, cases=cases)
+    return worst
+
+
+def haar_options(**val):
+    return dict_to_nonedict({"model": "SelfC", "scale": 4, "val": val, "network_G": HAAR_NET})
+
+
+def new_haar_trainer(device, tree, batch, network=None, **train):
+    """``RescaleModel`` training the SelfC 4x net with the published
+    training config's options (``train_options``), ``network`` over
+    HAAR_NET."""
+    opt = train_options({**HAAR_NET, **(network or {})}, **train)
+    opt["model"] = "SelfC"
+    model = RescaleModel(opt, device=device, rng_seed=0)
+    model.load_jax_params(tree)
+    check(model.feed_data({"GT": batch}) == TRAIN_SHAPE[1], "feed_data returns the clip length")
+    return model
+
+
+def shape_counts(counts, shape):
+    """``chain_rows``' counts from a snapshot of ``dc.launches_by_shape``:
+    the unpacked calls at ``shape``."""
+    out = {"forward_stripe": {}, "feats_stripe": {}, "backward_stripe": {}}
+    names = {"forward": "forward_stripe", "feats": "feats_stripe", "bwd": "backward_stripe"}
+    for (entry, *key), n in counts.items():
+        if entry in names and tuple(key[:4]) == tuple(shape):
+            width = (key[4], key[5], 32) if entry == "forward" else (key[4], 32)
+            out[names[entry]][width + (0,)] = n
+    return out
+
+
+def phase_haar(device):
+    """The SelfC 4x net (SelfCNetHaar, 2,215,699 parameters) at full width:
+    a GOP request (``RescaleModel.test``) on a 7 x 576 x 704 clip in fp32 and
+    bf16, one downscale and one upscale, then three training steps at the
+    published batch unpacked (``pack_w: false``), one recomputing the chains'
+    features and one W-packed (the default: each chain packed call by call);
+    the launch counts of exactly these calls are kept. Then the checks: hr
+    from one LR and noise against the plain path, decode with the true HF
+    against the input, the first step against the plain path, the packed
+    step against the unpacked one, a repeated step's bits."""
+    rng = np.random.default_rng(160)
+    yy, xx = np.meshgrid(np.linspace(0, 1, CLIP_HW[0]), np.linspace(0, 1, CLIP_HW[1]), indexing="ij")
+    clip = np.stack([0.5 + 0.3 * np.sin(5 * xx + 0.2 * t) * np.cos(7 * yy - 0.1 * t) for t in range(7)])
+    clip = np.clip(clip[None, ..., None] * np.array([1.0, 0.9, 0.7]) + rng.normal(0, 0.02, (1, 7, *CLIP_HW, 3)),
+                   0, 1).astype(np.float32)
+    batch = train_batch(161)
+    model = RescaleModel(haar_options(), device=device, rng_seed=0)
+    tree = seeded_tree(model.net, 162)
+    model.load_jax_params(tree)
+    n_params = sum(p.numel() for p in model.net.parameters())
+    check(n_params == HAAR_N_PARAMS, f"the SelfC 4x net has {n_params} parameters")
+    bf = RescaleModel(haar_options(eval_dtype="bfloat16"), device=device, rng_seed=0)
+    bf.load_jax_params(tree)
+    gen = torch.Generator(device=device).manual_seed(163)
+    lat = TRAIN_SHAPE + (3,)
+    eps = [torch.randn(model.net.eps_shape(lat), generator=gen, device=device) for _ in range(N_TRAIN_STEPS)]
+    unpacked = {"pack_w": False}
+    trainer = new_haar_trainer(device, tree, batch, unpacked)
+    recompute = new_haar_trainer(device, tree, batch, unpacked, save_chain_feats=False)
+    packed = new_haar_trainer(device, tree, batch)
+    start = params_of(trainer)
+
+    # ---- the main path: counts set to 0 just before, read just after ----
+    reset_all_counts()
+    model.generator.manual_seed(5)
+    t0 = time.time()
+    model.feed_data({"GT": clip})
+    model.test(gop=7)
+    per_call = [dc.launches]
+    lr_k = model.downscale(clip)
+    per_call.append(dc.launches)
+    model.generator.manual_seed(6)
+    hr_k = model.upscale(lr_k)
+    per_call.append(dc.launches)
+    bf.generator.manual_seed(5)
+    bf.feed_data({"GT": clip})
+    bf.test(gop=7)
+    per_call.append(dc.launches)
+    torch.cuda.synchronize()
+    serve_s = time.time() - t0
+    logs, per_step, seen = [], [], (dc.launches, dc.launches_bwd, dc.launches_feats)
+    t0 = time.time()
+    for step, mdl in [(i, trainer) for i in range(N_TRAIN_STEPS)] + [(0, recompute)]:
+        mdl.optimize_parameters(step, eps=eps[step])
+        logs.append(dict(mdl.get_current_log()))
+        now = (dc.launches, dc.launches_bwd, dc.launches_feats)
+        per_step.append(tuple(int(v) for v in np.subtract(now, seen)))
+        seen = now
+        if mdl is trainer and step == 0:
+            after_1, grads_1, norm_1 = params_of(trainer), grads_of(trainer), float(trainer.grad_norm)
+    b6_unpacked = dict(tc.launches_by_width)
+    packed.optimize_parameters(0, eps=eps[0])
+    logs.append(dict(packed.get_current_log()))
+    now = (dc.launches, dc.launches_bwd, dc.launches_feats)
+    per_step.append(tuple(int(v) for v in np.subtract(now, seen)))
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    counts = {"by_shape": dict(dc.launches_by_shape), "stripe": dict(dc.launches_by_stripe),
+              "b6": dict(tc.launches_by_width), "b6_bwd": dict(tc.launches_bwd_by_width),
+              "b6_unpacked": b6_unpacked}
+    # ---------------------------------------------------------------------
+
+    check(np.diff([0] + per_call).tolist() == [HAAR_ENC + HAAR_DEC, HAAR_ENC, HAAR_DEC, HAAR_ENC + HAAR_DEC],
+          f"chain calls of test / downscale / upscale / bf16 test: {per_call}")
+    vis = model.get_current_visuals()
+    check(vis["SR"].shape == clip.shape and vis["LR"].shape == (1, 7, *SERVE_SHAPE[2:], 3)
+          and vis["forw_H"].shape == (1, 7, *SERVE_SHAPE[2:], 45), "SR, LR, forw_H shapes")
+    sr_bf = bf.get_current_visuals()["SR"]
+    for name, arr in (("SR", vis["SR"]), ("bf16 SR", sr_bf), ("downscale", lr_k), ("upscale", hr_k)):
+        check(np.isfinite(arr).all(), f"{name} is finite")
+    with plain_chain_on_card():
+        before = (dc.launches, tc.launches)
+        lr_p = model.downscale(clip)
+        model.generator.manual_seed(6)
+        hr_p = model.upscale(lr_k)   # the same LR and the same noise as the kernel path
+        check((dc.launches, tc.launches) == before, "the plain path launches no kernel")
+    lr_differ = float(np.mean(np.abs(lr_k - lr_p) > 1e-6))
+    hr_err = float(np.abs(hr_k - hr_p).max())
+    check(lr_differ < 1e-3 and np.abs(lr_k - lr_p).max() < 1.01 / 255,
+          f"downscale, kernel path vs plain path: {lr_differ}")
+    check(hr_err <= HR_LIMIT, f"upscale: kernel path within {HR_LIMIT} of plain path, got {hr_err}")
+    with torch.no_grad():
+        x = torch.from_numpy(clip).to(device)
+        y, _ = model.net.encode(x)
+        back, _ = model.net.decode_with_hf(y[..., :3], y[..., 3:])
+        inv_err = (back - x).abs().max().item()
+    check(inv_err <= INV_LIMIT, f"decode with the true HF gives the clip back within {INV_LIMIT}: {inv_err}")
+    del x, y, back
+    flat = lambda v: torch.from_numpy(v).reshape(-1, *v.shape[2:])  # noqa: E731
+
+    # the steps: each chain once forward and once back (the prior twice: the
+    # NLL of the true HF and the decode), features recomputed by B3 on the
+    # fourth, every call packed on the fifth
+    n_chain = HAAR_ENC + HAAR_DEC + 4
+    check(per_step == [(n_chain, n_chain, 0)] * N_TRAIN_STEPS + [(n_chain, n_chain, n_chain), (n_chain, n_chain, 0)],
+          f"chain launches (forward, backward, feats) of each step: {per_step}")
+    want_b6 = {(3 + 4 * 32, 9): HAAR_BLOCKS, (3 + 4 * 32, 45): HAAR_BLOCKS}   # the sub_mul recompute of G's conv5
+    check(counts["b6"] == {k: 5 * v for k, v in want_b6.items()} and not counts["b6_bwd"]
+          and counts["b6_unpacked"] == {k: 4 * v for k, v in want_b6.items()},
+          f"B6 launches of the five steps: {counts['b6']}, backward {counts['b6_bwd']}")
+    # forward calls by stripe: the requests and four steps unpacked; the
+    # packed step's level 1 (72 wide) two images a row, its level 2 and
+    # prior (36 wide) four
+    stripes = by_stripe(counts["stripe"])
+    want_stripes = {0: 4 * n_chain + 3 * (HAAR_ENC + HAAR_DEC), HAAR_TRAIN[1][3]: 6 * HAAR_BLOCKS,
+                    HAAR_TRAIN[2][3]: 6 * HAAR_BLOCKS + 8}
+    check(stripes == want_stripes, f"chain launches by stripe: {stripes} (expected {want_stripes})")
+    for lg in logs:
+        check(all(np.isfinite(v) for v in lg.values()) and lg["skipped_nonfinite"] == 0.0,
+              f"the step's losses are finite and it was not skipped: {lg}")
+    unchanged = [k for k, p in trainer.net.named_parameters() if torch.equal(p.detach(), start[k])]
+    check(not unchanged, f"every parameter changed: {unchanged[:5]}")
+    check(logs[N_TRAIN_STEPS]["loss"] == logs[0]["loss"], "save_chain_feats false gives the same loss")
+    pack_loss_rel = abs(logs[-1]["loss"] - logs[0]["loss"]) / abs(logs[0]["loss"])
+    pack_grad_l2 = grads_rel_l2(grads_of(packed), grads_1)
+    check(pack_loss_rel <= TRAIN_LOSS_REL_LIMIT and pack_grad_l2 <= PACK_GRAD_L2_LIMIT,
+          f"the packed step against the unpacked one, loss and whole gradient: {(pack_loss_rel, pack_grad_l2)}")
+    del recompute
+
+    plain = new_haar_trainer(device, tree, batch, unpacked)
+    with plain_chain_on_card():
+        before = (dc.launches, dc.launches_bwd, dc.launches_feats, tc.launches)
+        plain.optimize_parameters(0, eps=eps[0])
+        check((dc.launches, dc.launches_bwd, dc.launches_feats, tc.launches) == before,
+              "the plain path launches no kernel")
+    log_p, grads_p = dict(plain.get_current_log()), grads_of(plain)
+    loss_rel = abs(logs[0]["loss"] - log_p["loss"]) / abs(log_p["loss"])
+    grad_l2 = grads_rel_l2(grads_1, grads_p)
+    check(loss_rel <= TRAIN_LOSS_REL_LIMIT and grad_l2 <= TRAIN_GRAD_L2_LIMIT,
+          f"first step's loss and whole gradient, kernel path vs plain path: {(loss_rel, grad_l2)}")
+    del grads_p, grads_1
+    again = new_haar_trainer(device, tree, batch, unpacked)
+    again.optimize_parameters(0, eps=eps[0])
+    differ = [k for k, p in again.net.named_parameters() if not torch.equal(p.detach(), after_1[k])]
+    check(not differ, f"a repeated first step gives bit-identical parameters: {differ[:5]}")
+    del again, after_1
+
+    # times: one GOP roundtrip, a step unpacked and packed, each beside the plain path
+    gop = torch.from_numpy(clip).to(device)
+    eps_gop = torch.randn(model.net.eps_shape(SERVE_SHAPE + (3,)), generator=gen, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        rt = time_cuda(lambda: model.net.roundtrip(gop, eps=eps_gop), iters=10, warmup=2)
+        peak_serve = torch.cuda.max_memory_allocated() / 2 ** 30
+        with plain_chain_on_card():
+            rt_plain = time_cuda(lambda: model.net.roundtrip(gop, eps=eps_gop), iters=5, warmup=1)
+    steps = {}
+    for name, mdl in (("unpacked", trainer), ("packed", packed)):
+        torch.cuda.reset_peak_memory_stats()
+        steps[name] = time_cuda(lambda: mdl.optimize_parameters(N_TRAIN_STEPS, eps=eps[0]), iters=5, warmup=1)
+        steps[name]["peak_device_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    with plain_chain_on_card():
+        step_p = time_cuda(lambda: plain.optimize_parameters(1, eps=eps[0]), iters=3, warmup=1)
+    emit("haar", clip=clip.shape, batch=batch.shape, n_params=n_params, serve_s=serve_s, train_s=train_s,
+         launches_per_call={"test": per_call[0], "downscale": per_call[1] - per_call[0],
+                            "upscale": per_call[2] - per_call[1], "test_bf16": per_call[3] - per_call[2]},
+         launches_per_step=per_step, launches_by_stripe=stripes,
+         launches_b6_sub_mul={str(k): v for k, v in counts["b6"].items()},
+         launches_by_shape={str(k): v for k, v in sorted(counts["by_shape"].items(), key=str)},
+         hr_max_abs_err_kernel_vs_plain=hr_err, hr_limit=HR_LIMIT, lr_levels_differ=lr_differ,
+         inverse_max_abs_err=inv_err, inverse_limit=INV_LIMIT,
+         psnr_bf16_vs_fp32=psnr(flat(sr_bf), flat(vis["SR"])).mean().item(),
+         psnr_hr_vs_input=psnr(flat(vis["SR"]), flat(clip)).mean().item(), logs=logs,
+         grad_norm_step0=norm_1, loss_rel_err_kernel_vs_plain=loss_rel, grad_l2_rel_err_kernel_vs_plain=grad_l2,
+         loss_rel_err_packed_vs_unpacked=pack_loss_rel, grad_l2_rel_err_packed_vs_unpacked=pack_grad_l2,
+         gop_roundtrip_ms=rt["median"], gop_roundtrip_ms_min=rt["min"], gop_roundtrip_plain_ms=rt_plain["median"],
+         peak_device_memory_gib_serve=peak_serve, step_ms_unpacked=steps["unpacked"]["median"],
+         step_ms_packed=steps["packed"]["median"], step_plain_ms=step_p["median"],
+         peak_device_memory_gib_step={k: v["peak_device_memory_gib"] for k, v in steps.items()},
+         clips_per_s=TRAIN_SHAPE[0] * 1e3 / steps["unpacked"]["median"])
+    return counts
+
+
+def phase_irn(device):
+    """The IRN x4 net (InvRescaleNet, DBNet, block_num [8, 8]: 4,355,136
+    parameters) at full width on one DIV2K-validation-size image: encode,
+    decode with the true HF and with U[0,1) HF from a generator; the launch
+    counts of exactly these calls are kept. Then the checks: decode with the
+    true HF against the image, the encode against the plain path's."""
+    net = define_G(dict_to_nonedict({"model": "IRN", "scale": 4, "network_G": IRN_NET}), device=device)
+    tree = seeded_tree(net, 170)
+    load_jax_params(net, tree)
+    n_params = sum(p.numel() for p in net.parameters())
+    check(n_params == IRN_N_PARAMS, f"the IRN x4 net has {n_params} parameters")
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, IRN_IMAGE[1], device=device),
+                            torch.linspace(0, 1, IRN_IMAGE[2], device=device), indexing="ij")
+    noise = torch.randn(IRN_IMAGE, generator=torch.Generator(device=device).manual_seed(171), device=device)
+    img = (0.5 + 0.3 * torch.sin(9 * xx) * torch.cos(6 * yy))[None, ..., None] * torch.tensor(
+        [1.0, 0.85, 0.7], device=device)
+    img = (img + 0.02 * noise).clamp(0, 1).contiguous()
+    gen = torch.Generator(device=device).manual_seed(172)
+
+    # ---- the main path: counts set to 0 just before, read just after ----
+    reset_all_counts()
+    t0 = time.time()
+    with torch.no_grad():
+        y, jac = net.encode(img)
+        lr, hf = y[..., :3].contiguous(), y[..., 3:].contiguous()
+        back, _ = net.decode(lr, hf=hf)
+        hr_u, hf_u = net.decode(lr, generator=gen)
+    torch.cuda.synchronize()
+    serve_s = time.time() - t0
+    counts = dict(dc.launches_by_shape)
+    # ---------------------------------------------------------------------
+
+    # a level's blocks call F (its HF width) once and G and H (3) twice, each pass
+    want = {("spatial", 1, 1, *IRN_LEVELS[lvl], C): 3 * IRN_NET["block_num"][lvl - 1] * (2 if C == 3 else 1)
+            for C, lvl in IRN_WIDTHS}
+    got = {k: v for k, v in counts.items() if k[0] == "spatial"}
+    check(got == want and dc.launches == 0, f"B4 launches of encode + two decodes: {got} (expected {want})")
+    inv_err = (back - img).abs().max().item()
+    check(inv_err <= INV_LIMIT, f"decode with the true HF gives the image back within {INV_LIMIT}: {inv_err}")
+    check(y.shape == (1, *IRN_LEVELS[2], 48) and hr_u.shape == IRN_IMAGE and hf_u.shape == (1, *IRN_LEVELS[2], 45)
+          and 0 <= hf_u.min().item() and hf_u.max().item() < 1 and torch.isfinite(hr_u).all().item()
+          and torch.isfinite(jac).item(), "IRN shapes, the U[0,1) HF, finite outputs")
+    with torch.no_grad(), plain_chain_on_card():
+        y_p, jac_p = net.encode(img)
+    enc_err = (y - y_p).abs().max().item()
+    check(enc_err <= FP32_LIMIT, f"IRN encode, kernel path within {FP32_LIMIT} of the plain path: {enc_err}")
+    del y_p, back, hr_u, hf_u
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        enc = time_cuda(lambda: net.encode(img), iters=5, warmup=1)
+        dec = time_cuda(lambda: net.decode(lr, hf=hf), iters=5, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with plain_chain_on_card():
+            enc_p = time_cuda(lambda: net.encode(img), iters=3, warmup=1)
+            dec_p = time_cuda(lambda: net.decode(lr, hf=hf), iters=3, warmup=1)
+    emit("irn", image=IRN_IMAGE, n_params=n_params, serve_s=serve_s,
+         launches_b4={str(k): v for k, v in got.items()}, log_jac=jac.item(), log_jac_plain=jac_p.item(),
+         inverse_max_abs_err=inv_err, inverse_limit=INV_LIMIT, encode_max_abs_err_kernel_vs_plain=enc_err,
+         encode_ms=enc["median"], encode_ms_min=enc["min"], decode_ms=dec["median"], decode_ms_min=dec["min"],
+         encode_plain_ms=enc_p["median"], decode_plain_ms=dec_p["median"], peak_device_memory_gib=peak)
+    return counts
+
+
+def phase_timing_haar(device, haar_counts, irn_counts, worst):
+    """The rows of B1 at the Haar net's serving latents, of B1, B3 and B2 at
+    its training latents (the unpacked steps' launches) and of B4 on the
+    IRN's image levels, each beside its bound, its plain version and one
+    PyTorch library call."""
+    kernels = []
+    for tag, shapes, spatial in (("haar_serve", HAAR_SERVE, False), ("haar_train", HAAR_TRAIN, True)):
+        for level, shape in shapes.items():
+            fwd = [(C, co, 32) for C, co, lvl in HAAR_WIDTHS if lvl == level]
+            sp = sorted({(C, 32) for C, _, _ in fwd}) if spatial else []
+            kernels += chain_rows(device, f"{tag}_{level}", shape, 0, fwd, sp,
+                                  shape_counts(haar_counts["by_shape"], shape), worst)
+    rng = np.random.default_rng(175)
+    for C, level in IRN_WIDTHS:
+        H, W = IRN_LEVELS[level]
+        _, ws, bs, *_ = make_chain(rng, C, 3, (1, 1, 1, 1), device)
+        x = torch.rand((1, H, W, C), generator=torch.Generator(device=device).manual_seed(C + level),
+                       device=device)
+        lx = x.permute(0, 3, 1, 2).contiguous()
+        lws = [w.permute(3, 2, 0, 1).contiguous() for w in ws]
+        with torch.no_grad():
+            got = dc.fused_dense_spatial(x, ws, bs)
+            want = dc.fused_dense_spatial_plain(x, ws, bs)
+            err = (got - want).abs().max().item()
+            check(err <= FP32_LIMIT, f"B4 vs plain at the IRN's level {level}, C = {C}: {err}")
+            check((library_feats2d(lx, lws, bs).permute(0, 2, 3, 1) - want).abs().max().item() <= 1e-3,
+                  "library 2-d spatial chain computes the same function")
+            del got, want
+            ms = time_cuda(lambda: dc.fused_dense_spatial(x, ws, bs), iters=10)
+            plain = time_cuda(lambda: dc.fused_dense_spatial_plain(x, ws, bs), iters=10)
+            library = time_cuda(lambda: library_feats2d(lx, lws, bs), iters=10)
+        bound, by = chain_feats_bound_ms(1, 1, H, W, C, peak=TC_PEAK)
+        kernels.append({
+            "name": f"fused_dense_spatial[{C}]@irn_{level}", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES_SPATIAL, "launches": irn_counts.get(("spatial", 1, 1, H, W, C), 0),
+            "max_abs_err": max(err, worst["spatial"][C]), "ms": ms["median"], "plain_ms": plain["median"],
+            "bound_ms": bound, "bound_by": by, "library_ms": library["median"],
+            "bound_fma_ms": chain_feats_bound_ms(1, 1, H, W, C)[0], "ms_min": ms["min"],
+            "plain_ms_min": plain["min"], "library_ms_min": library["min"], "shape": [1, H, W, C], "gc": 32})
+        del x, lx, ws, bs, lws
+    emit("timing_haar", rows=[{k: r[k] for k in ("name", "launches", "ms", "ms_min", "plain_ms", "library_ms",
+                                                  "bound_ms", "bound_fma_ms", "bound_by")} for r in kernels])
+    return kernels
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -3317,6 +3727,7 @@ def main():
     with torch.no_grad():
         worst_var = phase_kernels_variants(device)
         worst_stripe = phase_kernels_stripe(device)
+        worst_haar = phase_kernels_haar(device)
     tc_counts = {}   # B6 launches of the main paths by (path, shrink, C, Co, backward)
     if "serve" in want:
         with torch.no_grad():
@@ -3350,6 +3761,14 @@ def main():
         kernels += phase_timing_deform(device, counts_test, counts_train, worst_deform)
     if "subnets" in want:
         phase_subnets(device, tc_counts)
+    if "haar" in want:
+        haar_counts = phase_haar(device)
+        irn_counts = phase_irn(device)
+        # B6: the sub_mul recompute of G's conv5 at each level's training latent
+        for (C, co), n in haar_counts["b6_unpacked"].items():
+            tc_counts[(f"haar_train_{1 if co == 9 else 2}", 1, C, co, False)] = n
+        kernels += phase_timing_haar(device, haar_counts, irn_counts, worst_haar)
+        del haar_counts, irn_counts
     if tc_counts:
         kernels += phase_timing_temporal(device, tc_counts, worst_tc)
     if "variants" in want:

@@ -44,9 +44,9 @@ def create_dataset(dataset_opt):
 
         return UVGDataset(dataset_opt)
     if mode in ("LQ", "LQGT", "LRHR_seg_bg"):
-        raise NotImplementedError(
-            f"dataset mode {mode!r}: the image datasets serve the Haar / IRN nets, which are "
-            "not ported yet (ROADMAP A22)")
+        from .image_datasets import LQDataset, LQGTDataset, LRHRSegBGDataset
+
+        return {"LQ": LQDataset, "LQGT": LQGTDataset, "LRHR_seg_bg": LRHRSegBGDataset}[mode](dataset_opt)
     raise NotImplementedError(f"dataset mode {mode!r} not recognized")
 
 

@@ -4,13 +4,14 @@
            y2 = x2 * exp(s) + G(y1)
   reverse: s = clamp*(2*sigmoid(H(x1)) - 1)
            y2 = (x2 - G(x1)) * exp(-s);  y1 = x1 - F(y2)
-  log-jac: +-sum(s) / (B*T)
+  log-jac: +-sum(s) / (B*T) for a video, / B for an image
 
 The block carries the ``(x1, x2)`` pair (x1 = the 3 LR channels, x2 = the
 high-frequency rest) and never concatenates it. Where the subnets are D2DT
-chains (``SUPPORTS_EP``), the coupling arithmetic rides them as fused
-epilogues: H emits exp(+-s) directly, the y1/y2 combines happen on conv5's
-accumulator, and the log-jacobian is recovered as sum(log(exp(+-s))). With
+chains (``SUPPORTS_EP``) and the pair is a video ``(B,T,H,W,C)``, the
+coupling arithmetic rides them as fused epilogues: H emits exp(+-s)
+directly, the y1/y2 combines happen on conv5's accumulator, and the
+log-jacobian is recovered as sum(log(exp(+-s))). With
 "hg" among ``variants`` (``network_G.chain_variants``), H and G, which read
 the same input, run as one pair with the y2 combine
 (``ops/chain_variants.py:fused_hg_pair``, kernel B7; JAX ``use_hg``). Every
@@ -53,12 +54,15 @@ class InvBlockExp(nn.Module):
         with images ``stripe`` wide when it is > 0. Returns ((y1, y2),
         log_jac)."""
         x1, x2 = pair
-        if stripe and not self.use_ep:
+        # the fused epilogues are the whole-chain kernel's, which takes videos
+        # (JAX ``use_ep``: ``x1.ndim == 5``)
+        use_ep = self.use_ep and x1.dim() == 5
+        if stripe and not use_ep:
             raise RuntimeError("a W-packed coupling needs the chain kernel's stripe masks: "
                                "the plain branch would mix neighbouring images")
         if stripe and "hg" in self.variants:
             raise RuntimeError("a W-packed coupling cannot take the H/G pair: it has no stripe masks")
-        if not self.use_ep:
+        if not use_ep:
             return self._plain(x1, x2, rev)
         if "hg" in self.variants and not rev:
             y1 = self.F(x2, ep=("add", 1.0, x1, None))
@@ -74,8 +78,7 @@ class InvBlockExp(nn.Module):
             s_exp = self.H(x1, ep=("sig_exp_neg", self.clamp, None, None), stripe=stripe)
             y2 = self.G(x1, ep=("sub_mul", 1.0, x2, s_exp), stripe=stripe)
             y1 = self.F(y2, ep=("sub_from", 1.0, x1, None), stripe=stripe)
-        jac = torch.sum(torch.log(s_exp.float())) / (x1.shape[0] * x1.shape[1])
-        return (y1, y2), jac
+        return (y1, y2), torch.sum(torch.log(s_exp.float())) / _jac_batch(x1)
 
     def _plain(self, x1, x2, rev):
         """The coupling for subnets without the fused epilogues
@@ -90,4 +93,10 @@ class InvBlockExp(nn.Module):
             y2 = (x2 - self.G(x1)) * torch.exp(-s)
             y1 = x1 - self.F(y2)
             jac = -torch.sum(s.float())
-        return (y1, y2), jac / (x1.shape[0] * x1.shape[1])
+        return (y1, y2), jac / _jac_batch(x1)
+
+
+def _jac_batch(x1):
+    """What the log-jacobian sum is divided by: the frame batch B*T of a
+    video, the batch B of an image (selfc_tpu/models/coupling.py)."""
+    return x1.shape[0] * x1.shape[1] if x1.dim() == 5 else x1.shape[0]

@@ -5,13 +5,9 @@ from __future__ import annotations
 
 import logging
 
-from .inv_nets import SelfCNetCodec, SelfCNetGMM
+from .inv_nets import InvRescaleNet, SelfCNetCodec, SelfCNetHaar, SelfCNetGMM
 
 logger = logging.getLogger("base")
-
-_NOT_PORTED = {
-    "IRN": "A22", "IRN_Contra_UP": "A22", "SelfC": "A22", "SelfC_shell": "A22",
-}
 
 
 def _clip_frames(opt):
@@ -35,6 +31,26 @@ def define_G(opt, device=None, generator=None):
     # package's SELFC_TPU_PALLAS_PACK_W=0 turns it off)
     pack = net.get("pack_w")
     pack = True if pack is None else bool(pack)
+    chain_opts = dict(save_chain_feats=True if save_feats is None else bool(save_feats),
+                      chain_variants=variants, pack_w=pack, device=device, generator=generator)
+    scale = net.get("scale") or opt["scale"]
+    block_num = tuple(net.get("block_num") or (4, 4))
+    subnet_type = which.get("subnet_type", "D2DTNet")
+    init = net.get("init") or "xavier"
+    if model_type in ("IRN", "IRN_Contra_UP"):
+        return InvRescaleNet(scale=scale, block_num=block_num,
+                             subnet_type=subnet_type,
+                             init_mode=init, **chain_opts)
+    if model_type in ("SelfC", "SelfC_shell"):
+        return SelfCNetHaar(
+            scale=scale, block_num=block_num,
+            subnet_type=subnet_type,
+            init_mode=init,
+            stp_temporal_c=net.get("stp_temporal_c") or 32,
+            fh_loss=net.get("fh_loss") or "gmm",
+            gmm_mixture_num=net.get("gmm_mixture_num") or 5,
+            condition_func=net.get("condition_func") or "D2DTNet",
+            **chain_opts)
     if model_type in ("SelfC_GMM", "SelfC_SR", "SelfC_Contra_UP"):
         nll_enabled = bool(net.get("nll_enabled"))
         lam_cond = (opt.get("train") or {}).get("lambda_cond_prob")
@@ -46,22 +62,18 @@ def define_G(opt, device=None, generator=None):
             )
         gm = net.get("global_module") or "nonlocal"
         return SelfCNetGMM(
-            scale=net.get("scale") or opt["scale"],
-            block_num=tuple(net.get("block_num") or (4, 4)),
-            subnet_type=which.get("subnet_type", "D2DTNet"),
-            init_mode=net.get("init") or "xavier",
+            scale=scale,
+            block_num=block_num,
+            subnet_type=subnet_type,
+            init_mode=init,
             stp_blk_num=net.get("stp_blk_num") or 6,
             fh_loss=net.get("fh_loss") or "gmm",
             gmm_k=net.get("gmm_k") or 5,
             global_module=gm,
             nll_enabled=nll_enabled,
-            save_chain_feats=True if save_feats is None else bool(save_feats),
             deform_radius=net.get("deform_radius"),
             frames=_clip_frames(opt),
-            chain_variants=variants,
-            pack_w=pack,
-            device=device,
-            generator=generator,
+            **chain_opts,
         )
     if model_type == "SelfC_GMM_Codec":
         # the de-artifact net is built from deart_net alone, as the JAX
@@ -69,10 +81,10 @@ def define_G(opt, device=None, generator=None):
         # by no module there. Without network_G.block_num the coupling has
         # (4, 4) blocks for every model type there, the codec's too
         return SelfCNetCodec(
-            scale=net.get("scale") or opt["scale"],
-            block_num=tuple(net.get("block_num") or (4, 4)),
-            subnet_type=which.get("subnet_type", "D2DTNet"),
-            init_mode=net.get("init") or "xavier",
+            scale=scale,
+            block_num=block_num,
+            subnet_type=subnet_type,
+            init_mode=init,
             stp_blk_num=net.get("stp_blk_num") or 4,
             fh_loss=net.get("fh_loss") or "l2",
             gmm_k=net.get("gmm_k") or 5,
@@ -82,15 +94,6 @@ def define_G(opt, device=None, generator=None):
             deart_net=bool(net.get("deart_net")),
             deform_radius=net.get("deform_radius"),
             frames=_clip_frames(opt),
-            save_chain_feats=True if save_feats is None else bool(save_feats),
-            chain_variants=variants,
-            pack_w=pack,
-            device=device,
-            generator=generator,
-        )
-    if model_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model type {model_type!r} is not ported yet "
-            f"(ROADMAP {_NOT_PORTED[model_type]})"
+            **chain_opts,
         )
     raise NotImplementedError(f"model type {model_type!r} not supported")

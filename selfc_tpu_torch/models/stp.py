@@ -1,5 +1,9 @@
 """STPNet — the self-conditioned spatio-temporal prior over HF latents.
 
+``STPNet`` is the prior of the SelfC_GMM and SelfC_GMM_Codec nets,
+``STPNetSmall`` the Haar net's (``blk1`` = three stacked D2DT, 3 -> 12 ->
+24 -> 48, then ``blk2``; or two FeatureCollapse blocks).
+
 Input is the LR video ``(B, T, h, w, 3)``; output is the raw tail tensor:
 ``(B,T,h,w,hf_dim)`` for fh_loss='l2' or ``(B,T,h,w,hf_dim*K*3)`` for GMM.
 Sampling and NLL are pure functions in ops/gmm.py.
@@ -12,7 +16,7 @@ import torch.nn as nn
 
 from ..ops.conv import leaky_relu, pointwise, torch_default_b, torch_default_w
 from .agg import DeformConvAgg, GlobalAgg, GroupedGlobalDeformAgg
-from .blocks import D2DT
+from .blocks import D2DT, FeatureCollapse
 
 
 def _global_module(kind: str, c: int, generator=None, frames=3, deform_radius=None):
@@ -108,3 +112,44 @@ class STPNet(nn.Module):
 
     def forward(self, lr):
         return self.tail(self.backbone(lr))
+
+
+class STPNetSmall(nn.Module):
+    """The Haar net's prior (``selfc_tpu/models/stp.py:STPNetSmall``).
+    ``condition_func`` 'D2DTNet': ``blk1_0..2`` (D2DT 3->12->24->48) and
+    ``blk2`` (D2DT 48->c); anything else: ``blk1`` (FeatureCollapse 3->12)
+    and ``blk2`` (FeatureCollapse 12->c); c = ``stp_temporal_c``. Tail: 'l2'
+    one pointwise conv c->hf_dim, else three (c->c->c->hf_dim*K*3), each
+    after a LeakyReLU."""
+
+    def __init__(self, stp_temporal_c=32, fh_loss="gmm", gmm_k=5, condition_func="D2DTNet",
+                 hf_dim=9, generator=None):
+        super().__init__()
+        c, g = stp_temporal_c, generator
+        self.fh_loss = fh_loss
+        self.d2dt = condition_func == "D2DTNet"
+        if self.d2dt:
+            self.blk1_0 = D2DT(3, 12, generator=g)
+            self.blk1_1 = D2DT(12, 24, generator=g)
+            self.blk1_2 = D2DT(24, 48, generator=g)
+            self.blk2 = D2DT(48, c, generator=g)
+        else:
+            self.blk1 = FeatureCollapse(3, 12, generator=g)
+            self.blk2 = FeatureCollapse(12, c, generator=g)
+        if fh_loss == "l2":
+            self.tail_0 = _PW(c, hf_dim, g)
+        else:
+            self.tail_0 = _PW(c, c, g)
+            self.tail_1 = _PW(c, c, g)
+            self.tail_2 = _PW(c, hf_dim * gmm_k * 3, g)
+
+    def forward(self, lr):
+        if self.d2dt:
+            x = self.blk2(self.blk1_2(self.blk1_1(self.blk1_0(lr))))
+        else:
+            x = self.blk2(self.blk1(lr))
+        x = self.tail_0(leaky_relu(x))
+        if self.fh_loss == "l2":
+            return x
+        x = self.tail_1(leaky_relu(x))
+        return self.tail_2(leaky_relu(x))

@@ -117,6 +117,10 @@ launches_spatial_bwd_by_width: dict = {}
 launches_by_stripe: dict = {}
 launches_bwd_by_stripe: dict = {}
 launches_feats_by_stripe: dict = {}
+# every call by entry and shape: ("forward", B, T, H, W, C, c_out),
+# ("feats" | "bwd", B, T, H, W, C, gc), ("spatial" | "spatial_bwd", B, T, H,
+# W, C); a chain's work depends on its shape and widths alone
+launches_by_shape: dict = {}
 
 
 def reset_launch_counts():
@@ -124,7 +128,7 @@ def reset_launch_counts():
     launches = launches_bwd = launches_feats = launches_spatial = launches_spatial_bwd = 0
     for d in (launches_by_width, launches_bwd_by_width, launches_feats_by_width,
               launches_spatial_by_width, launches_spatial_bwd_by_width, launches_by_stripe,
-              launches_bwd_by_stripe, launches_feats_by_stripe):
+              launches_bwd_by_stripe, launches_feats_by_stripe, launches_by_shape):
         d.clear()
 
 
@@ -414,6 +418,7 @@ def _chain_cuda(x, ws, bs, w5, b5, mode, clamp, a, m, stripe_w=0):
     launches += 1
     _count((C, c_out, gc), launches_by_width)
     _count((C, c_out, gc, int(stripe_w)), launches_by_stripe)
+    _count(("forward", B, T, H, W, C, c_out), launches_by_shape)
     return out, feats
 
 
@@ -449,6 +454,7 @@ def _feats_cuda(x, ws, bs, stripe_w=0):
     launches_feats += 1
     _count((C, gc), launches_feats_by_width)
     _count((C, gc, int(stripe_w)), launches_feats_by_stripe)
+    _count(("feats", B, T, H, W, C, gc), launches_by_shape)
     return feats
 
 
@@ -511,6 +517,7 @@ def _bwd_cuda(x, ws, bs, feats, dfeats, dx, stripe_w=0):
     launches_bwd += 1
     _count((C, gc), launches_bwd_by_width)
     _count((C, gc, int(stripe_w)), launches_bwd_by_stripe)
+    _count(("bwd", B, T, H, W, C, gc), launches_by_shape)
     return dws, dbs
 
 
@@ -734,6 +741,7 @@ class _FusedDenseSpatial(torch.autograd.Function):
             out = _feats_cuda(x, ws, bs)
             launches_spatial += 1
             _count((x.shape[-1], GC_MAX), launches_spatial_by_width)
+            _count(("spatial", *x.shape), launches_by_shape)
         else:
             out = chain_feats_plain(x, ws, bs)
         ctx.save_for_backward(x, out, *wbs)
@@ -751,6 +759,7 @@ class _FusedDenseSpatial(torch.autograd.Function):
             dws, dbs = _bwd_cuda(x, ws, bs, feats, dfeats, dx)
             launches_spatial_bwd += 1
             _count((x.shape[-1], GC_MAX), launches_spatial_bwd_by_width)
+            _count(("spatial_bwd", *x.shape), launches_by_shape)
         else:
             dx, dws, dbs = chain_spatial_bwd_plain(x, ws, bs, feats, g)
         return (dx.to(x.dtype) if ctx.needs_input_grad[0] else None), *dws, *dbs

@@ -1,9 +1,10 @@
 """Resampling ops, channels-last ``(..., H, W, C)``.
 
 Integer-factor 'area' down/up, the torch-exact adaptive average pool
-(GlobalAgg) and the DUF-style Gaussian (BD) downsampling that makes the
-``distortion: sr_bd`` LR target. The MATLAB bicubic resize is ROADMAP item
-A25.
+(GlobalAgg), the DUF-style Gaussian (BD) downsampling that makes the
+``distortion: sr_bd`` LR target, and the MATLAB bicubic resize of
+``distortion: matlab`` and the image datasets. Each resampling is a product
+with a fixed matrix built in numpy.
 """
 
 from __future__ import annotations
@@ -94,3 +95,48 @@ def gaussian_downsample(x, scale: int = 4):
     y = torch.einsum("pw,ncow->ncop", mw, y)
     y = y[:, :, 2:-2, 2:-2].permute(0, 2, 3, 1)
     return y.reshape(*lead, y.shape[1], y.shape[2], C)
+
+
+def _cubic(x):
+    """The bicubic kernel (a = -0.5) of MATLAB's imresize."""
+    x = np.abs(x)
+    x2, x3 = x * x, x * x * x
+    return ((1.5 * x3 - 2.5 * x2 + 1.0) * (x <= 1)
+            + (-0.5 * x3 + 2.5 * x2 - 4.0 * x + 2.0) * ((x > 1) & (x <= 2)))
+
+
+@lru_cache(maxsize=None)
+def _matlab_weights(in_size: int, out_size: int, scale: float) -> np.ndarray:
+    """(out, in) contribution matrix of MATLAB's imresize: the kernel
+    widened by 1/scale when shrinking (antialiasing), each row normalised to
+    1, symmetric boundary (reflection without repeating the edge)."""
+    kernel_width = 4.0
+    antialias = scale < 1.0
+    kw = kernel_width / scale if antialias else kernel_width
+    x = np.arange(1, out_size + 1, dtype=np.float64)
+    u = x / scale + 0.5 * (1 - 1 / scale)
+    left = np.floor(u - kw / 2)
+    P = int(math.ceil(kw)) + 2
+    idx = left[:, None] + np.arange(P)[None, :]  # (out, P)
+    dist = u[:, None] - idx
+    wts = scale * _cubic(dist * scale) if antialias else _cubic(dist)
+    wts /= wts.sum(axis=1, keepdims=True)
+    idx = idx - 1  # 0-based
+    idx = np.where(idx < 0, -idx - 1, idx)
+    idx = np.where(idx > in_size - 1, 2 * in_size - 1 - idx, idx)
+    m = np.zeros((out_size, in_size), np.float32)
+    for i in range(out_size):
+        for j in range(P):
+            m[i, int(idx[i, j])] += wts[i, j]
+    return m
+
+
+def imresize_matlab(x, scale: float):
+    """MATLAB-compatible bicubic resize of (..., H, W, C) by ``scale``: two
+    products with ``_matlab_weights``."""
+    *_, H, W, C = x.shape
+    oh, ow = int(H * scale), int(W * scale)
+    mh = torch.as_tensor(_matlab_weights(H, oh, scale), dtype=x.dtype, device=x.device)
+    mw = torch.as_tensor(_matlab_weights(W, ow, scale), dtype=x.dtype, device=x.device)
+    y = torch.einsum("oh,...hwc->...owc", mh, x)
+    return torch.einsum("pw,...owc->...opc", mw, y)

@@ -1,7 +1,9 @@
 """Rescaling model wrapper — the JAX package's ``RescaleModel`` for the
-SelfC_GMM model type: feed_data / optimize_parameters / test / downscale /
-upscale / get_current_log / get_current_visuals / load / save /
-save_training_state / resume_training.
+SelfC_GMM and SelfC (Haar) model types: feed_data / optimize_parameters /
+test / downscale / upscale / get_current_log / get_current_visuals / load /
+save / save_training_state / resume_training. The IRN model type has no
+wrapper (the JAX ``RescaleModel`` cannot build it: ``InvRescaleNet`` has no
+``roundtrip``); ``define_G`` builds its net.
 
 All host I/O is channels-last numpy ``(B, T, H, W, 3)``.
 """
@@ -18,7 +20,7 @@ import torch
 from .. import resolve_device
 from ..models import define_G
 from ..ops.quantize import quantize_ste
-from ..ops.resize import area_down, gaussian_downsample
+from ..ops.resize import area_down, gaussian_downsample, imresize_matlab
 from ..parallel.dist import all_reduce_grads, finite_everywhere, frames_to_device
 from ..utils.jax_import import export_jax_params, load_jax_params
 from . import checkpoint as ckpt
@@ -35,9 +37,7 @@ def make_degrade(distortion: str, scale: int):
     if distortion == "sr_bd":
         return lambda x: gaussian_downsample(x, scale)
     if distortion == "matlab":
-        raise NotImplementedError(
-            "distortion 'matlab' needs the MATLAB bicubic resize, which is "
-            "not ported yet (ROADMAP A25)")
+        return lambda x: imresize_matlab(x, 1.0 / scale)
     raise ValueError(f"distortion {distortion!r}")
 
 
@@ -70,7 +70,7 @@ def build_adam(params, to):
 
 
 class RescaleModel:
-    """Training and eval wrapper for the SelfC_GMM model type."""
+    """Training and eval wrapper for the SelfC_GMM and SelfC model types."""
 
     def __init__(self, opt, device=None, rng_seed: int = 0):
         """``device=None`` means the GPU (raises without one).
@@ -79,6 +79,11 @@ class RescaleModel:
         noise from. With ``opt['is_train']`` the optimizer is built from
         ``opt['train']``. ``path.pretrain_model_G`` (a msgpack checkpoint or
         a reference ``.pth``) is loaded last (``load``)."""
+        if opt["model"] in ("IRN", "IRN_Contra_UP"):
+            raise NotImplementedError(
+                f"model {opt['model']!r}: the JAX package's RescaleModel cannot build it either "
+                "(it initialises through net.roundtrip, which InvRescaleNet lacks); build the net "
+                "with selfc_tpu_torch.models.define_G")
         cfg_seed = (opt.get("val") or {}).get("sample_seed")
         if cfg_seed is not None:
             rng_seed = int(cfg_seed)

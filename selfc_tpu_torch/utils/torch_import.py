@@ -6,8 +6,8 @@ tree is channels-last with temporal convs stored as ``(3, Cin, Cout)``
 matmuls. The kernel conversion is decided by the tensor's shape alone, the
 name mapping by per-architecture rules. As the reference's loader does, a
 ``module.`` DDP prefix is stripped and the codec surrogate's keys are
-skipped. The SelfC_GMM (``gmm``) and SelfC_GMM_Codec (``codec``) nets are
-mapped; the Haar and IRN nets (``haar``, ``irn``) wait for ROADMAP A22.
+skipped. Four rule sets: the SelfC_GMM (``gmm``), SelfC_GMM_Codec
+(``codec``), Haar SelfC (``haar``) and IRN (``irn``) nets.
 """
 
 from __future__ import annotations
@@ -82,13 +82,23 @@ def _map_dense(rest: str):
     return ["chain", conv, leaf]
 
 
+def _haar_block(idx: int, block_num):
+    """The tree name of the coupling block at ``operations.{idx}`` of a Haar
+    or IRN net: the operations run [haar, level 0's blocks, haar, level 1's
+    blocks, ...], so a level's blocks sit at running indices past its Haar
+    step."""
+    start = 1
+    for level, n in enumerate(block_num):
+        if start <= idx < start + n:
+            return f"level_blocks_{level}_{idx - start}"
+        start += n + 1
+    raise KeyError(f"operations.{idx} is no coupling block of block_num {tuple(block_num)}")
+
+
 def map_reference_key(key: str, arch: str, block_num=(4, 4)):
     """Reference state-dict key -> its path in the tree (a list of str), or
-    None to skip it. ``arch``: 'gmm' or 'codec'. ``block_num`` places the
-    Haar and IRN nets' blocks, which are not ported."""
-    if arch not in ("gmm", "codec"):
-        raise NotImplementedError(
-            f"arch {arch!r}: the Haar and IRN nets' checkpoints are not ported yet (ROADMAP A22)")
+    None to skip it. ``arch``: 'gmm', 'codec', 'haar' or 'irn'.
+    ``block_num`` places the Haar and IRN nets' blocks."""
     key = re.sub(r"^module\.", "", key)
     if "Quantization_H265_Suggrogate" in key or "Quantization_H265" in key:
         return None  # the reference skips surrogate keys on load
@@ -97,8 +107,11 @@ def map_reference_key(key: str, arch: str, block_num=(4, 4)):
 
     m = re.match(r"operations\.(\d+)\.([FGH])\.(.*)", key)
     if m:
-        # operations.0 is the (parameter-free) FrequencyAnalyzer
-        return [f"inv_blocks_{int(m.group(1)) - 1}", m.group(2)] + _map_dense(m.group(3))
+        idx = int(m.group(1))
+        # gmm / codec: operations.0 is the (parameter-free) FrequencyAnalyzer
+        block = (f"inv_blocks_{idx - 1}" if arch in ("gmm", "codec")
+                 else _haar_block(idx, block_num))
+        return [block, m.group(2)] + _map_dense(m.group(3))
 
     m = re.match(r"stp_net\.(local_m\d)\.(.*)", key)
     if m:
@@ -116,6 +129,13 @@ def map_reference_key(key: str, arch: str, block_num=(4, 4)):
     if m:
         seq_idx, leaf = int(m.group(1)), m.group(2)
         return ["stp_net", f"tail_{(seq_idx - 1) // 2}", leaf]
+    # the Haar net's small prior
+    m = re.match(r"stp_net\.blk1\.(\d+)\.(.*)", key)
+    if m:
+        return ["stp_net", f"blk1_{m.group(1)}"] + _map_dense(m.group(2))
+    m = re.match(r"stp_net\.blk2\.(.*)", key)
+    if m:
+        return ["stp_net", "blk2"] + _map_dense(m.group(1))
     m = re.match(r"deart_net\.(\d+)\.(.*)", key)
     if m:
         n, rest = int(m.group(1)), m.group(2)

@@ -238,11 +238,6 @@ def test_pth_import_matches_jax(sources, kind):
     _same_tree(got, tree["net"] if kind == "codec" else tree)
 
 
-def test_pth_import_names_a22_for_the_haar_nets():
-    with pytest.raises(NotImplementedError, match="A22"):
-        tti.map_reference_key("operations.1.F.conv1.weight", "haar")
-
-
 # ---------------------------------------------------------------------------
 # the training state
 # ---------------------------------------------------------------------------

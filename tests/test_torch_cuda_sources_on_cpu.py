@@ -109,6 +109,23 @@ def test_cuda_sources_match_plain_bf16(cpu_built):
     assert all(v <= 3e-2 for v in _errors(rec).values()), rec
 
 
+@pytest.mark.parametrize("C,c_out,modes,dtype", [
+    (9, 3, ("add",), torch.float32), (3, 9, ("sig_exp", "mul_add"), torch.float32),
+    (45, 3, ("sub_from",), torch.float32), (3, 45, ("sub_mul",), torch.float32),
+    (45, 3, ("sub_from",), torch.bfloat16)], ids=["9_3", "3_9", "45_3", "3_45", "45_3_bf16"])
+def test_cuda_sources_at_the_haar_widths(cpu_built, C, c_out, modes, dtype):
+    """The Haar nets' coupling widths, rows of 9 and 45 values (no 16-byte
+    multiple, so the element-wise staging path): B1 with the epilogues each
+    chain runs, B3 and B2 fed from the buffer. In bf16 at C = 45, x's 45
+    lanes pad to 48 and a 32-lane slab of [x | feats] spans x's end and the
+    first growth segment."""
+    with torch.no_grad():
+        (rec,) = cpu_rehearsal.rehearse((1, 2, 7, 11), ((C, c_out),), (dtype,), modes)
+    errs = _errors(rec)
+    limit = 1e-5 if dtype == torch.float32 else 3e-2
+    assert {"forward_feats", "feats", "dx"} <= set(errs) and all(v <= limit for v in errs.values()), rec
+
+
 def test_cpu_build_counts_as_a_launch_and_is_undone(cpu_built):
     """Inside the fixture the launch functions run (and count); the plain
     wrappers are untouched, and the libraries are put back afterwards."""

@@ -285,9 +285,3 @@ def test_uint8_cast_is_within_one_ulp():
     assert np.abs(got.view(np.int32) - want.view(np.int32)).max() <= 1
     flt = np.random.default_rng(1).random((1, 2, 4, 4, 3), dtype=np.float32)
     np.testing.assert_array_equal(frames_to_device(flt, "cpu").numpy(), flt)
-
-
-@pytest.mark.parametrize("mode", ["LQ", "LQGT", "LRHR_seg_bg"])
-def test_image_modes_raise_naming_a22(mode):
-    with pytest.raises(NotImplementedError, match="A22"):
-        tloader.create_dataset(dict_to_nonedict({"mode": mode, "phase": "train"}))

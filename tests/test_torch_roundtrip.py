@@ -214,14 +214,6 @@ def test_entry_points_default_to_cuda():
         SelfCNetGMM(**SMALL)
 
 
-@pytest.mark.parametrize("model_type,item", [("SelfC", "A22"), ("IRN", "A22")])
-def test_factory_names_unported_models(model_type, item):
-    opt = _opt()
-    opt["model"] = model_type
-    with pytest.raises(NotImplementedError, match=item):
-        define_G(opt, device="cpu")
-
-
 @pytest.mark.parametrize("flags", [{"h265_deart": True}, {"deart_net": True},
                                    {"h265_deart": True, "deart_net": True}])
 def test_factory_builds_the_codec_de_artifact_net_from_deart_net(flags):

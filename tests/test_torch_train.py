@@ -96,8 +96,6 @@ def test_make_degrade_matches_jax(distortion):
 
 
 def test_make_degrade_names_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A25"):
-        make_degrade("matlab", 4)
     with pytest.raises(ValueError):
         make_degrade("nearest", 4)
 
@@ -319,8 +317,6 @@ def test_nonfinite_loss_skips_the_update(slice_pair):
 def test_unported_training_options_raise():
     with pytest.raises(NotImplementedError, match="A25"):
         RescaleModel(_opt({"gan_weight": 0.01}), device="cpu")
-    with pytest.raises(NotImplementedError, match="A25"):
-        RescaleModel(_opt(distortion="matlab"), device="cpu")
     with pytest.raises(NotImplementedError):
         RescaleModel(_opt({"lr_scheme": "OneCycle"}), device="cpu")
     serving = _opt()
