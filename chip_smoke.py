@@ -32,16 +32,23 @@ chain of the 4x step as 2 rows of 4 images at stripe 36, the codec's coupling
 and prior chains 2 to a row at stripe 72, B1, B3 and B2 with their stripe
 masks), and once more with ``pack_w: false``, timed beside it in turns.
 The codec's training step also runs pipelined (``train.codec_pipeline``),
-timed in turns with the serial one. Last, the port's entry points run as a
-user runs them, each a subprocess: ``python -m selfc_tpu_torch.cli.train``
-resumes the 400k run of runs/400k for 200 steps on its rendered train set
-packed in memory, ``cli.test_rescaling`` measures the committed and the
-written checkpoint, ``cli.test_compression`` runs the codec eval.
+timed in turns with the serial one. The 4x net trains once more with
+``network_G.remat`` (the same bits, less memory), and with the adversarial
+branch of ``train_rescaling_gan.yml`` (D and VGG-19 on seeded random weights:
+'ragan' with the feature loss, 'gan', 'lsgan', 'wgan-gp'); SpyNet and the BPG
+bridge run once. Every training step runs under cuDNN's deterministic
+algorithms, as the models run it, and is timed beside the other algorithms.
+Last, the port's entry points run as a user runs them, each a subprocess:
+``python -m selfc_tpu_torch.cli.train`` resumes the 400k run of runs/400k for
+200 steps on its rendered train set packed in memory, and trains the GAN
+YAML for 10 steps and resumed to 20, ``cli.test_rescaling`` measures the
+committed and the written checkpoint, ``cli.test_compression`` runs the codec
+eval.
 It times the kernels beside their roofline bound.
 Prints one JSON line per phase; any failure exits non-zero. There is no CPU
 fallback: without a CUDA device the script fails at once.
 
-``--phases serve,quality,train,codec,codec_train,deart,subnets,haar,variants,cli`` (the default) picks
+``--phases serve,quality,train,codec,codec_train,deart,subnets,haar,variants,gan,cli`` (the default) picks
 the paths; ``--phases kernels`` only builds the kernels and checks them
 against their plain versions. ``--parent DIR`` (a checkout of another commit
 whose kernels have the same C interfaces, or its ``selfc_tpu_torch/csrc``
@@ -76,13 +83,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from selfc_tpu_torch.codec import h265
+from selfc_tpu_torch.codec import bpg, h265
 from selfc_tpu_torch.codec.pipeline import seg_add_pad
 from selfc_tpu_torch.config import dict_to_nonedict
 from selfc_tpu_torch.data.packed import write_packed
 from selfc_tpu_torch.eval.rescaling import cal_metric
 from selfc_tpu_torch.kernels import build
 from selfc_tpu_torch.models import define_G
+from selfc_tpu_torch.models.spy_flow import MESpynet
 from selfc_tpu_torch.ops import chain_variants as cv
 from selfc_tpu_torch.ops import deform as df
 from selfc_tpu_torch.ops import dense_chain as dc
@@ -92,7 +100,9 @@ from selfc_tpu_torch.tools.make_synth_data import render_clip, render_val_set, t
 from selfc_tpu_torch.tools.precision_delta import quality_options
 from selfc_tpu_torch.train import checkpoint
 from selfc_tpu_torch.train.codec_model import CodecModel
-from selfc_tpu_torch.train.rescale_model import RescaleModel, clip_by_global_norm_
+from selfc_tpu_torch.train import losses
+from selfc_tpu_torch.train.gan import flat_frames
+from selfc_tpu_torch.train.rescale_model import RescaleModel, clip_by_global_norm_, step_algorithms
 from selfc_tpu_torch.utils.bench import (
     CLIP_HW, CODEC_DEC_SHAPE, CODEC_ENC_SHAPE, CODEC_TRAIN_LAT, CODEC_TRAIN_SHAPE, CODEC_WIDTHS,
     DEART_C, DEART_DEC_SHAPE, DEART_TRAIN_SHAPE, PATH_WIDTHS, SERVE_SHAPE, STP_DEFORM_C,
@@ -306,7 +316,20 @@ HAAR_ENC, HAAR_DEC = 3 * 2 * HAAR_BLOCKS, 4 + 3 * 2 * HAAR_BLOCKS
 IRN_LEVELS = {1: (IRN_IMAGE[1] // 2, IRN_IMAGE[2] // 2), 2: (IRN_IMAGE[1] // 4, IRN_IMAGE[2] // 4)}
 IRN_WIDTHS = ((9, 1), (3, 1), (45, 2), (3, 2))
 INV_LIMIT = 1e-4                 # decode with the true HF against the input, fp32
-ALL_PHASES = ("serve", "quality", "train", "codec", "codec_train", "deart", "subnets", "haar", "variants", "cli")
+# the adversarial branch of train_rescaling_gan.yml: 'ragan' with the
+# feature loss (VGG-19 to conv5_4), D discriminator_vgg_128 at nf 64; random
+# weights from a numpy seed (no VGG-19 ImageNet weights in the repository)
+GAN_YML = "selfc_tpu/configs/train/train_rescaling_gan.yml"
+GAN_TRAIN = {"gan_type": "ragan", "gan_weight": 5e-3, "feature_weight": 1.0, "feature_criterion": "l1",
+             "lr_D": 1e-4, "beta1_D": 0.9, "beta2_D": 0.999, "D_update_ratio": 1, "D_init_iters": 0}
+NETWORK_D = {"which_model_D": "discriminator_vgg_128", "in_nc": 3, "nf": 64}
+GAN_OTHER_TYPES = ("gan", "lsgan", "wgan-gp")    # one step each besides 'ragan''s
+N_GAN_STEPS = 2                  # 'ragan' steps on the main path (steps 1 and 2: step 0 gates G)
+GAN_GRAD_L2_LIMIT = 1e-4         # G's and D's whole gradient, kernel path against plain path
+GAN_STATS_L2_LIMIT = 1e-4        # D's running statistics after the step, the same
+GAN_CLI_STEPS, GAN_CLI_SAVE = 20, 10   # cli.train on the GAN YAML: a save at 10, resumed from it to 20
+ALL_PHASES = ("serve", "quality", "train", "codec", "codec_train", "deart", "subnets", "haar", "variants", "gan",
+              "cli")
 
 
 # {library name: path} built from --parent's sources; empty: no comparison
@@ -945,6 +968,17 @@ def new_trainer(device, tree, batch, network=NETWORK_G, **train):
     return model
 
 
+def step_peak_gib(model, eps, step=0):
+    """GiB a training step allocates above what is live before it (its
+    activations, gradients and moments)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model.optimize_parameters(step, eps=eps)
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
 def grads_of(model):
     return {k: p.grad.detach().clone() for k, p in model.net.named_parameters()}
 
@@ -1063,9 +1097,29 @@ def phase_train(device):
 
     # the first step again from the same parameters and noise: the same bits
     again = new_trainer(device, tree, batch)
-    again.optimize_parameters(0, eps=eps[0])
+    peak_step = step_peak_gib(again, eps[0])
     differ = [k for k, p in again.net.named_parameters() if not torch.equal(p.detach(), after_1[k])]
     check(not differ, f"a repeated first step gives bit-identical parameters: {differ[:5]}")
+
+    # and with network_G.remat: each coupling block keeps its input alone and
+    # runs its forward again in the backward; the same loss and gradient
+    remat = new_trainer(device, tree, batch, {**NETWORK_G, "remat": True})
+    before = (dc.launches, dc.launches_bwd)
+    peak_remat = step_peak_gib(remat, eps[0])
+    remat_launches = (dc.launches - before[0], dc.launches_bwd - before[1])
+    log_m, grads_m = dict(remat.get_current_log()), grads_of(remat)
+    remat_l2 = grads_rel_l2(grads_m, grads_1)
+    remat_bits = all(torch.equal(grads_m[k], g) for k, g in grads_1.items())
+    check(log_m["loss"] == logs[0]["loss"] and remat_l2 <= 1e-6,
+          f"remat gives the same loss bits and gradients: {(log_m['loss'], logs[0]['loss'], remat_l2)}")
+    # the coupling's 48 chains run forward twice
+    check(remat_launches == (n_chain + 6 * sum(BLOCK_NUM), n_chain), f"remat step's launches: {remat_launches}")
+    remat_ms = {True: [], False: []}
+    for on in (False, True, True, False):
+        m = remat if on else again
+        remat_ms[on].append(time_cuda(lambda: m.optimize_parameters(N_TRAIN_STEPS, eps=eps[0]), iters=3,
+                                      warmup=1)["median"])
+    del again, remat, grads_m
 
     emit("train", batch=batch.shape, n_params=n_params, steps=N_TRAIN_STEPS, train_s=train_s,
          launches_per_step=per_step, launches_b6_sub_mul=n_sub_mul, logs=logs, grad_norm_step0=norm_1,
@@ -1080,7 +1134,11 @@ def phase_train(device):
          grads_compared=len(live), grads_zero_by_construction=n_zero,
          param_max_abs_err_kernel_vs_plain=param_err, param_limit=TRAIN_PARAM_LIMIT,
          params_differing_by_over_1e_5=moved, repeat_bit_identical=True,
-         recompute_same_loss=True, recompute_grad_norm=norm_r)
+         recompute_same_loss=True, recompute_grad_norm=norm_r,
+         remat={"same_loss_bits": True, "grad_l2_rel_err": remat_l2, "grad_same_bits": remat_bits,
+                "launches_forward_backward": remat_launches,
+                "step_peak_gib_over_live": {"remat": peak_remat, "saved": peak_step},
+                "step_ms_in_turns": {"remat": remat_ms[True], "saved": remat_ms[False]}})
     return model, recompute, counts, eps[0]
 
 
@@ -1128,10 +1186,11 @@ def phase_timing_train(device, model, recompute, counts, worst, worst_bwd, worst
             mdl.optimizer.step()
 
         out = {"forward": [], "backward": [], "optimizer": []}
-        for _ in range(5):
-            out["forward"].append(time_cuda(fwd, iters=1, warmup=0)["median"])
-            out["backward"].append(time_cuda(lambda: held["loss"].backward(), iters=1, warmup=0)["median"])
-            out["optimizer"].append(time_cuda(opt, iters=1, warmup=0)["median"])
+        with step_algorithms(mdl.cudnn_deterministic):
+            for _ in range(5):
+                out["forward"].append(time_cuda(fwd, iters=1, warmup=0)["median"])
+                out["backward"].append(time_cuda(lambda: held["loss"].backward(), iters=1, warmup=0)["median"])
+                out["optimizer"].append(time_cuda(opt, iters=1, warmup=0)["median"])
         return {k: float(np.median(v)) for k, v in out.items()}
 
     turns = timed_in_turns(model, step_of(model), lambda: parts(model))
@@ -1791,6 +1850,7 @@ def phase_timing_codec_train(device, tree, batch, counts, worst, worst_gc, worst
     turns = timed_in_turns(model, step_of(model), lambda: codec_parts(model))
     step_ms, peak_saved = turns["packed"]["step_ms_median"], turns["packed"]["peak_device_memory_gib"]
     split = turns["packed"]["parts"]
+    algorithms = cudnn_in_turns(model, step_of(model), iters=5)
     del model
     recompute = new_codec_trainer(device, tree, batch, save_chain_feats=False)
     torch.cuda.reset_peak_memory_stats()
@@ -1809,15 +1869,33 @@ def phase_timing_codec_train(device, tree, batch, counts, worst, worst_gc, worst
          host_codec_ms=split["host_codec"], loss_backward_ms=split["loss_backward"],
          optimizer_ms=split["optimizer"], clips_per_s=CODEC_TRAIN_SHAPE[0] * 1e3 / step_ms,
          peak_device_memory_gib_saved_feats=peak_saved, peak_device_memory_gib_recomputed_feats=peak_recompute,
-         rate_source=rate, host_codec=h265.codec_backend() or "stand-in")
+         step_ms_by_cudnn_algorithms=algorithms, rate_source=rate, host_codec=h265.codec_backend() or "stand-in")
     return kernels, {"step_ms": step_ms, "step_plain_ms": step_p["median"],
                      "peak_device_memory_gib": peak_saved}
 
 
+def cudnn_in_turns(model, step, iters):
+    """Median ms of ``step`` with the model's deterministic cuDNN algorithms
+    (its default) and with ``cudnn_deterministic = False``, in turns
+    (deterministic, not, not, deterministic): ``{"deterministic": [..],
+    "nondeterministic": [..]}``."""
+    out = {"deterministic": [], "nondeterministic": []}
+    for det in (True, False, False, True):
+        model.cudnn_deterministic = det
+        out["deterministic" if det else "nondeterministic"].append(time_cuda(step, iters=iters, warmup=1)["median"])
+    model.cudnn_deterministic = True
+    return out
+
+
 def codec_parts(model):
-    """One codec training step's parts, each timed alone, median of 5: the
-    encode forward, the host codec (host clock), the loss and backward, clip
-    + Adam."""
+    """One codec training step's parts, each timed alone, median of 5, under
+    the step's cuDNN algorithms: the encode forward, the host codec (host
+    clock), the loss and backward, clip + Adam."""
+    with step_algorithms(model.cudnn_deterministic):
+        return _codec_parts(model)
+
+
+def _codec_parts(model):
     parts = {"encode_forward": [], "host_codec": [], "loss_backward": [], "optimizer": []}
     hr = model._hr
     with torch.no_grad():
@@ -2054,8 +2132,8 @@ def phase_codec_deart_train(device, base):
     del kern
     repeats = {det: repeated_codec_step(device, tree, batch, net_opt, shared, det) for det in (True, False)}
     same_loss, differ = repeats[True]
-    check(same_loss and not differ, f"a repeated de-artifact step (cuDNN's deterministic algorithms) gives the same "
-                                    f"loss and parameters bit for bit: differing {differ[:5]}")
+    check(same_loss and not differ, f"a repeated de-artifact step (the model's default: cuDNN's deterministic "
+                                    f"algorithms) gives the same loss and parameters bit for bit: differing {differ[:5]}")
     plain = new_codec_trainer(device, tree, batch, net_opt)
     with plain_chain_on_card():
         before = (df.launches, df.launches_bwd, dc.launches, dc.launches_bwd)
@@ -2078,15 +2156,18 @@ def phase_codec_deart_train(device, base):
     torch.cuda.reset_peak_memory_stats()
     step = time_cuda(lambda: model.optimize_parameters(N_CODEC_STEPS), iters=5, warmup=1)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    algorithms = cudnn_in_turns(model, lambda: model.optimize_parameters(N_CODEC_STEPS), iters=5)
     emit("codec_deart_train", batch=batch.shape, n_params=n_params, steps=N_CODEC_STEPS, train_s=train_s,
          rate_source=logs[0]["rate_source"], deart_offsets=offsets,
          launches_b5_per_step={"forward": DEART_B5_STEP, "backward": DEART_B5_STEP}, logs=logs,
          loss_rel_err_kernel_vs_plain=loss_rel, loss_rel_limit=TRAIN_LOSS_REL_LIMIT,
          grad_l2_rel_err_kernel_vs_plain=grad_l2, grad_l2_limit=TRAIN_GRAD_L2_LIMIT,
          grad_l2_rel_err_deart_leaves=grad_l2_deart, repeat_bit_identical_cudnn_deterministic=True,
-         repeat_cudnn_default={"same_loss": repeats[False][0], "params_differing": len(repeats[False][1]),
-                               "params": n_leaves},
-         step_ms=step["median"], step_ms_min=step["min"],
+         repeat_default_step={"same_loss": repeats[True][0], "params_differing": len(repeats[True][1]),
+                              "params": n_leaves},
+         repeat_cudnn_nondeterministic={"same_loss": repeats[False][0], "params_differing": len(repeats[False][1]),
+                                        "params": n_leaves},
+         step_ms=step["median"], step_ms_min=step["min"], step_ms_by_cudnn_algorithms=algorithms,
          clips_per_s=CODEC_TRAIN_SHAPE[0] * 1e3 / step["median"], peak_device_memory_gib=peak,
          without_deart=base)
     return counts
@@ -2094,21 +2175,19 @@ def phase_codec_deart_train(device, base):
 
 def repeated_codec_step(device, tree, batch, net_opt, codec_out, deterministic):
     """The first codec training step twice from the same parameters and codec
-    output, with cuDNN's deterministic convolution algorithms or its default
-    ones (whose gradients do not repeat bit for bit in the codec step, with
-    or without the de-artifact net): (the same loss, the parameters that
-    differ after the step)."""
+    output, as the model runs it (cuDNN's deterministic convolution
+    algorithms, ``deterministic``) or with ``cudnn_deterministic = False``
+    (cuDNN's other algorithms, whose gradients do not repeat bit for bit in
+    the codec step): (the same loss, the parameters that differ after the
+    step)."""
     runs = []
-    torch.backends.cudnn.deterministic = deterministic
-    try:
-        for _ in range(2):
-            m = new_codec_trainer(device, tree, batch, net_opt)
-            m.optimize_parameters(0, codec_out=codec_out)
-            runs.append((dict(m.get_current_log())["loss"],
-                         {k: p.detach().clone() for k, p in m.params.named_parameters()}))
-            del m
-    finally:
-        torch.backends.cudnn.deterministic = False
+    for _ in range(2):
+        m = new_codec_trainer(device, tree, batch, net_opt)
+        m.cudnn_deterministic = deterministic
+        m.optimize_parameters(0, codec_out=codec_out)
+        runs.append((dict(m.get_current_log())["loss"],
+                     {k: p.detach().clone() for k, p in m.params.named_parameters()}))
+        del m
     (l0, p0), (l1, p1) = runs
     return l0 == l1, [k for k in p0 if not torch.equal(p0[k], p1[k])]
 
@@ -2904,30 +2983,26 @@ def phase_timing_variants(device, serve, step, worst):
 
 
 def phase_codec_pipeline(device, tree, batch):
-    """``train.codec_pipeline`` at the published batch. Under cuDNN's
-    deterministic algorithms the first pipelined update, retired by
-    ``flush_pipeline()``, against the serial step: the same logs and
-    parameters, bit for bit. Then the serial and the pipelined step in
+    """``train.codec_pipeline`` at the published batch. The first pipelined
+    update, retired by ``flush_pipeline()``, against the serial step (both
+    under cuDNN's deterministic algorithms, the models' default): the same
+    logs and parameters, bit for bit. Then the serial and the pipelined step in
     turns (serial, pipelined, pipelined, serial), each turn 1 warm-up call
     and N_PIPE_STEPS timed ones (host clock, synchronised at the end; a
     pipelined turn's timed calls retire N_PIPE_STEPS updates), with each
     call's host codec wall time and the wait it cost the step."""
-    torch.backends.cudnn.deterministic = True
-    try:
-        serial = new_codec_trainer(device, tree, batch)
-        serial.optimize_parameters(0)
-        log_s = dict(serial.get_current_log())
-        want = {k: p.detach().clone() for k, p in serial.params.named_parameters()}
-        del serial
-        pipe = new_codec_trainer(device, tree, batch, codec_pipeline=True)
-        pipe.optimize_parameters(0)
-        check(not pipe.get_current_log(), "the first pipelined call queues its batch and updates nothing")
-        pipe.flush_pipeline()
-        log_p = dict(pipe.get_current_log())
-        differ = [k for k, p in pipe.params.named_parameters() if not torch.equal(p.detach(), want[k])]
-        del pipe, want
-    finally:
-        torch.backends.cudnn.deterministic = False
+    serial = new_codec_trainer(device, tree, batch)
+    serial.optimize_parameters(0)
+    log_s = dict(serial.get_current_log())
+    want = {k: p.detach().clone() for k, p in serial.params.named_parameters()}
+    del serial
+    pipe = new_codec_trainer(device, tree, batch, codec_pipeline=True)
+    pipe.optimize_parameters(0)
+    check(not pipe.get_current_log(), "the first pipelined call queues its batch and updates nothing")
+    pipe.flush_pipeline()
+    log_p = dict(pipe.get_current_log())
+    differ = [k for k, p in pipe.params.named_parameters() if not torch.equal(p.detach(), want[k])]
+    del pipe, want
     check(not differ and log_p == log_s,
           f"the first pipelined update is the serial step's bits: {len(differ)} leaves differ, logs {log_p} / {log_s}")
 
@@ -2944,7 +3019,7 @@ def phase_codec_pipeline(device, tree, batch):
     scale = codec_train_options()["scale"]
     fed = np.random.default_rng(27).random((n, t, h // scale, w // scale, 3), dtype=np.float32)
     out["fed"] = pipeline_turns(device, tree, batch, codec_out=fed)
-    emit("codec_pipeline", batch=CODEC_TRAIN_SHAPE, first_update_same_bits=True, under="cudnn.deterministic",
+    emit("codec_pipeline", batch=CODEC_TRAIN_SHAPE, first_update_same_bits=True, under="the step's deterministic cuDNN algorithms (default)",
          steps_per_turn=N_PIPE_STEPS, order="serial, pipelined, pipelined, serial",
          host_codec=h265.codec_backend() or "stand-in", **out)
     return out
@@ -3115,6 +3190,73 @@ def cli_train_yaml(work, train_dir, val_dir, extra=None):
     return path, changes
 
 
+def gan_cli_yaml(work, train_dir, val_dir, extra=None):
+    """``train_rescaling_gan.yml`` as shipped, its datasets pointed at the
+    rendered packed sets (``LQGTVID_packed``, n_workers and rng_seed as the
+    400k run's), a save every GAN_CLI_SAVE steps, and ``extra``
+    (``{"a.b": value}``); returns (path, the changes)."""
+    import yaml
+
+    opt = yaml.safe_load((ROOT / GAN_YML).read_text())
+    changes = {"datasets.train.mode": "LQGTVID_packed", "datasets.train.dataroot_GT": str(train_dir),
+               "datasets.train.n_workers": CLI_WORKERS, "datasets.train.rng_seed": CLI_RNG_SEED,
+               "datasets.val1.mode": "LQGTVID_packed", "datasets.val1.dataroot_GT": str(val_dir),
+               "logger.print_freq": 5, "logger.save_checkpoint_freq": GAN_CLI_SAVE, "train.niter": GAN_CLI_STEPS,
+               **(extra or {})}
+    for key, v in changes.items():
+        *head, last = key.split(".")
+        d = opt
+        for k in head:
+            d = d[k]
+        d[last] = v
+    path = work / f"train_gan{len(extra or {})}.yml"
+    path.write_text(yaml.safe_dump(opt))
+    return path, changes
+
+
+def phase_cli_gan(work, train_dir, val_dir, device):
+    """``cli.train`` on ``train_rescaling_gan.yml`` (random G, D and F at full
+    width): GAN_CLI_SAVE steps and a save, then a second process resumed
+    from that ``.state`` (G, D, their Adam states, D's statistics) to
+    GAN_CLI_STEPS. Its losses finite, the ``_D`` files and the ``.state``
+    read back."""
+    import yaml
+
+    name = yaml.safe_load((ROOT / GAN_YML).read_text())["name"]
+    root = work / "experiments" / name
+    yml, changes = gan_cli_yaml(work, train_dir, val_dir)
+    counts, first_s = run_cli(work, "selfc_tpu_torch.cli.train", ["-opt", str(yml), "--max-iters", str(GAN_CLI_SAVE)],
+                              device, "_gan")
+    state = root / "training_state" / f"{GAN_CLI_SAVE}.state"
+    check(state.exists() and (root / "models" / f"{GAN_CLI_SAVE}_D.msgpack").exists(),
+          f"the first GAN run wrote {GAN_CLI_SAVE}_D.msgpack and {GAN_CLI_SAVE}.state")
+    yml2, _ = gan_cli_yaml(work, train_dir, val_dir, {"path.resume_state": str(state)})
+    counts2, second_s = run_cli(work, "selfc_tpu_torch.cli.train", ["-opt", str(yml2)], device, "_gan_resumed")
+    # one log file a process
+    msgs = [ln.split(" - INFO: ", 1)[1] for path in sorted(root.glob(f"train_{name}_*.log"))
+            for ln in path.read_text().splitlines() if " - INFO: " in ln]
+    check(any(m.startswith("Resuming training from epoch: ") and m.endswith(f"iter: {GAN_CLI_SAVE}.") for m in msgs),
+          f"the second GAN run resumed iter {GAN_CLI_SAVE}")
+    iters, logs = step_logs([m for m in msgs if m.startswith("<epoch:")])
+    check(iters == list(range(5, GAN_CLI_STEPS + 1, 5)) and all(
+        np.isfinite(v) for lg in logs for v in lg.values()) and all(
+        {"l_g_gan", "l_g_fea", "l_d", "D_real", "D_fake"} <= set(lg) and lg["skipped_nonfinite"] == 0.0 for lg in logs),
+        f"the GAN runs' step lines: {list(zip(iters, logs))}")
+    d_files = {}
+    for it in (GAN_CLI_SAVE, GAN_CLI_STEPS):
+        tree = flatten_tree(checkpoint.read_msgpack(str(root / "models" / f"{it}_D.msgpack")))
+        payload = checkpoint.load_training_state(str(root / "training_state" / f"{it}.state"))
+        count, mu, _ = checkpoint.adam_moments(payload["extra"]["d_opt_state"])
+        check(all(np.isfinite(v).all() for v in tree.values()) and count == it
+              and set(flatten_tree(mu)) == set(tree) and set(payload["extra"]["d_stats"]) == {
+                  k.split(".")[0] for k in tree if k.startswith("bn")},
+              f"{it}_D.msgpack and {it}.state read back: D's leaves, its Adam state at count {it}, its statistics")
+        d_files[it] = {"D_leaves": len(tree), "D_params": int(sum(v.size for v in tree.values())), "adam_count": count}
+    check(counts["B1"] >= 1 and counts["B2"] >= 1 and counts2["B2"] >= 1, f"the GAN runs launched B1 and B2: {counts}")
+    return {"yaml": GAN_YML, "yaml_changes": changes, "s": [first_s, second_s], "logs": dict(zip(iters, logs)),
+            "files": d_files, "launches": [counts, counts2]}
+
+
 def cli_test_yaml(work, name, src, datasets, pretrain, **top):
     """A test YAML: ``src``'s model and network_G, the given datasets and
     checkpoint."""
@@ -3221,6 +3363,7 @@ def phase_cli(device):
         check(n_clip == CLI_CODEC_SET["clips"] and all(n == 2 for n in n_avg.values()) and f"[rate: {rate}]" in text,
               f"test_compression's lines parse: {n_clip} clip lines, {n_avg} average lines")
         avg_line = re.search(format_regex(next(f for f in cfmts if f.startswith("----Average PSNR/SSIM"))), text)
+        gan = phase_cli_gan(work, train_dir, val_dir, device)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check(counts_train["B1"] >= 1 and counts_train["B2"] >= 1
@@ -3236,7 +3379,7 @@ def phase_cli(device):
          written_reference=CLI_TRAINED_HR, early={"iter": CLI_EARLY_ITER, **early, "min": CLI_EARLY_HR_MIN},
          compression={"s": codec_s, "yaml": CLI_CODEC_YML, "set": CLI_CODEC_SET, "rate_source": rate, "clip_lines": n_clip,
                       "average_lines": n_avg, "average": avg_line.group(0) if avg_line else None,
-                      "launches": counts_codec})
+                      "launches": counts_codec}, gan=gan)
 
 
 # resume_study (not in the default run): what 200 resumed steps cost the
@@ -3680,6 +3823,351 @@ def phase_timing_haar(device, haar_counts, irn_counts, worst):
     return kernels
 
 
+def gan_options(**train):
+    """``train_rescaling_gan.yml``'s options, built here: the published
+    training options (``train_options``) with its adversarial keys and
+    ``network_D``."""
+    opt = train_options(**{**GAN_TRAIN, **train})
+    opt["network_D"] = dict_to_nonedict(dict(NETWORK_D))
+    return opt
+
+
+def gan_trees(device):
+    """Seeded parameters of G (as the ``train`` phase's), D (batch-norm
+    scales near 1, running means near 0 and variances in [0.5, 1.5]) and F
+    (He-scaled, so that activations keep their size through VGG's 16
+    convs), and the nets' parameter counts."""
+    probe = RescaleModel(gan_options(), device=device, rng_seed=0)
+    rng = np.random.default_rng(70)
+    d = {}
+    for k, p in probe.gan.netD.named_parameters():
+        shape = tuple(p.shape)
+        if k.endswith(".scale"):
+            d[k] = (1.0 + rng.normal(0, 0.05, shape)).astype(np.float32)
+        elif p.dim() == 1:
+            d[k] = rng.normal(0, 0.05, shape).astype(np.float32)
+        else:
+            d[k] = rng.normal(0, float(np.prod(shape[:-1])) ** -0.5, shape).astype(np.float32)
+    f = {k: (rng.normal(0, 0.01, tuple(p.shape)) if p.dim() == 1 else
+             rng.normal(0, (2.0 / float(np.prod(p.shape[:-1]))) ** 0.5, tuple(p.shape))).astype(np.float32)
+         for k, p in probe.gan.netF.named_parameters()}
+    stats = {k: {"mean": rng.normal(0, 0.1, tuple(v["mean"].shape)).astype(np.float32),
+                 "var": rng.uniform(0.5, 1.5, tuple(v["var"].shape)).astype(np.float32)}
+             for k, v in probe.gan.d_stats.items()}
+    counts = {name: sum(p.numel() for p in net.parameters())
+              for name, net in (("G", probe.net), ("D", probe.gan.netD), ("F", probe.gan.netF))}
+    trees = (seeded_tree(probe.net, 2), d, f, stats)
+    del probe
+    return trees, counts
+
+
+def new_gan_trainer(device, trees, batch, path=None, **train):
+    g, d, f, stats = trees
+    opt = gan_options(**train)
+    if path:
+        opt["path"] = dict_to_nonedict(path)
+    model = RescaleModel(opt, device=device, rng_seed=0)
+    if not (path or {}).get("pretrain_model_G"):
+        model.load_jax_params(g)
+    if not (path or {}).get("pretrain_model_D"):
+        load_jax_params(model.gan.netD, d)
+    model.gan.load_stats(stats)
+    if model.gan.netF is not None:
+        load_jax_params(model.gan.netF, f)
+    check(model.feed_data({"GT": batch}) == TRAIN_SHAPE[1], "feed_data returns the clip length")
+    return model
+
+
+def gan_state(model):
+    """G's and D's parameters and gradients and D's running statistics, as
+    ``{name: tensor}`` copies (``G.*``, ``D.*``, ``stats.*``, ``gradG.*``,
+    ``gradD.*``)."""
+    out = {}
+    for tag, net in (("G", model.net), ("D", model.gan.netD)):
+        for k, p in net.named_parameters():
+            out[f"{tag}.{k}"] = p.detach().clone()
+            if p.grad is not None:
+                out[f"grad{tag}.{k}"] = p.grad.detach().clone()
+    for k, v in model.gan.d_stats.items():
+        for n, t in v.items():
+            out[f"stats.{k}.{n}"] = t.detach().clone()
+    return out
+
+
+def d_grad_fp64_errors(device, trees, batch, eps, grads):
+    """How far D's fp32 gradient of the first step lies from the same
+    gradient in float64, on each path: ``grads`` is ``{"kernel": ..,
+    "plain": ..}`` (``gradD.*``, clipped by the step). For each path the
+    frames of G's forward before the update are recomputed on that path, D
+    runs at its start parameters and statistics in double with the same
+    loss, and its gradient is clipped by global norm as the step clips.
+    Returns ``({path: relative l2}, the fake frames' relative l2 between the
+    paths)``."""
+    import copy
+
+    _, d, _, stats = trees
+    model = new_gan_trainer(device, trees, batch)
+    eps_t = torch.as_tensor(eps, device=device)
+    fakes = {}
+    with torch.no_grad(), step_algorithms():
+        ref_l = model.degrade(model.real_H)
+        fakes["kernel"] = flat_frames(model._pixel_losses(model.real_H, ref_l, eps_t)[2]["hr"])
+        with plain_chain_on_card():
+            fakes["plain"] = flat_frames(model._pixel_losses(model.real_H, ref_l, eps_t)[2]["hr"])
+    gan64 = copy.copy(model.gan)
+    gan64.netD = copy.deepcopy(model.gan.netD).double()
+    load_jax_params(gan64.netD, d)
+    gan64.d_stats = {k: {n: torch.as_tensor(v, dtype=torch.float64, device=device) for n, v in s.items()}
+                     for k, s in stats.items()}
+    real = flat_frames(model.real_H).double()
+    del model
+    out = {}
+    for path, fake in fakes.items():
+        loss, _, _ = gan64.d_loss(real, fake.double())
+        g64 = torch.autograd.grad(loss, list(gan64.netD.parameters()))
+        scale = min(1.0, 10.0 / torch.linalg.vector_norm(torch.stack([t.norm() for t in g64])).item())
+        ref = {f"gradD.{k}": t * scale for (k, _), t in zip(gan64.netD.named_parameters(), g64)}
+        out[path] = grads_rel_l2({k: v.double() for k, v in grads[path].items()}, ref)
+    fake_l2 = ((fakes["kernel"] - fakes["plain"]).norm() / fakes["plain"].norm()).item()
+    return out, fake_l2
+
+
+def part_of(state, prefix):
+    return {k: v for k, v in state.items() if k.startswith(prefix)}
+
+
+def gan_parts(model, eps):
+    """One GAN step's parts, each between CUDA events, median of 5, under
+    the step's cuDNN algorithms: G's forward with the pixel losses, F (real
+    and fake, the feature loss), D inside G's loss (eval mode, fake and
+    real), G's backward, D's step (two train-mode calls, the loss, its
+    backward) and both optimizers (clip + Adam each)."""
+    gan, hr = model.gan, model.real_H
+    eps_t = torch.as_tensor(eps, device=hr.device)
+    with torch.no_grad():
+        ref_l = model.degrade(hr)
+    real = flat_frames(hr)
+    out = {k: [] for k in ("g_forward", "f", "d_in_g_loss", "g_backward", "d_step", "optimizers")}
+    with step_algorithms(model.cudnn_deterministic):
+        for _ in range(5):
+            held = {}
+            model.optimizer.zero_grad(set_to_none=True)
+            gan.optimizer.zero_grad(set_to_none=True)
+            gan.netD.requires_grad_(False)
+
+            def g_forward():
+                held["pix"], _, o = model._pixel_losses(hr, ref_l, eps_t)
+                held["fake"] = flat_frames(o["hr"].float())
+
+            def f_part():
+                with torch.no_grad():
+                    fea_real = gan.netF(real)
+                held["fea"] = gan.fea_w * losses.reconstruction_loss(gan.netF(held["fake"]), fea_real,
+                                                                     gan.fea_crit)
+
+            def d_in_g():
+                pred_fake, _ = gan.netD(held["fake"], gan.d_stats, False)
+                with torch.no_grad():
+                    pred_real, _ = gan.netD(real, gan.d_stats, False)
+                held["adv"] = gan.gan_w * gan.adv_loss(pred_fake, pred_real, True)
+
+            for name, fn in (("g_forward", g_forward), ("f", f_part), ("d_in_g_loss", d_in_g)):
+                out[name].append(time_cuda(fn, 1, 0)["median"])
+            out["g_backward"].append(time_cuda(lambda: (held["pix"] + held["fea"] + held["adv"]).backward(), 1, 0)
+                                     ["median"])
+            gan.netD.requires_grad_(True)
+            fake = held["fake"].detach()
+            out["d_step"].append(time_cuda(lambda: gan.d_loss(real, fake)[0].backward(), 1, 0)["median"])
+
+            def optimizers():
+                clip_by_global_norm_(list(model.net.parameters()), 10.0)
+                model.optimizer.step()
+                clip_by_global_norm_(list(gan.netD.parameters()), 10.0)
+                gan.optimizer.step()
+
+            out["optimizers"].append(time_cuda(optimizers, 1, 0)["median"])
+    return {k: float(np.median(v)) for k, v in out.items()}
+
+
+def phase_gan(device):
+    """The adversarial training step of ``train_rescaling_gan.yml`` at full
+    width: SelfC_GMM 4x (W-packed, stripe 36), D (``discriminator_vgg_128``,
+    nf 64) and VGG-19 to conv5_4 on seeded random weights, the published
+    batch (D and F see 56 frames of 144 x 144), fp32 with TF32 off. The main
+    path: two 'ragan' steps with the feature loss (a save and a ``.state``
+    between them), then one step each of 'gan', 'lsgan' and 'wgan-gp'; the
+    chain launches of exactly these steps are kept, a step must launch what
+    the pixel step launches. Then the first step's G and D gradients and D's
+    statistics against the plain path, a gated step, a repeated step, a
+    resumed step, the step's time and parts with both cuDNN choices, beside
+    a pixel step's, and its peak memory."""
+    batch = train_batch()
+    rng = np.random.default_rng(71)
+    n_chain = 6 * sum(BLOCK_NUM) + STP_BLK_NUM
+    trees, n_params = gan_trees(device)
+    eps = [rng.normal(0, 1, TRAIN_SHAPE + (48, 5)).astype(np.float32) for _ in range(N_GAN_STEPS)]
+    work = Path(tempfile.mkdtemp(prefix="selfc_gan_"))
+    try:
+        model = new_gan_trainer(device, trees, batch, path={"models": str(work / "models"),
+                                                            "training_state": str(work / "state")})
+        start = gan_state(model)
+        others = {gt: new_gan_trainer(device, trees, batch, gan_type=gt) for gt in GAN_OTHER_TYPES}
+
+        # ---- the main path: counts set to 0 just before, read just after ----
+        dc.reset_launch_counts()
+        tc.reset_launch_counts()
+        per_step, logs, seen = [], {}, (0, 0, 0)
+        t0 = time.time()
+        for step in range(1, N_GAN_STEPS + 1):
+            model.optimize_parameters(step, eps=eps[step - 1])
+            logs[f"ragan_{step}"] = dict(model.get_current_log())
+            now = (dc.launches, dc.launches_bwd, dc.launches_feats)
+            per_step.append(tuple(int(v) for v in np.subtract(now, seen)))
+            seen = now
+            if step == 1:
+                after_1 = gan_state(model)
+                model.save(1)
+                state_path = model.save_training_state(0, 1)
+        after_2 = gan_state(model)
+        for gt, other in others.items():
+            other.optimize_parameters(1, eps=eps[0])
+            logs[gt] = dict(other.get_current_log())
+            now = (dc.launches, dc.launches_bwd, dc.launches_feats)
+            per_step.append(tuple(int(v) for v in np.subtract(now, seen)))
+            seen = now
+        torch.cuda.synchronize()
+        gan_s = time.time() - t0
+        b6 = dict(tc.launches_by_width)
+        stripes = {k: by_stripe(v) for k, v in (("forward", dc.launches_by_stripe),
+                                                 ("backward", dc.launches_bwd_by_stripe))}
+        # ---------------------------------------------------------------------
+        del others
+        steps = N_GAN_STEPS + len(GAN_OTHER_TYPES)
+        check(per_step == [(n_chain, n_chain, 0)] * steps,
+              f"chain launches (forward, backward, feats) of each GAN step, the pixel step's: {per_step}")
+        check(stripes == {"forward": {TRAIN_STRIPE: steps * n_chain}, "backward": {TRAIN_STRIPE: steps * n_chain}},
+              f"every chain of the GAN steps at stripe 36: {stripes}")
+        check(b6 == {(3 + 4 * 32, 48): sum(BLOCK_NUM) * steps}, f"B6 launches of the GAN steps: {b6}")
+        for name, lg in logs.items():
+            check(all(np.isfinite(v) for v in lg.values()) and lg["skipped_nonfinite"] == 0.0
+                  and {"l_g_gan", "l_d", "D_real", "D_fake", "l_g_fea"} <= set(lg),
+                  f"the {name} step's losses are finite and it was not skipped: {lg}")
+        moved = {tag: [k for k in part_of(start, tag + ".") if torch.equal(start[k], after_1[k])] for tag in "GD"}
+        check(not moved["G"] and not moved["D"], f"every parameter of G and D moved in step 1: {moved}")
+
+        # the first step through the plain chain, on the card
+        plain = new_gan_trainer(device, trees, batch)
+        with plain_chain_on_card():
+            before = (dc.launches, dc.launches_bwd, dc.launches_feats, tc.launches)
+            plain.optimize_parameters(1, eps=eps[0])
+            check((dc.launches, dc.launches_bwd, dc.launches_feats, tc.launches) == before,
+                  "the plain path launches no kernel")
+        want = gan_state(plain)
+        log_p = dict(plain.get_current_log())
+        del plain
+        errs = {tag: grads_rel_l2(part_of(after_1, tag), part_of(want, tag)) for tag in ("gradG.", "gradD.", "stats.")}
+        check(errs["gradG."] <= GAN_GRAD_L2_LIMIT and errs["stats."] <= GAN_STATS_L2_LIMIT,
+              f"the GAN step's G gradient and D's statistics, kernel path vs plain path: {errs}")
+        # D runs no kernel, and its fp32 gradient on random weights is itself
+        # ~1e-3 from its float64 value on the same frames (batch-norm
+        # statistics; the real and fake terms nearly cancel), so the two
+        # paths' D gradients are not held to each other: each is held to its
+        # own path's float64 gradient, the kernel path's no further than twice
+        # the plain path's
+        d64, fake_l2 = d_grad_fp64_errors(device, trees, batch, eps[0],
+                                          {"kernel": part_of(after_1, "gradD."), "plain": part_of(want, "gradD.")})
+        check(d64["kernel"] <= 2.0 * d64["plain"] + GAN_GRAD_L2_LIMIT,
+              f"D's gradient from float64: kernel path {d64['kernel']}, plain path {d64['plain']}")
+        loss_rel = {k: abs(logs["ragan_1"][k] - log_p[k]) / max(abs(log_p[k]), 1e-12)
+                    for k in ("loss", "l_g_gan", "l_g_fea", "l_d")}
+
+        # a gated step (D_init_iters 5): G's parameters and moments keep their bits
+        gated = new_gan_trainer(device, trees, batch, D_init_iters=5)
+        gated.optimize_parameters(1, eps=eps[0])
+        got = gan_state(gated)
+        check(all(torch.equal(got[k], v) for k, v in part_of(start, "G.").items()) and not gated.optimizer.state
+              and any(not torch.equal(got[k], v) for k, v in part_of(start, "D.").items()),
+              "a gated step leaves G's parameters and moments as they were and moves D")
+        del gated
+
+        # the first step again: the same bits, with no flag set by the caller
+        again = new_gan_trainer(device, trees, batch)
+        again.optimize_parameters(1, eps=eps[0])
+        got = gan_state(again)
+        differ = [k for k, v in after_1.items() if not torch.equal(got[k], v)]
+        check(not differ, f"a repeated GAN step gives the same bits: {differ[:5]}")
+        del again
+
+        # resumed from step 1's checkpoints and .state: step 2's bits
+        resumed = new_gan_trainer(device, trees, batch, path={
+            "pretrain_model_G": str(work / "models" / "1_G.msgpack"),
+            "pretrain_model_D": str(work / "models" / "1_D.msgpack")})
+        payload = resumed.resume_training(state_path)
+        check(set(payload["extra"]) == {"d_opt_state", "d_stats"}, f"the .state's extras: {sorted(payload['extra'])}")
+        resumed.optimize_parameters(2, eps=eps[1])
+        got = gan_state(resumed)
+        differ = [k for k, v in after_2.items() if not torch.equal(got[k], v)]
+        check(not differ, f"a step resumed from the save gives the next step's bits: {differ[:5]}")
+        del resumed
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # the step's time with both cuDNN choices, its parts, the peak, and a
+    # pixel step beside it in the same call
+    step_of = lambda mdl: (lambda: mdl.optimize_parameters(3, eps=eps[0]))  # noqa: E731
+    peak = step_peak_gib(model, eps[0], step=3)
+    algorithms = cudnn_in_turns(model, step_of(model), iters=5)
+    parts = gan_parts(model, eps[0])
+    torch.cuda.reset_peak_memory_stats()
+    pixel = new_trainer(device, trees[0], batch)
+    pixel_peak = step_peak_gib(pixel, eps[0])
+    pixel_ms = time_cuda(lambda: pixel.optimize_parameters(3, eps=eps[0]), iters=5, warmup=1)
+    del pixel, model
+    step_ms = float(np.median(algorithms["deterministic"]))
+    emit("gan", yaml=GAN_YML, batch=batch.shape, d_and_f_frames=TRAIN_SHAPE[0] * TRAIN_SHAPE[1], n_params=n_params,
+         gan_types=["ragan"] + list(GAN_OTHER_TYPES), gan_s=gan_s, logs=logs,
+         launches_per_step=per_step, launches_by_stripe=stripes, launches_b6=str(b6),
+         grad_l2_rel_err_kernel_vs_plain={"G": errs["gradG."], "D": errs["gradD."]},
+         d_grad_rel_l2_from_float64=d64, fake_rel_l2_kernel_vs_plain=fake_l2,
+         stats_l2_rel_err_kernel_vs_plain=errs["stats."], limits=[GAN_GRAD_L2_LIMIT, GAN_STATS_L2_LIMIT],
+         loss_rel_err_kernel_vs_plain=loss_rel, gated_keeps_g_bits=True, repeat_bit_identical=True,
+         resumed_step_bit_identical=True, gan_step_ms=step_ms, step_ms_by_cudnn_algorithms=algorithms,
+         parts_ms=parts, pixel_step_ms=pixel_ms["median"], gan_over_pixel=step_ms / pixel_ms["median"],
+         step_peak_gib_over_live={"gan": peak, "pixel": pixel_peak})
+
+
+def phase_aux(device):
+    """SpyNet and BPG, one line each: ``MESpynet`` (4 levels, seeded
+    fan-in weights) on a pair of 144 x 144 frames against the same module on
+    the CPU, timed; ``bpg_roundtrip`` through the backend this machine has
+    (``bpg_backend()``: the HEVC-intra path where ``selfc_x265`` builds, else
+    the stand-in)."""
+    rng = np.random.default_rng(72)
+    net = MESpynet(device=device)
+    load_jax_params(net, {k: rng.normal(0, (float(np.prod(p.shape[:-1]))) ** -0.5, tuple(p.shape)).astype(np.float32)
+                          for k, p in net.named_parameters()})
+    a, b = (torch.from_numpy(render_clip(rng, 1, 144, 144)[0][None].astype(np.float32)).to(device) for _ in range(2))
+    with torch.no_grad():
+        flow = net(a, b)
+        ref = MESpynet(device="cpu")
+        ref.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+        want = ref(a.cpu(), b.cpu())
+        ms = time_cuda(lambda: net(a, b), iters=10, warmup=2)
+    err = (flow.cpu() - want).abs().max().item()
+    check(flow.shape == (1, 144, 144, 2) and torch.isfinite(flow).all().item() and err <= 1e-4 * max(1.0, want.abs().max().item()),
+          f"MESpynet on the card against the CPU: {err}")
+    emit("spynet", shape=[1, 144, 144, 3], flow_max_abs=want.abs().max().item(), max_abs_err_vs_cpu=err,
+         ms=ms["median"], ms_min=ms["min"])
+    frames = np.stack(render_clip(rng, 2, 64, 64)).astype(np.float32)
+    backend = bpg.bpg_backend()
+    t0 = time.time()
+    dec, bpp = bpg.bpg_roundtrip(frames, q=29)
+    seconds = time.time() - t0
+    check(dec.shape == frames.shape and np.isfinite(dec).all() and bpp > 0, "bpg_roundtrip's output")
+    emit("bpg", backend=backend or "stand-in", shape=list(frames.shape), q=29, bpp=bpp,
+         mse=float(((dec - frames) ** 2).mean()), s=seconds)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -3775,6 +4263,10 @@ def main():
         serve_var, step_var = phase_variants(device)
         with torch.no_grad():
             kernels += phase_timing_variants(device, serve_var, step_var, worst_var)
+
+    if "gan" in want:
+        phase_gan(device)
+        phase_aux(device)
 
     if "cli" in want:
         phase_cli(device)

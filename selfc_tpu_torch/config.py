@@ -88,6 +88,12 @@ def parse(opt_path: str, is_train: bool = True):
 
 def check_resume(opt, resume_iter):
     """Re-point ``path.pretrain_model_G`` at the resume checkpoint,
-    ``{path.models}/{resume_iter}_G.msgpack`` (reference options.py:105-119)."""
+    ``{path.models}/{resume_iter}_G.msgpack`` (reference options.py:105-119),
+    and with the adversarial branch (``train.gan_weight``)
+    ``path.pretrain_model_D`` at ``{resume_iter}_D.msgpack``, as the
+    reference does for its GAN models (the JAX package re-points G alone, so
+    its resumed D starts from a fresh init)."""
     if opt["path"]["resume_state"]:
         opt["path"]["pretrain_model_G"] = osp.join(opt["path"]["models"], f"{resume_iter}_G.msgpack")
+        if (opt.get("train") or {}).get("gan_weight"):
+            opt["path"]["pretrain_model_D"] = osp.join(opt["path"]["models"], f"{resume_iter}_D.msgpack")

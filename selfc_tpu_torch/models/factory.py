@@ -73,6 +73,8 @@ def define_G(opt, device=None, generator=None):
             nll_enabled=nll_enabled,
             deform_radius=net.get("deform_radius"),
             frames=_clip_frames(opt),
+            remat=bool(net.get("remat")),
+            scan_blocks=bool(net.get("scan_blocks")),
             **chain_opts,
         )
     if model_type == "SelfC_GMM_Codec":

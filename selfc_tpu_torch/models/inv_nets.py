@@ -42,6 +42,7 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..ops.chain_variants import parse_variants
@@ -122,7 +123,12 @@ class _PriorNet(_ChainOptions):
 class _CouplingNet(_PriorNet):
     """What the two nets share: the frequency split, the chain of coupling
     blocks (``inv_blocks_{i}``), the STPNet prior (``stp_net``) and the
-    sampling of the HF latents from it."""
+    sampling of the HF latents from it. ``remat`` (the GMM net's
+    ``network_G.remat``, JAX ``nn.remat(InvBlockExp)``): each coupling block
+    keeps only its input for the backward and runs its forward again there
+    (``torch.utils.checkpoint``), the same numbers with less memory."""
+
+    remat = False
 
     def __init__(self, scale, block_num, subnet_type, init_mode, stp_blk_num,
                  fh_loss, gmm_k, global_module, stp_hidden_c, stp_gc,
@@ -174,8 +180,13 @@ class _CouplingNet(_PriorNet):
         if P > 1:
             pair = (pack_w(x1, P), pack_w(x2, P))
         jac = 0.0
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self._blocks(rev):
-            pair, j = blk(pair, rev, stripe)
+            if remat:
+                # keep only the block's input; its forward runs again in the backward
+                pair, j = checkpoint(blk, pair, rev, stripe, use_reentrant=False)
+            else:
+                pair, j = blk(pair, rev, stripe)
             jac = jac + j
         if P > 1:
             return (unpack_w(pair[0], P), unpack_w(pair[1], P)), jac / P
@@ -207,7 +218,8 @@ class SelfCNetGMM(_CouplingNet):
                  stp_blk_num: int = 6, fh_loss: str = "gmm", gmm_k: int = 5,
                  global_module: str = "nonlocal", nll_enabled: bool = False,
                  save_chain_feats: bool = True, deform_radius=None, frames: int = 3,
-                 chain_variants=(), pack_w: bool = True, device=None, generator=None):
+                 chain_variants=(), pack_w: bool = True, remat: bool = False,
+                 scan_blocks: bool = False, device=None, generator=None):
         super().__init__(scale, block_num, subnet_type, init_mode, stp_blk_num,
                          fh_loss, gmm_k, global_module, 64, 32,
                          save_chain_feats, device, generator, deform_radius, frames,
@@ -215,6 +227,12 @@ class SelfCNetGMM(_CouplingNet):
         # the forward conditional NLL is off by default, as in the trained
         # snapshot; set True to restore the loss_c term
         self.nll_enabled = nll_enabled
+        self.remat = bool(remat)
+        # the JAX package's scan_blocks runs the same blocks as one lax.scan
+        # over stacked parameters: the same function, which the port computes
+        # block by block; a stacked tree is unstacked on load, and the net's
+        # checkpoints are written stacked (utils/jax_import.py)
+        self.scan_blocks = bool(scan_blocks)
 
     def nll(self, lr, hf):
         """Conditional NLL of true HF latents under the prior (loss_c)."""

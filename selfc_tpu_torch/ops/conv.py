@@ -47,6 +47,14 @@ def kaiming_normal(scale: float = 1.0):
     return init
 
 
+def lecun_normal(shape, generator=None):
+    """flax's default kernel init (``nn.Conv`` / ``nn.Dense``): a normal
+    truncated at 2 std whose variance is 1 / fan_in."""
+    fan_in, _ = _fans(shape)
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
 def zeros_init(shape, generator=None):
     return torch.zeros(shape)
 

@@ -24,6 +24,7 @@ so a reader never sees half a checkpoint.
 from __future__ import annotations
 
 import importlib.util
+import io
 import os
 import pickle
 from typing import Any, NamedTuple
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from ..utils.flax_msgpack import msgpack_restore, msgpack_serialize
-from ..utils.jax_import import flatten_tree, nest_tree
+from ..utils.jax_import import flatten_tree, nest_tree, unstack_scan_chain
 from ..utils.torch_import import load_pth
 
 
@@ -60,11 +61,11 @@ def read_msgpack(path: str):
 
 
 def load_network(path: str, template, arch: str = "gmm", block_num=(4, 4)):
-    """A msgpack checkpoint or a reference ``.pth`` merged into the
-    template tree (``merge``)."""
+    """A msgpack checkpoint (a ``scan_blocks`` net's unstacked) or a
+    reference ``.pth`` merged into the template tree (``merge``)."""
     if path.endswith(".pth"):
         return merge(template, load_pth(path, arch, block_num))
-    return merge(template, read_msgpack(path))
+    return merge(template, unstack_scan_chain(read_msgpack(path)))
 
 
 def merge(template, loaded):
@@ -119,13 +120,39 @@ class _StateUnpickler(pickle.Unpickler):
         raise pickle.UnpicklingError(f"{module}.{name} has no place in a training state")
 
 
+class _OptaxNamesPickler(pickle._Pickler):
+    """Pickles the stand-ins under optax's own names, so that the JAX
+    package's plain ``pickle.load`` gives it optax's classes (the Python
+    pickler: its ``save_global`` can be taken over)."""
+
+    def save_global(self, obj, name=None):
+        for (module, qualname), cls in _STANDINS.items():
+            if obj is cls:
+                if self.proto >= 4:
+                    self.save(module)
+                    self.save(qualname)
+                    self.write(pickle.STACK_GLOBAL)
+                else:
+                    self.write(pickle.GLOBAL + f"{module}\n{qualname}\n".encode())
+                self.memoize(obj)
+                return
+        super().save_global(obj, name)
+
+
+def _dumps(payload) -> bytes:
+    buf = io.BytesIO()
+    _OptaxNamesPickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(payload)
+    return buf.getvalue()
+
+
 def save_training_state(state_dir: str, epoch: int, it: int, opt_state: dict, extra=None) -> str:
     """Write ``{state_dir}/{it}.state``; ``opt_state`` is ``{count, mu,
-    nu}`` with numpy trees (``adam_state``)."""
+    nu}`` with numpy trees (``adam_state``). ``extra`` may hold optax chain
+    states (``optax_adam_state``): they are written under optax's names."""
     os.makedirs(state_dir, exist_ok=True)
     path = os.path.join(state_dir, f"{it}.state")
     payload = {"epoch": int(epoch), "iter": int(it), "opt_state": opt_state, "extra": extra or {}}
-    _publish(path, pickle.dumps(payload))
+    _publish(path, _dumps(payload))
     return path
 
 
@@ -177,6 +204,17 @@ def adam_state(optimizer: torch.optim.Adam, named_params) -> dict:
     return {"count": count, "mu": nest_tree(mu), "nu": nest_tree(nu)}
 
 
+def optax_adam_state(optimizer: torch.optim.Adam, named_params, n_empty: int = 0) -> tuple:
+    """A ``torch.optim.Adam``'s state as the state of an optax chain of
+    ``n_empty`` stateless transforms (a clip, a weight decay) and then
+    ``scale_by_adam``: ``(EmptyState(), ..., ScaleByAdamState(count, mu,
+    nu))`` with an int32 count, as the JAX package keeps a chain state
+    (written by ``save_training_state`` under optax's names)."""
+    st = adam_state(optimizer, named_params)
+    return (EmptyState(),) * n_empty + (
+        ScaleByAdamState(np.asarray(st["count"], np.int32), st["mu"], st["nu"]),)
+
+
 def restore_adam(optimizer: torch.optim.Adam, named_params, opt_state) -> int:
     """Put a saved state's moments and step into a ``torch.optim.Adam``:
     mu -> exp_avg, nu -> exp_avg_sq, count -> step, by parameter name, on
@@ -187,7 +225,7 @@ def restore_adam(optimizer: torch.optim.Adam, named_params, opt_state) -> int:
     shapes = {k: tuple(p.shape) for k, p in named.items()}
     moments = []
     for m in (mu, nu):
-        flat = flatten_tree(m) if isinstance(m, dict) else unravel(m, shapes)
+        flat = flatten_tree(unstack_scan_chain(m)) if isinstance(m, dict) else unravel(m, shapes)
         if set(flat) != set(named):
             raise KeyError(f"moment names differ from the parameters': {sorted(set(flat) ^ set(named))[:5]}")
         bad = [k for k in named if tuple(np.shape(flat[k])) != shapes[k]]

@@ -46,7 +46,7 @@ from ..utils.jax_import import export_jax_params, load_jax_params
 from . import checkpoint as ckpt
 from .losses import reconstruction_loss
 from .lr_schedule import multistep_restart
-from .rescale_model import build_adam, clip_by_global_norm_, make_degrade
+from .rescale_model import build_adam, clip_by_global_norm_, make_degrade, step_algorithms
 
 logger = logging.getLogger("base")
 
@@ -114,6 +114,8 @@ class CodecModel:
         self.last_codec_host_seconds = 0.0    # the host codec's wait the step paid
         self.last_codec_total_seconds = 0.0   # the host codec's whole wall time
         self.start_iter = self.start_epoch = 0
+        # the step's cuDNN algorithms: deterministic (rescale_model.step_algorithms)
+        self.cudnn_deterministic = True
         # train.codec_pipeline: the batch in flight and the one thread that
         # runs the host codec beside the device (see _optimize_pipelined)
         self._pipeline = bool(self.is_train and self.train_opt.get("codec_pipeline"))
@@ -332,9 +334,15 @@ class CodecModel:
         (its bpp is then logged as 0). A non-finite loss skips the whole
         update (``skipped_nonfinite`` in the log). With
         ``train.codec_pipeline`` (and the h265 noise type) the call is the
-        pipelined step, ``_optimize_pipelined``."""
+        pipelined step, ``_optimize_pipelined``. The step runs under cuDNN's
+        deterministic algorithms (``step_algorithms``) and repeats bit for
+        bit."""
         if not self.is_train:
             raise RuntimeError("optimize_parameters needs opt['is_train']")
+        with step_algorithms(self.cudnn_deterministic):
+            return self._optimize(step, codec_out)
+
+    def _optimize(self, step, codec_out):
         split = self.train_opt.get("codec_split") or "residual"
         if split not in ("residual", "reencode"):
             raise ValueError(f"train.codec_split {split!r}")
@@ -453,7 +461,8 @@ class CodecModel:
         without ``train.codec_pipeline``."""
         p, self._pending = self._pending, None
         if p is not None:
-            self._retire(p)
+            with step_algorithms(self.cudnn_deterministic):
+                self._retire(p)
 
     def get_current_log(self):
         """The last step's losses as floats (one read from the device), with

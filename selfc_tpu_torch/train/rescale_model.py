@@ -3,13 +3,20 @@ SelfC_GMM and SelfC (Haar) model types: feed_data / optimize_parameters /
 test / downscale / upscale / get_current_log / get_current_visuals / load /
 save / save_training_state / resume_training. The IRN model type has no
 wrapper (the JAX ``RescaleModel`` cannot build it: ``InvRescaleNet`` has no
-``roundtrip``); ``define_G`` builds its net.
+``roundtrip``); ``define_G`` builds its net. ``train.gan_weight`` adds the
+adversarial branch (``train/gan.py``): D and its optimizer, saved as
+``{iter}_D`` beside G and in the ``.state``'s ``extra``.
+
+A training step runs under cuDNN's deterministic algorithms
+(``step_algorithms``), so that it repeats bit for bit as the JAX step does;
+the flags are set for the step alone.
 
 All host I/O is channels-last numpy ``(B, T, H, W, 3)``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import logging
 from collections import OrderedDict
@@ -22,7 +29,7 @@ from ..models import define_G
 from ..ops.quantize import quantize_ste
 from ..ops.resize import area_down, gaussian_downsample, imresize_matlab
 from ..parallel.dist import all_reduce_grads, finite_everywhere, frames_to_device
-from ..utils.jax_import import export_jax_params, load_jax_params
+from ..utils.jax_import import export_jax_params, load_jax_params, stack_scan_chain
 from . import checkpoint as ckpt
 from .losses import reconstruction_loss
 from .lr_schedule import cosine_restart, multistep_restart
@@ -53,6 +60,21 @@ def clip_by_global_norm_(params, max_norm: float):
     return norm
 
 
+@contextlib.contextmanager
+def step_algorithms(deterministic: bool = True):
+    """The cuDNN flags of a training step: with ``deterministic``, cuDNN's
+    deterministic convolution algorithms and no autotuning; the two flags
+    are restored when the step ends, and no other flag is touched."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    if deterministic:
+        cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 def build_adam(params, to):
     """Adam with the weight decay coupled into the gradient (``g + wd * p``
     before the moments), eps 1e-8 outside the root, from the ``train``
@@ -77,8 +99,11 @@ class RescaleModel:
         ``val.sample_seed`` overrides ``rng_seed``: it seeds both the
         parameter initialisation and the generator the GMM prior draws its
         noise from. With ``opt['is_train']`` the optimizer is built from
-        ``opt['train']``. ``path.pretrain_model_G`` (a msgpack checkpoint or
-        a reference ``.pth``) is loaded last (``load``)."""
+        ``opt['train']``, and with ``train.gan_weight`` the adversarial
+        branch. ``path.pretrain_model_G`` (a msgpack checkpoint or a
+        reference ``.pth``) and ``path.pretrain_model_D`` are loaded last
+        (``load``). ``cudnn_deterministic`` (True) is the step's choice of
+        cuDNN algorithms (``step_algorithms``); a timing may set it False."""
         if opt["model"] in ("IRN", "IRN_Contra_UP"):
             raise NotImplementedError(
                 f"model {opt['model']!r}: the JAX package's RescaleModel cannot build it either "
@@ -104,12 +129,17 @@ class RescaleModel:
         self.log_dict = OrderedDict()
         self._raw_logs = None
         self.start_iter = self.start_epoch = 0
+        self.cudnn_deterministic = True
+        self.gan = None
         if self.is_train:
-            if self.train_opt.get("gan_weight"):
-                raise NotImplementedError(
-                    "train.gan_weight: the adversarial branch is not ported "
-                    "yet (ROADMAP A25)")
             self._build_optimizer()
+            if self.train_opt.get("gan_weight"):
+                if self.train_opt.get("fused_optimizer"):
+                    raise ValueError("train.fused_optimizer is not supported with the GAN branch (as in the "
+                                     "JAX package); unset one of the two")
+                from .gan import AdversarialBranch
+
+                self.gan = AdversarialBranch(self, generator=torch.Generator().manual_seed(rng_seed + 1))
         self.load()
 
     def _build_optimizer(self):
@@ -140,25 +170,46 @@ class RescaleModel:
         self._net_cast = None
 
     def load(self):
-        """Load ``path.pretrain_model_G`` into the net, if it is set."""
+        """Load ``path.pretrain_model_G`` into the net and, with the
+        adversarial branch, ``path.pretrain_model_D`` into D, if set."""
         path_opt = self.opt.get("path") or {}
-        if path_opt.get("pretrain_model_D"):
-            raise NotImplementedError(
-                "path.pretrain_model_D: the discriminator is not ported yet (ROADMAP A25)")
         path = path_opt.get("pretrain_model_G")
         if path:
             logger.info("Loading model for G [%s] ...", path)
             block_num = tuple(self.opt["network_G"].get("block_num") or (4, 4))
             self.load_jax_params(ckpt.load_network(path, export_jax_params(self.net),
                                                    self._arch, block_num))
+        d_path = path_opt.get("pretrain_model_D")
+        if d_path and self.gan is not None:
+            logger.info("Loading model for D [%s] ...", d_path)
+            load_jax_params(self.gan.netD, ckpt.load_network(d_path, export_jax_params(self.gan.netD)))
 
     def save(self, iter_label):
-        return ckpt.save_network(export_jax_params(self.net), self.opt["path"]["models"], iter_label)
+        """``{iter}_G.msgpack`` (stacked as the JAX package's ``scan_blocks``
+        net keeps it when the net has that flag), and ``{iter}_D`` with the
+        adversarial branch."""
+        tree = export_jax_params(self.net)
+        if getattr(self.net, "scan_blocks", False):
+            tree = stack_scan_chain(tree, self.net.n_blocks)
+        path = ckpt.save_network(tree, self.opt["path"]["models"], iter_label)
+        if self.gan is not None:
+            ckpt.save_network(export_jax_params(self.gan.netD), self.opt["path"]["models"], iter_label, "D")
+        return path
 
     def save_training_state(self, epoch, it):
+        """``{it}.state``; with the adversarial branch its ``extra`` holds
+        D's optimizer state (an optax chain state, as the JAX package keeps
+        it: the clip's empty state, then Adam's) and D's running
+        statistics."""
+        extra = None
+        if self.gan is not None:
+            n_empty = 1 if self.train_opt.get("gradient_clipping") else 0
+            extra = {"d_opt_state": ckpt.optax_adam_state(self.gan.optimizer, self.gan.netD.named_parameters(),
+                                                          n_empty),
+                     "d_stats": self.gan.stats_numpy()}
         return ckpt.save_training_state(
             self.opt["path"]["training_state"], epoch, it,
-            ckpt.adam_state(self.optimizer, self.net.named_parameters()))
+            ckpt.adam_state(self.optimizer, self.net.named_parameters()), extra=extra)
 
     def resume_training(self, state_path: str, restore_optimizer: bool = True):
         """Epoch and iteration from a ``.state`` file (the JAX package's or
@@ -169,6 +220,10 @@ class RescaleModel:
         self.start_iter = payload["iter"]
         if restore_optimizer and self.is_train:
             ckpt.restore_adam(self.optimizer, self.net.named_parameters(), payload["opt_state"])
+            extra = payload.get("extra") or {}
+            if self.gan is not None and "d_opt_state" in extra:
+                ckpt.restore_adam(self.gan.optimizer, self.gan.netD.named_parameters(), extra["d_opt_state"])
+                self.gan.load_stats(extra["d_stats"])
         return payload
 
     def _eval_dtype(self):
@@ -242,7 +297,7 @@ class RescaleModel:
                 "loss_c": loss_c, "loss": loss}
         return loss, logs, out
 
-    def optimize_parameters(self, step: int, eps=None):
+    def optimize_parameters(self, step: int, eps=None, gp_eps=None):
         """One training step on the clip of ``feed_data``. ``eps`` is the
         prior's standard-normal noise (see ``SelfCNetGMM.eps_shape``); by
         default it is drawn from the model's generator. A non-finite loss
@@ -251,20 +306,31 @@ class RescaleModel:
         step's one synchronisation with the device. With more than one
         process (``parallel/dist.py``) the gradients are averaged over them
         before the clip, and a loss that is not finite on any rank skips
-        the update on all."""
+        the update on all. With the adversarial branch the step is
+        ``AdversarialBranch.train_step`` (``gp_eps``: wgan-gp's
+        interpolation weights, ``(B*T, 1, 1, 1)``, drawn when None)."""
         if not self.is_train:
             raise RuntimeError("optimize_parameters needs opt['is_train']")
+        with step_algorithms(self.cudnn_deterministic):
+            self._optimize(step, eps, gp_eps)
+
+    def _optimize(self, step, eps, gp_eps):
         lr_value = self.lr_fn(step)
-        if step in self._clear_state_steps:
-            self.optimizer.state.clear()
         hr = self.real_H
-        with torch.no_grad():
-            ref_l = self.degrade(hr)
         if eps is None:
             B, T, H, W, _ = hr.shape
             eps = self._draw_eps((B, T, H // self.scale, W // self.scale, 3))
         else:
             eps = torch.as_tensor(eps, dtype=torch.float32, device=self.device)
+        if self.gan is not None:
+            # the JAX package's combined step clears no moments at a restart
+            self._raw_logs = self.gan.train_step(self, step, lr_value, self.gan.lr_d_fn(step), eps, gp_eps)
+            self._raw_logs_lr = lr_value
+            return
+        if step in self._clear_state_steps:
+            self.optimizer.state.clear()
+        with torch.no_grad():
+            ref_l = self.degrade(hr)
         self.optimizer.zero_grad(set_to_none=True)
         loss, logs, _ = self._pixel_losses(hr, ref_l, eps)
         ok = finite_everywhere(loss)

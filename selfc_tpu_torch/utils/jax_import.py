@@ -8,7 +8,9 @@ checkpoint is one). Reading the checkpoint file itself is
 ``train/checkpoint.py``'s business.
 ``export_jax_params`` / ``export_jax_grads`` go the other way: the
 module's parameters, or their gradients, as a nested numpy tree under the
-JAX names, so the two stacks can be compared leaf by leaf. A tree of
+JAX names, so the two stacks can be compared leaf by leaf. The JAX
+package's ``scan_blocks`` nets stack their coupling blocks' leaves under
+``scan_chain.blocks``; ``unstack_scan_chain`` / ``stack_scan_chain`` convert. A tree of
 several top-level parts, as the codec's training keeps (``{net,
 surrogate}``), goes into an ``nn.ModuleDict`` of modules under those keys.
 """
@@ -31,11 +33,44 @@ def flatten_tree(tree, prefix: str = "") -> dict:
     return flat
 
 
-def load_jax_params(module: torch.nn.Module, tree) -> None:
-    """Copy ``tree`` into ``module``'s parameters, in place. Raises
-    ``KeyError`` on a missing or unexpected name and ``ValueError`` on a
-    shape mismatch; nothing is copied unless everything matches."""
+def unstack_scan_chain(tree):
+    """A tree of the JAX package's ``scan_blocks`` nets (the coupling blocks
+    under ``scan_chain.blocks``, every leaf stacked along a leading block
+    axis) -> the per-block tree ``inv_blocks_{i}`` the port's nets keep; any
+    other tree passes through. Takes a nested or a flat (dot-joined) tree
+    and returns the same kind."""
     flat = flatten_tree(tree)
+    prefix = "scan_chain.blocks."
+    stacked = {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+    if not stacked:
+        return tree
+    n = {int(v.shape[0]) for v in stacked.values()}
+    if len(n) != 1:
+        raise ValueError(f"scan_chain leaves stacked over different block counts: {sorted(n)}")
+    out = {k: v for k, v in flat.items() if not k.startswith("scan_chain.")}
+    for i in range(n.pop()):
+        out.update({f"inv_blocks_{i}.{k}": v[i] for k, v in stacked.items()})
+    nested = any(isinstance(v, dict) for v in tree.values())
+    return nest_tree(out) if nested else out
+
+
+def stack_scan_chain(tree: dict, n_blocks: int) -> dict:
+    """The per-block nested tree -> the ``scan_blocks`` layout
+    (``unstack_scan_chain``'s inverse; the JAX package's
+    ``stack_block_params``)."""
+    blocks = [flatten_tree(tree[f"inv_blocks_{i}"]) for i in range(n_blocks)]
+    stacked = {k: np.stack([np.asarray(b[k]) for b in blocks], axis=0) for k in blocks[0]}
+    out = {k: v for k, v in tree.items() if not k.startswith("inv_blocks_")}
+    out["scan_chain"] = {"blocks": nest_tree(stacked)}
+    return out
+
+
+def load_jax_params(module: torch.nn.Module, tree) -> None:
+    """Copy ``tree`` into ``module``'s parameters, in place (a stacked
+    ``scan_blocks`` tree is unstacked first). Raises ``KeyError`` on a
+    missing or unexpected name and ``ValueError`` on a shape mismatch;
+    nothing is copied unless everything matches."""
+    flat = flatten_tree(unstack_scan_chain(tree))
     params = dict(module.named_parameters())
     missing = sorted(set(params) - set(flat))
     unexpected = sorted(set(flat) - set(params))

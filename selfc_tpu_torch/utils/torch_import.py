@@ -8,6 +8,11 @@ name mapping by per-architecture rules. As the reference's loader does, a
 ``module.`` DDP prefix is stripped and the codec surrogate's keys are
 skipped. Four rule sets: the SelfC_GMM (``gmm``), SelfC_GMM_Codec
 (``codec``), Haar SelfC (``haar``) and IRN (``irn``) nets.
+
+``export_state_dict`` goes the other way (the tree into a reference net's
+state-dict layout, ``invert_tensor``), and ``import_vgg19_features`` reads a
+torchvision VGG-19 ``features`` state dict into the perceptual loss's
+feature extractor.
 """
 
 from __future__ import annotations
@@ -168,3 +173,77 @@ def load_pth(path: str, arch: str, block_num=(4, 4)) -> dict:
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
     return import_state_dict(sd, arch, block_num)
+
+
+def invert_tensor(torch_shape, w: np.ndarray) -> np.ndarray:
+    """The tree's kernel -> the torch kernel of ``torch_shape``
+    (``convert_tensor``'s inverse, decided by the torch shape)."""
+    w = np.asarray(w)
+    if len(torch_shape) == 5:  # Conv3d (Co, Ci, kt, kh, kw)
+        kt, kh, kw = torch_shape[2:]
+        if (kt, kh, kw) == (1, 1, 1):
+            return w.T[:, :, None, None, None]
+        if kh == 1 and kw == 1:  # temporal: the tree's (kt, Ci, Co)
+            return w.transpose(2, 1, 0)[:, :, :, None, None]
+        if kt == 1:  # spatial: the tree's (kh, kw, Ci, Co)
+            return w.transpose(3, 2, 0, 1)[:, :, None]
+        return w.transpose(4, 3, 0, 1, 2)
+    if len(torch_shape) == 4:  # Conv2d
+        if torch_shape[2] == 1 and torch_shape[3] == 1:
+            return w.T[:, :, None, None]
+        return w.transpose(3, 2, 0, 1)
+    if len(torch_shape) == 2:  # Linear
+        return w.T
+    return w
+
+
+def _get(tree: dict, path: list):
+    d = tree
+    for k in path:
+        d = d[k]
+    return d
+
+
+def export_state_dict(params: dict, template: dict, arch: str, block_num=(4, 4)) -> dict:
+    """The tree -> a torch-layout state dict (numpy values), the inverse of
+    ``import_state_dict``. ``template`` gives the keys and the tensor shapes
+    (a reference net's ``state_dict()``); the keys the import skips (the
+    fixed Haar buffers, the codec surrogate's) pass through from it
+    unchanged. Raises ``ValueError`` when a converted shape differs from the
+    template's."""
+    out = {}
+    for k, tv in template.items():
+        tshape = tuple(tv.shape)
+        path = map_reference_key(k, arch, block_num)
+        if path is None:
+            out[k] = np.asarray(tv.detach().cpu().numpy() if isinstance(tv, torch.Tensor) else tv)
+            continue
+        leaf = _get(params, path)
+        ours = leaf.detach().cpu().float().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf, np.float32)
+        conv = np.asarray(invert_tensor(tshape, ours), np.float32)
+        if conv.shape != tshape:
+            raise ValueError(f"{k}: exported shape {conv.shape} != template {tshape}")
+        out[k] = conv
+    return out
+
+
+# torchvision's vgg19 ``features`` indices of its 16 convolutions
+_VGG19_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25, 28, 30, 32, 34)
+
+
+def import_vgg19_features(state_dict) -> dict:
+    """A torchvision vgg19 ``features.N.{weight,bias}`` state dict -> the
+    feature extractor's tree ``{conv_i: {kernel (HWIO), bias}}``, up to the
+    first conv it lacks. Raises ``KeyError`` when it has none."""
+    out = {}
+    for i, idx in enumerate(_VGG19_CONV_IDX):
+        wk, bk = f"features.{idx}.weight", f"features.{idx}.bias"
+        if wk not in state_dict:
+            break
+        w, b = state_dict[wk], state_dict[bk]
+        w = w.detach().cpu().float().numpy() if isinstance(w, torch.Tensor) else np.asarray(w, np.float32)
+        b = b.detach().cpu().float().numpy() if isinstance(b, torch.Tensor) else np.asarray(b, np.float32)
+        out[f"conv_{i}"] = {"kernel": np.transpose(w, (2, 3, 1, 0)), "bias": b}
+    if not out:
+        raise KeyError("no vgg19 'features.N.weight' keys found")
+    return out

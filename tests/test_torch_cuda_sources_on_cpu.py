@@ -35,6 +35,9 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 SHAPE = (2, 2, 9, 21)   # two clips; ragged tiles both ways (the weight gradient has 2 x 2 a frame)
+# the further epilogue modes of a case: each acts on an element by itself, so
+# the first mode at SHAPE keeps the ragged tiles and the others run small
+MODE_SHAPE = (1, 2, 7, 11)
 
 
 @pytest.fixture(scope="module")
@@ -66,10 +69,16 @@ def test_rewrite_finds_every_launch():
 @pytest.mark.parametrize("C,c_out,modes", [
     (3, 48, tuple(dc.EP_AUX)), (48, 3, ("sub_from",)), (64, 64, ("sub_mul",)), (5, 70, ("mul_add",))])
 def test_cuda_sources_match_plain_fp32(cpu_built, C, c_out, modes):
+    """B1 in the first mode, B3 and B2 at SHAPE; B1 in every further mode
+    (and B3 and B2 again) at MODE_SHAPE."""
     with torch.no_grad():
-        (rec,) = cpu_rehearsal.rehearse(SHAPE, ((C, c_out),), (torch.float32,), modes)
-    errs = _errors(rec)
+        (rec,) = cpu_rehearsal.rehearse(SHAPE, ((C, c_out),), (torch.float32,), modes[:1])
+        errs = _errors(rec)
+        if modes[1:]:
+            (small,) = cpu_rehearsal.rehearse(MODE_SHAPE, ((C, c_out),), (torch.float32,), modes[1:])
+            errs.update({f"small_{k}": v for k, v in _errors(small).items()})
     assert {"feats", "dx", "dw_db_need_dx_True", "dw_db_need_dx_False"} <= set(errs)
+    assert {f"forward_{m}" for m in modes[:1]} | {f"small_forward_{m}" for m in modes[1:]} <= set(errs)
     assert all(v <= 1e-5 for v in errs.values()), errs
 
 
@@ -90,9 +99,13 @@ def test_cuda_sources_small_growth_width_fp32(cpu_built, C, c_out, gc, modes):
     gradient with noise in its pad lanes, gives the plain dx, dW and db at
     the true gc."""
     with torch.no_grad():
-        (rec,) = cpu_rehearsal.rehearse(SHAPE, ((C, c_out, gc),), (torch.float32,), modes)
-    errs = _errors(rec)
+        (rec,) = cpu_rehearsal.rehearse(SHAPE, ((C, c_out, gc),), (torch.float32,), modes[:1])
+        errs = _errors(rec)
+        if modes[1:]:   # the further epilogue modes at MODE_SHAPE, as above
+            (small,) = cpu_rehearsal.rehearse(MODE_SHAPE, ((C, c_out, gc),), (torch.float32,), modes[1:])
+            errs.update({f"small_{k}": v for k, v in _errors(small).items()})
     assert {"forward_feats", "feats", "dx", "dw_db_need_dx_True", "dw_db_need_dx_False"} <= set(errs)
+    assert {f"forward_{m}" for m in modes[:1]} | {f"small_forward_{m}" for m in modes[1:]} <= set(errs)
     assert all(v <= 1e-5 for v in errs.values()), errs
 
 

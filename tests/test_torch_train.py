@@ -213,10 +213,15 @@ def slice_pair():
     state = tx.init(jp)
     jax_steps = []
     value_and_grad = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))  # eager costs 50 s, jit 11
+
+    @jax.jit   # eager, the chain compiles op by op over the tree: 35 s
+    def apply_update(grads, state, params):
+        updates, state = tx.update(grads, state, params)
+        return jax.tree.map(lambda p, u: p - TRAIN["lr_G"] * u, params, updates), state
+
     for e in eps:
         (_, logs), grads = value_and_grad(jp, jnp.asarray(e))
-        updates, state = tx.update(grads, state, jp)
-        jp = jax.tree.map(lambda p, u: p - TRAIN["lr_G"] * u, jp, updates)
+        jp, state = apply_update(grads, state, jp)
         jax_steps.append({"logs": {k: float(v) for k, v in logs.items()},
                           "grads": jax.tree.map(np.asarray, grads),
                           "params": jax.tree.map(np.asarray, jp)})
@@ -315,8 +320,6 @@ def test_nonfinite_loss_skips_the_update(slice_pair):
 
 
 def test_unported_training_options_raise():
-    with pytest.raises(NotImplementedError, match="A25"):
-        RescaleModel(_opt({"gan_weight": 0.01}), device="cpu")
     with pytest.raises(NotImplementedError):
         RescaleModel(_opt({"lr_scheme": "OneCycle"}), device="cpu")
     serving = _opt()
