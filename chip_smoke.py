@@ -43,12 +43,16 @@ Last, the port's entry points run as a user runs them, each a subprocess:
 200 steps on its rendered train set packed in memory, and trains the GAN
 YAML for 10 steps and resumed to 20, ``cli.test_rescaling`` measures the
 committed and the written checkpoint, ``cli.test_compression`` runs the codec
-eval.
+eval (each logs its device seconds a clip, ``gpu_test_s``). Then the profiler:
+``cli.train`` resumes the 400k run for 12 steps with ``--profile-at`` (a
+``torch.profiler`` trace of 3 packed steps), and ``utils/profile.py:trace``
+wraps 3 GOP roundtrips in this process; each trace is split by kernel
+(``tools/profile_step.py``), its kernel events held to the wrappers' calls.
 It times the kernels beside their roofline bound.
 Prints one JSON line per phase; any failure exits non-zero. There is no CPU
 fallback: without a CUDA device the script fails at once.
 
-``--phases serve,quality,train,codec,codec_train,deart,subnets,haar,variants,gan,cli`` (the default) picks
+``--phases serve,quality,train,codec,codec_train,deart,subnets,haar,variants,gan,cli,profile`` (the default) picks
 the paths; ``--phases kernels`` only builds the kernels and checks them
 against their plain versions. ``--parent DIR`` (a checkout of another commit
 whose kernels have the same C interfaces, or its ``selfc_tpu_torch/csrc``
@@ -96,6 +100,7 @@ from selfc_tpu_torch.ops import deform as df
 from selfc_tpu_torch.ops import dense_chain as dc
 from selfc_tpu_torch.ops import temporal_conv as tc
 from selfc_tpu_torch.ops.conv import conv2d
+from selfc_tpu_torch.tools import profile_step
 from selfc_tpu_torch.tools.make_synth_data import render_clip, render_val_set, to_uint8
 from selfc_tpu_torch.tools.precision_delta import quality_options
 from selfc_tpu_torch.train import checkpoint
@@ -112,6 +117,8 @@ from selfc_tpu_torch.utils.bench import (
     make_temporal_conv, tc_peak, temporal_conv_bound_ms, time_cuda)
 from selfc_tpu_torch.utils.jax_import import export_jax_params, flatten_tree, load_jax_params
 from selfc_tpu_torch.utils.metrics import psnr, rgb_to_ycbcr
+from selfc_tpu_torch.utils.profile import TRACE_FILE, StepTimer, launch_counts
+from selfc_tpu_torch.utils.profile import trace as profile_trace
 
 CHECK_WIDTHS = ((3, 48), (48, 3), (64, 64))           # coupling F/H/G and the prior
 CHECK_SHAPE = (1, 3, 40, 52)     # odd sizes on purpose
@@ -329,7 +336,7 @@ GAN_GRAD_L2_LIMIT = 1e-4         # G's and D's whole gradient, kernel path again
 GAN_STATS_L2_LIMIT = 1e-4        # D's running statistics after the step, the same
 GAN_CLI_STEPS, GAN_CLI_SAVE = 20, 10   # cli.train on the GAN YAML: a save at 10, resumed from it to 20
 ALL_PHASES = ("serve", "quality", "train", "codec", "codec_train", "deart", "subnets", "haar", "variants", "gan",
-              "cli")
+              "cli", "profile")
 
 
 # {library name: path} built from --parent's sources; empty: no comparison
@@ -3257,6 +3264,14 @@ def phase_cli_gan(work, train_dir, val_dir, device):
             "files": d_files, "launches": [counts, counts2]}
 
 
+def clip_timing(lines):
+    """``test_s`` / ``gpu_test_s`` (seconds a clip) of an eval CLI's last
+    timing line; the device's clock must have been read."""
+    hits = [dict(re.findall(r"(\w+): (\S+) ", ln.split("clips: ", 1)[1])) for ln in lines if "Timing over " in ln]
+    check(len(hits) == 1 and {"test_s", "gpu_test_s"} <= set(hits[0]), f"one timing line with gpu_test_s: {hits}")
+    return {k: float(v) for k, v in hits[0].items()}
+
+
 def cli_test_yaml(work, name, src, datasets, pretrain, **top):
     """A test YAML: ``src``'s model and network_G, the given datasets and
     checkpoint."""
@@ -3270,9 +3285,21 @@ def cli_test_yaml(work, name, src, datasets, pretrain, **top):
     return path
 
 
-def phase_cli(device):
-    """The port's entry points as a user runs them, each a subprocess in a
-    temporary working directory (``parse`` roots experiments/ and results/
+def cli_sets(work):
+    """The rendered train, val and codec sets of the ``cli`` and ``profile``
+    phases under ``work`` (rendered at the first call): ``(train_dir,
+    val_dir, codec_dir, seconds spent rendering)``."""
+    dirs = work / "train_packed", work / "val_packed", work / "codec_packed"
+    t0 = time.time()
+    if not dirs[0].exists():
+        for d, spec in zip(dirs, (CLI_TRAIN_SET, CLI_VAL_SET, CLI_CODEC_SET)):
+            render_packed(d, **spec)
+    return (*dirs, time.time() - t0)
+
+
+def phase_cli(device, work):
+    """The port's entry points as a user runs them, each a subprocess in the
+    working directory ``work`` (``parse`` roots experiments/ and results/
     at the cwd): the 400k run resumed at iter 164,339 by ``cli.train`` for
     CLI_STEPS steps on the rendered train set, ``cli.test_rescaling`` on the
     committed checkpoint and on the one the run wrote, ``cli.test_compression``
@@ -3281,91 +3308,84 @@ def phase_cli(device):
     writes 11 steps in is measured in this process, which tells a resume
     that restored Adam's state from one that did not."""
     t_phase = time.time()
-    work = Path(tempfile.mkdtemp(prefix="selfc_cli_"))
-    try:
-        t0 = time.time()
-        train_dir, val_dir, codec_dir = work / "train_packed", work / "val_packed", work / "codec_packed"
-        render_packed(train_dir, **CLI_TRAIN_SET)
-        render_packed(val_dir, **CLI_VAL_SET)
-        render_packed(codec_dir, **CLI_CODEC_SET)
-        render_s = time.time() - t0
-        models = work / "experiments" / CLI_NAME / "models"
-        models.mkdir(parents=True)
-        shutil.copyfile(ROOT / QUALITY_CKPT, models / f"{CLI_RESUME_ITER}_G.msgpack")
-        yml, changes = cli_train_yaml(work, train_dir, val_dir, {"logger.save_checkpoint_freq": CLI_PRINT_FREQ})
-        last = CLI_RESUME_ITER + CLI_STEPS
+    train_dir, val_dir, codec_dir, render_s = cli_sets(work)
+    models = work / "experiments" / CLI_NAME / "models"
+    models.mkdir(parents=True)
+    shutil.copyfile(ROOT / QUALITY_CKPT, models / f"{CLI_RESUME_ITER}_G.msgpack")
+    yml, changes = cli_train_yaml(work, train_dir, val_dir, {"logger.save_checkpoint_freq": CLI_PRINT_FREQ})
+    last = CLI_RESUME_ITER + CLI_STEPS
 
-        counts_train, train_s = run_cli(work, "selfc_tpu_torch.cli.train", ["-opt", str(yml), "--max-iters", str(last)],
-                                        device)
-        msgs, _ = log_messages(work / "experiments" / CLI_NAME, f"train_{CLI_NAME}")
-        check(any(m.startswith(f"Resuming training from epoch: ") and m.endswith(f"iter: {CLI_RESUME_ITER}.")
-                  for m in msgs), "the run resumed iter 164,339")
-        fmts = root_formats("train.py")
-        step_re = re.compile(format_regex("<epoch:{:3d}, iter:{:8,d}, lr:{:.3e}> ")
-                             + "(?:" + format_regex("{:s}: {:.4e} ") + ")+$")
-        lines = [m for m in msgs if m.startswith("<epoch:")]
-        check({"<epoch:{:3d}, iter:{:8,d}, lr:{:.3e}> ", "{:s}: {:.4e} "} <= fmts
-              and all(step_re.match(m) for m in lines), f"the step lines are train.py's: {lines[:1]}")
-        iters, logs = step_logs(lines)
-        want_iters = list(range(CLI_RESUME_ITER - CLI_RESUME_ITER % CLI_PRINT_FREQ + CLI_PRINT_FREQ, last + 1,
-                                CLI_PRINT_FREQ))
-        check(iters == want_iters, f"logged iterations {iters} (expected {want_iters})")
-        check(all(np.isfinite(v) for lg in logs for v in lg.values())
-              and all(lg["skipped_nonfinite"] == 0.0 for lg in logs), f"every logged value finite, none skipped: {logs}")
-        means = {k: float(np.mean([lg[k] for lg in logs])) for k in CLI_LOSS_RANGES}
-        for k, (lo, hi) in CLI_LOSS_RANGES.items():
-            check(lo <= means[k] <= hi, f"mean logged {k} {means[k]} within [{lo}, {hi}]")
-        written = models / "latest_G.msgpack"
-        check(written.exists(), "the run wrote latest_G.msgpack")
-        flat = flatten_tree(checkpoint.read_msgpack(str(written)))
-        start = flatten_tree(checkpoint.read_msgpack(str(ROOT / QUALITY_CKPT)))
-        check(len(flat) == QUALITY_LEAVES and all(np.isfinite(v).all() for v in flat.values())
-              and any(not np.array_equal(v, start[k]) for k, v in flat.items()),
-              "latest_G.msgpack: every leaf finite, the weights moved")
+    counts_train, train_s = run_cli(work, "selfc_tpu_torch.cli.train", ["-opt", str(yml), "--max-iters", str(last)],
+                                    device)
+    msgs, _ = log_messages(work / "experiments" / CLI_NAME, f"train_{CLI_NAME}")
+    check(any(m.startswith(f"Resuming training from epoch: ") and m.endswith(f"iter: {CLI_RESUME_ITER}.")
+              for m in msgs), "the run resumed iter 164,339")
+    fmts = root_formats("train.py")
+    step_re = re.compile(format_regex("<epoch:{:3d}, iter:{:8,d}, lr:{:.3e}> ")
+                         + "(?:" + format_regex("{:s}: {:.4e} ") + ")+$")
+    lines = [m for m in msgs if m.startswith("<epoch:")]
+    check({"<epoch:{:3d}, iter:{:8,d}, lr:{:.3e}> ", "{:s}: {:.4e} "} <= fmts
+          and all(step_re.match(m) for m in lines), f"the step lines are train.py's: {lines[:1]}")
+    iters, logs = step_logs(lines)
+    want_iters = list(range(CLI_RESUME_ITER - CLI_RESUME_ITER % CLI_PRINT_FREQ + CLI_PRINT_FREQ, last + 1,
+                            CLI_PRINT_FREQ))
+    check(iters == want_iters, f"logged iterations {iters} (expected {want_iters})")
+    check(all(np.isfinite(v) for lg in logs for v in lg.values())
+          and all(lg["skipped_nonfinite"] == 0.0 for lg in logs), f"every logged value finite, none skipped: {logs}")
+    means = {k: float(np.mean([lg[k] for lg in logs])) for k in CLI_LOSS_RANGES}
+    for k, (lo, hi) in CLI_LOSS_RANGES.items():
+        check(lo <= means[k] <= hi, f"mean logged {k} {means[k]} within [{lo}, {hi}]")
+    written = models / "latest_G.msgpack"
+    check(written.exists(), "the run wrote latest_G.msgpack")
+    flat = flatten_tree(checkpoint.read_msgpack(str(written)))
+    start = flatten_tree(checkpoint.read_msgpack(str(ROOT / QUALITY_CKPT)))
+    check(len(flat) == QUALITY_LEAVES and all(np.isfinite(v).all() for v in flat.values())
+          and any(not np.array_equal(v, start[k]) for k, v in flat.items()),
+          "latest_G.msgpack: every leaf finite, the weights moved")
 
-        val = {"val1": {"name": "synthval", "mode": "LQGTVID_packed", "dataroot_GT": str(val_dir), "video_len": 7}}
-        quality = {}
-        counts_eval = {}
-        for tag, ckpt in (("committed", ROOT / QUALITY_CKPT), ("written", written)):
-            name = f"test_400k_{tag}"
-            tyml = cli_test_yaml(work, name, CLI_TRAIN_YML, val, str(ckpt), val={"sample_seed": 0})
-            counts_eval[tag], secs = run_cli(work, "selfc_tpu_torch.cli.test_rescaling",
-                                             ["-opt", str(tyml), "--no-images"], device, f"_{tag}")
-            msgs, _ = log_messages(work / "results" / name, f"test_{name}")
-            hr, lr = averaged(msgs, "HR"), averaged(msgs, "LR")
-            quality[tag] = {"hr_psnr": hr[0], "hr_ssim": hr[1], "lr_psnr": lr[0], "lr_ssim": lr[1], "s": secs}
-        q = quality["committed"]
-        for part in ("hr", "lr"):
-            ref, tol = CLI_QUALITY[part]
-            check(abs(q[f"{part}_psnr"] - ref) <= tol, f"{part.upper()} Y-PSNR of iter 164,339 through the test "
-                  f"CLI {q[f'{part}_psnr']} within {tol} dB of {ref}")
-        ref, tol = CLI_TRAINED_HR
-        check(abs(quality["written"]["hr_psnr"] - ref) <= tol,
-              f"the written checkpoint's HR {quality['written']['hr_psnr']} within {tol} dB of {ref}")
-        early = val_quality(models / f"{CLI_EARLY_ITER}_G.msgpack", device, work / "q")
-        check(early["hr_psnr"] >= CLI_EARLY_HR_MIN,
-              f"iter {CLI_EARLY_ITER}'s HR {early['hr_psnr']} >= {CLI_EARLY_HR_MIN} dB (Adam's state restored)")
+    val = {"val1": {"name": "synthval", "mode": "LQGTVID_packed", "dataroot_GT": str(val_dir), "video_len": 7}}
+    quality = {}
+    counts_eval = {}
+    for tag, ckpt in (("committed", ROOT / QUALITY_CKPT), ("written", written)):
+        name = f"test_400k_{tag}"
+        tyml = cli_test_yaml(work, name, CLI_TRAIN_YML, val, str(ckpt), val={"sample_seed": 0})
+        counts_eval[tag], secs = run_cli(work, "selfc_tpu_torch.cli.test_rescaling",
+                                         ["-opt", str(tyml), "--no-images"], device, f"_{tag}")
+        msgs, _ = log_messages(work / "results" / name, f"test_{name}")
+        hr, lr = averaged(msgs, "HR"), averaged(msgs, "LR")
+        quality[tag] = {"hr_psnr": hr[0], "hr_ssim": hr[1], "lr_psnr": lr[0], "lr_ssim": lr[1], "s": secs,
+                        **clip_timing(msgs)}
+    q = quality["committed"]
+    for part in ("hr", "lr"):
+        ref, tol = CLI_QUALITY[part]
+        check(abs(q[f"{part}_psnr"] - ref) <= tol, f"{part.upper()} Y-PSNR of iter 164,339 through the test "
+              f"CLI {q[f'{part}_psnr']} within {tol} dB of {ref}")
+    ref, tol = CLI_TRAINED_HR
+    check(abs(quality["written"]["hr_psnr"] - ref) <= tol,
+          f"the written checkpoint's HR {quality['written']['hr_psnr']} within {tol} dB of {ref}")
+    early = val_quality(models / f"{CLI_EARLY_ITER}_G.msgpack", device, work / "q")
+    check(early["hr_psnr"] >= CLI_EARLY_HR_MIN,
+          f"iter {CLI_EARLY_ITER}'s HR {early['hr_psnr']} >= {CLI_EARLY_HR_MIN} dB (Adam's state restored)")
 
-        name = "test_codec_cli"
-        cset = {"test_1": {"name": "synthcodec", "mode": "LQGTVID_packed", "dataroot_GT": str(codec_dir),
-                           "video_len": CLI_CODEC_SET["frames"], "batch_size": 1}}
-        cyml = cli_test_yaml(work, name, CLI_CODEC_YML, cset, None, val={"standin_codec": "zlib"})
-        counts_codec, codec_s = run_cli(work, "selfc_tpu_torch.cli.test_compression", ["-opt", str(cyml), "--no-images"],
-                                        device)
-        (path,) = (work / "results" / name).glob(f"test_{name}_*.log")
-        text = path.read_text()
-        cfmts = root_formats("test_compression.py")
-        per_clip = next(f for f in cfmts if f.startswith("{:20s} - video_distor_loss"))
-        n_clip = len(re.findall(format_regex(per_clip), text))
-        n_avg = {p: len(re.findall(format_regex(next(f for f in cfmts if f.startswith(p))), text))
-                 for p in ("----Average PSNR/SSIM results for {}", "----Average Compression results for {}")}
-        rate = h265.rate_source("zlib")
-        check(n_clip == CLI_CODEC_SET["clips"] and all(n == 2 for n in n_avg.values()) and f"[rate: {rate}]" in text,
-              f"test_compression's lines parse: {n_clip} clip lines, {n_avg} average lines")
-        avg_line = re.search(format_regex(next(f for f in cfmts if f.startswith("----Average PSNR/SSIM"))), text)
-        gan = phase_cli_gan(work, train_dir, val_dir, device)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    name = "test_codec_cli"
+    cset = {"test_1": {"name": "synthcodec", "mode": "LQGTVID_packed", "dataroot_GT": str(codec_dir),
+                       "video_len": CLI_CODEC_SET["frames"], "batch_size": 1}}
+    cyml = cli_test_yaml(work, name, CLI_CODEC_YML, cset, None, val={"standin_codec": "zlib"})
+    counts_codec, codec_s = run_cli(work, "selfc_tpu_torch.cli.test_compression", ["-opt", str(cyml), "--no-images"],
+                                    device)
+    (path,) = (work / "results" / name).glob(f"test_{name}_*.log")
+    text = path.read_text()
+    cfmts = root_formats("test_compression.py")
+    per_clip = next(f for f in cfmts if f.startswith("{:20s} - video_distor_loss"))
+    n_clip = len(re.findall(format_regex(per_clip), text))
+    n_avg = {p: len(re.findall(format_regex(next(f for f in cfmts if f.startswith(p))), text))
+             for p in ("----Average PSNR/SSIM results for {}", "----Average Compression results for {}")}
+    rate = h265.rate_source("zlib")
+    check(n_clip == CLI_CODEC_SET["clips"] and all(n == 2 for n in n_avg.values()) and f"[rate: {rate}]" in text,
+          f"test_compression's lines parse: {n_clip} clip lines, {n_avg} average lines")
+    avg_line = re.search(format_regex(next(f for f in cfmts if f.startswith("----Average PSNR/SSIM"))), text)
+    codec_timing = clip_timing(text.splitlines())
+    gan = phase_cli_gan(work, train_dir, val_dir, device)
     check(counts_train["B1"] >= 1 and counts_train["B2"] >= 1
           and all(c["B1"] >= 1 for c in (*counts_eval.values(), counts_codec)),
           f"the CLIs' paths launched B1 (the train CLI B2 too): {counts_train} {counts_eval} {counts_codec}")
@@ -3379,7 +3399,101 @@ def phase_cli(device):
          written_reference=CLI_TRAINED_HR, early={"iter": CLI_EARLY_ITER, **early, "min": CLI_EARLY_HR_MIN},
          compression={"s": codec_s, "yaml": CLI_CODEC_YML, "set": CLI_CODEC_SET, "rate_source": rate, "clip_lines": n_clip,
                       "average_lines": n_avg, "average": avg_line.group(0) if avg_line else None,
-                      "launches": counts_codec}, gan=gan)
+                      "launches": counts_codec, **codec_timing}, gan=gan)
+
+
+# the profile phase: cli.train resumed at iter 164,339 for PROFILE_RUN steps,
+# the window PROFILE_STEPS steps from its PROFILE_AT-th (164,349-164,351);
+# prints at 164,340, 164,344 and 164,348: the first interval holds the
+# warm-up, the next two steady steps, and none falls in the window, so the
+# timer's read adds no synchronisation inside it
+PROFILE_RUN, PROFILE_AT, PROFILE_STEPS, PROFILE_PRINT_FREQ = 12, 10, 3, 4
+PROFILE_SERVE_GOPS = 3
+# the chain's share from CUDA-event sums (PERF.md §3, the chain wrapper's row)
+CHAIN_SHARE_EVENTS = {"gop_roundtrip": 0.82, "packed_step": 0.57}
+
+
+def trace_split(trace_dir, counts, n, chain):
+    """``profile_step.attribute`` of a window of ``n`` steps (or roundtrips)
+    per step, beside the wrappers' calls ``counts`` over the same steps;
+    ``chain``: the buckets that make the chain's share. Asserts each B
+    bucket's kernel events equal the calls times the kernels a call makes,
+    and that no kernel of this package fell outside a B bucket, unless the
+    trace holds no device event at all."""
+    path = Path(trace_dir) / TRACE_FILE
+    check(path.exists() and not path.with_name(TRACE_FILE + ".part").exists(), f"{path} written and closed")
+    split = profile_step.attribute(str(path))
+    want = profile_step.expected_events(counts)
+    got = {b: split["buckets"][b]["events"] for b in want}
+    if split["device_events"] > 0:
+        check(got == want, f"kernel events of the trace against the wrappers' calls: {got} != {want}")
+        check(not split["unattributed"], f"kernels of this package in no B bucket: {split['unattributed']}")
+        check(all(got[b] > 0 for b in want if want[b] > 0), f"a bucket for every kernel launched: {got}")
+    busy = split["busy_ms"]
+    return {"device_events": split["device_events"], "trace_bytes": path.stat().st_size,
+            "buckets_ms_a_step": {b: v["ms"] / n for b, v in split["buckets"].items() if v["events"]},
+            "buckets_share": {b: v["share"] for b, v in split["buckets"].items() if v["events"]},
+            "busy_ms_a_step": busy / n, "window_ms_a_step": split["window_ms"] / n,
+            "idle_share": split["idle_share"], "gaps": split["gaps"],
+            "chain_share_of_busy": sum(split["buckets"][b]["ms"] for b in chain) / busy if busy else None,
+            "events_vs_launches": {b: [got[b], want[b]] for b in want}, "launches": counts}
+
+
+def phase_profile(device, work, smi):
+    """``cli.train`` with ``--profile-at`` (the ``cli`` phase's YAML and
+    sets: the packed 4x step at full width, resumed at iter 164,339) for
+    PROFILE_RUN steps, its trace split by kernel beside the wrappers' calls
+    of the window (``launches.json``) and its ``gpu_step_s`` beside the host
+    ``step_s``; then ``trace`` around PROFILE_SERVE_GOPS GOP roundtrips at
+    the serving shape in this process, with a ``StepTimer``."""
+    t_phase = time.time()
+    train_dir, val_dir, _, _ = cli_sets(work)
+    run = work / "profile"
+    models = run / "experiments" / CLI_NAME / "models"
+    models.mkdir(parents=True)
+    shutil.copyfile(ROOT / QUALITY_CKPT, models / f"{CLI_RESUME_ITER}_G.msgpack")
+    yml, changes = cli_train_yaml(run, train_dir, val_dir, {"logger.print_freq": PROFILE_PRINT_FREQ,
+                                                            "logger.save_checkpoint_freq": 10 ** 9})
+    at = CLI_RESUME_ITER + PROFILE_AT
+    prof_dir = run / "prof"
+    _, train_s = run_cli(run, "selfc_tpu_torch.cli.train",
+                         ["-opt", str(yml), "--max-iters", str(CLI_RESUME_ITER + PROFILE_RUN), "--profile-at", str(at),
+                          "--profile-steps", str(PROFILE_STEPS), "--profile-dir", str(prof_dir)], device, "_profile")
+    window = json.loads((prof_dir / "launches.json").read_text())
+    check(window["first_iter"] == at and window["last_iter"] == at + PROFILE_STEPS - 1,
+          f"the window's iterations: {window}")
+    train = trace_split(prof_dir, window["counts"], PROFILE_STEPS, ("B1/B3", "B2"))
+    msgs, _ = log_messages(run / "experiments" / CLI_NAME, f"train_{CLI_NAME}")
+    iters, logs = step_logs([m for m in msgs if m.startswith("<epoch:")])
+    check(len(logs) == 3 and all("gpu_step_s" in lg and lg["gpu_step_s"] > 0 for lg in logs),
+          f"the step lines carry gpu_step_s: {list(zip(iters, logs))}")
+    emit("profile_train", yaml=CLI_TRAIN_YML, yaml_changes=changes, run_s=train_s, window=window,
+         step_lines={it: {k: lg[k] for k in ("gpu_step_s", "step_s", "data_s", "wall_s") if k in lg}
+                     for it, lg in zip(iters, logs)},
+         chain_share_cuda_events=CHAIN_SHARE_EVENTS["packed_step"], nvidia_smi=smi, **train)
+
+    model = RescaleModel(serve_options(), device=device, rng_seed=0)
+    model.load_jax_params(seeded_tree(model.net, 2))
+    gop = torch.rand((1, 7, *CLIP_HW, 3), device=device, generator=torch.Generator(device=device).manual_seed(0))
+    eps = torch.randn(model.net.eps_shape(SERVE_SHAPE + (3,)), device=device,
+                      generator=torch.Generator(device=device).manual_seed(1))
+    timer = StepTimer(device)
+    with torch.no_grad():
+        model.net.roundtrip(gop, eps=eps)   # warm
+        reset_all_counts()
+        df.reset_launch_counts()
+        with profile_trace(str(work / "serve_prof"), device):
+            for _ in range(PROFILE_SERVE_GOPS):
+                timer.tic()
+                out = model.net.roundtrip(gop, eps=eps)
+                timer.toc()
+        counts = launch_counts()
+    check(torch.isfinite(out["hr"]).all().item() and out["hr"].shape == gop.shape, "the traced roundtrip's HR")
+    serve = trace_split(work / "serve_prof", counts, PROFILE_SERVE_GOPS, ("B1/B3",))
+    emit("profile_serve", shape=[1, 7, *CLIP_HW, 3], roundtrips=PROFILE_SERVE_GOPS,
+         gpu_roundtrip_ms=timer.mean * 1e3, timer_clock=timer.clock,
+         chain_share_cuda_events=CHAIN_SHARE_EVENTS["gop_roundtrip"], nvidia_smi=smi,
+         phase_s=time.time() - t_phase, **serve)
 
 
 # resume_study (not in the default run): what 200 resumed steps cost the
@@ -4268,8 +4382,15 @@ def main():
         phase_gan(device)
         phase_aux(device)
 
-    if "cli" in want:
-        phase_cli(device)
+    if want & {"cli", "profile"}:
+        work = Path(tempfile.mkdtemp(prefix="selfc_cli_"))
+        try:
+            if "cli" in want:
+                phase_cli(device, work)
+            if "profile" in want:
+                phase_profile(device, work, smi)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
     if "resume_study" in want:
         phase_resume_study(device)
 

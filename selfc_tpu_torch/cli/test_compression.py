@@ -23,7 +23,8 @@ from ..codec.h265 import codec_backend, rate_source
 from ..train.codec_model import CodecModel
 from ..utils.logger import save_img, setup_logger, tensor2img
 from ..utils.metrics import ms_ssim, psnr, ssim
-from .test_rescaling import full_fp32, eval_loaders
+from ..utils.profile import EvalTimer
+from .test_rescaling import eval_loaders, full_fp32
 
 
 def _avg(v):
@@ -70,6 +71,7 @@ def main(argv=None):
     loaders = eval_loaders(opt, logger)
     model = CodecModel(opt, device=args.device)
     dev = model.device
+    timer = EvalTimer(dev)
 
     def frames(a):
         return torch.as_tensor(a.reshape(-1, *a.shape[2:])).to(dev)
@@ -85,9 +87,12 @@ def main(argv=None):
             for data in loader:
                 model.feed_data(data)
                 img_name = "_".join(str(data["GT_path"][0]).split("/")[-3:])
+                timer.start()
                 model.test()
+                timer.tested()
                 vis = model.get_current_visuals()
                 met = model.get_current_metrics()
+                timer.copied()
                 for k in ms:
                     ms[k].append(float(met[k]))
                 logger.info(
@@ -117,6 +122,7 @@ def main(argv=None):
     logger.info(_quality_line("All dataset", t["psnr"], t["ssim"], t["psnr_lr"], t["ssim_lr"]))
     logger.info(_rate_line("All dataset", t["video_distor_loss"], t["video_bpp"],
                            t["mimick_loss"], t["img_bpp"], model.rate_source))
+    logger.info(timer.line())
     return t
 
 

@@ -8,7 +8,10 @@ loaded) and ``eval/rescaling.py:run_eval``: HR and LR Y-PSNR / SSIM a set
 and averaged, logged to ``results/<name>/test_<name>_*.log`` under the
 working directory; frame dumps there unless ``--no-images`` (they need
 cv2). The library's convolutions and products run in full fp32 (no TF32),
-as the root CLI's ``--fp32``.
+as the root CLI's ``--fp32``. A last line gives the mean seconds a clip:
+``test_s`` on the host's clock (``test()`` and the copy of its visuals
+back), and on the card ``gpu_test_s``, ``test()``'s device time (CUDA
+events).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from ..data import create_dataloader, create_dataset
 from ..eval.rescaling import run_eval
 from ..train.rescale_model import RescaleModel
 from ..utils.logger import setup_logger
+from ..utils.profile import EvalTimer
 
 
 def full_fp32() -> None:
@@ -56,8 +60,11 @@ def main(argv=None):
     logger = logging.getLogger("base")
     loaders = eval_loaders(opt, logger)
     model = RescaleModel(opt, device=args.device)
+    timer = EvalTimer(model.device)
     try:
-        return run_eval(opt, loaders, model, save_images=not args.no_images)
+        results = run_eval(opt, loaders, model, save_images=not args.no_images, timer=timer)
+        logger.info(timer.line())
+        return results
     finally:
         for _, loader in loaders:
             loader.close()

@@ -13,7 +13,20 @@ resumes the epoch, the iteration, the weights
 false, Adam's moments and step. SIGTERM / SIGINT checkpoint the current
 iteration and stop; so does host memory above ``train.rss_limit_gb``
 (default 100 GiB). The log lines are the root CLI's, character for
-character.
+character; on the card each step line also carries ``gpu_step_s``, the mean
+device time of a step over the print interval, as ``wall_s`` is the mean
+wall time (CUDA events around ``feed_data`` + ``optimize_parameters``, read
+only on the steps that print).
+
+``--profile-at ITER [--profile-steps N] [--profile-dir DIR]`` (the JAX
+package's ``SELFC_TPU_PROFILE_AT`` / ``_STEPS`` / ``_DIR``) traces N steps
+(default 3) from iteration ITER with ``torch.profiler``: the device is
+drained first, and the window closes after its last step with the device
+synchronised, or on any way out of the loop (niter reached, a signal's
+checkpoint, the memory guard, an exception). DIR (default
+``experiments/<name>/profile``) gets ``trace.json`` and ``launches.json``
+(the kernel wrappers' calls inside the window); ``python -m
+selfc_tpu_torch.tools.profile_step DIR`` splits the trace by kernel.
 
 Several processes: ``--launcher pytorch`` with the torch launcher's
 environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``);
@@ -24,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import itertools
+import json
 import logging
 import math
 import os
@@ -32,6 +46,7 @@ import signal
 import time
 
 import numpy as np
+import torch
 
 from .. import config as option
 from ..data import DistIterSampler, create_dataloader, create_dataset
@@ -40,6 +55,7 @@ from ..parallel.dist import init_distributed
 from ..train import create_model
 from ..train.checkpoint import load_training_state
 from ..utils.logger import setup_logger
+from ..utils.profile import StepTimer, launch_counts, trace
 
 DATASET_RATIO = 200   # the reference's epoch inflation under a sampler (train.py:171-182)
 EMA = 0.98            # of the data_s / step_s wall-time split
@@ -91,6 +107,11 @@ def main(argv=None):
     parser.add_argument("--local_rank", type=int, default=0)
     parser.add_argument("--max-iters", type=int, default=None, help="override niter")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--profile-at", type=int, default=0,
+                        help="trace the steps from this iteration with torch.profiler (0: none)")
+    parser.add_argument("--profile-steps", type=int, default=3, help="steps in the traced window")
+    parser.add_argument("--profile-dir", default=None,
+                        help="where the trace goes (default: experiments/<name>/profile)")
     args = parser.parse_args(argv)
     opt = option.parse(args.opt, is_train=True)
 
@@ -165,10 +186,16 @@ def main(argv=None):
     if rank == 0:
         handlers = {sig: signal.signal(sig, _graceful) for sig in (signal.SIGTERM, signal.SIGINT)}
     rss_limit = float((opt["train"] or {}).get("rss_limit_gb") or 100.0)
+    prof_dir = args.profile_dir or os.path.join(opt["path"]["experiments_root"] or ".", "profile")
+    prof = {"at": args.profile_at, "steps": max(1, args.profile_steps), "cm": None,
+            "dir": prof_dir if rank == 0 else os.path.join(prof_dir, f"rank{rank}")}
     try:
         _train_epochs(opt, model, train_loader, val_loaders, logger, tb_logger, rank, total_iters,
-                      stop_requested, rss_limit)
+                      stop_requested, rss_limit, prof)
     finally:
+        # an unclosed trace is lost: close it on every way out of the loop
+        if prof["cm"] is not None:
+            _close_trace(prof, model, logger, "on loop exit", drain=False)
         for sig, h in handlers.items():
             signal.signal(sig, h)
         train_loader.close()
@@ -181,8 +208,35 @@ def main(argv=None):
         logger.info("End of training.")
 
 
+def _open_trace(prof, model, step, logger):
+    """Drain the device (a pipelined codec step in flight, then the queue),
+    then start the trace at iteration ``step``."""
+    _flush(model)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
+    prof["first"], prof["counts"] = step, launch_counts()
+    prof["cm"] = trace(prof["dir"], model.device)
+    prof["cm"].__enter__()
+    logger.info("profiler: trace started at iter %d -> %s", step, prof["dir"])
+
+
+def _close_trace(prof, model, logger, why, last=None, drain=True):
+    """Stop the trace (the device synchronised inside it) and write the
+    wrappers' calls of its window beside it, ``launches.json``."""
+    if drain:
+        _flush(model)
+    cm, prof["cm"] = prof["cm"], None
+    cm.__exit__(None, None, None)
+    now = launch_counts()
+    window = {"first_iter": prof["first"], "last_iter": last, "device": str(model.device),
+              "counts": {k: now[k] - prof["counts"][k] for k in now}}
+    with open(os.path.join(prof["dir"], "launches.json"), "w") as f:
+        json.dump(window, f)
+    logger.info("profiler: trace closed %s", why)
+
+
 def _train_epochs(opt, model, train_loader, val_loaders, logger, tb_logger, rank, total_iters,
-                  stop_requested, rss_limit):
+                  stop_requested, rss_limit, prof):
     train_opt = opt["train"]
     print_freq = opt["logger"]["print_freq"] or 100
     ckpt_freq = int(opt["logger"]["save_checkpoint_freq"] or 2e4)
@@ -194,6 +248,9 @@ def _train_epochs(opt, model, train_loader, val_loaders, logger, tb_logger, rank
     n_timed = 0
     t_mark = time.perf_counter()
     last_print_t = None
+    # the steps' device time (CUDA events, resolved at a print); none on the CPU
+    gpu_timer = StepTimer(model.device) if model.device.type == "cuda" else None
+    gpu_mark = (0, 0.0)   # (steps, seconds) the timer had at the last print
     # itertools.count: the loop ends at total_iters, not at an epoch
     # estimate, so a resume whose config changed the epoch math trains on
     for epoch in itertools.count(model.start_epoch):
@@ -218,8 +275,16 @@ def _train_epochs(opt, model, train_loader, val_loaders, logger, tb_logger, rank
                     model.save(current_step)
                     model.save_training_state(epoch, current_step)
                     return
+            if prof["at"] and current_step == prof["at"]:
+                _open_trace(prof, model, current_step, logger)
+            if gpu_timer is not None:
+                gpu_timer.tic()
             model.feed_data(train_data)
             model.optimize_parameters(current_step)
+            if gpu_timer is not None:
+                gpu_timer.toc()
+            if prof["cm"] is not None and current_step >= prof["at"] + prof["steps"] - 1:
+                _close_trace(prof, model, logger, f"at iter {current_step}", last=current_step)
             t_done = time.perf_counter()
             ema_data = EMA * ema_data + (1 - EMA) * (t_have_data - t_mark)
             ema_step = EMA * ema_step + (1 - EMA) * (t_done - t_have_data)
@@ -230,6 +295,11 @@ def _train_epochs(opt, model, train_loader, val_loaders, logger, tb_logger, rank
                 logs = dict(model.get_current_log())
                 logs["data_s"] = ema_data / (1 - EMA ** n_timed)
                 logs["step_s"] = ema_step / (1 - EMA ** n_timed)
+                if gpu_timer is not None:
+                    gpu_timer.read()
+                    n, total = gpu_timer.n - gpu_mark[0], gpu_timer.total - gpu_mark[1]
+                    gpu_mark = (gpu_timer.n, gpu_timer.total)
+                    logs["gpu_step_s"] = total / n
                 # the mean wall time an iteration over the print interval
                 now_wall = time.perf_counter()
                 if last_print_t is not None:

@@ -26,18 +26,25 @@ def _avg(lst):
     return sum(lst) / len(lst) if lst else 0
 
 
-def cal_metric(val_loader, model, dataset_dir, save_images=True):
+def cal_metric(val_loader, model, dataset_dir, save_images=True, timer=None):
     """The clips of ``val_loader`` (dicts with ``GT`` (B,T,H,W,3) and
     ``LQ_path``, a list of B names) through ``model``: the mean over clips
-    of HR PSNR, HR SSIM, LR PSNR and LR SSIM."""
+    of HR PSNR, HR SSIM, LR PSNR and LR SSIM; ``timer``, a
+    ``utils/profile.py:EvalTimer``, times each clip."""
     device = getattr(model, "device", torch.device("cpu"))
     avg_psnr_y, avg_ssim_y = [], []
     avg_lr_psnr_y, avg_lr_ssim_y = [], []
     meta = {}
     for val_data in val_loader:
         model.feed_data(val_data)
+        if timer:
+            timer.start()
         model.test()
+        if timer:
+            timer.tested()
         vis = model.get_current_visuals()
+        if timer:
+            timer.copied()
         sr, gt = vis["SR"], vis["GT"]
         lr, lrgt = vis["LR"], vis["LR_ref"]
         B, T = sr.shape[:2]
@@ -71,14 +78,15 @@ def cal_metric(val_loader, model, dataset_dir, save_images=True):
     return _avg(avg_psnr_y), _avg(avg_ssim_y), _avg(avg_lr_psnr_y), _avg(avg_lr_ssim_y)
 
 
-def run_eval(opt, test_loaders, model, save_images=True):
+def run_eval(opt, test_loaders, model, save_images=True, timer=None):
     """``cal_metric`` over ``(name, loader)`` pairs, each into
-    ``path.results_root/name``, logged per set and averaged."""
+    ``path.results_root/name``, logged per set and averaged (``timer`` as
+    ``cal_metric``'s, over every set)."""
     results = {"psnr_y": [], "ssim_y": [], "psnr_y_lr": [], "ssim_y_lr": []}
     for name, loader in test_loaders:
         dataset_dir = os.path.join(opt["path"]["results_root"] or ".", name)
         os.makedirs(dataset_dir, exist_ok=True)
-        p, s, plr, slr = cal_metric(loader, model, dataset_dir, save_images)
+        p, s, plr, slr = cal_metric(loader, model, dataset_dir, save_images, timer)
         logger.info(" HR results for {}, PSNR {:.6f}dB, SSIM {:.6f}".format(name, p, s))
         logger.info(" LR results for {}, PSNR {:.6f}dB, SSIM {:.6f}".format(name, plr, slr))
         results["psnr_y"].append(p)

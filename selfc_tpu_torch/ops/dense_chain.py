@@ -105,6 +105,7 @@ launches = 0
 launches_by_width: dict = {}
 launches_bwd = 0
 launches_bwd_by_width: dict = {}
+launches_bwd_dx = 0             # the adjoint's calls that wrote a dx (one more launch each)
 launches_feats = 0
 launches_feats_by_width: dict = {}
 launches_spatial = 0
@@ -124,8 +125,8 @@ launches_by_shape: dict = {}
 
 
 def reset_launch_counts():
-    global launches, launches_bwd, launches_feats, launches_spatial, launches_spatial_bwd
-    launches = launches_bwd = launches_feats = launches_spatial = launches_spatial_bwd = 0
+    global launches, launches_bwd, launches_bwd_dx, launches_feats, launches_spatial, launches_spatial_bwd
+    launches = launches_bwd = launches_bwd_dx = launches_feats = launches_spatial = launches_spatial_bwd = 0
     for d in (launches_by_width, launches_bwd_by_width, launches_feats_by_width,
               launches_spatial_by_width, launches_spatial_bwd_by_width, launches_by_stripe,
               launches_bwd_by_stripe, launches_feats_by_stripe, launches_by_shape):
@@ -481,7 +482,7 @@ def _bwd_cuda(x, ws, bs, feats, dfeats, dx, stripe_w=0):
     behind the LeakyReLU, pad lanes 0. Returns ``(dws, dbs)``
     in the weights' dtype, at the true gc. ``stripe_w``: every tensor is
     W-packed with images of that width."""
-    global launches_bwd
+    global launches_bwd, launches_bwd_dx
     _validate_spatial(x, ws, bs, stripe_w)
     B, T, H, W, C = x.shape
     gc = ws[0].shape[-1]
@@ -515,6 +516,7 @@ def _bwd_cuda(x, ws, bs, feats, dfeats, dx, stripe_w=0):
     )
     _raise_on(err, "dense chain backward", lib.selfc_bwd_cuda_error_string)
     launches_bwd += 1
+    launches_bwd_dx += dx is not None
     _count((C, gc), launches_bwd_by_width)
     _count((C, gc, int(stripe_w)), launches_bwd_by_stripe)
     _count(("bwd", B, T, H, W, C, gc), launches_by_shape)

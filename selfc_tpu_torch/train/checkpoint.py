@@ -10,8 +10,10 @@
   ``ScaleByAdamState(count, mu, nu)`` among ``EmptyState``s (clip and
   weight decay keep none); ``load_training_state`` reads it through an
   unpickler that maps those two optax classes to stand-ins here and lets
-  only numpy's own names through besides. The port writes its own states
-  as plain types, ``opt_state: {count, mu, nu}``, and reads them back.
+  only numpy's own names through besides. The port writes the same chain
+  state (``optax_adam_state``), pickled under optax's names, so the JAX
+  package's ``resume_training`` reads it; it still reads its older states,
+  plain ``opt_state: {count, mu, nu}``.
   ``mu`` and ``nu`` are trees under the parameter names, or (the JAX
   package's ``train.fused_optimizer``) one flat vector each in
   ``ravel_pytree`` order: the tree's leaves with the keys sorted at every
@@ -145,10 +147,10 @@ def _dumps(payload) -> bytes:
     return buf.getvalue()
 
 
-def save_training_state(state_dir: str, epoch: int, it: int, opt_state: dict, extra=None) -> str:
-    """Write ``{state_dir}/{it}.state``; ``opt_state`` is ``{count, mu,
-    nu}`` with numpy trees (``adam_state``). ``extra`` may hold optax chain
-    states (``optax_adam_state``): they are written under optax's names."""
+def save_training_state(state_dir: str, epoch: int, it: int, opt_state, extra=None) -> str:
+    """Write ``{state_dir}/{it}.state``; ``opt_state`` (and any optax chain
+    state in ``extra``) as ``optax_adam_state`` gives it, written under
+    optax's names."""
     os.makedirs(state_dir, exist_ok=True)
     path = os.path.join(state_dir, f"{it}.state")
     payload = {"epoch": int(epoch), "iter": int(it), "opt_state": opt_state, "extra": extra or {}}
@@ -204,15 +206,19 @@ def adam_state(optimizer: torch.optim.Adam, named_params) -> dict:
     return {"count": count, "mu": nest_tree(mu), "nu": nest_tree(nu)}
 
 
-def optax_adam_state(optimizer: torch.optim.Adam, named_params, n_empty: int = 0) -> tuple:
-    """A ``torch.optim.Adam``'s state as the state of an optax chain of
-    ``n_empty`` stateless transforms (a clip, a weight decay) and then
-    ``scale_by_adam``: ``(EmptyState(), ..., ScaleByAdamState(count, mu,
-    nu))`` with an int32 count, as the JAX package keeps a chain state
-    (written by ``save_training_state`` under optax's names)."""
+def optax_adam_state(optimizer: torch.optim.Adam, named_params, clip=None, weight_decay=None,
+                     stack=None) -> tuple:
+    """A ``torch.optim.Adam``'s state as the state of the JAX package's optax
+    chain ``[clip_by_global_norm(clip)] [add_decayed_weights(weight_decay)]
+    scale_by_adam``: an ``EmptyState()`` for each of the first two that is
+    set, then ``ScaleByAdamState(count, mu, nu)`` with an int32 count and the
+    moments nested as the parameter tree (``stack``: a function applied to
+    each moment tree, e.g. ``stack_scan_chain`` for a ``scan_blocks`` net).
+    ``save_training_state`` writes it under optax's names."""
     st = adam_state(optimizer, named_params)
-    return (EmptyState(),) * n_empty + (
-        ScaleByAdamState(np.asarray(st["count"], np.int32), st["mu"], st["nu"]),)
+    mu, nu = (st[k] if stack is None else stack(st[k]) for k in ("mu", "nu"))
+    return (EmptyState(),) * (bool(clip) + bool(weight_decay)) + (
+        ScaleByAdamState(np.asarray(st["count"], np.int32), mu, nu),)
 
 
 def restore_adam(optimizer: torch.optim.Adam, named_params, opt_state) -> int:

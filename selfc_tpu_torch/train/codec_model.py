@@ -166,10 +166,14 @@ class CodecModel:
         return ckpt.save_network(export_jax_params(self.params), self.opt["path"]["models"], iter_label)
 
     def save_training_state(self, epoch, it):
+        """``{it}.state``: the optimizer state as the JAX package's optax
+        chain keeps it, over ``{net[, surrogate]}``."""
         self.flush_pipeline()
+        to = self.train_opt
         return ckpt.save_training_state(
             self.opt["path"]["training_state"], epoch, it,
-            ckpt.adam_state(self.optimizer, self.params.named_parameters()))
+            ckpt.optax_adam_state(self.optimizer, self.params.named_parameters(), to.get("gradient_clipping"),
+                                  to.get("weight_decay_G")))
 
     def resume_training(self, state_path: str, restore_optimizer: bool = True):
         """Epoch and iteration from a ``.state`` file, and with

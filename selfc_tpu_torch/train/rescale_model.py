@@ -197,19 +197,23 @@ class RescaleModel:
         return path
 
     def save_training_state(self, epoch, it):
-        """``{it}.state``; with the adversarial branch its ``extra`` holds
-        D's optimizer state (an optax chain state, as the JAX package keeps
-        it: the clip's empty state, then Adam's) and D's running
+        """``{it}.state``: G's optimizer state as the JAX package's optax
+        chain keeps it (the clip's and the weight decay's empty states, then
+        Adam's, the moments nested as the JAX tree); with the adversarial
+        branch its ``extra`` holds D's, the same way, and D's running
         statistics."""
+        to = self.train_opt
+        stack = None
+        if getattr(self.net, "scan_blocks", False):
+            stack = lambda tree: stack_scan_chain(tree, self.net.n_blocks)  # noqa: E731
+        g_state = ckpt.optax_adam_state(self.optimizer, self.net.named_parameters(), to.get("gradient_clipping"),
+                                        to.get("weight_decay_G"), stack)
         extra = None
         if self.gan is not None:
-            n_empty = 1 if self.train_opt.get("gradient_clipping") else 0
             extra = {"d_opt_state": ckpt.optax_adam_state(self.gan.optimizer, self.gan.netD.named_parameters(),
-                                                          n_empty),
+                                                          to.get("gradient_clipping")),
                      "d_stats": self.gan.stats_numpy()}
-        return ckpt.save_training_state(
-            self.opt["path"]["training_state"], epoch, it,
-            ckpt.adam_state(self.optimizer, self.net.named_parameters()), extra=extra)
+        return ckpt.save_training_state(self.opt["path"]["training_state"], epoch, it, g_state, extra=extra)
 
     def resume_training(self, state_path: str, restore_optimizer: bool = True):
         """Epoch and iteration from a ``.state`` file (the JAX package's or

@@ -26,14 +26,17 @@ import pytest
 import torch
 from jax.flatten_util import ravel_pytree
 
+from selfc_tpu.config import dict_to_nonedict as jnonedict
+from selfc_tpu.train import codec_model as jcodec
+from selfc_tpu.train import rescale_model as jrescale
 from selfc_tpu.utils import torch_import as jti
 from selfc_tpu_torch.config import dict_to_nonedict
 from selfc_tpu_torch.train import checkpoint as ckpt
 from selfc_tpu_torch.train.codec_model import CodecModel
-from selfc_tpu_torch.train.rescale_model import RescaleModel
+from selfc_tpu_torch.train.rescale_model import RescaleModel, clip_by_global_norm_
 from selfc_tpu_torch.utils import flax_msgpack as fm
 from selfc_tpu_torch.utils import torch_import as tti
-from selfc_tpu_torch.utils.jax_import import export_jax_params, flatten_tree
+from selfc_tpu_torch.utils.jax_import import export_jax_params, flatten_tree, nest_tree
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN = os.path.join(ROOT, "runs", "400k")
@@ -242,6 +245,98 @@ def test_pth_import_matches_jax(sources, kind):
 # the training state
 # ---------------------------------------------------------------------------
 
+JAX_MODELS = {"rescale": jrescale.RescaleModel, "codec": jcodec.CodecModel}
+
+
+def _fed_step(model, lr, seed, norm=None):
+    """The port's step on fed gradients (normal, std 1, or scaled to a
+    global norm of about ``norm``): the clip, then Adam with coupled weight
+    decay, at ``lr``. Returns the gradients by name."""
+    named = list((model.net if isinstance(model, RescaleModel) else model.params).named_parameters())
+    rng = np.random.default_rng(seed)
+    std = 1.0 if norm is None else norm / np.sqrt(sum(p.numel() for _, p in named))
+    grads = {k: rng.normal(0, std, tuple(p.shape)).astype(np.float32) for k, p in named}
+    for k, p in named:
+        p.grad = torch.from_numpy(grads[k].copy())
+    clip_by_global_norm_([p for _, p in named], model.train_opt["gradient_clipping"])
+    for g in model.optimizer.param_groups:
+        g["lr"] = lr
+    model.optimizer.step()
+    return grads
+
+
+@pytest.fixture(scope="module")
+def port_states(tmp_path_factory):
+    """The port's training models (clip 10, weight decay 1e-2; the codec's
+    with its surrogate) after one fed step, Adam's step then set to the 400k
+    run's 164,330 (at a step of 2 optax's float32 bias correction alone is
+    1e-5 from torch's float64 one), the ``.state`` each wrote, and a
+    dict-form ``.state`` of the same moments, as the port wrote it before."""
+    d = tmp_path_factory.mktemp("states")
+    out = {}
+    for kind in ("rescale", "codec"):
+        model = _model(kind, True, {"training_state": str(d / kind)})
+        model.train_opt["weight_decay_G"] = 1e-2
+        model.optimizer.param_groups[0]["weight_decay"] = 1e-2
+        _fed_step(model, 1e-4, 1)
+        for st in model.optimizer.state.values():
+            st["step"].fill_(164330.0)
+        named = (model.net if kind == "rescale" else model.params).named_parameters()
+        old = ckpt.save_training_state(str(d / f"{kind}_dict"), 1, 5, ckpt.adam_state(model.optimizer, named))
+        out[kind] = (model, model.save_training_state(1, 5), old)
+    return out
+
+
+@pytest.mark.parametrize("kind,fused", [("rescale", False), ("rescale", True), ("codec", False)],
+                         ids=["rescale", "rescale-fused", "codec"])
+def test_port_state_resumes_in_jax(port_states, kind, fused):
+    """The JAX model's ``resume_training`` reads the port's ``.state``
+    (through ``_adapt_opt_state`` into one flat vector under
+    ``train.fused_optimizer``), and its ``tx`` (clip, decayed weights, Adam)
+    on the next fed gradients gives the port's update at lr 1 (the
+    parameters move by the update itself, so no cancellation hides it): per
+    leaf within 1e-6 of its largest |update|. Those gradients' global norm
+    is 5, under the clip of 10, so both clips pass them unscaled (the fused
+    layout's float32 norm of one flat vector is ~1e-6 from torch's). The
+    port reads the dict-form ``.state`` it wrote before into the same
+    moments."""
+    model, path, old = port_states[kind]
+    with open(path, "rb") as f:
+        raw = pickle.load(f)
+    assert [type(s) for s in raw["opt_state"]] == [optax.EmptyState] * 2 + [optax.ScaleByAdamState]
+    jm = JAX_MODELS[kind].__new__(JAX_MODELS[kind])
+    jm.is_train, jm.gan = True, None
+    jm.train_opt = jnonedict({**model.train_opt, "fused_optimizer": fused})
+    jm.params = jax.tree.map(jnp.asarray, export_jax_params(model.net if kind == "rescale" else model.params))
+    jm._build_optimizer()
+    payload = jm.resume_training(path)
+    assert (payload["epoch"], payload["iter"]) == (1, 5) and int(jm.opt_state[-1].count) == 164330
+    assert (jm.opt_state[-1].mu.ndim == 1) if fused else isinstance(jm.opt_state[-1].mu, dict)
+    saved = {p: {k: v.clone() for k, v in st.items()} for p, st in model.optimizer.state.items()}
+    before = {k: v.copy() for k, v in flatten_tree(export_jax_params(
+        model.net if kind == "rescale" else model.params)).items()}
+    try:
+        grads = nest_tree({k: jnp.asarray(v) for k, v in _fed_step(model, 1.0, 2, norm=5.0).items()})
+        if fused:
+            flat, unravel = ravel_pytree(jm.params)
+            updates = unravel(jax.jit(jm.tx.update)(ravel_pytree(grads)[0], jm.opt_state, flat)[0])
+        else:
+            updates = jax.jit(jm.tx.update)(grads, jm.opt_state, jm.params)[0]
+        after = flatten_tree(export_jax_params(model.net if kind == "rescale" else model.params))
+        for k, u in flatten_tree(updates).items():
+            want = -np.asarray(u)
+            np.testing.assert_allclose(after[k] - before[k], want, rtol=0, atol=1e-6 * np.abs(want).max(), err_msg=k)
+        model.optimizer.state.clear()
+        model.resume_training(old)
+        for p, st in saved.items():
+            assert all(torch.equal(model.optimizer.state[p][k], v) for k, v in st.items())
+    finally:
+        with torch.no_grad():
+            for k, p in (model.net if kind == "rescale" else model.params).named_parameters():
+                p.copy_(torch.from_numpy(before[k]))
+        for p, st in saved.items():
+            model.optimizer.state[p] = st
+
 
 @pytest.fixture(scope="module")
 def resumed():
@@ -325,15 +420,17 @@ def test_flat_vector_state_unravels_in_ravel_pytree_order(resumed):
 
 
 def test_port_state_round_trip(resumed, tmp_path):
-    """The port writes its own ``.state`` (plain types), reads it back
-    through the same unpickler, and a resume restores the same moments."""
+    """The port writes its ``.state`` (optax's chain state under optax's
+    names: the clip's empty state, then Adam's), reads it back through the
+    same unpickler, and a resume restores the same moments."""
     model, _, _ = resumed
     model.opt["path"] = {"training_state": str(tmp_path)}
     path = model.save_training_state(3, 1234)
     assert path == str(tmp_path / "1234.state") and not os.path.exists(path + ".tmp")
     with open(path, "rb") as f:
         raw = pickle.load(f)
-    assert type(raw["opt_state"]) is dict and raw["opt_state"]["count"] == 164330
+    assert [type(s) for s in raw["opt_state"]] == [optax.EmptyState, optax.ScaleByAdamState]
+    assert raw["opt_state"][-1].count.dtype == np.int32 and int(raw["opt_state"][-1].count) == 164330
     before = {p: {k: v.clone() for k, v in model.optimizer.state[p].items()} for p in model.net.parameters()}
     model.optimizer.state.clear()
     model.resume_training(path)

@@ -2,8 +2,9 @@
 first step's logged losses against ``RescaleModel.optimize_parameters`` on
 the same batch, a resume that restores Adam's step, the log lines against
 the root CLIs' format strings), ``cli.test_rescaling`` against
-``run_eval``, ``cli.test_compression``'s log lines, and a 2-process gloo
-step against the 1-process step on the concatenated batch.
+``run_eval``, ``cli.test_compression``'s log lines, the profiler window of
+``cli.train`` closed on each way out of the loop, and a 2-process gloo step
+against the 1-process step on the concatenated batch.
 
 The data is a packed set (``data/packed.py:write_packed``) of 3 clips of 4
 frames at 48 x 48 (the compression eval: 2 clips of 3 frames at 176 x 176,
@@ -22,6 +23,7 @@ its last bits).
 
 import ast
 import glob
+import json
 import multiprocessing as mp
 import os
 import re
@@ -178,9 +180,10 @@ def test_cli_train_writes_checkpoints_and_resumes_adam(trained):
     for f in ("models/2_G.msgpack", "models/latest_G.msgpack", "models/best_G.msgpack",
               "training_state/2.state", "models/3_G.msgpack", "training_state/3.state"):
         assert (exp / f).exists(), f
-    assert checkpoint.load_training_state(str(exp / "training_state" / "2.state"))["opt_state"]["count"] == 2
+    state2 = checkpoint.load_training_state(str(exp / "training_state" / "2.state"))
+    assert checkpoint.adam_moments(state2["opt_state"])[0] == 2
     state3 = checkpoint.load_training_state(str(exp / "training_state" / "3.state"))
-    assert state3["iter"] == 3 and state3["opt_state"]["count"] == 3
+    assert state3["iter"] == 3 and checkpoint.adam_moments(state3["opt_state"])[0] == 3
     msgs = _messages(trained["second"])
     assert "Resuming training from epoch: 1, iter: 2." in msgs
     assert "Start training from epoch: 1, iter: 2" in msgs
@@ -256,6 +259,53 @@ def test_cli_test_compression_log_lines_parse(trained, monkeypatch):
         hits = re.findall(_regex(fmt), text)
         assert len(hits) == 2, (prefix, hits)
     assert "[rate: zlib]" in text
+
+
+# (niter, --profile-at, --profile-steps, the iteration whose step raises):
+# the window closes after its last step; niter comes first; a step inside
+# the window raises
+PROFILE_CASES = {"window": (4, 2, 2, None), "niter": (3, 2, 5, None), "raises": (4, 2, 2, 3)}
+
+
+@pytest.mark.parametrize("case", sorted(PROFILE_CASES))
+def test_cli_train_profile_window_is_closed(trained, monkeypatch, case):
+    """``--profile-at`` on the tiny run: the trace is written whole and
+    ``launches.json`` beside it on each way out of the window; the CPU run
+    logs no ``gpu_step_s`` (its timer's clock is the host's)."""
+    niter, at, steps, boom = PROFILE_CASES[case]
+    tmp = trained["tmp"] / f"profile_{case}"
+    tmp.mkdir()
+    monkeypatch.chdir(tmp)
+    if boom is not None:
+        step = RescaleModel.optimize_parameters
+
+        def raising(self, current_step, *args, **kw):
+            if current_step == boom:
+                raise RuntimeError("inside the window")
+            return step(self, current_step, *args, **kw)
+
+        monkeypatch.setattr(RescaleModel, "optimize_parameters", raising)
+    yml = _train_yaml(tmp, trained["data"], name="tiny_profile", train={"niter": niter, "val_freq": 100},
+                      logger={"save_checkpoint_freq": 100})
+    argv = ["-opt", yml, "--device", "cpu", "--profile-at", str(at), "--profile-steps", str(steps),
+            "--profile-dir", str(tmp / "prof")]
+    if boom is None:
+        cli_train.main(argv)
+    else:
+        with pytest.raises(RuntimeError, match="inside the window"):
+            cli_train.main(argv)
+    with open(tmp / "prof" / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    with open(tmp / "prof" / "launches.json") as f:
+        window = json.load(f)
+    assert "aten::conv2d" in names and sorted(os.listdir(tmp / "prof")) == ["launches.json", "trace.json"]
+    last = at + steps - 1 if case == "window" else None
+    assert window["first_iter"] == at and window["last_iter"] == last and window["counts"]["B1"] == 0
+    msgs = _messages(_log(tmp / "experiments" / "tiny_profile", "train_tiny_profile"))
+    assert f"profiler: trace started at iter {at} -> {tmp / 'prof'}" in msgs
+    assert ("profiler: trace closed at iter 3" if case == "window" else "profiler: trace closed on loop exit") in msgs
+    lines = [m for m in msgs if m.startswith("<epoch:")]
+    assert len(lines) == (niter if boom is None else boom - 1) and not any("gpu_step_s" in m for m in lines)
 
 
 # ---------------------------------------------------------------------------

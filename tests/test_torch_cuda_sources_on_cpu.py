@@ -11,6 +11,8 @@ Limits, relative to max |plain|: 1e-5 in fp32 (the same fp32 products in
 another order), 3e-2 in bf16 (8 bits of mantissa, rounded at other places).
 """
 
+import contextlib
+import os
 import shutil
 
 import numpy as np
@@ -40,11 +42,28 @@ SHAPE = (2, 2, 9, 21)   # two clips; ragged tiles both ways (the weight gradient
 MODE_SHAPE = (1, 2, 7, 11)
 
 
+@contextlib.contextmanager
+def _two_cores():
+    """The rehearsal runs a block's threads as ``std::thread``s that meet at
+    every barrier; beside the other test workers they take turns with them on
+    every core and slow the whole run (a case of 11 s alone took 123 s there).
+    Held to two cores, they leave the other workers theirs."""
+    if not hasattr(os, "sched_setaffinity"):
+        yield
+        return
+    cores = os.sched_getaffinity(0)
+    os.sched_setaffinity(0, sorted(cores)[:2])
+    try:
+        yield
+    finally:
+        os.sched_setaffinity(0, cores)
+
+
 @pytest.fixture(scope="module")
 def cpu_built(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: the CUDA sources cannot be compiled for the CPU")
-    with cpu_rehearsal.cpu_kernels(tmp_path_factory.mktemp("cpu_kernels")):
+    with cpu_rehearsal.cpu_kernels(tmp_path_factory.mktemp("cpu_kernels")), _two_cores():
         yield
 
 
