@@ -99,7 +99,14 @@ from selfc_tpu_torch.ops import chain_variants as cv
 from selfc_tpu_torch.ops import deform as df
 from selfc_tpu_torch.ops import dense_chain as dc
 from selfc_tpu_torch.ops import temporal_conv as tc
-from selfc_tpu_torch.ops.conv import conv2d
+from selfc_tpu_torch.models.agg import GlobalAgg
+from selfc_tpu_torch.models.blocks import D2DT
+from selfc_tpu_torch.models.stp import _PW
+from selfc_tpu_torch.ops.conv import conv2d, pointwise
+from selfc_tpu_torch.ops.quantize import quantize_ste
+from selfc_tpu_torch.ops.resize import adaptive_avg_pool2d
+from selfc_tpu_torch.parallel import spatial
+from selfc_tpu_torch.parallel.mesh import Replicas, make_mesh
 from selfc_tpu_torch.tools import profile_step
 from selfc_tpu_torch.tools.make_synth_data import render_clip, render_val_set, to_uint8
 from selfc_tpu_torch.tools.precision_delta import quality_options
@@ -335,8 +342,25 @@ N_GAN_STEPS = 2                  # 'ragan' steps on the main path (steps 1 and 2
 GAN_GRAD_L2_LIMIT = 1e-4         # G's and D's whole gradient, kernel path against plain path
 GAN_STATS_L2_LIMIT = 1e-4        # D's running statistics after the step, the same
 GAN_CLI_STEPS, GAN_CLI_SAVE = 20, 10   # cli.train on the GAN YAML: a save at 10, resumed from it to 20
+# the device mesh (parallel/mesh.py): eval split over the dp rows, the image
+# width split over a row's cards (mesh_sp, parallel/spatial.py)
+MESH_GOP_BATCH = 2               # 10 frames, gop 7: one call of 2 GOP groups, split 1 + 1 over dp 2
+# dp 2 against dp 1, max abs of HR / LR / latents / sample: measured 7.2e-7 (HR).
+# The encode is the same bits; in the decode only GlobalAgg's attention (its
+# cuBLAS products, whose kernel depends on the batch: 1.5e-8..3e-8) differs
+# between a GOP group decoded alone and beside another (eval_dp_batch_dependence)
+MESH_DP_LIMIT = 1e-6
+MESH_SP_Y_LIMIT = 1e-4           # sp 2 against sp 1: the encode's latent, max abs
+MESH_SP_HR_LIMIT = HR_LIMIT      # sp 2 against sp 1: HR decoded from one lr and eps, max abs
+MESH_LOSS_REL_LIMIT = 1e-5       # sp 2 against sp 1: the step's loss, relative
+MESH_GRAD_L2_LIMIT = 1e-4        # ... the whole gradient, relative l2 (TRAIN_GRAD_L2_LIMIT)
+MESH_GRAD_REL_LIMIT = 1e-3       # ... each parameter's gradient, relative l2 (zero-by-construction ones out)
+# ... each parameter's update, relative l2: Adam's first update is ~lr * sign(g),
+# so an element whose gradient is at rounding level may move the other way
+MESH_UPDATE_L2_LIMIT = 1e-2
+MESH_GUARD_LIMIT = 1e-4          # a wrapper on cuda:1 against its plain version there, of max |ref|
 ALL_PHASES = ("serve", "quality", "train", "codec", "codec_train", "deart", "subnets", "haar", "variants", "gan",
-              "cli", "profile")
+              "mesh", "cli", "profile")
 
 
 # {library name: path} built from --parent's sources; empty: no comparison
@@ -585,16 +609,21 @@ def train_options(network=NETWORK_G, **train):
     })
 
 
+def serve_clip(frames=10, seed=1):
+    """A smooth synthetic (1, frames, 576, 704, 3) clip in [0,1]: a
+    low-frequency pattern plus noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, CLIP_HW[0]), np.linspace(0, 1, CLIP_HW[1]), indexing="ij")
+    pattern = [0.5 + 0.3 * np.sin(6 * xx + 0.3 * t)[..., None] * np.cos(4 * yy + 0.2 * t)[..., None]
+               * np.array([1.0, 0.8, 0.6]) for t in range(frames)]
+    clip = np.clip(np.stack(pattern)[None] + rng.normal(0, 0.02, (1, frames, *CLIP_HW, 3)), 0, 1)
+    return clip.astype(np.float32)
+
+
 def phase_roundtrip(device):
     """Full-width serve of two GOP requests, then one downscale and one
     upscale request; the launch counts of exactly these calls are kept."""
-    rng = np.random.default_rng(1)
-    # a smooth synthetic clip in [0,1]: low-frequency pattern plus noise
-    yy, xx = np.meshgrid(np.linspace(0, 1, CLIP_HW[0]), np.linspace(0, 1, CLIP_HW[1]), indexing="ij")
-    frames = [0.5 + 0.3 * np.sin(6 * xx + 0.3 * t)[..., None] * np.cos(4 * yy + 0.2 * t)[..., None]
-              * np.array([1.0, 0.8, 0.6]) for t in range(10)]
-    clip = np.clip(np.stack(frames)[None] + rng.normal(0, 0.02, (1, 10, *CLIP_HW, 3)), 0, 1)
-    clip = clip.astype(np.float32)
+    clip = serve_clip()
 
     model = RescaleModel(serve_options(), device=device, rng_seed=0)
     tree = seeded_tree(model.net, 2)
@@ -4282,6 +4311,325 @@ def phase_aux(device):
          mse=float(((dec - frames) ** 2).mean()), s=seconds)
 
 
+def launches_by_card():
+    """B1, B3 and B2 calls by card since the last reset."""
+    out = {}
+    for (entry, index), n in dc.launches_by_device.items():
+        name = {"forward": "B1", "feats": "B3", "bwd": "B2"}[entry]
+        out.setdefault(f"cuda:{index}", {})[name] = n
+    return out
+
+
+def wrapper_calls(device, seed=91):
+    """One differentiable call of each kernel wrapper on ``device`` at the
+    gradient check's shape (B1 with B3 recomputing its features and B2, B4,
+    B5, B6, B7, B8, B9): ``{name: [output, gradient of every input]}``, the loss the
+    sum of the outputs' squares. The wrappers are read from their modules at
+    call time, so ``plain_chain_on_card`` routes the same calls to the
+    plain versions."""
+    rng = np.random.default_rng(seed)
+
+    def run(fn, *inputs):
+        inputs = [t.detach().requires_grad_(True) for t in inputs]
+        outs = fn(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        grads = torch.autograd.grad(sum((o.float() ** 2).sum() for o in outs), inputs, allow_unused=True)
+        return [o.detach() for o in outs] + [g for g in grads if g is not None]
+
+    def chain(C, c_out, gc=32):
+        x, ws, bs, w5, b5, a, m = make_chain(rng, C, c_out, GRAD_SHAPE, device, gc=gc)
+        return x, a, m, *ws, *bs, w5, b5
+
+    out = {}
+    out["B1+B3+B2 dense_chain_t_ep"] = run(
+        lambda x, a, m, *p: dc.dense_chain_t_ep(x, p[:4], p[4:8], p[8], p[9], "mul_add", 1.0, a, m,
+                                                save_feats=False), *chain(48, 3))
+    x, _, _, *p = chain(24, 3)
+    out["B4 fused_dense_spatial"] = run(lambda x, *p: dc.fused_dense_spatial(x, p[:4], p[4:8]), x, *p[:8])
+    xd, off, mask, w, _ = make_deform(rng, (2, 13, 21), 5, 3, device)
+    out["B5 deform_conv2d"] = run(lambda *t: df.deform_conv2d(*t), xd, off, mask, w)
+    xt, wt, bt, _ = make_temporal_conv(rng, (1, 3, 5, 7), 131, 48, device)
+    out["B6 temporal_conv3_fused"] = run(lambda x, w, b: tc.temporal_conv3_fused(x, w, b, 0.2), xt, wt, bt)
+    h, g = chain(3, 48), chain(3, 48)
+    out["B7 fused_hg_pair"] = run(
+        lambda x, x2, *p: cv.fused_hg_pair(x, x2, p[:4], p[4:8], p[8], p[9], p[10:14], p[14:18], p[18], p[19],
+                                           1.0, False), h[0], h[1], *h[3:], *g[3:])
+    x, _, _, *p = chain(64, 64)
+    out["B8 dense_chain_v3"] = run(lambda x, *p: cv.dense_chain_v3(x, p[:4], p[4:8], p[8], p[9]), x, *p)
+    out["B9 dense_chain_ride"] = run(
+        lambda x, a, m, *p: cv.dense_chain_ride(x, p[:4], p[4:8], p[8], p[9], "add", 1.0, a, m), *chain(48, 3))
+    return out
+
+
+def wrapper_counts():
+    return {"B1": dc.launches, "B3": dc.launches_feats, "B2": dc.launches_bwd, "B4": dc.launches_spatial,
+            "B5": df.launches + df.launches_bwd, "B6": sum(tc.launches_by_path.values()),
+            "B7": cv.launches_hg, "B8": cv.launches_v3, "B9": cv.launches_ride}
+
+
+def _batch_slice(v, j, n2):
+    """Batch entry j of every tensor in ``v`` (nested tuples, lists, dicts)
+    whose axis 0 is ``n2`` (a batch of two)."""
+    if torch.is_tensor(v):
+        return v[j * (n2 // 2):(j + 1) * (n2 // 2)] if v.dim() and v.shape[0] == n2 else v
+    if isinstance(v, (tuple, list)):
+        return type(v)(_batch_slice(u, j, n2) for u in v)
+    if isinstance(v, dict):
+        return {k: _batch_slice(u, j, n2) for k, u in v.items()}
+    return v
+
+
+def _first_tensor(v):
+    while isinstance(v, (tuple, list)):
+        v = v[0]
+    return v
+
+
+def batch_dependence(net, lr, eps):
+    """Where ``net.decode`` on one card depends on the batch it runs in (what
+    a dp split changes): ``lr`` / ``eps`` hold two GOP groups on axis 0. The
+    decode of both is recorded call by call at every D2DT chain, GlobalAgg
+    and 1x1 tail; each call is run again on each group alone, from the same
+    inputs, and the two outputs compared. GlobalAgg is also taken apart:
+    its pool, its attention and its mix's 1x1 product and einsum, each from
+    the same inputs. Returns the calls whose output differs, in call order,
+    and the whole decode's HR difference."""
+    calls = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, kwargs, out, name=name: calls.append((name, mod, args, kwargs, _first_tensor(out))),
+        with_kwargs=True) for name, m in net.named_modules() if isinstance(m, (D2DT, GlobalAgg, _PW))]
+    with torch.no_grad():
+        try:
+            hr2 = net.decode(lr, eps=eps)[0]
+        finally:
+            for h in hooks:
+                h.remove()
+        return _batch_dependence(net, lr, eps, hr2, calls)
+
+
+def _batch_dependence(net, lr, eps, hr2, calls):
+    diff = lambda a, b: (a.float() - b.float()).abs().max().item()  # noqa: E731
+    hr = max(diff(hr2[j:j + 1], net.decode(lr[j:j + 1], eps=eps[j:j + 1])[0]) for j in (0, 1))
+    differ, agg = [], {}
+    for i, (name, mod, args, kwargs, out) in enumerate(calls):
+        n2 = args[0].shape[0]
+        d = max(diff(_batch_slice(out, j, n2), _first_tensor(mod(*_batch_slice(args, j, n2),
+                                                                  **_batch_slice(kwargs, j, n2))))
+                for j in (0, 1))
+        if d > 0:
+            differ.append([i, name, type(mod).__name__, d])
+        if isinstance(mod, GlobalAgg):
+            x = args[0]
+            pooled = adaptive_avg_pool2d(x, (32, 32))
+            attn = mod.attention(pooled)
+            proj = pointwise(x, mod.proj1_w, mod.proj1_b)
+            mixed = torch.einsum("bihwc,bij->bjhwc", proj, attn)
+            agg[name] = {step: max(diff(whole[j:j + 1], alone(j)) for j in (0, 1)) for step, whole, alone in (
+                ("pool", pooled, lambda j: adaptive_avg_pool2d(x[j:j + 1], (32, 32))),
+                ("attention", attn, lambda j: mod.attention(pooled[j:j + 1])),
+                ("proj1_matmul", proj, lambda j: pointwise(x[j:j + 1], mod.proj1_w, mod.proj1_b)),
+                ("mix_einsum", mixed, lambda j: torch.einsum("bihwc,bij->bjhwc", proj[j:j + 1], attn[j:j + 1])))}
+    return {"hr_max_abs_diff": hr, "calls": len(calls), "differing_calls": differ, "global_agg_steps": agg}
+
+
+def phase_mesh(device, worst_stripe, smi):
+    """``--phases mesh``: the device mesh (``parallel/mesh.py``) on two mesh
+    positions: distinct cards where the machine has two or more, else
+    ``cuda:0`` twice (never the CPU).
+    - eval over dp: the published 4x net on 10 x 576 x 704 with gop_batch 2
+      (one call of 2 GOP groups, split 1 + 1), and the codec's ``test()`` on
+      the 13 x 1080 x 1920 clip (its batched encode and decode calls split),
+      dp 2 against dp 1, and which calls of the rescaling decode depend on
+      the batch they run in (``batch_dependence``);
+    - the width split (``mesh_sp``, ``parallel/spatial.py``): one GOP at 576
+      x 704 through ``test()``, and the fp32 packed training step on
+      (8,7,144,144,3) from one set of weights and one eps (and once with
+      ``save_chain_feats: false``: B3), sp 2 against sp 1;
+    - B1, B3 and B2 calls by card; the GOP and the step timed with CUDA
+      events; the kernels-line rows of B1, B3 and B2 at the haloed,
+      W-packed shard of the sp 2 step;
+    - on two or more cards, one call of each kernel wrapper on cuda:1 while
+      cuda:0 is current, against its plain version there."""
+    n_cards = torch.cuda.device_count()
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1 if n_cards >= 2 else 0)
+    one = make_mesh(dp=1, sp=1, devices=[c0])
+    meshes = {"dp2": make_mesh(dp=2, sp=1, devices=[c0, c1]), "sp2": make_mesh(dp=1, sp=2, devices=[c0, c1])}
+    line = {"cards": meshes["dp2"].cards(), "device_count": n_cards, "nvidia_smi": smi,
+            "meshes": {k: repr(m) for k, m in meshes.items()}}
+
+    # ---- eval over dp: the rescaling net ----
+    clip = serve_clip()
+    tree, out, counts = None, {}, {}
+    for name, mesh in (("dp1", one), ("dp2", meshes["dp2"])):
+        model = RescaleModel(serve_options(gop_batch=MESH_GOP_BATCH), mesh=mesh, rng_seed=0)
+        tree = tree if tree is not None else seeded_tree(model.net, 2)
+        model.load_jax_params(tree)
+        check(model.feed_data({"GT": clip}) == 10, "feed_data returns the clip length")
+        model.generator.manual_seed(5)
+        dc.reset_launch_counts()
+        model.test(gop=7)
+        counts[name] = launches_by_card()
+        out[name] = (model.fake_H, model.forw_L, model.forw_H, model.sample_H)
+        line.setdefault("eval_dp_test_ms", {})[name] = time_cuda(lambda m=model: m.test(gop=7), iters=3, warmup=1)
+        del model
+    errs = [float(np.abs(a - b).max()) for a, b in zip(out["dp1"], out["dp2"])]
+    same = all(np.array_equal(a, b) for a, b in zip(out["dp1"], out["dp2"]))
+    # what differs: the decode of the call's two GOP groups together, and alone, on cuda:0
+    model = RescaleModel(serve_options(), mesh=one, rng_seed=0)
+    model.load_jax_params(tree)
+    model.feed_data({"GT": clip})
+    x = model.real_H
+    chunk = torch.cat([x[:, :7], x[:, [7, 8, 9, 9, 9, 9, 9]]], dim=0)
+    with torch.no_grad():
+        lr = quantize_ste(model._encode(chunk)[..., :3].contiguous())
+    eps = torch.randn(model.net.eps_shape(lr.shape), generator=torch.Generator(c0).manual_seed(9), device=c0)
+    line["eval_dp_batch_dependence"] = batch_dependence(model.net, lr, eps)
+    del model, x, chunk, lr, eps
+    b1 = {k: sum(c.get("B1", 0) for c in v.values()) for k, v in counts.items()}
+    check(max(errs) <= MESH_DP_LIMIT and b1["dp2"] == 2 * b1["dp1"],
+          f"rescaling test() over dp 2 against dp 1: max abs {errs}, B1 calls {b1}")
+    line["eval_dp"] = {"clip": list(clip.shape), "gop_batch": MESH_GOP_BATCH, "limit": MESH_DP_LIMIT,
+                       "max_abs_diff_hr_lr_latent_sample": errs, "same_bits": same, "launches_by_card": counts}
+    del out, clip
+
+    # ---- eval over dp: the codec ----
+    cclip, ctree, cout, ccounts = uvg_clip(), None, {}, {}
+    for name, mesh in (("dp1", one), ("dp2", meshes["dp2"])):
+        model = CodecModel(codec_options(), mesh=mesh, rng_seed=0)
+        ctree = ctree if ctree is not None else seeded_tree(model.net, 41)
+        model.load_jax_params(ctree)
+        model.feed_data({"GT": cclip})
+        dc.reset_launch_counts()
+        t0 = time.time()
+        model.test()
+        torch.cuda.synchronize()
+        cout[name] = (model.fake_H, np.asarray(model.forw_L), model.video_bpp, time.time() - t0)
+        ccounts[name] = launches_by_card()
+        del model
+    cerrs = [float(np.abs(a - b).max()) for a, b in zip(cout["dp1"][:2], cout["dp2"][:2])]
+    csame = all(np.array_equal(a, b) for a, b in zip(cout["dp1"][:2], cout["dp2"][:2]))
+    check(max(cerrs) <= MESH_DP_LIMIT and cout["dp1"][2] == cout["dp2"][2],
+          f"codec test() over dp 2 against dp 1: max abs {cerrs}, bpp {cout['dp1'][2]} / {cout['dp2'][2]}")
+    line["codec_dp"] = {"clip": list(cclip.shape), "limit": MESH_DP_LIMIT, "max_abs_diff_hr_lr": cerrs,
+                        "same_bits": csame, "video_bpp": cout["dp1"][2], "rate_source": h265.rate_source(None),
+                        "test_s": {k: v[3] for k, v in cout.items()}, "launches_by_card": ccounts}
+    del cout, cclip
+
+    # ---- the width split: one GOP through test() ----
+    gop = serve_clip(frames=7)
+    served, scounts = {}, {}
+    for name, mesh in (("sp1", one), ("sp2", meshes["sp2"])):
+        model = RescaleModel(serve_options(gop_batch=1), mesh=mesh, rng_seed=0)
+        model.load_jax_params(tree)
+        model.feed_data({"GT": gop})
+        model.generator.manual_seed(7)
+        dc.reset_launch_counts()
+        model.test(gop=7)
+        scounts[name] = launches_by_card()
+        served[name] = model
+    a, b = served["sp1"], served["sp2"]
+    y_err = float(np.abs(a.forw_H - b.forw_H).max())
+    lr_flips = int((a.forw_L != b.forw_L).sum())
+    # HR from one lr and one eps (a level that flipped would compare two decodes)
+    lr = torch.from_numpy(a.forw_L).to(c0)
+    eps = torch.randn(a.net.eps_shape(lr.shape), generator=torch.Generator(c0).manual_seed(8), device=c0)
+    hr_a = a._decode_on(one.devices, Replicas(), lr, eps)[0]
+    hr_b = b._decode_on(meshes["sp2"].devices, Replicas(), lr, eps)[0]
+    hr_err = (hr_a - hr_b).abs().max().item()
+    check(y_err <= MESH_SP_Y_LIMIT and hr_err <= MESH_SP_HR_LIMIT and np.isfinite(b.fake_H).all(),
+          f"test() with the width over sp 2 against sp 1: latent {y_err}, HR from one lr {hr_err}")
+    line["eval_sp"] = {"clip": list(gop.shape), "limits": [MESH_SP_Y_LIMIT, MESH_SP_HR_LIMIT],
+                       "latent_max_abs_diff": y_err, "lr_levels_differing": lr_flips,
+                       "hr_from_one_lr_max_abs_diff": hr_err,
+                       "test_hr_max_abs_diff": float(np.abs(a.fake_H - b.fake_H).max()),
+                       "launches_by_card": scounts,
+                       "gop_ms": {k: time_cuda(lambda m=m: m.test(gop=7), iters=5, warmup=1)
+                                  for k, m in served.items()}}
+    del served, a, b, hr_a, hr_b, gop
+
+    # ---- the width split: the training step ----
+    batch = train_batch()
+    lat = (TRAIN_SHAPE[0], TRAIN_SHAPE[1], TRAIN_SHAPE[2], TRAIN_SHAPE[3], 3)
+    steps, stripes = {}, {}
+    eps = None
+    for name, mesh, extra in (("sp1", one, {}), ("sp2", meshes["sp2"], {}),
+                              ("sp2_recompute", meshes["sp2"], {"save_chain_feats": False})):
+        model = RescaleModel(train_options(**extra), mesh=mesh, rng_seed=0)
+        model.load_jax_params(tree)
+        check(model.feed_data({"GT": batch}) == TRAIN_SHAPE[1], "feed_data returns the clip length")
+        if eps is None:
+            eps = torch.randn(model.net.eps_shape(lat), generator=torch.Generator(c0).manual_seed(21), device=c0)
+        before = params_of(model)
+        dc.reset_launch_counts()
+        model.optimize_parameters(0, eps=eps)
+        torch.cuda.synchronize()
+        stripes[name] = stripe_counts()
+        steps[name] = {"loss": model.get_current_log()["loss"], "grads": grads_of(model), "before": before,
+                       "after": params_of(model), "launches_by_card": launches_by_card(),
+                       "ms": time_cuda(lambda m=model: m.optimize_parameters(1, eps=eps), iters=5, warmup=1)}
+        del model
+    ref = steps["sp1"]
+    top = max(g.abs().max().item() for g in ref["grads"].values())
+    live = [k for k, g in ref["grads"].items() if g.abs().max().item() >= TRAIN_GRAD_ZERO * top]
+    rows = {}
+    for name in ("sp2", "sp2_recompute"):
+        st = steps[name]
+        upd = {k: rel_l2(st["after"][k] - st["before"][k], ref["after"][k] - ref["before"][k]) for k in live}
+        rows[name] = {"loss_rel_diff": abs(st["loss"] - ref["loss"]) / abs(ref["loss"]),
+                      "grad_rel_l2": grads_rel_l2({k: st["grads"][k] for k in live}, {k: ref["grads"][k] for k in live}),
+                      "worst_param_grad_rel_l2": max(rel_l2(st["grads"][k], ref["grads"][k]) for k in live),
+                      "worst_param_update_rel_l2": max(upd.values()),
+                      "launches_by_card": st["launches_by_card"], "step_ms": st["ms"]}
+        r = rows[name]
+        check(r["loss_rel_diff"] <= MESH_LOSS_REL_LIMIT and r["grad_rel_l2"] <= MESH_GRAD_L2_LIMIT
+              and r["worst_param_grad_rel_l2"] <= MESH_GRAD_REL_LIMIT
+              and r["worst_param_update_rel_l2"] <= MESH_UPDATE_L2_LIMIT,
+              f"the training step with the width over sp 2 against sp 1 ({name}): {r}")
+    n_b1 = lambda st: sum(c.get("B1", 0) for c in st["launches_by_card"].values())  # noqa: E731
+    n_b3 = sum(c.get("B3", 0) for c in steps["sp2_recompute"]["launches_by_card"].values())
+    check(n_b1(steps["sp2"]) == 2 * n_b1(ref) and n_b3 == n_b1(steps["sp2_recompute"]),
+          f"B1 calls a step sp 2 / sp 1: {n_b1(steps['sp2'])} / {n_b1(ref)}, B3 recomputing {n_b3}")
+    w = TRAIN_SHAPE[3] // 2 + spatial.HALO     # an LR shard of the sp 2 step with its halo
+    P = dc.pick_pack_w(TRAIN_SHAPE[0], w)
+    shard = (TRAIN_SHAPE[0] // P, *TRAIN_SHAPE[1:3], P * w)
+    line["train_sp"] = {"batch": list(batch.shape), "limits": [MESH_LOSS_REL_LIMIT, MESH_GRAD_L2_LIMIT,
+                                                               MESH_GRAD_REL_LIMIT, MESH_UPDATE_L2_LIMIT],
+                        "sp1_step_ms": ref["ms"], "sp1_launches_by_card": ref["launches_by_card"],
+                        "shard_packed": list(shard), "stripe_w": w if P > 1 else 0, **rows}
+    del steps, ref, batch
+
+    # ---- the kernels at the haloed shard of the sp 2 step ----
+    counts = {"forward_stripe": stripes["sp2"]["forward_stripe"],
+              "backward_stripe": stripes["sp2"]["backward_stripe"],
+              "feats_stripe": stripes["sp2_recompute"]["feats_stripe"]}
+    kernels = chain_rows(device, "train_sp2", shard, w if P > 1 else 0, [(C, c_out, 32) for C, c_out in PATH_WIDTHS],
+                         [(C, 32) for C in CHAIN_C], counts, worst_stripe)
+
+    # ---- every wrapper on cuda:1 while cuda:0 is current ----
+    if n_cards >= 2:
+        with torch.cuda.device(c0):
+            before = wrapper_counts()
+            got = wrapper_calls(c1)
+            torch.cuda.synchronize(c1)
+            launched = {k: v - before[k] for k, v in wrapper_counts().items()}
+            with plain_chain_on_card():
+                want = wrapper_calls(c1)
+        guard = {}
+        for name in got:
+            on = {str(t.device) for t in got[name]}
+            guard[name] = {"device": sorted(on), "rel_err": max(
+                (u.float() - v.float()).abs().max().item() / max(v.float().abs().max().item(), 1e-30)
+                for u, v in zip(got[name], want[name]))}
+            check(on == {str(c1)} and guard[name]["rel_err"] <= MESH_GUARD_LIMIT,
+                  f"{name} on cuda:1 while cuda:0 is current: {guard[name]}")
+        check(all(n > 0 for n in launched.values()), f"every wrapper launched its kernel on cuda:1: {launched}")
+        line["device_guard"] = {"limit": MESH_GUARD_LIMIT, "launches": launched, "calls": guard}
+    else:
+        line["device_guard"] = "not measured: one card"
+    emit("mesh", **line)
+    return kernels
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -4294,7 +4642,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
-    device = torch.device("cuda")
+    # every phase but mesh runs on the first card alone (an unindexed "cuda"
+    # would put a model's test() over every card the machine has)
+    device = torch.device("cuda", 0)
     # fp32 references stay fp32: no TF32 in the library's convolutions or products
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4381,6 +4731,8 @@ def main():
     if "gan" in want:
         phase_gan(device)
         phase_aux(device)
+    if "mesh" in want:
+        kernels += phase_mesh(device, worst_stripe, smi)
 
     if want & {"cli", "profile"}:
         work = Path(tempfile.mkdtemp(prefix="selfc_cli_"))

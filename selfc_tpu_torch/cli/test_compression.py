@@ -20,6 +20,7 @@ import torch
 
 from .. import config as option
 from ..codec.h265 import codec_backend, rate_source
+from ..parallel.mesh import model_mesh
 from ..train.codec_model import CodecModel
 from ..utils.logger import save_img, setup_logger, tensor2img
 from ..utils.metrics import ms_ssim, psnr, ssim
@@ -69,7 +70,9 @@ def main(argv=None):
                        "NOT comparable to the golden logs.")
 
     loaders = eval_loaders(opt, logger)
-    model = CodecModel(opt, device=args.device)
+    mesh = model_mesh(args.device, opt["mesh_sp"] or 1)
+    logger.info("mesh: %s", mesh)
+    model = CodecModel(opt, mesh=mesh)
     dev = model.device
     timer = EvalTimer(dev)
 

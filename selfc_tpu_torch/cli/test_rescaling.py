@@ -25,6 +25,7 @@ import torch
 from .. import config as option
 from ..data import create_dataloader, create_dataset
 from ..eval.rescaling import run_eval
+from ..parallel.mesh import model_mesh
 from ..train.rescale_model import RescaleModel
 from ..utils.logger import setup_logger
 from ..utils.profile import EvalTimer
@@ -59,7 +60,9 @@ def main(argv=None):
                  screen=True, tofile=True)
     logger = logging.getLogger("base")
     loaders = eval_loaders(opt, logger)
-    model = RescaleModel(opt, device=args.device)
+    mesh = model_mesh(args.device, opt["mesh_sp"] or 1)
+    logger.info("mesh: %s", mesh)
+    model = RescaleModel(opt, mesh=mesh)
     timer = EvalTimer(model.device)
     try:
         results = run_eval(opt, loaders, model, save_images=not args.no_images, timer=timer)

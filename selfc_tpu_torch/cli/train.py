@@ -52,6 +52,7 @@ from .. import config as option
 from ..data import DistIterSampler, create_dataloader, create_dataset
 from ..eval.rescaling import cal_metric
 from ..parallel.dist import init_distributed
+from ..parallel.mesh import model_mesh
 from ..train import create_model
 from ..train.checkpoint import load_training_state
 from ..utils.logger import setup_logger
@@ -116,7 +117,7 @@ def main(argv=None):
     opt = option.parse(args.opt, is_train=True)
 
     if args.launcher != "none":
-        rank, world_size = init_distributed(args.device)
+        rank, world_size = init_distributed(args.device, sp=opt["mesh_sp"] or 1)
     else:
         rank, world_size = 0, 1
     opt["dist"] = world_size > 1
@@ -167,7 +168,10 @@ def main(argv=None):
     if train_loader is None:
         raise ValueError("no train dataset in config")
 
-    model = create_model(opt, device=args.device, rng_seed=seed)
+    # the process's cards, mesh_sp of them to a row (JAX train.py: make_mesh(sp=mesh_sp))
+    mesh = model_mesh(args.device, opt["mesh_sp"] or 1)
+    logger.info("mesh: %s", mesh)
+    model = create_model(opt, device=args.device, rng_seed=seed, mesh=mesh)
     if resume_state is not None:
         # train.resume_optimizer: false mimics the reference, which restores no optimizer state
         restore_opt = (opt["train"] or {}).get("resume_optimizer")

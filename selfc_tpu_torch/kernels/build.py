@@ -11,6 +11,7 @@ with the compiler's output; nothing falls back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,6 +29,19 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+def on_device(t):
+    """The CUDA runtime's current device set to ``t``'s around a launch:
+    a library launches on the current device, and sets its kernels'
+    attributes and reads its SM count there, whatever stream it is given.
+    Nothing for a CPU tensor (the g++ rehearsal drives the launch functions
+    with CPU tensors)."""
+    if not t.is_cuda:
+        return contextlib.nullcontext()
+    import torch
+
+    return torch.cuda.device(t.device)
 
 
 def kernel_names() -> list[str]:

@@ -60,21 +60,27 @@ class GlobalAgg(nn.Module):
         self.proj3_b = nn.Parameter(torch_default_b(c)((c,), g))
 
     def forward(self, x):
-        B, T, H, W, C = x.shape
-        dt = x.dtype
-        x_proj1 = pointwise(x, self.proj1_w.to(dt), self.proj1_b.to(dt))
+        return self.mix(x, self.attention(adaptive_avg_pool2d(x, (32, 32))))
 
-        pooled = adaptive_avg_pool2d(x, (32, 32)).reshape(B, T, 32 * 32, C)
-        tokens = (torch.einsum("btpc,po->btc", pooled, self.fc_w.to(dt))
+    def attention(self, pooled):
+        """The pooled map ``(B, T, 32, 32, C)`` -> the ``(B, T, T)``
+        attention weights. The image width split (``parallel/spatial.py``)
+        pools by shards and runs this on the whole pooled map."""
+        B, T, _, _, C = pooled.shape
+        dt = pooled.dtype
+        tokens = (torch.einsum("btpc,po->btc", pooled.reshape(B, T, 32 * 32, C), self.fc_w.to(dt))
                   + self.fc_b.to(dt)[0])  # (B,T,C)
         q = tokens @ self.proj2_w.to(dt) + self.proj2_b.to(dt)
         k = tokens @ self.proj3_w.to(dt) + self.proj3_b.to(dt)
         # the softmax stays fp32 (T x T is tiny; exp in bf16 costs accuracy)
         logits = (q @ k.transpose(1, 2)).float() / C
-        attn = torch.softmax(logits, dim=-1).to(dt)  # (B,T,T)
-        # out frame j = x_j + sum_i attn[i, j] * proj1(x_i)
-        weighted = torch.einsum("bihwc,bij->bjhwc", x_proj1, attn)
-        return x + weighted
+        return torch.softmax(logits, dim=-1).to(dt)  # (B,T,T)
+
+    def mix(self, x, attn):
+        """out frame j = x_j + sum_i attn[i, j] * proj1(x_i); pointwise in space."""
+        dt = x.dtype
+        x_proj1 = pointwise(x, self.proj1_w.to(dt), self.proj1_b.to(dt))
+        return x + torch.einsum("bihwc,bij->bjhwc", x_proj1, attn)
 
 
 class DeformConvAgg(nn.Module):

@@ -208,11 +208,12 @@ def _hg_cuda(x, x2, hws, hbs, hw5, hb5, gws, gbs, gw5, gb5, clamp, rev):
     feats = torch.empty((2, B, T, H, W, 4 * gcp), dtype=x.dtype, device=x.device)
     y2 = torch.empty((B, T, H, W, c_out), dtype=x.dtype, device=x.device)
     se = torch.empty_like(y2)
-    err = lib.selfc_chain_hg_forward(
-        x.data_ptr(), x2.data_ptr(), *_ptrs(hws), *_ptrs(hbs), hw5.data_ptr(), hb5.data_ptr(),
-        *_ptrs(gws), *_ptrs(gbs), gw5.data_ptr(), gb5.data_ptr(), feats[0].data_ptr(),
-        feats[1].data_ptr(), y2.data_ptr(), se.data_ptr(), B * T, T, H, W, C, gc, c_out,
-        float(clamp), int(bool(rev)), dc._DTYPE_CODE[x.dtype], _stream(x))
+    with build.on_device(x):
+        err = lib.selfc_chain_hg_forward(
+            x.data_ptr(), x2.data_ptr(), *_ptrs(hws), *_ptrs(hbs), hw5.data_ptr(), hb5.data_ptr(),
+            *_ptrs(gws), *_ptrs(gbs), gw5.data_ptr(), gb5.data_ptr(), feats[0].data_ptr(),
+            feats[1].data_ptr(), y2.data_ptr(), se.data_ptr(), B * T, T, H, W, C, gc, c_out,
+            float(clamp), int(bool(rev)), dc._DTYPE_CODE[x.dtype], _stream(x))
     dc._raise_on(err, "H/G pair", lib.selfc_hg_cuda_error_string)
     launches_hg += 1
     dc._count((C, c_out, gc, "reverse" if rev else "forward"), launches_hg_by_width)
@@ -232,11 +233,12 @@ def _ride_cuda(x, ws, bs, w5, b5, mode, clamp, a, m):
     feats = torch.empty((B, T, H, W, 3 * lib.selfc_chain_ride_padded_gc(gc)), dtype=x.dtype, device=x.device)
     partial = torch.empty((3, B * T * H * W * c_out), dtype=torch.float32, device=x.device)
     out = torch.empty((B, T, H, W, c_out), dtype=x.dtype, device=x.device)
-    err = lib.selfc_chain_ride_forward(
-        x.data_ptr(), *_ptrs(ws), *_ptrs(bs), w5.data_ptr(), b5.data_ptr(),
-        a.data_ptr() if n_aux >= 1 else None, m.data_ptr() if n_aux >= 2 else None,
-        feats.data_ptr(), partial.data_ptr(), out.data_ptr(), B * T, T, H, W, C, gc, c_out,
-        dc._EP_CODE[mode], float(clamp), dc._DTYPE_CODE[x.dtype], _stream(x))
+    with build.on_device(x):
+        err = lib.selfc_chain_ride_forward(
+            x.data_ptr(), *_ptrs(ws), *_ptrs(bs), w5.data_ptr(), b5.data_ptr(),
+            a.data_ptr() if n_aux >= 1 else None, m.data_ptr() if n_aux >= 2 else None,
+            feats.data_ptr(), partial.data_ptr(), out.data_ptr(), B * T, T, H, W, C, gc, c_out,
+            dc._EP_CODE[mode], float(clamp), dc._DTYPE_CODE[x.dtype], _stream(x))
     dc._raise_on(err, "ride chain", lib.selfc_ride_cuda_error_string)
     launches_ride += 1
     dc._count((C, c_out, gc), launches_ride_by_width)
@@ -255,9 +257,10 @@ def _v3_cuda(x, ws, bs, w5, b5, mode="none", clamp=1.0, a=None, m=None):
     lib = _library("chain_v3")
     feats = torch.empty((B, T, H, W, 4 * gc), dtype=x.dtype, device=x.device)
     out = torch.empty((B, T, H, W, c_out), dtype=x.dtype, device=x.device)
-    err = lib.selfc_chain_v3_forward(
-        x.data_ptr(), *_ptrs(ws), *_ptrs(bs), w5.data_ptr(), b5.data_ptr(), feats.data_ptr(),
-        out.data_ptr(), B * T, T, H, W, C, gc, c_out, dc._DTYPE_CODE[x.dtype], _stream(x))
+    with build.on_device(x):
+        err = lib.selfc_chain_v3_forward(
+            x.data_ptr(), *_ptrs(ws), *_ptrs(bs), w5.data_ptr(), b5.data_ptr(), feats.data_ptr(),
+            out.data_ptr(), B * T, T, H, W, C, gc, c_out, dc._DTYPE_CODE[x.dtype], _stream(x))
     dc._raise_on(err, "v3 chain", lib.selfc_v3_cuda_error_string)
     launches_v3 += 1
     dc._count((C, c_out, gc), launches_v3_by_width)

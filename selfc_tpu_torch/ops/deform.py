@@ -247,9 +247,10 @@ def _forward_cuda(x, offset, mask, weight):
     c_out = weight.shape[-1]
     lib = _library()
     out = torch.empty((N, H, W, c_out), dtype=x.dtype, device=x.device)
-    err = lib.selfc_deform_forward(
-        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(), out.data_ptr(),
-        N, H, W, C, c_out, dc._DTYPE_CODE[x.dtype], dc._stream(x))
+    with build.on_device(x):
+        err = lib.selfc_deform_forward(
+            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(), out.data_ptr(),
+            N, H, W, C, c_out, dc._DTYPE_CODE[x.dtype], dc._stream(x))
     dc._raise_on(err, "deformable conv", lib.selfc_deform_cuda_error_string)
     launches += 1
     dc._count((C, c_out), launches_by_width)
@@ -272,11 +273,12 @@ def _backward_cuda(x, offset, mask, weight, g):
                           device=x.device)
     dx_fixed = torch.empty(N * H * W * C, dtype=torch.int64, device=x.device)
     bound = torch.empty(4, dtype=torch.int32, device=x.device)
-    err = lib.selfc_deform_backward(
-        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(), g.data_ptr(),
-        dx.data_ptr(), doffset.data_ptr(), dmask.data_ptr(), dweight.data_ptr(),
-        dx_fixed.data_ptr(), partial.data_ptr(), bound.data_ptr(), N, H, W, C, c_out,
-        dc._DTYPE_CODE[x.dtype], dc._stream(x))
+    with build.on_device(x):
+        err = lib.selfc_deform_backward(
+            x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(), g.data_ptr(),
+            dx.data_ptr(), doffset.data_ptr(), dmask.data_ptr(), dweight.data_ptr(),
+            dx_fixed.data_ptr(), partial.data_ptr(), bound.data_ptr(), N, H, W, C, c_out,
+            dc._DTYPE_CODE[x.dtype], dc._stream(x))
     dc._raise_on(err, "deformable conv backward", lib.selfc_deform_cuda_error_string)
     launches_bwd += 1
     dc._count((C, c_out), launches_bwd_by_width)

@@ -122,6 +122,9 @@ launches_feats_by_stripe: dict = {}
 # ("feats" | "bwd", B, T, H, W, C, gc), ("spatial" | "spatial_bwd", B, T, H,
 # W, C); a chain's work depends on its shape and widths alone
 launches_by_shape: dict = {}
+# every call of the forward chain (B1), the spatial-only forward (B3) and the
+# adjoint (B2) by its card: ("forward" | "feats" | "bwd", device index)
+launches_by_device: dict = {}
 
 
 def reset_launch_counts():
@@ -129,7 +132,7 @@ def reset_launch_counts():
     launches = launches_bwd = launches_bwd_dx = launches_feats = launches_spatial = launches_spatial_bwd = 0
     for d in (launches_by_width, launches_bwd_by_width, launches_feats_by_width,
               launches_spatial_by_width, launches_spatial_bwd_by_width, launches_by_stripe,
-              launches_bwd_by_stripe, launches_feats_by_stripe, launches_by_shape):
+              launches_bwd_by_stripe, launches_feats_by_stripe, launches_by_shape, launches_by_device):
         d.clear()
 
 
@@ -420,6 +423,7 @@ def _chain_cuda(x, ws, bs, w5, b5, mode, clamp, a, m, stripe_w=0):
     _count((C, c_out, gc), launches_by_width)
     _count((C, c_out, gc, int(stripe_w)), launches_by_stripe)
     _count(("forward", B, T, H, W, C, c_out), launches_by_shape)
+    _count(("forward", x.device.index), launches_by_device)
     return out, feats
 
 
@@ -430,15 +434,16 @@ def _launch_forward(x, ws, bs, w5, b5, mode, clamp, a, m, feats, out, stripe_w=0
     c_out, gc = w5.shape[-1], ws[0].shape[-1]
     n_aux = EP_AUX[mode]
     lib = _library("dense_chain")
-    err = lib.selfc_dense_chain_forward(
-        x.data_ptr(), feats.data_ptr(),
-        *(w.data_ptr() for w in ws), *(b.data_ptr() for b in bs),
-        w5.data_ptr(), b5.data_ptr(),
-        a.data_ptr() if n_aux >= 1 else None,
-        m.data_ptr() if n_aux >= 2 else None,
-        out.data_ptr(), B * T, T, H, W, C, gc, c_out, _EP_CODE[mode],
-        float(clamp), int(stripe_w), _DTYPE_CODE[x.dtype], _stream(x),
-    )
+    with build.on_device(x):
+        err = lib.selfc_dense_chain_forward(
+            x.data_ptr(), feats.data_ptr(),
+            *(w.data_ptr() for w in ws), *(b.data_ptr() for b in bs),
+            w5.data_ptr(), b5.data_ptr(),
+            a.data_ptr() if n_aux >= 1 else None,
+            m.data_ptr() if n_aux >= 2 else None,
+            out.data_ptr(), B * T, T, H, W, C, gc, c_out, _EP_CODE[mode],
+            float(clamp), int(stripe_w), _DTYPE_CODE[x.dtype], _stream(x),
+        )
     _raise_on(err, "dense chain", lib.selfc_cuda_error_string)
 
 
@@ -456,6 +461,7 @@ def _feats_cuda(x, ws, bs, stripe_w=0):
     _count((C, gc), launches_feats_by_width)
     _count((C, gc, int(stripe_w)), launches_feats_by_stripe)
     _count(("feats", B, T, H, W, C, gc), launches_by_shape)
+    _count(("feats", x.device.index), launches_by_device)
     return feats
 
 
@@ -464,11 +470,12 @@ def _launch_feats(x, ws, bs, feats, stripe_w=0):
     it held), uncounted; the caller validated."""
     B, T, H, W, C = x.shape
     lib = _library("dense_chain")
-    err = lib.selfc_dense_chain_feats(
-        x.data_ptr(), feats.data_ptr(),
-        *(w.data_ptr() for w in ws), *(b.data_ptr() for b in bs),
-        B * T, H, W, C, ws[0].shape[-1], int(stripe_w), _DTYPE_CODE[x.dtype], _stream(x),
-    )
+    with build.on_device(x):
+        err = lib.selfc_dense_chain_feats(
+            x.data_ptr(), feats.data_ptr(),
+            *(w.data_ptr() for w in ws), *(b.data_ptr() for b in bs),
+            B * T, H, W, C, ws[0].shape[-1], int(stripe_w), _DTYPE_CODE[x.dtype], _stream(x),
+        )
     _raise_on(err, "dense chain feats", lib.selfc_cuda_error_string)
 
 
@@ -507,19 +514,21 @@ def _bwd_cuda(x, ws, bs, feats, dfeats, dx, stripe_w=0):
     groups = max(1, min(BWD_GROUPS, B * T * H * W // 128))
     partial = torch.empty(groups * (9 * (C + 3 * gc) * gc + gc), dtype=torch.float32,
                           device=x.device)
-    err = lib.selfc_dense_chain_spatial_backward(
-        x.data_ptr(), feats.data_ptr(), *(w.data_ptr() for w in ws),
-        dfeats.data_ptr(), dx.data_ptr() if dx is not None else None,
-        *(t.data_ptr() for t in dws), *(t.data_ptr() for t in dbs),
-        partial.data_ptr(), groups, B * T, H, W, C, gc, int(dx is not None),
-        int(stripe_w), _DTYPE_CODE[x.dtype], _stream(x),
-    )
+    with build.on_device(x):
+        err = lib.selfc_dense_chain_spatial_backward(
+            x.data_ptr(), feats.data_ptr(), *(w.data_ptr() for w in ws),
+            dfeats.data_ptr(), dx.data_ptr() if dx is not None else None,
+            *(t.data_ptr() for t in dws), *(t.data_ptr() for t in dbs),
+            partial.data_ptr(), groups, B * T, H, W, C, gc, int(dx is not None),
+            int(stripe_w), _DTYPE_CODE[x.dtype], _stream(x),
+        )
     _raise_on(err, "dense chain backward", lib.selfc_bwd_cuda_error_string)
     launches_bwd += 1
     launches_bwd_dx += dx is not None
     _count((C, gc), launches_bwd_by_width)
     _count((C, gc, int(stripe_w)), launches_bwd_by_stripe)
     _count(("bwd", B, T, H, W, C, gc), launches_by_shape)
+    _count(("bwd", x.device.index), launches_by_device)
     return dws, dbs
 
 

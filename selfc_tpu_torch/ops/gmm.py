@@ -39,6 +39,11 @@ def gmm_sample(params, eps, half_logvar: bool = False):
 def gmm_neg_log_likelihood(params, hf):
     """Mean negative log-likelihood of hf under the mixture.
     params: (..., hf, K, 3); hf: (..., hf)."""
+    return -torch.mean(gmm_log_prob(params, hf))
+
+
+def gmm_log_prob(params, hf):
+    """The log-likelihood of each element of hf under the mixture."""
     pi = torch.softmax(params[..., 0], dim=-1)  # over K
     mean = params[..., 1]
     log_sigma = params[..., 2].clamp(-7.0, 7.0)
@@ -49,5 +54,4 @@ def gmm_neg_log_likelihood(params, hf):
         - log_sigma
         - 0.5 * math.log(2.0 * math.pi)
     )
-    logp = torch.logsumexp(torch.log(pi + 1e-38) + comp_logp, dim=-1)
-    return -torch.mean(logp)
+    return torch.logsumexp(torch.log(pi + 1e-38) + comp_logp, dim=-1)

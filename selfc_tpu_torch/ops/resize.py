@@ -56,6 +56,27 @@ def adaptive_avg_pool2d(x, out_hw):
 
 
 @lru_cache(maxsize=None)
+def adaptive_w_counts(in_size: int, out_size: int) -> np.ndarray:
+    """(out,) the columns in each adaptive_avg_pool window of ``in_size``."""
+    return (_adaptive_matrix(in_size, out_size) > 0).sum(axis=1).astype(np.float32)
+
+
+def adaptive_pool_w_sums(x, out_hw, w0: int, W: int):
+    """One W shard's share of ``adaptive_avg_pool2d`` over the whole image:
+    x is columns ``[w0, w0 + w)`` of an image ``W`` wide; H is averaged as
+    there, each W window is summed over the shard's columns only. The
+    shards' sums added up, divided by ``adaptive_w_counts(W, out_w)``, are
+    the whole image's pool."""
+    *_, H, w, C = x.shape
+    oh, ow = out_hw
+    mh = torch.as_tensor(_adaptive_matrix(H, oh), dtype=x.dtype, device=x.device)
+    member = (_adaptive_matrix(W, ow) > 0).astype(np.float32)[:, w0:w0 + w]
+    mw = torch.as_tensor(member, dtype=x.dtype, device=x.device)
+    y = torch.einsum("oh,...hwc->...owc", mh, x)
+    return torch.einsum("pw,...owc->...opc", mw, y)
+
+
+@lru_cache(maxsize=None)
 def _gauss_kernel_1d(sigma: float, taps: int = 13) -> np.ndarray:
     """Truncated gaussian as ``scipy.ndimage.gaussian_filter`` makes it
     (truncate=4.0): zero outside radius int(4*sigma+0.5)."""
@@ -78,23 +99,43 @@ def _strided_blur_matrix(in_size: int, scale: int) -> np.ndarray:
     return m
 
 
-def gaussian_downsample(x, scale: int = 4):
-    """DUF-style BD degradation of (..., H, W, C): reflect pad (6 + 2*scale),
-    13x13 gaussian blur (sigma = 0.4*scale) sampled at stride ``scale``, then
-    2 px cropped from each side. The blur and the stride are two products
-    with fixed matrices."""
+GAUSS_REACH = 6   # columns of input an output of ``gaussian_downsample`` reads on each side
+
+
+def _bd_blur(x, scale: int, w_pad: tuple[int, int], w_crop: int):
+    """The BD blur of (..., H, W, C): H reflect-padded by 6 + 2*scale and 2
+    output rows cropped from each side, W reflect-padded by ``w_pad`` and
+    ``w_crop`` output columns cropped; the blur and the stride are two
+    products with fixed matrices."""
     if scale not in (2, 3, 4):
         raise ValueError(f"BD scale {scale} unsupported")
     pad = 6 + scale * 2
     *lead, H, W, C = x.shape
     xf = x.reshape(-1, H, W, C).permute(0, 3, 1, 2)
-    xp = F.pad(xf, (pad, pad, pad, pad), mode="reflect")
+    xp = F.pad(xf, (*w_pad, pad, pad), mode="reflect")
     mh = torch.as_tensor(_strided_blur_matrix(xp.shape[2], scale), dtype=x.dtype, device=x.device)
     mw = torch.as_tensor(_strided_blur_matrix(xp.shape[3], scale), dtype=x.dtype, device=x.device)
     y = torch.einsum("oh,nchw->ncow", mh, xp)
     y = torch.einsum("pw,ncow->ncop", mw, y)
-    y = y[:, :, 2:-2, 2:-2].permute(0, 2, 3, 1)
+    y = y[:, :, 2:-2, w_crop:y.shape[3] - w_crop].permute(0, 2, 3, 1)
     return y.reshape(*lead, y.shape[1], y.shape[2], C)
+
+
+def gaussian_downsample(x, scale: int = 4):
+    """DUF-style BD degradation of (..., H, W, C): reflect pad (6 + 2*scale),
+    13x13 gaussian blur (sigma = 0.4*scale) sampled at stride ``scale``, then
+    2 px cropped from each side."""
+    pad = 6 + scale * 2
+    return _bd_blur(x, scale, (pad, pad), 2)
+
+
+def gaussian_downsample_w(x, scale: int, left: int, right: int):
+    """One W shard's part of ``gaussian_downsample`` of the whole image: x
+    carries ``left`` / ``right`` columns of its neighbours (``GAUSS_REACH``,
+    or 0 at the image's true edge, which is reflect-padded here as the whole
+    image's is). Output column j of the shard reads its columns j*scale - 6
+    .. j*scale + 6, as the whole image's does."""
+    return _bd_blur(x, scale, (GAUSS_REACH - left, GAUSS_REACH - right), 0)
 
 
 def _cubic(x):

@@ -204,12 +204,13 @@ def _launch(x, w, b, negative_slope, want_mask, sm_count=None):
     mask = torch.empty(out.shape, dtype=torch.bool, device=x.device) if want_mask else None
     scratch = (torch.empty((split, B * T * H * W, co), dtype=torch.float32, device=x.device)
                if split > 1 else None)
-    err = lib.selfc_temporal_conv3(
-        x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
-        None if mask is None else mask.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        B, T, H * W, C, co, int(negative_slope is not None),
-        0.0 if negative_slope is None else float(negative_slope), _DTYPE_CODE[x.dtype],
-        int(path == "wide"), split, _stream(x))
+    with build.on_device(x):
+        err = lib.selfc_temporal_conv3(
+            x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
+            None if mask is None else mask.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            B, T, H * W, C, co, int(negative_slope is not None),
+            0.0 if negative_slope is None else float(negative_slope), _DTYPE_CODE[x.dtype],
+            int(path == "wide"), split, _stream(x))
     if err != 0:
         raise RuntimeError(f"temporal conv kernel launch failed: "
                            f"{lib.selfc_temporal_conv3_cuda_error_string(err).decode()} ({err})")

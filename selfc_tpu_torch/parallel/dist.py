@@ -1,5 +1,6 @@
-"""Processes and frames: the port's counterpart of the JAX package's
-``parallel/mesh.py``.
+"""Processes and frames: the port's counterpart of the multi-process part
+of the JAX package's ``parallel/mesh.py`` (``parallel/mesh.py`` holds the
+device mesh within a process).
 
 * ``init_distributed`` reads the torch launcher's environment (``RANK``,
   ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) and joins the default
@@ -13,8 +14,9 @@
 * ``frames_to_device`` does the uint8 -> [0, 1] float32 cast on the device
   (the JAX package's ``put_frames``) for both model wrappers.
 
-The JAX package's ``mesh_sp`` (the image width split over chips) does not
-apply on one card: ``train.create_model`` refuses it.
+Each process runs its own ``(1, mesh_sp)`` row of cards
+(``mesh.process_cards``): dp across processes is the gradient all-reduce
+here.
 """
 
 from __future__ import annotations
@@ -25,11 +27,11 @@ import numpy as np
 import torch
 
 
-def init_distributed(device=None):
+def init_distributed(device=None, sp: int = 1):
     """``(rank, world_size)``. With ``WORLD_SIZE`` > 1 the default process
     group is initialised (NCCL when ``device`` is CUDA, else gloo) and a
-    CUDA process takes the card ``LOCAL_RANK`` (else ``RANK``) modulo the
-    cards it sees."""
+    CUDA process takes the first of its ``sp`` cards, ``LOCAL_RANK`` (else
+    ``RANK``) times ``sp``, modulo the cards it sees."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world <= 1:
         return 0, 1
@@ -38,7 +40,7 @@ def init_distributed(device=None):
     rank = int(os.environ["RANK"])
     cuda = torch.device(device or "cuda").type == "cuda"
     if cuda:
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)) % torch.cuda.device_count())
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)) * sp % torch.cuda.device_count())
     if not dist.is_initialized():
         addr = os.environ.get("MASTER_ADDR", "127.0.0.1")
         port = os.environ.get("MASTER_PORT", "8476")

@@ -17,7 +17,11 @@ Eval (``test``) is the streaming pipeline (``codec/pipeline.py``) through a
 live x265 stream (or its stand-in) with segments of 3 frames and spatial
 tiles: the encode and decode calls run on the device, the codec on the host,
 and the host codec write of one group of segments overlaps the device's
-encode of the next. One device, the reference placement.
+encode of the next. On a mesh (``parallel/mesh.py``; by default the
+process's cards) each batched call's entries split over the dp rows, as
+the JAX package's ``dp_sharding`` places them; one card is the reference
+placement. The training step runs on the mesh's first card; data parallel
+training goes through processes (``parallel/dist.py``).
 
 All host I/O is channels-last numpy ``(B, T, H, W, 3)``.
 """
@@ -42,6 +46,7 @@ from ..codec.surrogate import (H265Surrogate, H265SurrogatePlain, h265_host_roun
 from ..models import define_G
 from ..ops.quantize import quantize_ste
 from ..parallel.dist import all_reduce_grads, finite_everywhere, frames_to_device
+from ..parallel.mesh import Replicas, dp_gather, dp_split, model_mesh
 from ..utils.jax_import import export_jax_params, load_jax_params
 from . import checkpoint as ckpt
 from .losses import reconstruction_loss
@@ -56,8 +61,11 @@ class CodecModel:
     ``test`` -> ``get_current_visuals`` / ``get_current_metrics``. Training:
     ``feed_data`` -> ``optimize_parameters(step)`` -> ``get_current_log``."""
 
-    def __init__(self, opt, device=None, rng_seed: int = 0):
-        """``device=None`` means the GPU (raises without one). ``rng_seed``
+    def __init__(self, opt, device=None, rng_seed: int = 0, mesh=None):
+        """``device=None`` means the GPU (raises without one); ``mesh``
+        (``parallel.mesh.make_mesh``, one card to a row: ``mesh_sp`` > 1 is
+        not ported for this net) the devices ``test()`` runs on, the master
+        parameters on its first (None: ``model_mesh(device)``). ``rng_seed``
         seeds the parameter initialisation, the generator a GMM prior or the
         codec-noise ablation draws from (the published codec prior, fh_loss
         'l2', draws none) and the dynamic-q stream. ``path.pretrain_model_G``
@@ -65,7 +73,11 @@ class CodecModel:
         self.opt = opt
         self.is_train = bool(opt.get("is_train"))
         self.train_opt = opt.get("train") or {}
-        self.device = resolve_device(device)
+        if (opt.get("mesh_sp") or 1) > 1 or (mesh is not None and mesh.sp > 1):
+            raise NotImplementedError("mesh_sp > 1 for SelfC_GMM_Codec: the width split is ported for "
+                                      "SelfC_GMM only (ROADMAP Queue A item 1)")
+        self.mesh = mesh if mesh is not None else model_mesh(resolve_device(device))
+        self.device = self.mesh.master
         self.net_opt = opt["network_G"]
         self.scale = opt["scale"]
         self.degrade = make_degrade(opt.get("distortion") or "sr_bd", self.scale)
@@ -193,7 +205,11 @@ class CodecModel:
     def _encode(self, x):
         """HR (B,T,H,W,3) -> the latent with its LR channels quantised to
         255 levels."""
-        y, _ = self.net.encode(x)
+        return self._encode_net(self.net, x)
+
+    @staticmethod
+    def _encode_net(net, x):
+        y, _ = net.encode(x)
         return torch.cat([quantize_ste(y[..., :3].contiguous()), y[..., 3:]], dim=-1)
 
     @torch.no_grad()
@@ -224,12 +240,32 @@ class CodecModel:
         quantised LR, the part of the latent the codec takes."""
         self.flush_pipeline()
         x = self.real_H
+        cards = [row[0] for row in self.mesh.devices]
+        reps = Replicas()
 
         def encode_fn(chunk):
-            return self._encode(self._on_device(chunk))[..., :3]
+            if len(cards) == 1:
+                return self._encode(self._on_device(chunk))[..., :3]
+            t = torch.from_numpy(np.ascontiguousarray(chunk, np.float32))
+            with torch.no_grad():
+                parts = [reps.apply(c, self.net, CodecModel._encode_net, p)[..., :3]
+                         for c, p in zip(cards, dp_split(t, cards))]
+            return dp_gather(parts, t.shape[0], self.device)
 
         def decode_fn(tile):
-            return self._decode(self._on_device(tile))
+            if len(cards) == 1:
+                return self._decode(self._on_device(tile))
+            t = torch.from_numpy(np.ascontiguousarray(tile, np.float32))
+            # the prior's noise on the master card, drawn as the one-card call draws it
+            eps = None
+            if self.net.fh_loss != "l2":
+                eps = torch.randn(self.net.eps_shape(t.shape), generator=self.generator, device=self.device)
+            with torch.no_grad():
+                parts = [reps.apply(c, self.net, lambda m, l, e: m.decode(l, eps=e)[0], p,
+                                    e if e is None else e.to(c))
+                         for c, p, e in zip(cards, dp_split(t, cards),
+                                            dp_split(eps, cards) if eps is not None else [None] * len(cards))]
+            return dp_gather(parts, t.shape[0], self.device)
 
         q = self.q[0] if isinstance(self.q, list) else self.q
         val_opt = self.opt.get("val") or {}

@@ -5,15 +5,20 @@ from __future__ import annotations
 import torch
 
 
-def reconstruction_loss(x, target, losstype: str = "l2", eps: float = 1e-6):
-    """l2 = mean squared error; l1 = charbonnier sqrt(d^2 + eps); both are
-    means over every dimension."""
+def reconstruction_error(x, target, losstype: str = "l2", eps: float = 1e-6):
+    """The elementwise error: l2 = squared error; l1 = charbonnier
+    sqrt(d^2 + eps)."""
     d = x - target
     if losstype == "l2":
-        return torch.mean(d * d)
+        return d * d
     if losstype == "l1":
-        return torch.mean(torch.sqrt(d * d + eps))
+        return torch.sqrt(d * d + eps)
     raise ValueError(losstype)
+
+
+def reconstruction_loss(x, target, losstype: str = "l2", eps: float = 1e-6):
+    """The mean of ``reconstruction_error`` over every dimension."""
+    return torch.mean(reconstruction_error(x, target, losstype, eps))
 
 
 def gan_loss(logits, target_is_real: bool, gan_type: str = "gan",

@@ -11,6 +11,17 @@ A training step runs under cuDNN's deterministic algorithms
 (``step_algorithms``), so that it repeats bit for bit as the JAX step does;
 the flags are set for the step alone.
 
+The model runs on a ``(dp, sp)`` mesh (``parallel/mesh.py``; by default
+the process's cards, ``mesh_sp`` of them to a row). ``test()`` splits its
+calls' GOP groups over the dp rows, and the single-group path's width over
+a row's sp cards. The training step runs on the mesh's first row (dp
+across processes is ``parallel/dist.py``'s gradient all-reduce): on its
+one card, or with ``mesh_sp`` > 1 (SelfC_GMM only) the width split over
+its cards (``parallel/spatial.py``), the losses means over the whole
+width and the gradients summed into the master parameters on the first
+card, where the clip and Adam run once. The adversarial step runs on that
+first card alone.
+
 All host I/O is channels-last numpy ``(B, T, H, W, 3)``.
 """
 
@@ -29,9 +40,11 @@ from ..models import define_G
 from ..ops.quantize import quantize_ste
 from ..ops.resize import area_down, gaussian_downsample, imresize_matlab
 from ..parallel.dist import all_reduce_grads, finite_everywhere, frames_to_device
+from ..parallel.mesh import Replicas, dp_gather, dp_split, gather_w, model_mesh, shard_w
+from ..parallel.spatial import HALO, WidthSplitGMM, check_supported, gaussian_downsample_shards, sum_to
 from ..utils.jax_import import export_jax_params, load_jax_params, stack_scan_chain
 from . import checkpoint as ckpt
-from .losses import reconstruction_loss
+from .losses import reconstruction_error, reconstruction_loss
 from .lr_schedule import cosine_restart, multistep_restart
 
 logger = logging.getLogger("base")
@@ -94,8 +107,11 @@ def build_adam(params, to):
 class RescaleModel:
     """Training and eval wrapper for the SelfC_GMM and SelfC model types."""
 
-    def __init__(self, opt, device=None, rng_seed: int = 0):
-        """``device=None`` means the GPU (raises without one).
+    def __init__(self, opt, device=None, rng_seed: int = 0, mesh=None):
+        """``device=None`` means the GPU (raises without one). ``mesh``
+        (``parallel.mesh.make_mesh``): the devices the model runs on, the
+        masters on its first; None builds ``model_mesh(device,
+        opt['mesh_sp'])``: the process's cards, or the one device named.
         ``val.sample_seed`` overrides ``rng_seed``: it seeds both the
         parameter initialisation and the generator the GMM prior draws its
         noise from. With ``opt['is_train']`` the optimizer is built from
@@ -115,11 +131,18 @@ class RescaleModel:
         self.opt = opt
         self.is_train = bool(opt.get("is_train"))
         self.train_opt = opt.get("train") or {}
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else model_mesh(resolve_device(device), opt.get("mesh_sp") or 1)
+        self.device = self.mesh.master
         self.scale = opt["scale"]
-        self.degrade = make_degrade(opt.get("distortion") or "sr_bd", self.scale)
+        self.distortion = opt.get("distortion") or "sr_bd"
+        self.degrade = make_degrade(self.distortion, self.scale)
         init_gen = torch.Generator().manual_seed(rng_seed)
         self.net = define_G(opt, device=self.device, generator=init_gen)
+        if self.mesh.sp > 1:
+            check_supported(self.net)
+            if self.distortion not in ("sr_bd", "pytorch_bicubic"):
+                raise NotImplementedError(f"mesh_sp > 1 with distortion {self.distortion!r}: "
+                                          "the width split makes the sr_bd and pytorch_bicubic targets")
         self.net.eval()
         self._net_cast = None
         self.generator = torch.Generator(device=self.device)
@@ -134,6 +157,9 @@ class RescaleModel:
         if self.is_train:
             self._build_optimizer()
             if self.train_opt.get("gan_weight"):
+                if self.mesh.sp > 1:
+                    raise NotImplementedError("mesh_sp > 1 with the adversarial branch: D and F see "
+                                              "whole images")
                 if self.train_opt.get("fused_optimizer"):
                     raise ValueError("train.fused_optimizer is not supported with the GAN branch (as in the "
                                      "JAX package); unset one of the two")
@@ -268,9 +294,18 @@ class RescaleModel:
     def feed_data(self, data):
         """data['GT']: numpy (B, T, H, W, 3) RGB in [0,1] (or uint8). A
         clip shorter than ``datasets.train.video_len`` is padded to it with
-        repeats of its last frame. Returns the clip's own length."""
+        repeats of its last frame. Returns the clip's own length. With
+        ``mesh_sp`` > 1, W must split into sp shards of whole LR columns, at
+        least ``spatial.HALO`` (4) of them: the JAX package's test keeps W a
+        multiple of sp * scale * 4, which implies it; 144 at sp 2 (18 LR
+        columns a shard) passes too."""
         gt = np.asarray(data["GT"])
         clip_length = gt.shape[1]
+        sp, W = self.mesh.sp, gt.shape[3]
+        if sp > 1 and (W % (sp * self.scale) or W // (sp * self.scale) < HALO):
+            raise ValueError(f"mesh_sp {sp}: width {W} must split into {sp} shards of whole LR "
+                             f"columns (a multiple of sp * scale = {sp * self.scale}), at least "
+                             f"{HALO} of them (a chain's halo)")
         t_cfg = ((self.opt.get("datasets") or {}).get("train") or {}).get("video_len")
         if t_cfg and clip_length < t_cfg:
             pad = np.repeat(gt[:, -1:], t_cfg - clip_length, axis=1)
@@ -287,19 +322,29 @@ class RescaleModel:
         parameters stay fp32 masters (each op casts its weights down); the
         losses are taken in fp32 and the 255-level quantization always
         rounds in fp32."""
-        to = self.train_opt
-        x_in = hr.to(torch.bfloat16) if to.get("mixed_precision") else hr
+        x_in = hr.to(torch.bfloat16) if self.train_opt.get("mixed_precision") else hr
         out = self.net.roundtrip(x_in, eps=eps)
-        l_forw_fit = (to.get("lambda_fit_forw") or 1.0) * reconstruction_loss(
-            out["lr_pre_quant"].float(), ref_l, to.get("pixel_criterion_forw") or "l2")
-        l_back_rec = (to.get("lambda_rec_back") or 1.0) * reconstruction_loss(
-            out["hr"].float(), hr, to.get("pixel_criterion_back") or "l1")
-        loss_c = (to.get("lambda_cond_prob") or 0.0) * out["loss_c"].float()
+        crit_f, crit_b = self._criteria()
+        loss, logs = self._weighted_losses(reconstruction_loss(out["lr_pre_quant"].float(), ref_l, crit_f),
+                                           reconstruction_loss(out["hr"].float(), hr, crit_b),
+                                           out["loss_c"].float())
+        return loss, logs, out
+
+    def _criteria(self):
+        """The pixel criteria of the LR fit and the HR reconstruction."""
+        to = self.train_opt
+        return to.get("pixel_criterion_forw") or "l2", to.get("pixel_criterion_back") or "l1"
+
+    def _weighted_losses(self, forw, back, nll):
+        """``(loss, logs)`` from the means of the LR fit, the HR
+        reconstruction and the prior's NLL: each weighted by its lambda."""
+        to = self.train_opt
+        l_forw_fit = (to.get("lambda_fit_forw") or 1.0) * forw
+        l_back_rec = (to.get("lambda_rec_back") or 1.0) * back
+        loss_c = (to.get("lambda_cond_prob") or 0.0) * nll
         # the total is scaled by the 144*144*3 values of a training crop
         loss = (l_forw_fit + l_back_rec + loss_c) * 144 * 144 * 3
-        logs = {"l_forw_fit": l_forw_fit, "l_back_rec": l_back_rec,
-                "loss_c": loss_c, "loss": loss}
-        return loss, logs, out
+        return loss, {"l_forw_fit": l_forw_fit, "l_back_rec": l_back_rec, "loss_c": loss_c, "loss": loss}
 
     def optimize_parameters(self, step: int, eps=None, gp_eps=None):
         """One training step on the clip of ``feed_data``. ``eps`` is the
@@ -333,10 +378,13 @@ class RescaleModel:
             return
         if step in self._clear_state_steps:
             self.optimizer.state.clear()
-        with torch.no_grad():
-            ref_l = self.degrade(hr)
         self.optimizer.zero_grad(set_to_none=True)
-        loss, logs, _ = self._pixel_losses(hr, ref_l, eps)
+        if self.mesh.sp == 1:
+            with torch.no_grad():
+                ref_l = self.degrade(hr)
+            loss, logs, _ = self._pixel_losses(hr, ref_l, eps)
+        else:
+            loss, logs = self._width_split_losses(hr, eps)
         ok = finite_everywhere(loss)
         if ok:
             loss.backward()
@@ -351,6 +399,27 @@ class RescaleModel:
         logs = {k: v.detach() for k, v in logs.items()}
         logs["skipped_nonfinite"] = torch.full_like(logs["loss"], 0.0 if ok else 1.0)
         self._raw_logs, self._raw_logs_lr = logs, lr_value
+
+    def _width_split_losses(self, hr, eps):
+        """``_pixel_losses`` with the width split over the mesh's first row:
+        each term a sum over the shards divided by the whole batch's count."""
+        crit_f, crit_b = self._criteria()
+        row = self.mesh.devices[0]
+        xs, es = shard_w(hr, row), shard_w(eps, row, axis=3)
+        with torch.no_grad():
+            refs = (gaussian_downsample_shards(xs, self.scale) if self.distortion == "sr_bd"
+                    else [self.degrade(x) for x in xs])
+        x_in = [x.to(torch.bfloat16) for x in xs] if self.train_opt.get("mixed_precision") else xs
+        out = WidthSplitGMM(self.net, Replicas(), self.device).roundtrip(x_in, es)
+        n_hr = hr.numel()
+        n_lr = n_hr // self.scale ** 2
+        forw = sum_to([reconstruction_error(t.float(), r, crit_f) for t, r in zip(out["lr_pre_quant"], refs)],
+                      self.device) / n_lr
+        back = sum_to([reconstruction_error(t.float(), x, crit_b) for t, x in zip(out["hr"], xs)],
+                      self.device) / n_hr
+        nll = (out["loss_c"].float() / (n_lr // 3 * self.net.hf_dim) if out["loss_c"] is not None
+               else torch.zeros((), device=self.device))
+        return self._weighted_losses(forw, back, nll)
 
     def get_current_log(self):
         """The last step's losses as floats (one read from the device, made
@@ -371,9 +440,16 @@ class RescaleModel:
         ``val.gop_batch: N`` folds N independent GOPs into the batch axis
         of ONE encode + ONE decode call (unset: up to 4; 1 = sequential
         calls). The trailing call is padded with repeats of its last GOP.
-        One ``eps`` is drawn per real group from the model's generator, in
-        the order of the sequential path, so the sample stream does not
-        depend on ``gop_batch``."""
+        One ``eps`` is drawn per real group from the model's generator on
+        the master card, in the order of the sequential path, so the sample
+        stream depends neither on ``gop_batch`` nor on the mesh.
+
+        On the mesh, as the JAX package places them: a batched call's GOP
+        groups split over the dp rows (each row's first card runs its share
+        with its copy of the parameters, taken at this call); a one-group
+        call splits its clips over the rows where they divide, and its width
+        over each row's sp cards. The quantised LR is one tensor on the
+        master card, gathered before it is split again for the decode."""
         x = self.real_H
         B, T = x.shape[:2]
         n_groups = -(-T // gop)
@@ -389,16 +465,18 @@ class RescaleModel:
             idx += [T - 1] * (gop - orig)
             groups.append((torch.as_tensor(idx, device=self.device), orig))
 
+        reps = Replicas(self._eval_dtype())
         fake_H, forw_L, forw_Hf, sample_H = [], [], [], []
         for i in range(0, len(groups), n_batch):
             grp = groups[i:i + n_batch]
             pad_grp = grp + [grp[-1]] * (n_batch - len(grp))
             chunk = torch.cat([x[:, g[0]] for g in pad_grp], dim=0)
-            y = self._encode(chunk)
+            rows = self._eval_rows(chunk.shape[0], whole_rows=len(pad_grp) == 1)
+            y = self._encode_on(rows, reps, chunk)
             lr = quantize_ste(y[..., :3].contiguous())
             eps = [self._draw_eps((B,) + tuple(lr.shape[1:])) for _ in grp]
             eps += [eps[-1]] * (n_batch - len(grp))
-            hr, hf = self._decode(lr, torch.cat(eps, dim=0))
+            hr, hf = self._decode_on(rows, reps, lr, torch.cat(eps, dim=0))
             for j, (_, orig) in enumerate(grp):
                 sl = slice(j * B, (j + 1) * B)
                 fake_H.append(hr[sl, :orig])
@@ -409,6 +487,52 @@ class RescaleModel:
         self.forw_L = torch.cat(forw_L, dim=1).cpu().numpy()
         self.forw_H = torch.cat(forw_Hf, dim=1).cpu().numpy()
         self.sample_H = torch.cat(sample_H, dim=1).cpu().numpy()
+
+    def _eval_rows(self, n: int, whole_rows: bool):
+        """The devices an eval call of ``n`` clips runs on, a list of rows:
+        with ``whole_rows`` the mesh's rows (all where n divides, else the
+        first), each with its sp cards; else every row's first card."""
+        if whole_rows:
+            return self.mesh.devices if n % self.mesh.dp == 0 else self.mesh.devices[:1]
+        return [row[:1] for row in self.mesh.devices]
+
+    def _encode_on(self, rows, reps, x):
+        """``_encode`` of the clips ``x`` on ``rows`` (``_eval_rows``),
+        gathered on the master card."""
+        if len(rows) == 1 and len(rows[0]) == 1 and rows[0][0] == self.device:
+            return self._encode(x)
+        dt = self._eval_dtype() or torch.float32
+        outs = []
+        with torch.no_grad():
+            for row, part in zip(rows, dp_split(x, [row[0] for row in rows])):
+                if len(row) > 1:
+                    ys, _ = WidthSplitGMM(self.net, reps, self.device).encode(
+                        [s.to(dt) for s in shard_w(part, row)])
+                    outs.append(gather_w(ys, self.device))
+                else:
+                    outs.append(reps.apply(row[0], self.net, lambda m, t: m.encode(t)[0], part.to(dt)))
+        return dp_gather(outs, x.shape[0], self.device).float()
+
+    def _decode_on(self, rows, reps, lr, eps):
+        """``_decode`` of ``lr`` with the noise ``eps`` on ``rows``, gathered
+        on the master card."""
+        if len(rows) == 1 and len(rows[0]) == 1 and rows[0][0] == self.device:
+            return self._decode(lr, eps)
+        dt = self._eval_dtype() or torch.float32
+        hrs, hfs = [], []
+        with torch.no_grad():
+            for row, lr_r, eps_r in zip(rows, dp_split(lr, [r[0] for r in rows]),
+                                        dp_split(eps, [r[0] for r in rows])):
+                if len(row) > 1:
+                    hr, hf = WidthSplitGMM(self.net, reps, self.device).decode(
+                        [s.to(dt) for s in shard_w(lr_r, row)], shard_w(eps_r, row, axis=3))
+                    hr, hf = gather_w(hr, self.device), gather_w(hf, self.device)
+                else:
+                    hr, hf = reps.apply(row[0], self.net, lambda m, t, e: m.decode(t, eps=e), lr_r.to(dt), eps_r)
+                hrs.append(hr)
+                hfs.append(hf)
+        n = lr.shape[0]
+        return dp_gather(hrs, n, self.device).float(), dp_gather(hfs, n, self.device).float()
 
     def downscale(self, hr):
         x = torch.as_tensor(np.asarray(hr), dtype=torch.float32, device=self.device)
