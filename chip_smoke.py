@@ -48,11 +48,16 @@ eval (each logs its device seconds a clip, ``gpu_test_s``). Then the profiler:
 ``torch.profiler`` trace of 3 packed steps), and ``utils/profile.py:trace``
 wraps 3 GOP roundtrips in this process; each trace is split by kernel
 (``tools/profile_step.py``), its kernel events held to the wrappers' calls.
+The ``mesh`` phase runs the device mesh on two positions (two cards, or the
+first card twice): ``test()`` over dp rows, and the image width split
+(``mesh_sp``) of the 4x net's step and GOP, of the codec's training step
+(with its surrogate, with the de-artifact net, through the host codec) and
+of the Haar net's step and GOP, each against one position.
 It times the kernels beside their roofline bound.
 Prints one JSON line per phase; any failure exits non-zero. There is no CPU
 fallback: without a CUDA device the script fails at once.
 
-``--phases serve,quality,train,codec,codec_train,deart,subnets,haar,variants,gan,cli,profile`` (the default) picks
+``--phases serve,quality,train,codec,codec_train,deart,subnets,haar,variants,gan,mesh,cli,profile`` (the default) picks
 the paths; ``--phases kernels`` only builds the kernels and checks them
 against their plain versions. ``--parent DIR`` (a checkout of another commit
 whose kernels have the same C interfaces, or its ``selfc_tpu_torch/csrc``
@@ -100,7 +105,7 @@ from selfc_tpu_torch.ops import deform as df
 from selfc_tpu_torch.ops import dense_chain as dc
 from selfc_tpu_torch.ops import temporal_conv as tc
 from selfc_tpu_torch.models.agg import GlobalAgg
-from selfc_tpu_torch.models.blocks import D2DT
+from selfc_tpu_torch.models.blocks import D2DT, DenseBlock2D
 from selfc_tpu_torch.models.stp import _PW
 from selfc_tpu_torch.ops.conv import conv2d, pointwise
 from selfc_tpu_torch.ops.quantize import quantize_ste
@@ -359,6 +364,10 @@ MESH_GRAD_REL_LIMIT = 1e-3       # ... each parameter's gradient, relative l2 (z
 # so an element whose gradient is at rounding level may move the other way
 MESH_UPDATE_L2_LIMIT = 1e-2
 MESH_GUARD_LIMIT = 1e-4          # a wrapper on cuda:1 against its plain version there, of max |ref|
+# the width split of the codec and Haar nets: the Haar step with its prior's
+# NLL weighted in, so that the split's NLL sum is held too
+MESH_HAAR_TRAIN = {"lambda_cond_prob": 0.01}
+MESH_TIMED_STEPS = 3             # CUDA-event steps (after one warm-up) of each split and unsplit step
 ALL_PHASES = ("serve", "quality", "train", "codec", "codec_train", "deart", "subnets", "haar", "variants", "gan",
               "mesh", "cli", "profile")
 
@@ -1824,21 +1833,14 @@ def phase_codec_train(device):
     return tree, batch, counts
 
 
-def phase_timing_codec_train(device, tree, batch, counts, worst, worst_gc, worst_stripe):
-    """The kernels of the codec's training at its shapes (B1, and B3 and B2
-    at growth 12, unpacked and W-packed at stripe 72; B4 forward and
-    backward), a whole step and its parts packed and unpacked in turns, the
-    plain path's step, and the peak memory with features saved and
-    recomputed."""
-    rng = np.random.default_rng(61)
-    shape = CODEC_TRAIN_LAT
-    spatial = [(3, 12), (24, 12)]        # the prior's chains: growth 12
-    kernels = (chain_rows(device, "codec_train", shape, 0, CODEC_WIDTHS, spatial, counts,
-                          {"forward": worst_gc, "feats": worst["feats"], "bwd": worst["bwd"]})
-               + chain_rows(device, "codec_train_packed", CODEC_PACKED, CODEC_STRIPE, CODEC_WIDTHS, spatial, counts,
-                            worst_stripe))
+def spatial_rows(device, tag, shape, counts, worst, rng):
+    """The kernels-line rows of B4 (the surrogate's v1 spatial chains,
+    ``fused_dense_spatial``) forward and backward at each of its input
+    widths on ``shape``, with their launches (``counts``' "spatial" /
+    "spatial_bwd" by (C, 32)); ``worst``: the checks' worst fp32 errors."""
     B, T, H, W = shape
-    for C in SURROGATE_C:              # the surrogate's v1 spatial chains
+    kernels = []
+    for C in SURROGATE_C:
         x, ws, bs, *_ = make_chain(rng, C, 3, shape, device)
         for t in (x, *ws, *bs):
             t.requires_grad_(True)
@@ -1865,20 +1867,38 @@ def phase_timing_codec_train(device, tree, batch, counts, worst, worst_gc, worst
         bb, bby = chain_bwd_bound_ms(*shape, C, dx_in=False, peak=TC_PEAK)
         common = {"route": "cuda", "replaces": REPLACES_SPATIAL, "shape": list(shape) + [C], "gc": 32}
         kernels.append({
-            "name": f"fused_dense_spatial[{C}]@codec_train", "source": SOURCE,
+            "name": f"fused_dense_spatial[{C}]@{tag}", "source": SOURCE,
             "launches": counts["spatial"].get((C, 32), 0), "max_abs_err": worst["spatial"][C],
             "ms": s_ms["median"], "plain_ms": s_plain["median"], "bound_ms": bound, "bound_by": by,
             "bound_fma_ms": chain_feats_bound_ms(*shape, C)[0],
             "library_ms": s_lib["median"], "ms_min": s_ms["min"], "plain_ms_min": s_plain["min"],
             "library_ms_min": s_lib["min"], **common})
         kernels.append({
-            "name": f"fused_dense_spatial_bwd[{C}]@codec_train", "source": SOURCE_BWD,
+            "name": f"fused_dense_spatial_bwd[{C}]@{tag}", "source": SOURCE_BWD,
             "launches": counts["spatial_bwd"].get((C, 32), 0), "max_abs_err": worst["spatial_bwd"][C],
             "ms": sb_ms["median"], "plain_ms": sb_plain["median"], "bound_ms": bb, "bound_by": bby,
             "bound_fma_ms": chain_bwd_bound_ms(*shape, C, dx_in=False)[0], "library_ms": sb_lib["median"],
             "ms_min": sb_ms["min"], "plain_ms_min": sb_plain["min"],
             "library_ms_min": sb_lib["min"], **common})
         del x, ws, bs, leaves, l2, out, out_p, lout, gout, lg
+
+    return kernels
+
+
+def phase_timing_codec_train(device, tree, batch, counts, worst, worst_gc, worst_stripe):
+    """The kernels of the codec's training at its shapes (B1, and B3 and B2
+    at growth 12, unpacked and W-packed at stripe 72; B4 forward and
+    backward), a whole step and its parts packed and unpacked in turns, the
+    plain path's step, and the peak memory with features saved and
+    recomputed."""
+    rng = np.random.default_rng(61)
+    shape = CODEC_TRAIN_LAT
+    spatial = [(3, 12), (24, 12)]        # the prior's chains: growth 12
+    kernels = (chain_rows(device, "codec_train", shape, 0, CODEC_WIDTHS, spatial, counts,
+                          {"forward": worst_gc, "feats": worst["feats"], "bwd": worst["bwd"]})
+               + chain_rows(device, "codec_train_packed", CODEC_PACKED, CODEC_STRIPE, CODEC_WIDTHS, spatial, counts,
+                            worst_stripe))
+    kernels += spatial_rows(device, "codec_train", shape, counts, worst, rng)
 
     # a whole step (host codec included), then its parts, each timed alone
     model = new_codec_trainer(device, tree, batch)
@@ -3655,12 +3675,18 @@ def new_haar_trainer(device, tree, batch, network=None, **train):
     """``RescaleModel`` training the SelfC 4x net with the published
     training config's options (``train_options``), ``network`` over
     HAAR_NET."""
-    opt = train_options({**HAAR_NET, **(network or {})}, **train)
-    opt["model"] = "SelfC"
-    model = RescaleModel(opt, device=device, rng_seed=0)
+    model = RescaleModel(haar_train_options(network, **train), device=device, rng_seed=0)
     model.load_jax_params(tree)
     check(model.feed_data({"GT": batch}) == TRAIN_SHAPE[1], "feed_data returns the clip length")
     return model
+
+
+def haar_train_options(network=None, **train):
+    """The published training config's options (``train_options``) for the
+    SelfC 4x net, ``network`` over HAAR_NET."""
+    opt = train_options({**HAAR_NET, **(network or {})}, **train)
+    opt["model"] = "SelfC"
+    return opt
 
 
 def shape_counts(counts, shape):
@@ -4312,11 +4338,15 @@ def phase_aux(device):
 
 
 def launches_by_card():
-    """B1, B3 and B2 calls by card since the last reset."""
+    """B1, B3, B2, B4 (forward, backward) and B5 (forward, backward) calls
+    by card since the last reset (a B4 call is also counted as the B3 or B2
+    call it makes)."""
     out = {}
-    for (entry, index), n in dc.launches_by_device.items():
-        name = {"forward": "B1", "feats": "B3", "bwd": "B2"}[entry]
-        out.setdefault(f"cuda:{index}", {})[name] = n
+    for counts, names in ((dc.launches_by_device, {"forward": "B1", "feats": "B3", "bwd": "B2", "spatial": "B4",
+                                                   "spatial_bwd": "B4_bwd"}),
+                          (df.launches_by_device, {"forward": "B5", "bwd": "B5_bwd"})):
+        for (entry, index), n in counts.items():
+            out.setdefault(f"cuda:{index}", {})[names[entry]] = n
     return out
 
 
@@ -4432,7 +4462,216 @@ def _batch_dependence(net, lr, eps, hr2, calls):
     return {"hr_max_abs_diff": hr, "calls": len(calls), "differing_calls": differ, "global_agg_steps": agg}
 
 
-def phase_mesh(device, worst_stripe, smi):
+def mesh_split_errors(st, ref):
+    """A split step (``mesh_step``) against the unsplit one: the loss, the
+    whole gradient, each leaf's gradient and update (relative l2), over the
+    leaves whose gradient is not zero (one below TRAIN_GRAD_ZERO of the
+    largest, or GlobalAgg's ``proj3_b``, whose gradient is zero by
+    construction: the softmax over the keys cancels a bias added to every
+    key)."""
+    top = max(g.abs().max().item() for g in ref["grads"].values())
+    live = [k for k, g in ref["grads"].items()
+            if g.abs().max().item() >= TRAIN_GRAD_ZERO * top and not k.endswith("proj3_b")]
+    upd = {k: rel_l2(st["after"][k] - st["before"][k], ref["after"][k] - ref["before"][k]) for k in live}
+    leaf = {k: rel_l2(st["grads"][k], ref["grads"][k]) for k in live}
+    worst = max(leaf, key=leaf.get)
+    r = {"loss_rel_diff": abs(st["loss"] - ref["loss"]) / abs(ref["loss"]),
+         "grad_rel_l2": grads_rel_l2({k: st["grads"][k] for k in live}, {k: ref["grads"][k] for k in live}),
+         "worst_param_grad_rel_l2": leaf[worst], "worst_leaf": worst,
+         "worst_param_update_rel_l2": max(upd.values()), "leaves_held": len(live), "leaves": len(ref["grads"])}
+    r["within_limits"] = (r["loss_rel_diff"] <= MESH_LOSS_REL_LIMIT and r["grad_rel_l2"] <= MESH_GRAD_L2_LIMIT
+                          and r["worst_param_grad_rel_l2"] <= MESH_GRAD_REL_LIMIT
+                          and r["worst_param_update_rel_l2"] <= MESH_UPDATE_L2_LIMIT)
+    return r
+
+
+def mesh_step(model, step):
+    """One training step of ``model`` (``step()``), every count set to 0
+    just before and read just after: the loss, every gradient, the
+    parameters before and after, and the kernels' calls by card, by stripe
+    and (B4) by width."""
+    params = (model.params if isinstance(model, CodecModel) else model.net).named_parameters
+    before = {k: p.detach().clone() for k, p in params()}
+    reset_all_counts()
+    df.reset_launch_counts()
+    step()
+    torch.cuda.synchronize()
+    out = {"launches_by_card": launches_by_card(), "counts": {**stripe_counts(), **codec_counts()}}
+    out.update(loss=model.get_current_log()["loss"], before=before,
+               grads={k: p.grad.detach().clone() for k, p in params()},
+               after={k: p.detach().clone() for k, p in params()})
+    return out
+
+
+
+
+def mesh_codec(c0, meshes, worst_stripe, worst_gc_bwd):
+    """``train_compression.yml``'s step at full width (the surrogate with
+    its correlation term), fp32, sp 2 against sp 1: from one seeded tree and
+    one fed codec output, with and without ``deart_net``; then one step
+    each through the host codec (the zlib stand-in here), whose input (the
+    quantised LR gathered to whole frames) and bpp must be sp 1's exactly.
+    Returns the ``mesh`` line's part and the kernels-line rows of B1 (the
+    coupling's and the prior's chains) and B4 (the surrogate's) at the
+    sp 2 haloed shard."""
+    batch = codec_train_batch()
+    part, rows_counts = {}, None
+    for tag, net_opt in (("codec_train_sp", None), ("codec_deart_train_sp", {"deart_net": True})):
+        probe = CodecModel(codec_train_options(net_opt), mesh=meshes["sp1"], rng_seed=0)
+        tree = codec_tree(probe, 51)
+        probe.load_jax_params(tree)
+        check(probe.feed_data({"GT": batch}) == CODEC_TRAIN_SHAPE[1], "feed_data returns the clip length")
+        if net_opt:
+            scale_deart_offsets(probe.net, tree["net"], probe.degrade(probe._hr))
+        else:
+            plain_tree = tree
+        with torch.no_grad():
+            shared, _ = probe.codec_span(probe._encode_lf(probe._hr), probe.q)
+        del probe
+        steps = {}
+        for name in ("sp1", "sp2"):
+            model = CodecModel(codec_train_options(net_opt), mesh=meshes[name], rng_seed=0)
+            model.load_jax_params(tree)
+            check(model.feed_data({"GT": batch}) == CODEC_TRAIN_SHAPE[1], "feed_data returns the clip length")
+            steps[name] = mesh_step(model, lambda m=model: m.optimize_parameters(0, codec_out=shared))
+            steps[name]["ms"] = time_cuda(lambda m=model: m.optimize_parameters(1, codec_out=shared),
+                                          iters=MESH_TIMED_STEPS, warmup=1)
+            del model
+        r = mesh_split_errors(steps["sp2"], steps["sp1"])
+        check(r["within_limits"], f"the codec step with the width over sp 2 against sp 1 ({tag}): {r}")
+        part[tag] = {**r, "step_ms": {k: st["ms"] for k, st in steps.items()},
+                     "launches_by_card": {k: st["launches_by_card"] for k, st in steps.items()}}
+        n_b1 = {k: sum(c.get("B1", 0) for c in st["launches_by_card"].values()) for k, st in steps.items()}
+        n_b5 = {k: sum(c.get("B5", 0) + c.get("B5_bwd", 0) for c in st["launches_by_card"].values())
+                for k, st in steps.items()}
+        # B5 runs whole on the master card: as many calls as unsplit, all there
+        b5_cards = {k for k, c in steps["sp2"]["launches_by_card"].items() if c.get("B5", 0) + c.get("B5_bwd", 0)}
+        check(n_b1["sp2"] == 2 * n_b1["sp1"] and n_b5["sp2"] == n_b5["sp1"] and b5_cards <= {str(c0)},
+              f"B1 / B5 calls of the codec step sp 2 / sp 1 ({tag}): {n_b1}, {n_b5} on {b5_cards}")
+        if net_opt is None:
+            rows_counts = steps["sp2"]["counts"]
+        del steps
+
+    # the host codec: its input gathered on the host, the same bits as sp 1's
+    seen, logs = {}, {}
+    for name in ("sp1", "sp2"):
+        model = CodecModel(codec_train_options(), mesh=meshes[name], rng_seed=0)
+        model.load_jax_params(plain_tree)
+        model.feed_data({"GT": batch})
+        host = model._host_codec
+
+        def recorded(lr_q, q, name=name, host=host):
+            seen[name] = lr_q.copy()
+            return host(lr_q, q)
+
+        model._host_codec = recorded
+        model.optimize_parameters(0)
+        logs[name] = dict(model.get_current_log())
+        del model
+    same = np.array_equal(seen["sp1"], seen["sp2"])
+    loss_rel = abs(logs["sp2"]["loss"] - logs["sp1"]["loss"]) / abs(logs["sp1"]["loss"])
+    check(same and logs["sp2"]["img_bpp"] == logs["sp1"]["img_bpp"] and loss_rel <= MESH_LOSS_REL_LIMIT,
+          f"the codec step through the host codec, sp 2 against sp 1: lr_q the same bits {same}, bpp "
+          f"{logs['sp2']['img_bpp']} / {logs['sp1']['img_bpp']}, loss {loss_rel}")
+    part["codec_host_sp"] = {"lr_q_same_bits": same, "lr_q_shape": list(seen["sp1"].shape),
+                             "img_bpp": {k: v["img_bpp"] for k, v in logs.items()},
+                             "rate_source": logs["sp1"]["rate_source"], "loss_rel_diff": loss_rel}
+
+    # the kernels at the sp 2 haloed shard: B1 (the chains pack within it), B4
+    rng = np.random.default_rng(190)
+    lat = CODEC_TRAIN_LAT
+    w = lat[3] // 2 + spatial.HALO
+    P = dc.pick_pack_w(lat[0], w)
+    shard = (lat[0] // P, *lat[1:3], P * w)
+    w4 = lat[3] // 2 + spatial.block_reach(DenseBlock2D(4, 24))[0]   # the surrogate's 2-D dense blocks
+    rows = chain_rows(c0, "codec_train_sp2", shard, w if P > 1 else 0, CODEC_WIDTHS, [], rows_counts,
+                      worst_stripe)
+    rows += spatial_rows(c0, "codec_train_sp2", (*lat[:3], w4), rows_counts, worst_gc_bwd, rng)
+    part["codec_train_sp"]["shard_packed"], part["codec_train_sp"]["surrogate_shard"] = list(shard), [*lat[:3], w4]
+    return part, rows
+
+
+def mesh_haar(c0, meshes, worst_haar):
+    """The Haar SelfC 4x net at the ``haar`` phase's widths, sp 2 against
+    sp 1: the fp32 packed step on the published batch from one seeded tree
+    and one eps (and once recomputing the chains' features: B3), and one
+    GOP through ``test()``. Returns the ``mesh`` line's part and the
+    kernels-line rows of B1, B3 and B2 at the level 1 and level 2 sp 2
+    haloed shards."""
+    batch = train_batch(161)
+    tree = seeded_tree(define_G(haar_options(), device=c0), 162)
+    lat = (*TRAIN_SHAPE, 3)
+    steps, eps = {}, None
+    for name, mesh, extra in (("sp1", meshes["sp1"], {}), ("sp2", meshes["sp2"], {}),
+                              ("sp2_recompute", meshes["sp2"], {"save_chain_feats": False})):
+        model = RescaleModel(haar_train_options(**MESH_HAAR_TRAIN, **extra), mesh=mesh, rng_seed=0)
+        model.load_jax_params(tree)
+        check(model.feed_data({"GT": batch}) == TRAIN_SHAPE[1], "feed_data returns the clip length")
+        if eps is None:
+            eps = torch.randn(model.net.eps_shape(lat), generator=torch.Generator(c0).manual_seed(23), device=c0)
+        steps[name] = mesh_step(model, lambda m=model: m.optimize_parameters(0, eps=eps))
+        if name != "sp2_recompute":
+            steps[name]["ms"] = time_cuda(lambda m=model: m.optimize_parameters(1, eps=eps),
+                                          iters=MESH_TIMED_STEPS, warmup=1)
+        del model
+    part = {}
+    r = mesh_split_errors(steps["sp2"], steps["sp1"])
+    same_recompute = steps["sp2_recompute"]["loss"] == steps["sp2"]["loss"]
+    check(r["within_limits"] and same_recompute,
+          f"the Haar step with the width over sp 2 against sp 1: {r}; recomputing the same loss {same_recompute}")
+    n_b1 = {k: sum(c.get("B1", 0) for c in st["launches_by_card"].values()) for k, st in steps.items()}
+    check(n_b1["sp2"] == 2 * n_b1["sp1"], f"B1 calls of the Haar step sp 2 / sp 1: {n_b1}")
+    part["haar_train_sp"] = {**r, "batch": list(batch.shape), "train": MESH_HAAR_TRAIN,
+                             "recompute_same_loss": same_recompute,
+                             "step_ms": {k: st["ms"] for k, st in steps.items() if "ms" in st},
+                             "launches_by_card": {k: st["launches_by_card"] for k, st in steps.items()}}
+    counts = dict(steps["sp2"]["counts"], feats_stripe=steps["sp2_recompute"]["counts"]["feats_stripe"])
+    del steps
+
+    # one GOP through test()
+    gop = serve_clip(frames=7)
+    served, scounts = {}, {}
+    for name in ("sp1", "sp2"):
+        model = RescaleModel(haar_options(gop_batch=1), mesh=meshes[name], rng_seed=0)
+        model.load_jax_params(tree)
+        model.feed_data({"GT": gop})
+        model.generator.manual_seed(7)
+        reset_all_counts()
+        model.test(gop=7)
+        torch.cuda.synchronize()
+        scounts[name] = launches_by_card()
+        served[name] = model
+    a, b = served["sp1"], served["sp2"]
+    y_err = float(np.abs(a.forw_H - b.forw_H).max())
+    lr = torch.from_numpy(a.forw_L).to(c0)
+    eps = torch.randn(a.net.eps_shape(lr.shape), generator=torch.Generator(c0).manual_seed(8), device=c0)
+    hr_a = a._decode_on(meshes["sp1"].devices, Replicas(), lr, eps)[0]
+    hr_b = b._decode_on(meshes["sp2"].devices, Replicas(), lr, eps)[0]
+    hr_err = (hr_a - hr_b).abs().max().item()
+    check(y_err <= MESH_SP_Y_LIMIT and hr_err <= MESH_SP_HR_LIMIT and np.isfinite(b.fake_H).all(),
+          f"the Haar test() with the width over sp 2 against sp 1: latent {y_err}, HR from one lr {hr_err}")
+    part["haar_eval_sp"] = {"clip": list(gop.shape), "limits": [MESH_SP_Y_LIMIT, MESH_SP_HR_LIMIT],
+                            "latent_max_abs_diff": y_err, "lr_levels_differing": int((a.forw_L != b.forw_L).sum()),
+                            "hr_from_one_lr_max_abs_diff": hr_err, "launches_by_card": scounts,
+                            "gop_ms": {k: time_cuda(lambda m=m: m.test(gop=7), iters=MESH_TIMED_STEPS, warmup=1)
+                                       for k, m in served.items()}}
+    del served, a, b, hr_a, hr_b
+
+    # B1, B3 and B2 at each level's sp 2 haloed shard, packed call by call
+    rows = []
+    for level, widths in ((1, ((9, 3), (3, 9))), (2, ((45, 3), (3, 45), (3, 12), (12, 24), (24, 48), (48, 32)))):
+        B, T, H, W = HAAR_TRAIN[level]
+        w = W // 2 + spatial.HALO
+        P = dc.pick_pack_w(B, w)
+        shard = (B // P, T, H, P * w)
+        rows += chain_rows(c0, f"haar_train_sp2_L{level}", shard, w if P > 1 else 0,
+                           [(C, c_out, 32) for C, c_out in widths],
+                           [(C, 32) for C in dict.fromkeys(C for C, _ in widths)], counts, worst_haar)
+        part["haar_train_sp"][f"shard_L{level}_packed"] = list(shard)
+    return part, rows
+
+
+def phase_mesh(device, worst_stripe, worst_gc_bwd, worst_haar, smi):
     """``--phases mesh``: the device mesh (``parallel/mesh.py``) on two mesh
     positions: distinct cards where the machine has two or more, else
     ``cuda:0`` twice (never the CPU).
@@ -4448,6 +4687,11 @@ def phase_mesh(device, worst_stripe, smi):
     - B1, B3 and B2 calls by card; the GOP and the step timed with CUDA
       events; the kernels-line rows of B1, B3 and B2 at the haloed,
       W-packed shard of the sp 2 step;
+    - the width split of the codec and Haar nets (``mesh_codec``,
+      ``mesh_haar``): the codec step (plain, with ``deart_net``, through the
+      host codec) and the Haar step and GOP, sp 2 against sp 1, with B1 /
+      B3 / B2 / B4 / B5 calls by card, the steps timed, and the kernels-line
+      rows at their haloed shards;
     - on two or more cards, one call of each kernel wrapper on cuda:1 while
       cuda:0 is current, against its plain version there."""
     n_cards = torch.cuda.device_count()
@@ -4456,6 +4700,7 @@ def phase_mesh(device, worst_stripe, smi):
     meshes = {"dp2": make_mesh(dp=2, sp=1, devices=[c0, c1]), "sp2": make_mesh(dp=1, sp=2, devices=[c0, c1])}
     line = {"cards": meshes["dp2"].cards(), "device_count": n_cards, "nvidia_smi": smi,
             "meshes": {k: repr(m) for k, m in meshes.items()}}
+    df.reset_launch_counts()
 
     # ---- eval over dp: the rescaling net ----
     clip = serve_clip()
@@ -4550,8 +4795,7 @@ def phase_mesh(device, worst_stripe, smi):
     # ---- the width split: the training step ----
     batch = train_batch()
     lat = (TRAIN_SHAPE[0], TRAIN_SHAPE[1], TRAIN_SHAPE[2], TRAIN_SHAPE[3], 3)
-    steps, stripes = {}, {}
-    eps = None
+    steps, eps = {}, None
     for name, mesh, extra in (("sp1", one, {}), ("sp2", meshes["sp2"], {}),
                               ("sp2_recompute", meshes["sp2"], {"save_chain_feats": False})):
         model = RescaleModel(train_options(**extra), mesh=mesh, rng_seed=0)
@@ -4559,32 +4803,16 @@ def phase_mesh(device, worst_stripe, smi):
         check(model.feed_data({"GT": batch}) == TRAIN_SHAPE[1], "feed_data returns the clip length")
         if eps is None:
             eps = torch.randn(model.net.eps_shape(lat), generator=torch.Generator(c0).manual_seed(21), device=c0)
-        before = params_of(model)
-        dc.reset_launch_counts()
-        model.optimize_parameters(0, eps=eps)
-        torch.cuda.synchronize()
-        stripes[name] = stripe_counts()
-        steps[name] = {"loss": model.get_current_log()["loss"], "grads": grads_of(model), "before": before,
-                       "after": params_of(model), "launches_by_card": launches_by_card(),
-                       "ms": time_cuda(lambda m=model: m.optimize_parameters(1, eps=eps), iters=5, warmup=1)}
+        steps[name] = mesh_step(model, lambda m=model: m.optimize_parameters(0, eps=eps))
+        steps[name]["ms"] = time_cuda(lambda m=model: m.optimize_parameters(1, eps=eps), iters=5, warmup=1)
         del model
     ref = steps["sp1"]
-    top = max(g.abs().max().item() for g in ref["grads"].values())
-    live = [k for k, g in ref["grads"].items() if g.abs().max().item() >= TRAIN_GRAD_ZERO * top]
     rows = {}
     for name in ("sp2", "sp2_recompute"):
         st = steps[name]
-        upd = {k: rel_l2(st["after"][k] - st["before"][k], ref["after"][k] - ref["before"][k]) for k in live}
-        rows[name] = {"loss_rel_diff": abs(st["loss"] - ref["loss"]) / abs(ref["loss"]),
-                      "grad_rel_l2": grads_rel_l2({k: st["grads"][k] for k in live}, {k: ref["grads"][k] for k in live}),
-                      "worst_param_grad_rel_l2": max(rel_l2(st["grads"][k], ref["grads"][k]) for k in live),
-                      "worst_param_update_rel_l2": max(upd.values()),
-                      "launches_by_card": st["launches_by_card"], "step_ms": st["ms"]}
-        r = rows[name]
-        check(r["loss_rel_diff"] <= MESH_LOSS_REL_LIMIT and r["grad_rel_l2"] <= MESH_GRAD_L2_LIMIT
-              and r["worst_param_grad_rel_l2"] <= MESH_GRAD_REL_LIMIT
-              and r["worst_param_update_rel_l2"] <= MESH_UPDATE_L2_LIMIT,
-              f"the training step with the width over sp 2 against sp 1 ({name}): {r}")
+        rows[name] = r = {**mesh_split_errors(st, ref), "launches_by_card": st["launches_by_card"],
+                          "step_ms": st["ms"]}
+        check(r["within_limits"], f"the training step with the width over sp 2 against sp 1 ({name}): {r}")
     n_b1 = lambda st: sum(c.get("B1", 0) for c in st["launches_by_card"].values())  # noqa: E731
     n_b3 = sum(c.get("B3", 0) for c in steps["sp2_recompute"]["launches_by_card"].values())
     check(n_b1(steps["sp2"]) == 2 * n_b1(ref) and n_b3 == n_b1(steps["sp2_recompute"]),
@@ -4596,14 +4824,23 @@ def phase_mesh(device, worst_stripe, smi):
                                                                MESH_GRAD_REL_LIMIT, MESH_UPDATE_L2_LIMIT],
                         "sp1_step_ms": ref["ms"], "sp1_launches_by_card": ref["launches_by_card"],
                         "shard_packed": list(shard), "stripe_w": w if P > 1 else 0, **rows}
-    del steps, ref, batch
 
     # ---- the kernels at the haloed shard of the sp 2 step ----
-    counts = {"forward_stripe": stripes["sp2"]["forward_stripe"],
-              "backward_stripe": stripes["sp2"]["backward_stripe"],
-              "feats_stripe": stripes["sp2_recompute"]["feats_stripe"]}
+    counts = dict(steps["sp2"]["counts"], feats_stripe=steps["sp2_recompute"]["counts"]["feats_stripe"])
+    del steps, ref, batch
     kernels = chain_rows(device, "train_sp2", shard, w if P > 1 else 0, [(C, c_out, 32) for C, c_out in PATH_WIDTHS],
                          [(C, 32) for C in CHAIN_C], counts, worst_stripe)
+
+    # ---- the width split of the codec and Haar nets ----
+    nets = {"sp1": one, "sp2": meshes["sp2"]}
+    t0 = time.time()
+    part, rows = mesh_codec(c0, nets, worst_stripe, worst_gc_bwd)
+    line.update(part)
+    kernels += rows
+    part, rows = mesh_haar(c0, nets, worst_haar)
+    line.update(part)
+    kernels += rows
+    line["nets_s"] = time.time() - t0
 
     # ---- every wrapper on cuda:1 while cuda:0 is current ----
     if n_cards >= 2:
@@ -4732,7 +4969,7 @@ def main():
         phase_gan(device)
         phase_aux(device)
     if "mesh" in want:
-        kernels += phase_mesh(device, worst_stripe, smi)
+        kernels += phase_mesh(device, worst_stripe, worst_gc_bwd, worst_haar, smi)
 
     if want & {"cli", "profile"}:
         work = Path(tempfile.mkdtemp(prefix="selfc_cli_"))

@@ -7,15 +7,19 @@ from __future__ import annotations
 import torch
 
 
-def add_noise(x, generator, magnitude: float = 1e-4, kind: str = "uniform"):
-    """``kind`` 'uniform': a random sign times a magnitude uniform in
-    [magnitude/10, magnitude); 'gaussian': normal with std 2*magnitude."""
+def draw_noise(shape, dtype, device, generator, magnitude: float = 1e-4, kind: str = "uniform"):
+    """The noise of ``add_noise`` for a tensor of ``shape`` and ``dtype`` on
+    ``device``: ``kind`` 'uniform': a random sign times a magnitude uniform
+    in [magnitude/10, magnitude); 'gaussian': normal with std 2*magnitude."""
     if kind == "uniform":
-        sign = (torch.rand(x.shape, generator=generator, device=x.device) < 0.5).to(x.dtype) * 2 - 1
-        u = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
-        noise = sign * (magnitude / 10.0 + u * (magnitude - magnitude / 10.0))
-    elif kind == "gaussian":
-        noise = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype) * 2.0 * magnitude
-    else:
-        raise ValueError(kind)
-    return x + noise
+        sign = (torch.rand(shape, generator=generator, device=device) < 0.5).to(dtype) * 2 - 1
+        u = torch.rand(shape, generator=generator, device=device, dtype=dtype)
+        return sign * (magnitude / 10.0 + u * (magnitude - magnitude / 10.0))
+    if kind == "gaussian":
+        return torch.randn(shape, generator=generator, device=device, dtype=dtype) * 2.0 * magnitude
+    raise ValueError(kind)
+
+
+def add_noise(x, generator, magnitude: float = 1e-4, kind: str = "uniform"):
+    """x plus ``draw_noise`` of its shape, drawn on its device."""
+    return x + draw_noise(x.shape, x.dtype, x.device, generator, magnitude, kind)

@@ -79,16 +79,20 @@ class H265Surrogate(nn.Module):
             self.fuser_2 = _Dense(256, 1, generator)
         self.suggrogate_net = SurrogateNet(generator=generator)
 
+    def indicator(self, T, q_value, device):
+        """The ``(1, T, 1, 1, 1)`` indicator plane joined to the LR: t in
+        [0, 1], or with ``dynamic_q`` the MLP of (t, q/30)."""
+        t_ind = torch.linspace(0.0, 1.0, T, device=device)
+        if not self.dynamic_q:
+            return t_ind[None, :, None, None, None]
+        tok = torch.stack([t_ind, torch.full((T,), float(q_value) / 30.0, device=device)], dim=1)
+        tok = torch.relu(self.fuser_0(tok))
+        tok = torch.relu(self.fuser_1(tok))
+        return self.fuser_2(tok)[None, :, None, None, :]
+
     def forward(self, lr, q_value=None):
         B, T, h, w, _ = lr.shape
-        t_ind = torch.linspace(0.0, 1.0, T, device=lr.device)
-        if not self.dynamic_q:
-            ind = t_ind[None, :, None, None, None]
-        else:
-            tok = torch.stack([t_ind, torch.full((T,), float(q_value) / 30.0, device=lr.device)], dim=1)
-            tok = torch.relu(self.fuser_0(tok))
-            tok = torch.relu(self.fuser_1(tok))
-            ind = self.fuser_2(tok)[None, :, None, None, :]  # (1, T, 1, 1, 1)
+        ind = self.indicator(T, q_value, lr.device)
         # the fp32 indicator promotes a bf16 lr, as jnp.concatenate does
         x = torch.cat([lr, ind.expand(B, T, h, w, 1)], dim=-1)
         return self.suggrogate_net(x) + lr
@@ -134,20 +138,26 @@ def mimick_plain(sug, codec_out):
     return sug, torch.mean((codec_out.detach() - sug) ** 2)
 
 
+def pearson_map(x, y):
+    """The Pearson correlation of x and y at each element over the
+    flattened B*T axis: ``(1, *x.shape[2:])``."""
+    B, T = x.shape[:2]
+    xf = x.reshape(B * T, *x.shape[2:])
+    yf = y.reshape(B * T, *y.shape[2:])
+    vx = xf - xf.mean(dim=0, keepdim=True)
+    vy = yf - yf.mean(dim=0, keepdim=True)
+    return torch.sum(vx * vy, dim=0, keepdim=True) / (
+        torch.sqrt(torch.sum(vx ** 2, dim=0, keepdim=True))
+        * torch.sqrt(torch.sum(vy ** 2, dim=0, keepdim=True)) + 1e-8)
+
+
 def mimick_and_swap(sug, codec_out, lambda_corr: float):
     """The mimick loss and the value swap (reference :141-156). The Pearson
     correlation is taken per element over the flattened B*T axis, then
     meaned. Returns ``(swapped, loss)``."""
     x = codec_out.detach()
-    B, T = sug.shape[:2]
-    xf = x.reshape(B * T, *x.shape[2:])
-    yf = sug.reshape(B * T, *sug.shape[2:])
-    mimick = torch.mean((xf - yf) ** 2)
-    vx = xf - xf.mean(dim=0, keepdim=True)
-    vy = yf - yf.mean(dim=0, keepdim=True)
-    corr = torch.sum(vx * vy, dim=0, keepdim=True) / (
-        torch.sqrt(torch.sum(vx ** 2, dim=0, keepdim=True))
-        * torch.sqrt(torch.sum(vy ** 2, dim=0, keepdim=True)) + 1e-8)
+    mimick = torch.mean((x - sug) ** 2)
+    corr = pearson_map(x, sug)
     swapped = sug + (codec_out - sug).detach()
     return swapped, mimick - lambda_corr * corr.mean()
 

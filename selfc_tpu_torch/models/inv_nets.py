@@ -317,7 +317,7 @@ class _HaarPyramid(_ChainOptions):
 
     def __init__(self, scale, block_num, subnet_type, init_mode, generator):
         super().__init__()
-        self.scale = scale
+        self.scale, self.subnet_type = scale, subnet_type
         self.down_num = {2: 1, 4: 2, 8: 3}[scale]
         self.block_num = tuple(block_num)
         self.hf_dim = 3 * 4 ** self.down_num - 3

@@ -143,13 +143,21 @@ class STPNetSmall(nn.Module):
             self.tail_1 = _PW(c, c, g)
             self.tail_2 = _PW(c, hf_dim * gmm_k * 3, g)
 
-    def forward(self, lr):
+    def blocks(self):
+        """The conditioning blocks, in order."""
         if self.d2dt:
-            x = self.blk2(self.blk1_2(self.blk1_1(self.blk1_0(lr))))
-        else:
-            x = self.blk2(self.blk1(lr))
+            return [self.blk1_0, self.blk1_1, self.blk1_2, self.blk2]
+        return [self.blk1, self.blk2]
+
+    def tail(self, x):  # (B,T,h,w,c) -> raw GMM params / l2 mean
         x = self.tail_0(leaky_relu(x))
         if self.fh_loss == "l2":
             return x
         x = self.tail_1(leaky_relu(x))
         return self.tail_2(leaky_relu(x))
+
+    def forward(self, lr):
+        x = lr
+        for blk in self.blocks():
+            x = blk(x)
+        return self.tail(x)

@@ -45,6 +45,8 @@ launches = 0
 launches_by_width: dict = {}
 launches_bwd = 0
 launches_bwd_by_width: dict = {}
+# the same calls by ("forward" | "bwd", device index)
+launches_by_device: dict = {}
 
 
 def reset_launch_counts():
@@ -52,6 +54,7 @@ def reset_launch_counts():
     launches = launches_bwd = 0
     launches_by_width.clear()
     launches_bwd_by_width.clear()
+    launches_by_device.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +257,7 @@ def _forward_cuda(x, offset, mask, weight):
     dc._raise_on(err, "deformable conv", lib.selfc_deform_cuda_error_string)
     launches += 1
     dc._count((C, c_out), launches_by_width)
+    dc._count(("forward", x.device.index), launches_by_device)
     return out
 
 
@@ -282,6 +286,7 @@ def _backward_cuda(x, offset, mask, weight, g):
     dc._raise_on(err, "deformable conv backward", lib.selfc_deform_cuda_error_string)
     launches_bwd += 1
     dc._count((C, c_out), launches_bwd_by_width)
+    dc._count(("bwd", x.device.index), launches_by_device)
     return dx, doffset, dmask, dweight
 
 

@@ -122,8 +122,9 @@ launches_feats_by_stripe: dict = {}
 # ("feats" | "bwd", B, T, H, W, C, gc), ("spatial" | "spatial_bwd", B, T, H,
 # W, C); a chain's work depends on its shape and widths alone
 launches_by_shape: dict = {}
-# every call of the forward chain (B1), the spatial-only forward (B3) and the
-# adjoint (B2) by its card: ("forward" | "feats" | "bwd", device index)
+# every call of the forward chain (B1), the spatial-only forward (B3), the
+# adjoint (B2) and the v1 spatial chain (B4) by its card: ("forward" |
+# "feats" | "bwd" | "spatial" | "spatial_bwd", device index)
 launches_by_device: dict = {}
 
 
@@ -753,6 +754,7 @@ class _FusedDenseSpatial(torch.autograd.Function):
             launches_spatial += 1
             _count((x.shape[-1], GC_MAX), launches_spatial_by_width)
             _count(("spatial", *x.shape), launches_by_shape)
+            _count(("spatial", x.device.index), launches_by_device)
         else:
             out = chain_feats_plain(x, ws, bs)
         ctx.save_for_backward(x, out, *wbs)
@@ -771,6 +773,7 @@ class _FusedDenseSpatial(torch.autograd.Function):
             launches_spatial_bwd += 1
             _count((x.shape[-1], GC_MAX), launches_spatial_bwd_by_width)
             _count(("spatial_bwd", *x.shape), launches_by_shape)
+            _count(("spatial_bwd", x.device.index), launches_by_device)
         else:
             dx, dws, dbs = chain_spatial_bwd_plain(x, ws, bs, feats, g)
         return (dx.to(x.dtype) if ctx.needs_input_grad[0] else None), *dws, *dbs

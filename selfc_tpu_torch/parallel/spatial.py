@@ -1,67 +1,140 @@
-"""SelfC_GMM with the image width split over the cards of one mesh row: the
-work XLA derives from the JAX package's ``mesh_sp`` (the HR batch sharded
-over W, the convolutions' halo exchanges, the gradients' psums), written
-out for the port.
+"""The image width split over the cards of one mesh row: the work XLA
+derives from the JAX package's ``mesh_sp`` (the HR batch sharded over W,
+the convolutions' halo exchanges, the gradients' psums), written out for
+the port, for the nets the JAX wrappers train: SelfC_GMM
+(``WidthSplitGMM``), SelfC_GMM_Codec with its surrogate and de-artifact net
+(``WidthSplitCodec``) and the Haar SelfC net (``WidthSplitHaar``).
 
 Every function takes a row's shards, left to right, each on its card, and
 returns shards. What crosses a shard edge:
 
-* each D2DT chain (the coupling's F, H and G, the prior's local blocks)
-  reads ``HALO`` = 4 columns of each neighbour: four 3x3 layers reach 4
-  columns, conv5 is temporal and reaches none. The chain runs on the
-  haloed shard and is cropped; the image's true edges keep the chain's own
-  zero padding, so the crop is the unsplit chain's output. The halo is
-  exchanged before each chain (H and G read the same input and share
-  one), not 8 columns once a coupling block: 4 keeps every chain's extra
-  work to 4 columns a side and works at every shard width the divisibility
-  rule allows (an LR shard of 4 columns). An epilogue's operands are
-  zero-padded instead (those columns are cropped);
+* a block of convolutions (a D2DT chain, the surrogate's ``DenseBlock2D``
+  and ``FeatureCollapse``, ``STPNetSmall``'s blocks) reads ``block_reach``
+  columns of each neighbour, derived from its convs' kinds: a spatial
+  ('s') or full ('f') conv reaches 1 column at the block's resolution, a
+  temporal ('t') or pointwise ('p') one none. A D2DT chain reaches 4 (four
+  3x3 layers, a temporal conv5), a ``DenseBlock2D`` 5, a
+  ``FeatureCollapse`` at scale 4 five cells of 4, 20 columns, and its
+  shards must start on the 4-column grid. The block runs on the haloed
+  shard and is cropped; the image's true edges keep the block's own zero
+  padding, so the crop is the unsplit block's output. The halo is
+  exchanged before each block (H and G read the same input and share
+  one). A coupling epilogue's operands are zero-padded instead (those
+  columns are cropped);
 * ``GlobalAgg``'s 32 x 32 adaptive pool: each shard sums its columns of
   every window, the sums are added on the master device and divided once,
   the ``(T x T)`` attention runs there on the whole pooled map, and each
   shard mixes its own pixels with it;
-* the losses, the prior's NLL and the log-jacobian: sums over shards,
-  divided by the whole batch's count.
+* the deformable modules (``DeformConvAgg``, ``GroupedGlobalDeformAgg``):
+  their offsets reach any column, so no halo is exact; the row's shards
+  are gathered on the master, the module runs whole there (B5 forward and
+  backward at the whole shape) and its output is sharded back. The
+  gather's adjoint is the split, so the gradient flows through;
+* the surrogate's Pearson term is per element over B*T: pointwise in W;
+* the losses, the prior's NLL, the mimick terms and the log-jacobian: sums
+  over shards, divided by the whole batch's count.
 
-Everything else (the frequency split, the quantisation, the GMM sample,
-the 1x1 tails) is pointwise in W and runs on each shard. Parameters reach
-each card through ``mesh.Replicas``: under autograd their gradients sum
-into the masters. W-packing (``pack_w``) packs the batch's images within a
-haloed shard, chain by chain (``DenseChain``'s own packing): the same
-function.
+Everything else (the frequency split, the Haar steps, which are 2x2-local
+on shards a multiple of the scale wide, the quantisation, the GMM sample,
+the 1x1 tails, the surrogate's indicator plane) runs on each shard.
+Parameters reach each card through ``mesh.Replicas``: under autograd their
+gradients sum into the masters. W-packing (``pack_w``) packs the batch's
+images within a haloed shard, chain by chain (``DenseChain``'s own
+packing): the same function.
+
+``width_rule`` gives the widths a net splits into; ``check_supported``
+raises for what the split does not compute (ROADMAP Queue A item 1).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..models.agg import GlobalAgg
-from ..models.inv_nets import SelfCNetGMM
-from ..models.stp import STPNet
+from ..codec.surrogate import H265Surrogate, pearson_map
+from ..models.agg import DeformConvAgg, GlobalAgg, GroupedGlobalDeformAgg
+from ..models.blocks import D2DT, DenseChain, FeatureCollapse, _Chain
+from ..models.inv_nets import SelfCNetCodec, SelfCNetGMM, SelfCNetHaar
+from ..models.stp import STPNet, STPNetSmall
 from ..ops.freq import freq_forward, freq_inverse
 from ..ops.gmm import gmm_log_prob, split_params
+from ..ops.haar import haar_forward, haar_inverse
 from ..ops.quantize import quantize_ste
 from ..ops.resize import GAUSS_REACH, adaptive_pool_w_sums, adaptive_w_counts, gaussian_downsample_w
-from .mesh import halo_sides, halo_w, unhalo_w
+from .mesh import W_AXIS, halo_sides, halo_w, unhalo_w
 
-HALO = 4   # columns a D2DT chain reads on each side: four 3x3 layers
+_CONV_REACH = {"s": 1, "f": 1, "t": 0, "p": 0}   # columns a conv of each kind reads on each side
+
+
+def block_reach(mod) -> tuple[int, int]:
+    """``(reach, grid)``: the columns of its input ``mod`` reads on each
+    side of an output column, and the grid a shard's edges must lie on
+    (1: any column). Derived from the convs' kinds (``blocks._ConvP.kind``)."""
+    if isinstance(mod, DenseChain):
+        convs = [*mod._convs(), mod.conv5] + ([mod.early_3d_layer] if mod.early_3d else [])
+        return sum(_CONV_REACH[c.kind] for c in convs), 1
+    if isinstance(mod, (D2DT, _Chain)):
+        return block_reach(mod.chain)
+    if isinstance(mod, FeatureCollapse):
+        reach, _ = block_reach(mod.chain)
+        return reach * mod.scale, mod.scale
+    raise NotImplementedError(f"the width split has no halo for {type(mod).__name__}")
+
+
+HALO = 4   # a D2DT chain's reach: four 3x3 layers, a temporal conv5 (``block_reach``)
 
 
 def check_supported(net) -> None:
-    """Raise unless the width split computes ``net``'s function: a SelfC_GMM
-    net of D2DT coupling chains (B1 with its fused epilogues), without the
-    H/G pair ("hg") and with ``nonlocal`` (or no) global modules (a
-    deformable aggregation reaches arbitrary columns)."""
-    if type(net) is not SelfCNetGMM:
-        raise NotImplementedError(f"mesh_sp > 1 splits SelfC_GMM only, not {type(net).__name__}")
+    """Raise unless the width split computes ``net``'s function: a
+    SelfC_GMM, SelfC_GMM_Codec or Haar SelfC net of D2DT coupling chains (B1
+    with its fused epilogues), without the H/G pair ("hg")."""
+    if type(net) not in (SelfCNetGMM, SelfCNetCodec, SelfCNetHaar):
+        raise NotImplementedError(f"mesh_sp > 1 splits SelfC_GMM, SelfC_GMM_Codec and SelfC, "
+                                  f"not {type(net).__name__}")
     if net.subnet_type != "D2DTNet":
-        raise NotImplementedError(f"mesh_sp > 1 needs subnet_type D2DTNet, not {net.subnet_type!r}")
+        raise NotImplementedError(f"mesh_sp > 1 needs subnet_type D2DTNet, not {net.subnet_type!r} "
+                                  "(ROADMAP Queue A item 1e)")
     if "hg" in net.chain_variants:
-        raise NotImplementedError("mesh_sp > 1 with chain_variants 'hg': the H/G pair has no halo'd route")
-    mods = [m for m in net.stp_net.modules() if type(m).__name__.endswith("Agg")]
-    if any(not isinstance(m, GlobalAgg) for m in mods):
-        raise NotImplementedError("mesh_sp > 1 needs global_module 'nonlocal' (or none)")
+        raise NotImplementedError("mesh_sp > 1 with chain_variants 'hg': the H/G pair (B7) has no "
+                                  "haloed route (ROADMAP Queue A item 1b)")
+
+
+def width_rule(net, surrogate=None) -> tuple[int, int, str, str]:
+    """``(multiple, least, grid block, halo block)``: a row's sp shards of
+    an HR width W are whole and exact where W / sp is a multiple of
+    ``multiple`` (the scale, times the coarsest grid a block's shard edges
+    must lie on) and at least ``least`` HR columns (no shard narrower than
+    a block's halo at the block's resolution); the two names say which
+    block sets each. The blocks: the net's D2DT chains and FeatureCollapse
+    blocks (a column of a Haar level l's input spans 2^(l+1) HR columns,
+    of any other's the scale) and the surrogate's."""
+    blocks = [(name, mod, 2 ** (int(name.split("_")[2]) + 1) if name.startswith("level_blocks_") else net.scale)
+              for name, mod in net.named_modules() if isinstance(mod, (D2DT, FeatureCollapse))]
+    if surrogate is not None:
+        blocks += [(f"surrogate.{n}", m, net.scale) for n, m in surrogate.suggrogate_net.named_children()]
+    multiple, least, by_grid, by_halo = net.scale, 0, "the scale", "none"
+    for name, mod, factor in blocks:
+        reach, grid = block_reach(mod)
+        m = math.lcm(multiple, factor * grid)
+        if m != multiple:
+            multiple, by_grid = m, name
+        if reach * factor > least:
+            least, by_halo = reach * factor, name
+    return multiple, least, by_grid, by_halo
+
+
+def check_width(W: int, sp: int, net, surrogate=None) -> None:
+    """Raise ``ValueError`` unless ``width_rule`` splits W into sp shards."""
+    if sp == 1:
+        return
+    multiple, least, by_grid, by_halo = width_rule(net, surrogate)
+    if W % (sp * multiple) or W // sp < least:
+        raise ValueError(
+            f"mesh_sp {sp}: width {W} must split into {sp} shards of whole LR columns, each a "
+            f"multiple of {multiple} HR columns (set by {by_grid}) and at least {least} wide "
+            f"({least // net.scale} LR columns: the halo of {by_halo})")
 
 
 def zero_pad_w(t, left: int, right: int):
@@ -73,46 +146,127 @@ def sum_to(parts, device):
     return sum(p.sum(dtype=torch.float32).to(device) for p in parts)
 
 
-class WidthSplitGMM:
-    """``net``'s functions on one row's shards. ``reps`` gives each card its
-    parameters (``mesh.Replicas``); ``master`` is where the masters live:
-    the attention of ``GlobalAgg`` and every sum run there."""
+def split_like(x, shards):
+    """``x`` cut along W into pieces as wide as ``shards``, each on its
+    shard's device."""
+    widths = [s.shape[W_AXIS] for s in shards]
+    return [p.to(s.device) for p, s in zip(x.split(widths, dim=W_AXIS), shards)]
+
+
+class _WidthSplit:
+    """What every net's split shares: blocks on haloed shards, the coupling
+    with its fused epilogues, and the temporal aggregations. ``reps`` gives
+    each card its parameters (``mesh.Replicas``); ``master`` is where the
+    masters live: the attention of ``GlobalAgg``, the gathered deformable
+    modules and every sum run there."""
 
     def __init__(self, net, reps, master):
         check_supported(net)
         self.net, self.reps, self.master = net, reps, torch.device(master)
 
-    # -- chains ----------------------------------------------------------
-    def run(self, mod, padded, mode="none", clamp=1.0, a=None, m=None):
-        """The chain ``mod`` on haloed shards, each cropped back; the
-        epilogue's operands ``a`` / ``m`` are unhaloed shards."""
+    # -- blocks ------------------------------------------------------------
+    def run(self, mod, padded, h, mode="none", clamp=1.0, a=None, m=None):
+        """The block ``mod`` on shards haloed by ``h``, each cropped back;
+        the epilogue's operands ``a`` / ``m`` are unhaloed shards."""
         n, out = len(padded), []
         for i, p in enumerate(padded):
-            left, right = halo_sides(i, n, HALO)
-            ep = None
+            left, right = halo_sides(i, n, h)
+            kw = {}
             if mode != "none":
-                ep = (mode, clamp, *(zero_pad_w(t[i], left, right) if t is not None else None
-                                     for t in (a, m)))
-            out.append(self.reps(p.device, mod, p, ep=ep))
-        return unhalo_w(out, HALO)
+                kw["ep"] = (mode, clamp, *(zero_pad_w(t[i], left, right) if t is not None else None
+                                           for t in (a, m)))
+            out.append(self.reps(p.device, mod, p, **kw))
+        return unhalo_w(out, h)
 
-    def chain(self, mod, xs, mode="none", clamp=1.0, a=None, m=None):
-        return self.run(mod, halo_w(xs, HALO), mode, clamp, a, m)
+    def block(self, mod, xs, mode="none", clamp=1.0, a=None, m=None):
+        """``mod`` on the shards: haloed by its reach, run, cropped."""
+        h, grid = block_reach(mod)
+        if any(x.shape[W_AXIS] % grid for x in xs):
+            raise ValueError(f"{type(mod).__name__} needs shard edges on its {grid}-column grid: "
+                             f"{[x.shape[W_AXIS] for x in xs]}")
+        return self.run(mod, halo_w(xs, h), h, mode, clamp, a, m)
 
     def coupling(self, blk, x1, x2, rev: bool):
         """One ``InvBlockExp`` on the shards of the pair (its fused
         epilogues): ``(y1, y2, log-jacobian sum)``, the sum not yet divided."""
+        h = block_reach(blk.H)[0]
         if not rev:
-            y1 = self.chain(blk.F, x2, "add", 1.0, a=x1)
-            p = halo_w(y1, HALO)
-            s = self.run(blk.H, p, "sig_exp", blk.clamp)
-            y2 = self.run(blk.G, p, "mul_add", 1.0, a=x2, m=s)
+            y1 = self.block(blk.F, x2, "add", 1.0, a=x1)
+            p = halo_w(y1, h)
+            s = self.run(blk.H, p, h, "sig_exp", blk.clamp)
+            y2 = self.run(blk.G, p, h, "mul_add", 1.0, a=x2, m=s)
         else:
-            p = halo_w(x1, HALO)
-            s = self.run(blk.H, p, "sig_exp_neg", blk.clamp)
-            y2 = self.run(blk.G, p, "sub_mul", 1.0, a=x2, m=s)
-            y1 = self.chain(blk.F, y2, "sub_from", 1.0, a=x1)
+            p = halo_w(x1, h)
+            s = self.run(blk.H, p, h, "sig_exp_neg", blk.clamp)
+            y2 = self.run(blk.G, p, h, "sub_mul", 1.0, a=x2, m=s)
+            y1 = self.block(blk.F, y2, "sub_from", 1.0, a=x1)
         return y1, y2, sum_to([torch.log(t.float()) for t in s], self.master)
+
+    # -- temporal aggregation --------------------------------------------
+    def global_agg(self, mod, xs):
+        """``GlobalAgg`` on the shards: the pool summed by shards, the
+        attention on the master, each shard mixed with it."""
+        W = sum(x.shape[W_AXIS] for x in xs)
+        sums, w0 = [], 0
+        for x in xs:
+            sums.append(adaptive_pool_w_sums(x, (32, 32), w0, W).to(self.master))
+            w0 += x.shape[W_AXIS]
+        counts = torch.as_tensor(adaptive_w_counts(W, 32), dtype=xs[0].dtype, device=self.master)
+        attn = mod.attention(sum(sums) / counts[:, None])
+        return [self.reps.apply(x.device, mod, GlobalAgg.mix, x, attn.to(x.device)) for x in xs]
+
+    def gathered(self, mod, xs):
+        """``mod`` on the whole image: the shards gathered on the master,
+        the module run there, its output sharded back."""
+        whole = torch.cat([x.to(self.master) for x in xs], dim=W_AXIS)
+        return split_like(self.reps(self.master, mod, whole), xs)
+
+    def aggregate(self, mod, xs):
+        """A global module of the prior (or the de-artifact net's) on the shards."""
+        if isinstance(mod, GlobalAgg):
+            return self.global_agg(mod, xs)
+        if isinstance(mod, (DeformConvAgg, GroupedGlobalDeformAgg)):
+            return self.gathered(mod, xs)
+        raise NotImplementedError(f"the width split has no route for {type(mod).__name__}")
+
+    # -- what every prior net shares ---------------------------------------
+    def decode(self, lrs, epss):
+        """LR shards and the prior's noise shards (None each with fh_loss
+        'l2') -> (HR shards, HF shards)."""
+        lrs = self.pre_prior(lrs)
+        params = self.prior_params(lrs)
+        hfs = [self.net._sample_hf(p, e, None) for p, e in zip(params, epss)]
+        return self.decode_with_hf(lrs, hfs)[0], hfs
+
+    def pre_prior(self, lrs):
+        """What the decode does to the LR before the prior (nothing here)."""
+        return lrs
+
+    def nll_sum(self, lrs, hfs):
+        """The prior's NLL of the true HF summed over the shards (the net's
+        ``nll`` is this over the count of ``hfs``' elements)."""
+        params = self.prior_params(lrs)
+        if self.net.fh_loss == "l2":
+            return sum_to([(h - p) ** 2 for h, p in zip(hfs, params)], self.master)
+        net = self.net
+        return -sum_to([gmm_log_prob(split_params(p, net.hf_dim, net.gmm_k), h)
+                        for h, p in zip(hfs, params)], self.master)
+
+    def roundtrip(self, xs, epss):
+        """encode -> split -> STE-quantize LR -> decode, on the shards: the
+        net's ``roundtrip`` with ``loss_c`` a sum (None with the NLL off)."""
+        ys, _ = self.encode(xs)
+        lr_pre = [y[..., :3] for y in ys]
+        loss_c = None
+        if getattr(self.net, "nll_enabled", True):
+            loss_c = self.nll_sum(lr_pre, [y[..., 3:] for y in ys])
+        lrs = [quantize_ste(t.contiguous()) for t in lr_pre]
+        hrs, _ = self.decode(lrs, epss)
+        return {"lr_pre_quant": lr_pre, "lr": lrs, "hr": hrs, "loss_c": loss_c}
+
+
+class WidthSplitGMM(_WidthSplit):
+    """SelfC_GMM's functions on one row's shards."""
 
     def blocks(self, x1, x2, rev: bool):
         """The coupling blocks (reversed with ``rev``): ``(x1, x2, log-jacobian
@@ -134,7 +288,6 @@ class WidthSplitGMM:
             jac = jac + j
         return x1, x2, jac
 
-    # -- the net's functions ----------------------------------------------
     def encode(self, xs):
         """HR shards -> latent shards, and the log-jacobian (divided by the
         row's frames B*T, as the net's)."""
@@ -149,59 +302,119 @@ class WidthSplitGMM:
         ys = [torch.cat(p, dim=-1) for p in zip(x1, x2)]
         return [freq_inverse(y, self.net.scale) for y in ys], ys
 
-    def global_agg(self, mod, xs):
-        """``GlobalAgg`` on the shards: the pool summed by shards, the
-        attention on the master, each shard mixed with it."""
-        W = sum(x.shape[-2] for x in xs)
-        sums, w0 = [], 0
-        for x in xs:
-            sums.append(adaptive_pool_w_sums(x, (32, 32), w0, W).to(self.master))
-            w0 += x.shape[-2]
-        counts = torch.as_tensor(adaptive_w_counts(W, 32), dtype=xs[0].dtype, device=self.master)
-        attn = mod.attention(sum(sums) / counts[:, None])
-        return [self.reps.apply(x.device, mod, GlobalAgg.mix, x, attn.to(x.device)) for x in xs]
-
     def prior_params(self, lrs):
         """The STPNet prior's raw output on the LR shards."""
         stp = self.net.stp_net
-        x = self.chain(stp.local_m1, lrs)
+        x = self.block(stp.local_m1, [t.contiguous() for t in lrs])
         if stp.global_m1 is not None:
-            x = self.global_agg(stp.global_m1, x)
-        x = self.chain(stp.local_m2, x)
+            x = self.aggregate(stp.global_m1, x)
+        x = self.block(stp.local_m2, x)
         if stp.global_m2 is not None:
-            x = self.global_agg(stp.global_m2, x)
+            x = self.aggregate(stp.global_m2, x)
         for i in range(stp.stp_blk_num - 2):
-            x = self.chain(getattr(stp, f"other_local_{i}"), x)
+            x = self.block(getattr(stp, f"other_local_{i}"), x)
             gm = getattr(stp, f"other_global_{i}")
             if gm is not None:
-                x = self.global_agg(gm, x)
+                x = self.aggregate(gm, x)
         return [self.reps.apply(t.device, stp, STPNet.tail, t) for t in x]
 
-    def decode(self, lrs, epss):
-        """LR shards and the prior's noise shards -> (HR shards, HF shards)."""
-        params = self.prior_params(lrs)
-        hfs = [self.net._sample_hf(p, e, None) for p, e in zip(params, epss)]
-        return self.decode_with_hf(lrs, hfs)[0], hfs
 
-    def nll_sum(self, lrs, hfs):
-        """The prior's NLL of the true HF summed over the shards (the net's
-        ``nll`` is this over the count of ``hfs``' elements)."""
-        params = self.prior_params(lrs)
-        if self.net.fh_loss == "l2":
-            return sum_to([(h - p) ** 2 for h, p in zip(hfs, params)], self.master)
+class WidthSplitCodec(WidthSplitGMM):
+    """SelfC_GMM_Codec's functions on one row's shards: the coupling, the
+    prior and ``GlobalAgg`` as SelfC_GMM's (``freq_forward`` at k = 2); the
+    de-artifact net first in the decode (``deart_0`` and ``deart_2`` haloed,
+    ``deart_1`` gathered); and the codec surrogate."""
+
+    def pre_prior(self, lrs):
+        if not self.net.deart_net:
+            return lrs
+        x = self.block(self.net.deart_0, [t.contiguous() for t in lrs])
+        x = self.gathered(self.net.deart_1, x)
+        return self.block(self.net.deart_2, x)
+
+    def surrogate(self, sur, lrs, q_value=None):
+        """The surrogate's prediction on the quantised LR shards: the
+        indicator plane (made on the master) joined to each shard, the net's
+        blocks haloed, the residual added (``H265Surrogate``); the plain
+        variant's blocks alone."""
+        xs = lrs
+        if isinstance(sur, H265Surrogate):
+            B, T, h = lrs[0].shape[:3]
+            ind = sur.indicator(T, q_value, self.master)
+            xs = [torch.cat([t, ind.to(t.device).expand(B, T, h, t.shape[W_AXIS], 1)], dim=-1) for t in lrs]
+        for blk in sur.suggrogate_net.children():
+            xs = self.block(blk, xs)
+        return [x + t for x, t in zip(xs, lrs)] if isinstance(sur, H265Surrogate) else xs
+
+
+class WidthSplitHaar(_WidthSplit):
+    """The Haar SelfC net's functions on one row's shards: each level's Haar
+    step on each shard, its coupling blocks haloed at that level's width,
+    and the ``STPNetSmall`` prior's blocks haloed (its tails pointwise)."""
+
+    def level(self, ys, level, rev: bool):
+        """The coupling blocks of ``level`` (reversed with ``rev``): (shards,
+        log-jacobian sum)."""
         net = self.net
-        return -sum_to([gmm_log_prob(split_params(p, net.hf_dim, net.gmm_k), h)
-                        for h, p in zip(hfs, params)], self.master)
+        blocks = [getattr(net, f"level_blocks_{level}_{i}") for i in range(net.block_num[level])]
+        x1, x2 = [y[..., :3].contiguous() for y in ys], [y[..., 3:].contiguous() for y in ys]
+        jac = torch.zeros((), device=self.master)
+        for blk in (reversed(blocks) if rev else blocks):
+            x1, x2, j = self.coupling(blk, x1, x2, rev)
+            jac = jac + j
+        return [torch.cat(p, dim=-1) for p in zip(x1, x2)], jac
 
-    def roundtrip(self, xs, epss):
-        """encode -> split -> STE-quantize LR -> decode, on the shards: the
-        net's ``roundtrip`` with ``loss_c`` a sum (None with the NLL off)."""
-        ys, _ = self.encode(xs)
-        lr_pre = [y[..., :3] for y in ys]
-        loss_c = self.nll_sum(lr_pre, [y[..., 3:] for y in ys]) if self.net.nll_enabled else None
-        lrs = [quantize_ste(t.contiguous()) for t in lr_pre]
-        hrs, _ = self.decode(lrs, epss)
-        return {"lr_pre_quant": lr_pre, "lr": lrs, "hr": hrs, "loss_c": loss_c}
+    def encode(self, xs):
+        """HR shards -> latent shards, and the log-jacobian (divided by the
+        row's frames B*T, as each coupling block of the net divides)."""
+        ys, jac = xs, torch.zeros((), device=self.master)
+        for level in range(self.net.down_num):
+            ys, j = self.level([haar_forward(y) for y in ys], level, False)
+            jac = jac + j
+        B, T = xs[0].shape[:2]
+        return ys, jac / (B * T)
+
+    def decode_with_hf(self, lrs, hfs):
+        ys = [torch.cat([t, h.to(t.dtype)], dim=-1) for t, h in zip(lrs, hfs)]
+        for level in reversed(range(self.net.down_num)):
+            ys, _ = self.level(ys, level, True)
+            if level:
+                ys = [haar_inverse(y) for y in ys]
+        return [haar_inverse(y) for y in ys], ys
+
+    def prior_params(self, lrs):
+        """``STPNetSmall``'s raw output on the LR shards."""
+        stp = self.net.stp_net
+        x = [t.contiguous() for t in lrs]
+        for blk in stp.blocks():
+            x = self.block(blk, x)
+        return [self.reps.apply(t.device, stp, STPNetSmall.tail, t) for t in x]
+
+
+def splitter(net, reps, master):
+    """The width split of ``net``'s type."""
+    cls = {SelfCNetGMM: WidthSplitGMM, SelfCNetCodec: WidthSplitCodec, SelfCNetHaar: WidthSplitHaar}.get(type(net))
+    if cls is None:
+        check_supported(net)
+    return cls(net, reps, master)
+
+
+def mimick_and_swap_shards(sugs, codecs, lambda_corr: float, master):
+    """``surrogate.mimick_and_swap`` on shards: the MSE and the mean of the
+    per-element Pearson map as sums over shards divided by the whole
+    counts. Returns ``(swapped shards, loss)``."""
+    n = sum(s.numel() for s in sugs)
+    n_corr = n // (sugs[0].shape[0] * sugs[0].shape[1])
+    mse = sum_to([(c.detach() - s) ** 2 for s, c in zip(sugs, codecs)], master) / n
+    corr = sum_to([pearson_map(c.detach(), s) for s, c in zip(sugs, codecs)], master) / n_corr
+    return [s + (c - s).detach() for s, c in zip(sugs, codecs)], mse - lambda_corr * corr
+
+
+def mimick_plain_shards(sugs, codecs, master):
+    """``surrogate.mimick_plain`` on shards: ``(sugs, the MSE as a sum over
+    shards over the whole count)``."""
+    n = sum(s.numel() for s in sugs)
+    return sugs, sum_to([(c.detach() - s) ** 2 for s, c in zip(sugs, codecs)], master) / n
 
 
 def gaussian_downsample_shards(xs, scale: int):

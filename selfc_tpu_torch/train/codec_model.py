@@ -20,8 +20,13 @@ and the host codec write of one group of segments overlaps the device's
 encode of the next. On a mesh (``parallel/mesh.py``; by default the
 process's cards) each batched call's entries split over the dp rows, as
 the JAX package's ``dp_sharding`` places them; one card is the reference
-placement. The training step runs on the mesh's first card; data parallel
-training goes through processes (``parallel/dist.py``).
+placement. The training step runs on the mesh's first row: on its one
+card, or with ``mesh_sp`` > 1 the width split over its cards
+(``parallel/spatial.py:WidthSplitCodec``: the encode, the surrogate, the
+de-artifact net and the decode on haloed or gathered shards, the host
+codec on the whole frames gathered on the host, every loss a sum over
+shards divided by the whole count); data parallel training goes through
+processes (``parallel/dist.py``).
 
 All host I/O is channels-last numpy ``(B, T, H, W, 3)``.
 """
@@ -39,17 +44,19 @@ import torch.nn as nn
 
 from .. import resolve_device
 from ..codec.h265 import rate_source
-from ..codec.noise import add_noise
+from ..codec.noise import add_noise, draw_noise
 from ..codec.pipeline import compress_video
 from ..codec.surrogate import (H265Surrogate, H265SurrogatePlain, h265_host_roundtrip,
                                mimick_and_swap, mimick_plain)
 from ..models import define_G
 from ..ops.quantize import quantize_ste
 from ..parallel.dist import all_reduce_grads, finite_everywhere, frames_to_device
-from ..parallel.mesh import Replicas, dp_gather, dp_split, model_mesh
+from ..parallel.mesh import Replicas, dp_gather, dp_split, gather_w, model_mesh, shard_w
+from ..parallel.spatial import (WidthSplitCodec, check_supported, check_width, gaussian_downsample_shards,
+                                mimick_and_swap_shards, mimick_plain_shards, split_like, sum_to)
 from ..utils.jax_import import export_jax_params, load_jax_params
 from . import checkpoint as ckpt
-from .losses import reconstruction_loss
+from .losses import reconstruction_error, reconstruction_loss
 from .lr_schedule import multistep_restart
 from .rescale_model import build_adam, clip_by_global_norm_, make_degrade, step_algorithms
 
@@ -63,9 +70,11 @@ class CodecModel:
 
     def __init__(self, opt, device=None, rng_seed: int = 0, mesh=None):
         """``device=None`` means the GPU (raises without one); ``mesh``
-        (``parallel.mesh.make_mesh``, one card to a row: ``mesh_sp`` > 1 is
-        not ported for this net) the devices ``test()`` runs on, the master
-        parameters on its first (None: ``model_mesh(device)``). ``rng_seed``
+        (``parallel.mesh.make_mesh``) the devices the model runs on, the
+        master parameters on its first (None: ``model_mesh(device,
+        opt['mesh_sp'])``): ``test()`` splits over its dp rows, the training
+        step runs on its first row, with ``mesh_sp`` > 1 the width over
+        the row's cards. ``rng_seed``
         seeds the parameter initialisation, the generator a GMM prior or the
         codec-noise ablation draws from (the published codec prior, fh_loss
         'l2', draws none) and the dynamic-q stream. ``path.pretrain_model_G``
@@ -73,10 +82,7 @@ class CodecModel:
         self.opt = opt
         self.is_train = bool(opt.get("is_train"))
         self.train_opt = opt.get("train") or {}
-        if (opt.get("mesh_sp") or 1) > 1 or (mesh is not None and mesh.sp > 1):
-            raise NotImplementedError("mesh_sp > 1 for SelfC_GMM_Codec: the width split is ported for "
-                                      "SelfC_GMM only (ROADMAP Queue A item 1)")
-        self.mesh = mesh if mesh is not None else model_mesh(resolve_device(device))
+        self.mesh = mesh if mesh is not None else model_mesh(resolve_device(device), opt.get("mesh_sp") or 1)
         self.device = self.mesh.master
         self.net_opt = opt["network_G"]
         self.scale = opt["scale"]
@@ -139,7 +145,23 @@ class CodecModel:
             self.lr_fn = multistep_restart(
                 to.get("lr_G") or 1e-4, to.get("lr_steps") or [], to.get("lr_gamma") or 0.5,
                 to.get("restarts"), to.get("restart_weights"), to.get("warmup_iter") or -1)
+        if self.mesh.sp > 1:
+            self._check_split()
         self.load()
+
+    def _check_split(self):
+        """Raise where the width split (``mesh_sp`` > 1) does not compute
+        this model's step; log the split."""
+        check_supported(self.net)
+        if self._pipeline:
+            raise NotImplementedError("mesh_sp > 1 with train.codec_pipeline: the pipelined codec step is "
+                                      "not split (ROADMAP Queue A item 1a)")
+        if (self.opt.get("distortion") or "sr_bd") not in ("sr_bd", "pytorch_bicubic"):
+            raise NotImplementedError(f"mesh_sp > 1 with distortion {self.opt['distortion']!r}: the width "
+                                      "split makes the sr_bd and pytorch_bicubic targets (ROADMAP Queue A "
+                                      "item 1d)")
+        logger.info("mesh_sp %d: SelfCNetCodec's width split over %s (parallel/spatial.py)", self.mesh.sp,
+                    [str(d) for d in self.mesh.devices[0]])
 
     def load_jax_params(self, tree):
         """Parameters in the JAX package's tree (numpy leaves): the
@@ -222,8 +244,12 @@ class CodecModel:
 
     def feed_data(self, data):
         """data['GT']: numpy (B, T, H, W, 3) RGB in [0,1] (or uint8).
-        Returns the clip's length."""
+        Returns the clip's length. With ``mesh_sp`` > 1, W must split into
+        sp shards of whole LR columns that the widest halo fits
+        (``spatial.width_rule``: with the surrogate, LR shards a multiple of
+        4 columns, its FeatureCollapse grid, and at least 20, its halo)."""
         gt = np.asarray(data["GT"])
+        check_width(gt.shape[3], self.mesh.sp, self.net, self.surrogate)
         # kept on the host: the codec pipeline works on host numpy and moves
         # each chunk to the device itself; a training step takes it from the
         # device (uint8 cast there)
@@ -353,13 +379,19 @@ class CodecModel:
             lf.float(), ref_l, to.get("pixel_criterion_forw") or "l2")
         l_back_rec = (to.get("lambda_rec_back") or 1.0) * reconstruction_loss(
             hr_rec.float(), hr, to.get("pixel_criterion_back") or "l1")
-        zero = torch.zeros((), device=hr.device)
-        mimick_term = (to.get("lambda_mimick_loss") or 1.0) * mimick
-        loss = (l_forw_fit + l_back_rec + zero + mimick_term) * (to.get("loss_multiplier") or 1000.0)
         # the measured codec distortion (the reference logs a hard zero)
         with torch.no_grad():
             distortion = (to.get("lambda_distor_loss") or 1.0) * torch.mean(
                 (codec_out - lr_q.float()) ** 2)
+        return self._total(l_forw_fit, l_back_rec, mimick, distortion)
+
+    def _total(self, l_forw_fit, l_back_rec, mimick, distortion):
+        """``(loss, logs)`` from the weighted LR fit and HR reconstruction,
+        the mimick loss and the measured distortion."""
+        to = self.train_opt
+        zero = torch.zeros((), device=l_forw_fit.device)
+        mimick_term = (to.get("lambda_mimick_loss") or 1.0) * mimick
+        loss = (l_forw_fit + l_back_rec + zero + mimick_term) * (to.get("loss_multiplier") or 1000.0)
         return loss, {"l_forw_fit": l_forw_fit, "l_back_rec": l_back_rec, "loss_c": zero,
                       "mimick_loss": mimick_term, "distortion_loss": distortion,
                       "distribution_loss": zero, "loss": loss}
@@ -390,6 +422,8 @@ class CodecModel:
         q = self._draw_q(step) if isinstance(self.q, list) else self.q
         if self._pipeline and self.noise_type == "h265":
             return self._optimize_pipelined(step, lr_value, q, split, codec_out)
+        if self.mesh.sp > 1:
+            return self._optimize_split(step, lr_value, q, split, codec_out)
         hr = self._hr
         with torch.set_grad_enabled(split == "residual"):
             lf = self._encode_lf(hr)
@@ -399,11 +433,96 @@ class CodecModel:
             codec_out, img_bpp = torch.as_tensor(codec_out, dtype=torch.float32, device=self.device), 0.0
         if split == "reencode":
             lf = self._encode_lf(hr)
-        self._update(step, lr_value, q, hr, lf, codec_out, img_bpp)
+        self._update(step, lr_value, img_bpp, lambda: self._loss(lf, hr, self._ref(hr), codec_out, q))
 
-    def _update(self, step, lr_value, q, hr, lf, codec_out, img_bpp, snapshot=None):
-        """The loss from the encode's ``lf``, its backward, and clip + Adam.
-        ``snapshot``: the parameter copies an encode ran through
+    def _ref(self, hr):
+        with torch.no_grad():
+            return self.degrade(hr)
+
+    # -- mesh_sp: the width split over the mesh's first row --------------
+    def _optimize_split(self, step, lr_value, q, split, codec_out):
+        """``_optimize`` with the width over the mesh's first row
+        (``WidthSplitCodec``). The host codec takes the quantised LR
+        gathered to whole frames on the host, the unsplit ``lr_q`` bit for
+        bit, and its output (or the fed ``codec_out``) is sharded back.
+        Under 'reencode' the encode the codec reads runs through parameter
+        copies of its own, without a graph."""
+        row = self.mesh.devices[0]
+        xs = shard_w(self._hr, row)
+        reps = Replicas()
+        with torch.set_grad_enabled(split == "residual"):
+            lfs = self._encode_lf_split(WidthSplitCodec(self.net, reps if split == "residual" else Replicas(),
+                                                        self.device), xs)
+        img_bpp = 0.0
+        if codec_out is not None:
+            codec_outs = shard_w(torch.as_tensor(codec_out, dtype=torch.float32), row)
+        elif self.noise_type != "h265":
+            codec_outs = [torch.zeros_like(self._lr_q(lf)) for lf in lfs]
+        else:
+            t0 = time.perf_counter()
+            lr_q = gather_w([self._lr_q(lf) for lf in lfs], "cpu").numpy()
+            codec_host, img_bpp, _ = self._host_codec(lr_q, q)
+            self.last_codec_host_seconds = self.last_codec_total_seconds = time.perf_counter() - t0
+            codec_outs = split_like(codec_host, lfs)
+        split_net = WidthSplitCodec(self.net, reps, self.device)
+        if split == "reencode":
+            lfs = self._encode_lf_split(split_net, xs)
+        self._update(step, lr_value, img_bpp, lambda: self._split_loss(split_net, xs, lfs, codec_outs, q))
+
+    def _encode_lf_split(self, split_net, xs):
+        ys, _ = split_net.encode([x.to(torch.bfloat16) for x in xs] if self._mp else xs)
+        return [y[..., :3] for y in ys]
+
+    def _split_loss(self, split_net, xs, lfs, codec_outs, q_value):
+        """``_loss`` on the shards: every mean a sum over the shards
+        divided by the whole batch's count."""
+        to = self.train_opt
+        with torch.no_grad():
+            refs = (gaussian_downsample_shards(xs, self.scale) if (self.opt.get("distortion") or "sr_bd") == "sr_bd"
+                    else [self.degrade(x) for x in xs])
+        lr_qs = [quantize_ste(lf) for lf in lfs]
+        lr_dist, mimick = self._distort_lr_split(split_net, lr_qs, codec_outs, q_value)
+        eps = None
+        if self.net.fh_loss != "l2":
+            B, T, h, _, C = lfs[0].shape
+            eps = torch.randn(self.net.eps_shape((B, T, h, sum(t.shape[3] for t in lfs), C)),
+                              generator=self.generator, device=self.device)
+        hrs, _ = split_net.decode([t.to(lf.dtype) for t, lf in zip(lr_dist, lfs)],
+                                  shard_w(eps, [t.device for t in lfs], axis=3) if eps is not None
+                                  else [None] * len(lfs))
+        n_lr, n_hr = sum(t.numel() for t in lfs), sum(x.numel() for x in xs)
+        l_forw_fit = (to.get("lambda_fit_forw") or 1.0) * sum_to(
+            [reconstruction_error(lf.float(), r, to.get("pixel_criterion_forw") or "l2")
+             for lf, r in zip(lfs, refs)], self.device) / n_lr
+        l_back_rec = (to.get("lambda_rec_back") or 1.0) * sum_to(
+            [reconstruction_error(h.float(), x, to.get("pixel_criterion_back") or "l1")
+             for h, x in zip(hrs, xs)], self.device) / n_hr
+        with torch.no_grad():
+            distortion = (to.get("lambda_distor_loss") or 1.0) * sum_to(
+                [(c - t.float()) ** 2 for c, t in zip(codec_outs, lr_qs)], self.device) / n_lr
+        return self._total(l_forw_fit, l_back_rec, mimick, distortion)
+
+    def _distort_lr_split(self, split_net, lr_qs, codec_outs, q_value):
+        """``_distort_lr`` on the shards; the ablations' noise is drawn
+        whole on the master from the model's generator and sharded, the
+        unsplit stream."""
+        zero = torch.zeros((), device=self.device)
+        if self.noise_type == "h265":
+            if self.use_surrogate:
+                sugs = split_net.surrogate(self.surrogate, lr_qs, q_value)
+                if self.surrogate_variant == "plain":
+                    return mimick_plain_shards(sugs, codec_outs, self.device)
+                return mimick_and_swap_shards(sugs, codec_outs, self.net_opt.get("lambda_corr") or 0.0,
+                                              self.device)
+            return [t + (c - t).detach() for t, c in zip(lr_qs, codec_outs)], zero
+        B, T, h, _, C = lr_qs[0].shape
+        noise = draw_noise((B, T, h, sum(t.shape[3] for t in lr_qs), C), lr_qs[0].dtype, self.device,
+                           self.generator, self.train_opt.get("noise_magnitude") or 1e-4, self.noise_type)
+        return [t + n for t, n in zip(lr_qs, split_like(noise, lr_qs))], zero
+
+    def _update(self, step, lr_value, img_bpp, loss_fn, snapshot=None):
+        """The loss (``loss_fn()``: ``(loss, logs)``), its backward, and clip
+        + Adam. ``snapshot``: the parameter copies an encode ran through
         (``_optimize_pipelined``); their gradients are added onto the live
         parameters' before the clip. The backward, the all-reduce and the
         clip are queued before the step's one read of the device (whether
@@ -411,10 +530,8 @@ class CodecModel:
         Adam's step, the moments and the count included."""
         if step in self._clear_state_steps:
             self.optimizer.state.clear()
-        with torch.no_grad():
-            ref_l = self.degrade(hr)
         self.optimizer.zero_grad(set_to_none=True)
-        loss, logs = self._loss(lf, hr, ref_l, codec_out, q)
+        loss, logs = loss_fn()
         loss.backward()
         if snapshot is not None:
             live = dict(self.net.named_parameters())
@@ -493,7 +610,9 @@ class CodecModel:
         self.last_codec_total_seconds = codec_wall
         codec_out = codec_host.to(self.device, non_blocking=True)
         lf = p["lf"] if p["split"] == "residual" else self._encode_lf(p["hr"])
-        self._update(p["step"], p["lr_value"], p["q"], p["hr"], lf, codec_out, img_bpp, p["snapshot"])
+        hr = p["hr"]
+        self._update(p["step"], p["lr_value"], img_bpp,
+                     lambda: self._loss(lf, hr, self._ref(hr), codec_out, p["q"]), p["snapshot"])
 
     def flush_pipeline(self):
         """Retire the batch in flight, if any, so that what follows (a save,

@@ -16,9 +16,9 @@ the process's cards, ``mesh_sp`` of them to a row). ``test()`` splits its
 calls' GOP groups over the dp rows, and the single-group path's width over
 a row's sp cards. The training step runs on the mesh's first row (dp
 across processes is ``parallel/dist.py``'s gradient all-reduce): on its
-one card, or with ``mesh_sp`` > 1 (SelfC_GMM only) the width split over
-its cards (``parallel/spatial.py``), the losses means over the whole
-width and the gradients summed into the master parameters on the first
+one card, or with ``mesh_sp`` > 1 (SelfC_GMM and the Haar SelfC net) the
+width split over its cards (``parallel/spatial.py``), the losses means
+over the whole width and the gradients summed into the master parameters on the first
 card, where the clip and Adam run once. The adversarial step runs on that
 first card alone.
 
@@ -41,7 +41,7 @@ from ..ops.quantize import quantize_ste
 from ..ops.resize import area_down, gaussian_downsample, imresize_matlab
 from ..parallel.dist import all_reduce_grads, finite_everywhere, frames_to_device
 from ..parallel.mesh import Replicas, dp_gather, dp_split, gather_w, model_mesh, shard_w
-from ..parallel.spatial import HALO, WidthSplitGMM, check_supported, gaussian_downsample_shards, sum_to
+from ..parallel.spatial import check_supported, check_width, gaussian_downsample_shards, splitter, sum_to
 from ..utils.jax_import import export_jax_params, load_jax_params, stack_scan_chain
 from . import checkpoint as ckpt
 from .losses import reconstruction_error, reconstruction_loss
@@ -141,14 +141,17 @@ class RescaleModel:
         if self.mesh.sp > 1:
             check_supported(self.net)
             if self.distortion not in ("sr_bd", "pytorch_bicubic"):
-                raise NotImplementedError(f"mesh_sp > 1 with distortion {self.distortion!r}: "
-                                          "the width split makes the sr_bd and pytorch_bicubic targets")
+                raise NotImplementedError(f"mesh_sp > 1 with distortion {self.distortion!r}: the width "
+                                          "split makes the sr_bd and pytorch_bicubic targets (ROADMAP "
+                                          "Queue A item 1d)")
+            logger.info("mesh_sp %d: %s's width split over %s (parallel/spatial.py)", self.mesh.sp,
+                        type(self.net).__name__, [str(d) for d in self.mesh.devices[0]])
         self.net.eval()
         self._net_cast = None
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(rng_seed)
         self._arch = {"SelfC_GMM": "gmm", "SelfC_GMM_Codec": "codec", "SelfC": "haar",
-                      "IRN": "irn"}.get(opt["model"], "gmm")
+                      "SelfC_shell": "haar", "IRN": "irn"}.get(opt["model"], "gmm")
         self.log_dict = OrderedDict()
         self._raw_logs = None
         self.start_iter = self.start_epoch = 0
@@ -159,7 +162,7 @@ class RescaleModel:
             if self.train_opt.get("gan_weight"):
                 if self.mesh.sp > 1:
                     raise NotImplementedError("mesh_sp > 1 with the adversarial branch: D and F see "
-                                              "whole images")
+                                              "whole images (ROADMAP Queue A item 1c)")
                 if self.train_opt.get("fused_optimizer"):
                     raise ValueError("train.fused_optimizer is not supported with the GAN branch (as in the "
                                      "JAX package); unset one of the two")
@@ -295,17 +298,15 @@ class RescaleModel:
         """data['GT']: numpy (B, T, H, W, 3) RGB in [0,1] (or uint8). A
         clip shorter than ``datasets.train.video_len`` is padded to it with
         repeats of its last frame. Returns the clip's own length. With
-        ``mesh_sp`` > 1, W must split into sp shards of whole LR columns, at
-        least ``spatial.HALO`` (4) of them: the JAX package's test keeps W a
-        multiple of sp * scale * 4, which implies it; 144 at sp 2 (18 LR
-        columns a shard) passes too."""
+        ``mesh_sp`` > 1, W must split into sp shards of whole LR columns no
+        narrower than a block's halo (``spatial.width_rule``: 4 LR columns
+        for D2DT chains at every level; 20, on a 4-column grid, for the Haar
+        prior's FeatureCollapse blocks): the JAX package's test keeps W a
+        multiple of sp * scale * 4, which implies the first; 144 at sp 2 (18
+        LR columns a shard) passes too."""
         gt = np.asarray(data["GT"])
         clip_length = gt.shape[1]
-        sp, W = self.mesh.sp, gt.shape[3]
-        if sp > 1 and (W % (sp * self.scale) or W // (sp * self.scale) < HALO):
-            raise ValueError(f"mesh_sp {sp}: width {W} must split into {sp} shards of whole LR "
-                             f"columns (a multiple of sp * scale = {sp * self.scale}), at least "
-                             f"{HALO} of them (a chain's halo)")
+        check_width(gt.shape[3], self.mesh.sp, self.net)
         t_cfg = ((self.opt.get("datasets") or {}).get("train") or {}).get("video_len")
         if t_cfg and clip_length < t_cfg:
             pad = np.repeat(gt[:, -1:], t_cfg - clip_length, axis=1)
@@ -410,7 +411,7 @@ class RescaleModel:
             refs = (gaussian_downsample_shards(xs, self.scale) if self.distortion == "sr_bd"
                     else [self.degrade(x) for x in xs])
         x_in = [x.to(torch.bfloat16) for x in xs] if self.train_opt.get("mixed_precision") else xs
-        out = WidthSplitGMM(self.net, Replicas(), self.device).roundtrip(x_in, es)
+        out = splitter(self.net, Replicas(), self.device).roundtrip(x_in, es)
         n_hr = hr.numel()
         n_lr = n_hr // self.scale ** 2
         forw = sum_to([reconstruction_error(t.float(), r, crit_f) for t, r in zip(out["lr_pre_quant"], refs)],
@@ -506,7 +507,7 @@ class RescaleModel:
         with torch.no_grad():
             for row, part in zip(rows, dp_split(x, [row[0] for row in rows])):
                 if len(row) > 1:
-                    ys, _ = WidthSplitGMM(self.net, reps, self.device).encode(
+                    ys, _ = splitter(self.net, reps, self.device).encode(
                         [s.to(dt) for s in shard_w(part, row)])
                     outs.append(gather_w(ys, self.device))
                 else:
@@ -524,7 +525,7 @@ class RescaleModel:
             for row, lr_r, eps_r in zip(rows, dp_split(lr, [r[0] for r in rows]),
                                         dp_split(eps, [r[0] for r in rows])):
                 if len(row) > 1:
-                    hr, hf = WidthSplitGMM(self.net, reps, self.device).decode(
+                    hr, hf = splitter(self.net, reps, self.device).decode(
                         [s.to(dt) for s in shard_w(lr_r, row)], shard_w(eps_r, row, axis=3))
                     hr, hf = gather_w(hr, self.device), gather_w(hf, self.device)
                 else:

@@ -4,7 +4,7 @@ width split of SelfC_GMM (``parallel/spatial.py``, ``mesh_sp``) in the
 training step and ``test()``, and the eval split over the dp rows of both
 model wrappers. The net is the JAX package's own sp test's
 (``tests/test_spatial_parallel.py``): ``block_num [1, 1]``, ``stp_blk_num 2``,
-``gmm_k 2``, W 64.
+``gmm_k 2``, W 64. The codec and Haar nets' split: ``tests/test_torch_mesh_nets.py``.
 
 Tolerances:
 - split against unsplit in the port: forwards the same bits on the CPU (a
@@ -372,10 +372,34 @@ def test_codec_test_over_dp_equals_one_device(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("model", ["SelfC_GMM_Codec", "SelfC", "IRN"])
+@pytest.mark.parametrize("model", ["IRN"])
 def test_create_model_refuses_sp_for_the_other_nets(model):
-    with pytest.raises(NotImplementedError, match="Queue A"):
+    """IRN has no wrapper to split: ``RescaleModel`` refuses it at any sp,
+    as the JAX package's cannot build it."""
+    with pytest.raises(NotImplementedError, match="cannot build it either"):
         create_model(_opt(2, model=model), device="cpu")
+
+
+CODEC_NET = {"which_model_G": {"subnet_type": "D2DTNet"}, "block_num": [1], "scale": 2, "init": "xavier",
+             "global_module": "nonlocal", "stp_blk_num": 1, "fh_loss": "l2", "h265_q": 16,
+             "stp_hidden_c": 8, "stp_denseblock_innerc": 4}
+
+
+@pytest.mark.parametrize("model", ["SelfC_GMM_Codec", "SelfC"])
+def test_create_model_takes_sp_for_the_codec_and_haar_nets(model):
+    """``mesh_sp: 2`` builds the codec's trainer (with its surrogate) and
+    the Haar net's (model type SelfC and its other name SelfC_shell) on a
+    row of two devices; each takes the widths its split rule allows
+    (``tests/test_torch_mesh_nets.py`` holds the rules)."""
+    for name in (["SelfC", "SelfC_shell"] if model == "SelfC" else [model]):
+        opt = _opt(2, model=name)
+        if model == "SelfC_GMM_Codec":
+            opt["scale"], opt["network_G"] = 2, dict_to_nonedict(CODEC_NET)
+            opt["train"].update(noise_type="h265", h265_sug=True)
+        m = create_model(opt, device="cpu")
+        assert m.mesh.shape == {"dp": 1, "sp": 2}
+        assert type(m.net).__name__ == ("SelfCNetCodec" if model == "SelfC_GMM_Codec" else "SelfCNetHaar")
+        assert m.feed_data({"GT": _rand(0, (1, 3, 16, 80 if model == "SelfC_GMM_Codec" else 32, 3))}) == 3
 
 
 def test_create_model_takes_sp_for_selfc_gmm_and_checks_the_width():
@@ -387,16 +411,24 @@ def test_create_model_takes_sp_for_selfc_gmm_and_checks_the_width():
     assert model.feed_data({"GT": _rand(0, (1, 3, 32, 40, 3))}) == 3
 
 
-@pytest.mark.parametrize("what", ["hg", "deform", "gan", "matlab"])
+@pytest.mark.parametrize("what", ["hg", "pipeline", "gan", "matlab"])
 def test_split_refuses_what_crosses_shards_otherwise(what):
-    opt = _opt(2, network={"chain_variants": ["hg"]} if what == "hg" else
-               {"global_module": "deform"} if what == "deform" else None)
+    """What the width split does not compute raises, naming its ROADMAP
+    Queue A item: the H/G pair, the pipelined codec step, the adversarial
+    branch (D and F see whole images), the MATLAB resize's target."""
+    opt = _opt(2, network={"chain_variants": ["hg"]} if what == "hg" else None)
     if what == "gan":
         opt["train"]["gan_weight"] = 5e-3
     if what == "matlab":
         opt["distortion"] = "matlab"
-    with pytest.raises(NotImplementedError):
-        RescaleModel(opt, device="cpu")
+    item = {"pipeline": "1a", "hg": "1b", "gan": "1c", "matlab": "1d"}[what]
+    with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
+        if what == "pipeline":
+            opt["model"], opt["scale"], opt["network_G"] = "SelfC_GMM_Codec", 2, dict_to_nonedict(CODEC_NET)
+            opt["train"].update(noise_type="h265", codec_pipeline=True)
+            CodecModel(opt, device="cpu")
+        else:
+            RescaleModel(opt, device="cpu")
 
 
 def test_every_kernel_launch_runs_on_its_tensors_card():
