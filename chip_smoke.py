@@ -119,13 +119,13 @@ from selfc_tpu_torch.train import checkpoint
 from selfc_tpu_torch.train.codec_model import CodecModel
 from selfc_tpu_torch.train import losses
 from selfc_tpu_torch.train.gan import flat_frames
-from selfc_tpu_torch.train.rescale_model import RescaleModel, clip_by_global_norm_, step_algorithms
+from selfc_tpu_torch.train.rescale_model import RescaleModel, clip_by_global_norm_, make_degrade, step_algorithms
 from selfc_tpu_torch.utils.bench import (
     CLIP_HW, CODEC_DEC_SHAPE, CODEC_ENC_SHAPE, CODEC_TRAIN_LAT, CODEC_TRAIN_SHAPE, CODEC_WIDTHS,
     DEART_C, DEART_DEC_SHAPE, DEART_TRAIN_SHAPE, PATH_WIDTHS, SERVE_SHAPE, STP_DEFORM_C,
     STP_DEFORM_SHAPE, SURROGATE_C, TRAIN_SHAPE, UVG_HW, chain_bound_ms, chain_bwd_bound_ms,
     chain_feats_bound_ms, deform_all_to_one, deform_bound_fma_ms, deform_bound_ms, deform_tap_stats, hg_bound_ms,
-    make_chain, make_deform,
+    hg_bwd_bound_ms, make_chain, make_deform,
     make_temporal_conv, tc_peak, temporal_conv_bound_ms, time_cuda)
 from selfc_tpu_torch.utils.jax_import import export_jax_params, flatten_tree, load_jax_params
 from selfc_tpu_torch.utils.metrics import psnr, rgb_to_ycbcr
@@ -368,6 +368,13 @@ MESH_GUARD_LIMIT = 1e-4          # a wrapper on cuda:1 against its plain version
 # NLL weighted in, so that the split's NLL sum is held too
 MESH_HAAR_TRAIN = {"lambda_cond_prob": 0.01}
 MESH_TIMED_STEPS = 3             # CUDA-event steps (after one warm-up) of each split and unsplit step
+MESH_OPT_TIMED_STEPS = 2         # ... of the options' steps (mesh_opts)
+# the subnet families of the split's plain coupling and the batch each takes:
+# the published batch, 160 wide for the collapse block (its shards on a
+# 16-column grid), 640 x 128 for HighOrderTNet (80 LR columns of halo a
+# shard, LR rows a multiple of its 8-row grid; the batch cut to 2 clips)
+MESH_FAMILIES = {"D2DLTInput": (8, 7, 144, 144, 3), "FeatureCalapseBlock_Fast": (8, 7, 144, 160, 3),
+                 "D2DTEnhanceInput": (8, 7, 144, 144, 3), "HighOrderTNet": (2, 7, 128, 640, 3)}
 ALL_PHASES = ("serve", "quality", "train", "codec", "codec_train", "deart", "subnets", "haar", "variants", "gan",
               "mesh", "cli", "profile")
 
@@ -2537,40 +2544,46 @@ def phase_timing_temporal(device, counts, worst):
             continue
         B, T, H, W = {"serve": SERVE_SHAPE, "train": TRAIN_SHAPE, "haar_train_1": HAAR_TRAIN[1],
                       "haar_train_2": HAAR_TRAIN[2]}[path]
-        shape = (B, T, H // shrink, W // shrink)
-        x, w, b, g = make_temporal_conv(rng, shape, C, co, device)
-        if backward:   # dx = the conv of g with the flipped weights, no bias
-            x, w, b = g, tc._flipped(w), None
-        ncdhw = x.permute(0, 4, 1, 2, 3).contiguous()
-        lw = w.permute(2, 1, 0)[..., None, None].contiguous()
-        with torch.no_grad():
-            got = tc._forward_cuda(x, w, b, None, False)[0]
-            want = tc.temporal_conv3_fused_plain(x, w, b)
-            lib = library_temporal(ncdhw, lw, b).permute(0, 2, 3, 4, 1)
-            err = (got - want).abs().max().item()
-            check(err <= FP32_LIMIT, f"B6 vs plain at {shape} {C}->{co}: {err}")
-            check((lib - want).abs().max().item() <= 1e-3, "the library conv computes the same function")
-            ms = time_cuda(lambda: tc._launch(x, w, b, None, False))
-            plain = time_cuda(lambda: tc.temporal_conv3_fused_plain(x, w, b))
-            library = time_cuda(lambda: library_temporal(ncdhw, lw, b))
-        M = int(np.prod(shape))
-        cin, cout = (co, C) if backward else (C, co)
-        bound, by = temporal_conv_bound_ms(M, cin, cout, T=T, peak=tc_peak(torch.float32))
-        bound_fma, _ = temporal_conv_bound_ms(M, cin, cout, T=T)
-        tile, split = tc.plan(B, T, shape[2] * shape[3], cin, cout, x.element_size(), tc._sm_count(x))
-        rows.append({
-            "name": f"temporal_conv3{'_dx' if backward else ''}[{C}->{co}]@{path}"
-                    + ("/4" if shrink > 1 else ""),
-            "route": "cuda", "source": SOURCE_TC, "replaces": REPLACES_TC, "launches": launches,
-            "max_abs_err": max(err, worst.get((C, co), 0.0)), "ms": ms["median"], "plain_ms": plain["median"],
-            "bound_ms": bound, "bound_by": by, "library_ms": library["median"], "bound_fma_ms": bound_fma,
-            "path": f"{tile}/{split}", "ms_min": ms["min"], "plain_ms_min": plain["min"],
-            "library_ms_min": library["min"], "shape": list(shape) + [co if backward else C]})
-        del x, w, b, g, ncdhw, lw, got, want, lib
+        name = path + ("/4" if shrink > 1 else "")
+        rows.append(temporal_row(device, rng, name, (B, T, H // shrink, W // shrink), C, co, backward, launches,
+                                 worst))
     emit("timing_temporal", rows=[{k: r[k] for k in ("name", "launches", "path", "ms", "ms_min", "plain_ms",
                                                       "library_ms", "bound_ms", "bound_fma_ms", "bound_by")}
                                   for r in rows])
     return rows
+
+
+def temporal_row(device, rng, tag, shape, C, co, backward, launches, worst):
+    """B6's kernels-line row at ``shape`` (B, T, H, W), C -> co: the forward
+    or (``backward``) the data gradient, against its plain version and one
+    ``F.conv3d``."""
+    T = shape[1]
+    x, w, b, g = make_temporal_conv(rng, shape, C, co, device)
+    if backward:   # dx = the conv of g with the flipped weights, no bias
+        x, w, b = g, tc._flipped(w), None
+    ncdhw = x.permute(0, 4, 1, 2, 3).contiguous()
+    lw = w.permute(2, 1, 0)[..., None, None].contiguous()
+    with torch.no_grad():
+        got = tc._forward_cuda(x, w, b, None, False)[0]
+        want = tc.temporal_conv3_fused_plain(x, w, b)
+        lib = library_temporal(ncdhw, lw, b).permute(0, 2, 3, 4, 1)
+        err = (got - want).abs().max().item()
+        check(err <= FP32_LIMIT, f"B6 vs plain at {shape} {C}->{co}: {err}")
+        check((lib - want).abs().max().item() <= 1e-3, "the library conv computes the same function")
+        ms = time_cuda(lambda: tc._launch(x, w, b, None, False))
+        plain = time_cuda(lambda: tc.temporal_conv3_fused_plain(x, w, b))
+        library = time_cuda(lambda: library_temporal(ncdhw, lw, b))
+    M = int(np.prod(shape))
+    cin, cout = (co, C) if backward else (C, co)
+    bound, by = temporal_conv_bound_ms(M, cin, cout, T=T, peak=tc_peak(torch.float32))
+    bound_fma, _ = temporal_conv_bound_ms(M, cin, cout, T=T)
+    tile, split = tc.plan(shape[0], T, shape[2] * shape[3], cin, cout, x.element_size(), tc._sm_count(x))
+    return {"name": f"temporal_conv3{'_dx' if backward else ''}[{C}->{co}]@{tag}",
+            "route": "cuda", "source": SOURCE_TC, "replaces": REPLACES_TC, "launches": launches,
+            "max_abs_err": max(err, worst.get((C, co), 0.0)), "ms": ms["median"], "plain_ms": plain["median"],
+            "bound_ms": bound, "bound_by": by, "library_ms": library["median"], "bound_fma_ms": bound_fma,
+            "path": f"{tile}/{split}", "ms_min": ms["min"], "plain_ms_min": plain["min"],
+            "library_ms_min": library["min"], "shape": list(shape) + [co if backward else C]}
 
 
 def variant_counts():
@@ -4489,14 +4502,16 @@ def mesh_step(model, step):
     """One training step of ``model`` (``step()``), every count set to 0
     just before and read just after: the loss, every gradient, the
     parameters before and after, and the kernels' calls by card, by stripe
-    and (B4) by width."""
+    and (B4, B6) by width, B6's and B7's by card and width."""
     params = (model.params if isinstance(model, CodecModel) else model.net).named_parameters
     before = {k: p.detach().clone() for k, p in params()}
     reset_all_counts()
     df.reset_launch_counts()
     step()
     torch.cuda.synchronize()
-    out = {"launches_by_card": launches_by_card(), "counts": {**stripe_counts(), **codec_counts()}}
+    out = {"launches_by_card": launches_by_card(), "counts": {**stripe_counts(), **codec_counts()},
+           "b6_b7_by_card": hg_card_counts(),
+           "b6_by_width": {"forward": dict(tc.launches_by_width), "backward": dict(tc.launches_bwd_by_width)}}
     out.update(loss=model.get_current_log()["loss"], before=before,
                grads={k: p.grad.detach().clone() for k, p in params()},
                after={k: p.detach().clone() for k, p in params()})
@@ -4671,7 +4686,365 @@ def mesh_haar(c0, meshes, worst_haar):
     return part, rows
 
 
-def phase_mesh(device, worst_stripe, worst_gc_bwd, worst_haar, smi):
+def mesh_pair(meshes, make, step, extra=None):
+    """``make(mesh)`` at sp 1 and sp 2, one ``mesh_step`` of ``step(model, 0)``
+    each (``extra(model)`` adds to its record), then MESH_OPT_TIMED_STEPS of
+    ``step(model, 1)`` after a warm-up, timed with CUDA events. Returns
+    ``{"sp1": ..., "sp2": ...}``."""
+    steps = {}
+    for name in ("sp1", "sp2"):
+        model = make(meshes[name])
+        steps[name] = mesh_step(model, lambda m=model: step(m, 0))
+        steps[name].update(extra(model) if extra else {})
+        steps[name]["ms"] = time_cuda(lambda m=model: step(m, 1), iters=MESH_OPT_TIMED_STEPS, warmup=1)
+        del model
+    return steps
+
+
+def hg_card_counts():
+    """B7's calls (its forward kernel, and its backward route with the
+    kernels) and B6's by card and width since the last reset."""
+    out = {}
+    for name, counts in (("B7", cv.launches_hg_by_device), ("B6", tc.launches_by_device)):
+        for (entry, index, w), n in counts.items():
+            out.setdefault(f"cuda:{index}", {})[f"{name}_{entry}@W{w}"] = n
+    return out
+
+
+def mesh_gan(c0, meshes):
+    """``train_rescaling_gan.yml``'s step ('ragan' with the feature loss)
+    at full width on the published batch, sp 2 against sp 1 from one set of
+    seeded G, D, F weights and statistics and one eps: G's pixel losses by
+    shards, the fake gathered whole on the master card for F and D."""
+    trees, _ = gan_trees(c0)
+    batch = train_batch(171)
+    eps = torch.randn(TRAIN_SHAPE + (48, 5), generator=torch.Generator(c0).manual_seed(172), device=c0)
+    g, d, f, stats = trees
+
+    def make(mesh):
+        model = RescaleModel(gan_options(), mesh=mesh, rng_seed=0)
+        model.load_jax_params(g)
+        load_jax_params(model.gan.netD, d)
+        model.gan.load_stats(stats)
+        load_jax_params(model.gan.netF, f)
+        check(model.feed_data({"GT": batch}) == TRAIN_SHAPE[1], "feed_data returns the clip length")
+        return model
+
+    # step 1: past D_init_iters, so G updates
+    steps = mesh_pair(meshes, make, lambda m, i: m.optimize_parameters(1 + i, eps=eps), lambda m: {
+        "d_grads": {k: p.grad.detach().clone() for k, p in m.gan.netD.named_parameters()},
+        "d_stats": m.gan.stats_numpy(), "logs": dict(m.get_current_log())})
+    a, b = steps["sp1"], steps["sp2"]
+    r = mesh_split_errors(b, a)
+    r["losses_rel_diff"] = {k: abs(b["logs"][k] - a["logs"][k]) / abs(a["logs"][k])
+                            for k in ("l_g_gan", "l_g_fea", "l_d")}
+    r["d_grad_rel_l2"] = grads_rel_l2(b["d_grads"], a["d_grads"])
+    r["d_stats_rel_l2"] = max(rel_l2(b["d_stats"][k][n], a["d_stats"][k][n]) for k in a["d_stats"] for n in ("mean", "var"))
+    check(r["within_limits"] and max(r["losses_rel_diff"].values()) <= MESH_LOSS_REL_LIMIT
+          and r["d_grad_rel_l2"] <= MESH_GRAD_L2_LIMIT and r["d_stats_rel_l2"] <= MESH_GRAD_L2_LIMIT,
+          f"the GAN step with the width over sp 2 against sp 1: {r}")
+    return {**r, "batch": list(batch.shape), "gan": GAN_TRAIN, "step_ms": {k: st["ms"] for k, st in steps.items()},
+            "launches_by_card": {k: st["launches_by_card"] for k, st in steps.items()}}
+
+
+def mesh_hg(c0, meshes, worst_var):
+    """The published 4x net with ``chain_variants: [hg]``: its training step
+    on the published batch and one GOP at 576 x 704 through ``test()``, sp 2
+    against sp 1 from one set of weights and one eps; B7's calls by card
+    and width (at sp 2 the haloed shard's). Returns the ``mesh`` line's
+    part and the kernels-line rows of B7, forward and backward, at the
+    training step's haloed shard."""
+    network = {**NETWORK_G, "chain_variants": ["hg"]}
+    tree = seeded_tree(define_G(serve_options(network), device=c0), 181)
+    batch = train_batch(182)
+    eps = torch.randn(TRAIN_SHAPE + (48, 5), generator=torch.Generator(c0).manual_seed(183), device=c0)
+
+    def make(mesh):
+        model = RescaleModel(train_options(network), mesh=mesh, rng_seed=0)
+        model.load_jax_params(tree)
+        check(model.feed_data({"GT": batch}) == TRAIN_SHAPE[1], "feed_data returns the clip length")
+        return model
+
+    steps = mesh_pair(meshes, make, lambda m, i: m.optimize_parameters(i, eps=eps))
+    r = mesh_split_errors(steps["sp2"], steps["sp1"])
+    w = TRAIN_SHAPE[3] // 2 + spatial.HALO
+    b7 = {k: sum(n for c in st["b6_b7_by_card"].values() for e, n in c.items() if e.startswith("B7_forward"))
+          for k, st in steps.items()}
+    b7_halo = sum(n for c in steps["sp2"]["b6_b7_by_card"].values() for e, n in c.items()
+                  if e == f"B7_forward@W{w}")
+    b7_bwd = sum(n for c in steps["sp2"]["b6_b7_by_card"].values() for e, n in c.items() if e == f"B7_bwd@W{w}")
+    check(r["within_limits"] and b7["sp2"] == 2 * b7["sp1"] > 0 and b7_halo == b7["sp2"] and b7_bwd == b7_halo,
+          f"the hg step with the width over sp 2 against sp 1: {r}; B7 calls {b7}, at the haloed width {w}: "
+          f"{b7_halo} forward, {b7_bwd} backward")
+    part = {"hg_train_sp": {**r, "batch": list(batch.shape), "haloed_w": w, "b7_calls": b7,
+                            "step_ms": {k: st["ms"] for k, st in steps.items()},
+                            "b6_b7_by_card": {k: st["b6_b7_by_card"] for k, st in steps.items()},
+                            "launches_by_card": {k: st["launches_by_card"] for k, st in steps.items()}}}
+    del steps
+
+    # one GOP through test()
+    gop = serve_clip(frames=7)
+    served, counts = {}, {}
+    for name in ("sp1", "sp2"):
+        model = RescaleModel(serve_options(network, gop_batch=1), mesh=meshes[name], rng_seed=0)
+        model.load_jax_params(tree)
+        model.feed_data({"GT": gop})
+        model.generator.manual_seed(7)
+        reset_all_counts()
+        model.test(gop=7)
+        torch.cuda.synchronize()
+        counts[name] = hg_card_counts()
+        served[name] = model
+    a, b = served["sp1"], served["sp2"]
+    y_err = float(np.abs(a.forw_H - b.forw_H).max())
+    lr = torch.from_numpy(a.forw_L).to(c0)
+    e = torch.randn(a.net.eps_shape(lr.shape), generator=torch.Generator(c0).manual_seed(8), device=c0)
+    hr_err = (a._decode_on(meshes["sp1"].devices, Replicas(), lr, e)[0]
+              - b._decode_on(meshes["sp2"].devices, Replicas(), lr, e)[0]).abs().max().item()
+    n_sp2 = sum(n for c in counts["sp2"].values() for k, n in c.items() if k.startswith("B7_forward"))
+    check(y_err <= MESH_SP_Y_LIMIT and hr_err <= MESH_SP_HR_LIMIT and np.isfinite(b.fake_H).all() and n_sp2 > 0,
+          f"the hg test() with the width over sp 2 against sp 1: latent {y_err}, HR from one lr {hr_err}, "
+          f"B7 calls {counts}")
+    part["hg_eval_sp"] = {"clip": list(gop.shape), "latent_max_abs_diff": y_err,
+                          "lr_levels_differing": int((a.forw_L != b.forw_L).sum()),
+                          "hr_from_one_lr_max_abs_diff": hr_err, "b7_by_card": counts,
+                          "gop_ms": {k: time_cuda(lambda m=m: m.test(gop=7), iters=MESH_OPT_TIMED_STEPS, warmup=1)
+                                     for k, m in served.items()}}
+    del served, a, b
+
+    # B7 at the haloed shard of the sp 2 step: forward and backward
+    rows = hg_rows(c0, "train_sp2", (*TRAIN_SHAPE[:3], w), b7_halo, b7_bwd, worst_var)
+    return part, rows
+
+
+def hg_rows(device, tag, shape, n_fwd, n_bwd, worst_var, C=3, c_out=48):
+    """B7's kernels-line rows at ``shape``: its forward (against the plain
+    pair and the library pair), and its backward route (``hg_adjoint``
+    with the kernels, against the plain adjoint at the same features and
+    one autograd call through the library pair)."""
+    rng = np.random.default_rng(185)
+    args = chain_pair(rng, shape, C, c_out, 32, device)
+    x, x2 = args[0], args[1]
+    h, g = args[2:6], args[6:10]
+    params = [*h[0], *h[1], h[2], h[3], *g[0], *g[1], g[2], g[3]]
+    got = cv._hg_cuda(*args, 1.0, False)
+    want = cv.fused_hg_pair_plain(*args, 1.0, False)
+    err = max((u - v).abs().max().item() for u, v in zip(got, want))
+    check(err <= FP32_LIMIT, f"B7 vs plain at {shape}: {err}")
+    se = got[1]
+    gy, gs = seeded_grads(rng, se, device), seeded_grads(rng, se, device)
+    feats = [dc.chain_feats(x, list(ws), list(bs)) for ws, bs in (h[:2], g[:2])]
+    bwd = cv.hg_adjoint(x, x2, se, params, gy, gs, 1.0, False, feats=feats)
+    bwd_plain = cv.hg_adjoint(x, x2, se, params, gy, gs, 1.0, False, feats=feats, plain=True)
+    err_b = max((u - v).abs().max().item() for u, v in zip(bwd, bwd_plain))
+    rel_b = max((u - v).abs().max().item() / max(v.abs().max().item(), 1e-30) for u, v in zip(bwd, bwd_plain))
+    check(rel_b <= MESH_GUARD_LIMIT, f"B7's backward route vs the plain adjoint at {shape}: {rel_b} of max |ref|")
+    leaf = lambda t: t.detach().requires_grad_(True)  # noqa: E731
+    lx = leaf(to_library_layout(x, *h, None, None)[0])
+    lib_h, lib_g = ([lx, [leaf(w) for w in ws], [leaf(b) for b in bs], leaf(w5), leaf(b5)]
+                    for ws, bs, w5, b5 in (to_library_layout(x, *c, None, None)[1:5] for c in (h, g)))
+    x2_lib = leaf(x2.permute(0, 4, 1, 2, 3).contiguous())
+    lib_out = library_pair(lib_h, lib_g, x2_lib)
+    leaves = [lx, *(t for c in (lib_h, lib_g) for t in (*c[1], *c[2], c[3], c[4])), x2_lib]
+    lib_gy = [t.permute(0, 4, 1, 2, 3).contiguous() for t in (gy, gs)]
+    with torch.no_grad():
+        ms = time_cuda(lambda: cv._hg_cuda(*args, 1.0, False))
+        plain = time_cuda(lambda: cv.fused_hg_pair_plain(*args, 1.0, False))
+        library = time_cuda(lambda: library_pair(lib_h, lib_g, x2_lib))
+    b_ms = time_cuda(lambda: cv.hg_adjoint(x, x2, se, params, gy, gs, 1.0, False))
+    b_plain = time_cuda(lambda: cv.hg_adjoint(x, x2, se, params, gy, gs, 1.0, False, plain=True))
+    b_lib = time_cuda(lambda: torch.autograd.grad(lib_out, leaves, lib_gy, retain_graph=True))
+    common = {"route": "cuda", "source": SOURCE_HG, "replaces": REPLACES_HG, "shape": list(shape) + [C]}
+    fwd_bound, by = hg_bound_ms(*shape, C, c_out, peak=TC_PEAK)
+    bwd_bound, by_b = hg_bwd_bound_ms(*shape, C, c_out, peak=TC_PEAK)
+    return [{"name": f"fused_hg_pair[{C}->{c_out}]@{tag}", **common, "launches": n_fwd,
+             "max_abs_err": max(err, worst_var.get(("hg", C, c_out), 0.0)), "ms": ms["median"],
+             "plain_ms": plain["median"], "bound_ms": fwd_bound, "bound_by": by, "library_ms": library["median"],
+             "ms_min": ms["min"], "bound_fma_ms": hg_bound_ms(*shape, C, c_out)[0]},
+            {"name": f"hg_adjoint[{C}->{c_out}]@{tag}", **common, "launches": n_bwd, "max_abs_err": err_b,
+             "ms": b_ms["median"], "plain_ms": b_plain["median"], "bound_ms": bwd_bound, "bound_by": by_b,
+             "library_ms": b_lib["median"], "ms_min": b_ms["min"],
+             "bound_fma_ms": hg_bwd_bound_ms(*shape, C, c_out)[0]}]
+
+
+def family_batch(seed, shape):
+    """A smooth synthetic batch in [0,1] of ``shape`` (B, T, H, W, 3)."""
+    rng = np.random.default_rng(seed)
+    B, T, H, W, _ = shape
+    yy, xx = np.meshgrid(np.linspace(0, 1, H), np.linspace(0, 1, W), indexing="ij")
+    ph = rng.uniform(0, 6, (B, 1, 1, 1, 3))
+    t = np.arange(T).reshape(1, T, 1, 1, 1)
+    base = 0.5 + 0.3 * np.sin(7 * xx[None, None, :, :, None] + 0.3 * t + ph) * np.cos(5 * yy[None, None, :, :, None] + ph)
+    return np.clip(base + rng.normal(0, 0.02, shape), 0, 1).astype(np.float32)
+
+
+def mesh_families(c0, meshes, worst_tc):
+    """The published 4x net with each subnet family of MESH_FAMILIES as its
+    coupling subnets (the plain coupling on shards): one training step
+    each, sp 2 against sp 1 from one set of weights and one eps, on a batch
+    as wide as the family's ``width_rule`` needs; B6's calls by card and
+    width. Returns the ``mesh`` line's part and the kernels-line rows of B6
+    at the families' sp 2 haloed shards."""
+    part, rows = {}, []
+    for i, (family, shape) in enumerate(MESH_FAMILIES.items()):
+        network = network_g(family)
+        net = define_G(serve_options(network), device=c0)
+        tree = seeded_tree(net, 190 + i)
+        multiple, least, _, by = spatial.width_rule(net)
+        check(shape[3] // 2 >= least and shape[3] % (2 * multiple) == 0,
+              f"{family}: the batch {shape} splits at sp 2 ({multiple}, {least})")
+        reach, grid = spatial.block_reach(net.inv_blocks_0.H)
+        del net
+        batch = family_batch(191 + i, shape)
+        lat = (*shape[:2], shape[2] // 4, shape[3] // 4)
+        eps = torch.randn(lat + (48, 5), generator=torch.Generator(c0).manual_seed(192 + i), device=c0)
+        def make(mesh, network=network, tree=tree, batch=batch, shape=shape):
+            model = RescaleModel(train_options(network), mesh=mesh, rng_seed=0)
+            model.load_jax_params(tree)
+            check(model.feed_data({"GT": batch}) == shape[1], "feed_data returns the clip length")
+            return model
+
+        steps = mesh_pair(meshes, make, lambda m, i, eps=eps: m.optimize_parameters(i, eps=eps))
+        r = mesh_split_errors(steps["sp2"], steps["sp1"])
+        n_b6 = {k: sum(st["b6_by_width"]["forward"].values()) for k, st in steps.items()}
+        check(r["within_limits"] and n_b6["sp2"] == 2 * n_b6["sp1"],
+              f"the {family} step with the width over sp 2 against sp 1: {r}; B6 forward calls {n_b6}")
+        part[family] = {**r, "batch": list(shape), "width_rule": [multiple, least, by], "reach": [reach, grid],
+                        "step_ms": {k: st["ms"] for k, st in steps.items()},
+                        "b6_b7_by_card": {k: st["b6_b7_by_card"] for k, st in steps.items()},
+                        "launches_by_card": {k: st["launches_by_card"] for k, st in steps.items()}}
+        # B6 at the haloed shard's width (a collapse block's space-to-depth shrinks it 4x)
+        if family in SUBNET_TC:
+            widths, shrink = SUBNET_TC[family]
+            w = (shape[3] // 2 // 4 + reach) // shrink
+            b6_shape = (shape[0], shape[1], lat[2] // shrink, w)
+            fwd, bwd = steps["sp2"]["b6_by_width"]["forward"], steps["sp2"]["b6_by_width"]["backward"]
+            for C, co in widths:
+                for backward, n in ((False, fwd.get((C, co), 0)), (True, bwd.get((C, co), 0))):
+                    rows.append(temporal_row(c0, np.random.default_rng(193), f"{family}_sp2", b6_shape, C, co,
+                                             backward, n, worst_tc))
+            part[family]["b6_shard"] = list(b6_shape)
+        del steps
+    return part, rows
+
+
+def mesh_matlab(c0, meshes):
+    """The Haar SelfC 4x net's training step with ``distortion: matlab``,
+    sp 2 against sp 1: the target made by shards (each shard's LR columns
+    from its haloed HR columns: the same bits as the whole image's), the
+    step's loss and gradients."""
+    tree = seeded_tree(define_G(haar_options(), device=c0), 201)
+    batch = train_batch(202)
+    eps = torch.randn(define_G(haar_options(), device=c0).eps_shape((*TRAIN_SHAPE, 3)),
+                      generator=torch.Generator(c0).manual_seed(203), device=c0)
+
+    def make(mesh):
+        opt = haar_train_options(**MESH_HAAR_TRAIN)
+        opt["distortion"] = "matlab"
+        model = RescaleModel(opt, mesh=mesh, rng_seed=0)
+        model.load_jax_params(tree)
+        check(model.feed_data({"GT": batch}) == TRAIN_SHAPE[1], "feed_data returns the clip length")
+        return model
+
+    steps = mesh_pair(meshes, make, lambda m, i: m.optimize_parameters(i, eps=eps))
+    r = mesh_split_errors(steps["sp2"], steps["sp1"])
+    hr = torch.from_numpy(batch).to(c0)
+    with torch.no_grad():
+        whole = make_degrade("matlab", 4)(hr)
+        shards = spatial.degrade_shards("matlab", list(hr.chunk(2, dim=3)), 4, None)
+        same = torch.equal(torch.cat(shards, dim=3), whole)
+    check(r["within_limits"] and same, f"the matlab-target Haar step with the width over sp 2 against sp 1: {r}; "
+                                       f"the target by shards the same bits {same}")
+    return {**r, "batch": list(batch.shape), "target_same_bits": same,
+            "step_ms": {k: st["ms"] for k, st in steps.items()},
+            "launches_by_card": {k: st["launches_by_card"] for k, st in steps.items()}}
+
+
+def mesh_pipeline(c0, meshes):
+    """``train_compression.yml``'s pipelined step (``train.codec_pipeline``)
+    through the host codec (the zlib stand-in: the card's machine has no
+    x265): three calls and ``flush_pipeline`` at sp 2 beside sp 1, the sp 1
+    model set to the sp 2 model's parameters and moments before each call,
+    so that each retired update is held from one state: its loss, gradient
+    and update (``mesh_split_errors``), and the host codec's input (the
+    quantised LR gathered whole on the host) the same bits."""
+    probe = CodecModel(codec_train_options(), mesh=meshes["sp1"], rng_seed=0)
+    tree = codec_tree(probe, 211)
+    del probe
+    batches = [codec_train_batch(212 + i) for i in range(3)]
+    models, seen = {}, {"sp1": [], "sp2": []}
+    for name in ("sp1", "sp2"):
+        models[name] = CodecModel(codec_train_options(codec_pipeline=True), mesh=meshes[name], rng_seed=0)
+        models[name].load_jax_params(tree)
+        host = models[name]._host_codec
+
+        def recorded(lr_q, q, name=name, host=host):
+            seen[name].append(lr_q.copy())
+            return host(lr_q, q)
+
+        models[name]._host_codec = recorded
+    updates, wall = [], {"sp1": 0.0, "sp2": 0.0}
+    for i in range(4):
+        sync_codec(models["sp1"], models["sp2"])
+        st = {}
+        for name, model in models.items():
+            if i < 3:
+                check(model.feed_data({"GT": batches[i]}) == CODEC_TRAIN_SHAPE[1], "feed_data returns the clip length")
+            t0 = time.time()
+            if i == 0:   # the first call queues its batch and updates nothing
+                model.optimize_parameters(0)
+                check(not model.get_current_log(), "the first pipelined call logs nothing")
+            else:
+                st[name] = mesh_step(model, (lambda m=model, i=i: m.optimize_parameters(i)) if i < 3
+                                     else model.flush_pipeline)
+                st[name]["logs"] = dict(model.get_current_log())
+            wall[name] += time.time() - t0
+        if i:
+            r = mesh_split_errors(st["sp2"], st["sp1"])
+            check(r["within_limits"], f"pipelined update {i - 1} with the width over sp 2 against sp 1: {r}")
+            updates.append({**r, "img_bpp": {k: v["logs"]["img_bpp"] for k, v in st.items()},
+                            "launches_by_card": {k: v["launches_by_card"] for k, v in st.items()}})
+    same = [bool(np.array_equal(a, b)) for a, b in zip(seen["sp1"], seen["sp2"])]
+    check(len(same) == 3 and all(same), f"the host codec's input of each call, sp 2 against sp 1: {same}")
+    del models
+    return {"batch": list(CODEC_TRAIN_SHAPE), "calls": 3, "lr_q_same_bits": same, "updates": updates,
+            "rate_source": h265.rate_source(None), "calls_s": wall}
+
+
+def sync_codec(dst, src):
+    """``dst``'s parameters and Adam state set to ``src``'s bits."""
+    with torch.no_grad():
+        for p, q in zip(dst.params.parameters(), src.params.parameters()):
+            p.copy_(q)
+            if q in src.optimizer.state:
+                dst.optimizer.state[p] = {k: v.clone() for k, v in src.optimizer.state[q].items()}
+
+
+def mesh_opts(c0, meshes, worst_var, worst_tc):
+    """The options the width split once refused, each sp 2 against sp 1 at
+    full width: the GAN step, ``hg`` (a step and a GOP), the subnet
+    families, ``distortion: matlab`` and the pipelined codec step. Returns
+    the ``mesh`` line's part and the kernels-line rows of B7 and B6."""
+    part, rows = {}, []
+    t0 = time.time()
+    part["gan_train_sp"] = mesh_gan(c0, meshes)
+    part["gan_s"] = time.time() - t0
+    t0 = time.time()
+    hg_part, hg = mesh_hg(c0, meshes, worst_var)
+    part.update(hg_part, hg_s=time.time() - t0)
+    t0 = time.time()
+    part["families_train_sp"], b6 = mesh_families(c0, meshes, worst_tc)
+    part["families_s"] = time.time() - t0
+    t0 = time.time()
+    part["matlab_train_sp"] = mesh_matlab(c0, meshes)
+    part["matlab_s"] = time.time() - t0
+    t0 = time.time()
+    part["codec_pipeline_sp"] = mesh_pipeline(c0, meshes)
+    part["pipeline_s"] = time.time() - t0
+    return part, hg + b6
+
+
+def phase_mesh(device, worst_stripe, worst_gc_bwd, worst_haar, worst_var, worst_tc, smi):
     """``--phases mesh``: the device mesh (``parallel/mesh.py``) on two mesh
     positions: distinct cards where the machine has two or more, else
     ``cuda:0`` twice (never the CPU).
@@ -4842,6 +5215,13 @@ def phase_mesh(device, worst_stripe, worst_gc_bwd, worst_haar, smi):
     kernels += rows
     line["nets_s"] = time.time() - t0
 
+    # ---- the options the split once refused ----
+    t0 = time.time()
+    part, rows = mesh_opts(c0, nets, worst_var, worst_tc)
+    line.update(part)
+    kernels += rows
+    line["opts_s"] = time.time() - t0
+
     # ---- every wrapper on cuda:1 while cuda:0 is current ----
     if n_cards >= 2:
         with torch.cuda.device(c0):
@@ -4969,7 +5349,7 @@ def main():
         phase_gan(device)
         phase_aux(device)
     if "mesh" in want:
-        kernels += phase_mesh(device, worst_stripe, worst_gc_bwd, worst_haar, smi)
+        kernels += phase_mesh(device, worst_stripe, worst_gc_bwd, worst_haar, worst_var, worst_tc, smi)
 
     if want & {"cli", "profile"}:
         work = Path(tempfile.mkdtemp(prefix="selfc_cli_"))

@@ -71,6 +71,9 @@ RIDE_MAX_C_OUT = 10   # conv5 rides the spatial layers only this narrow
 # ride and v3 chains by (C, c_out, gc)
 launches_hg = 0
 launches_hg_by_width: dict = {}
+# the pair's calls by ("forward" | "bwd", device index, W): the forward
+# kernel, and its backward route with the kernels (``hg_adjoint``)
+launches_hg_by_device: dict = {}
 launches_ride = 0
 launches_ride_by_width: dict = {}
 launches_v3 = 0
@@ -80,7 +83,7 @@ launches_v3_by_width: dict = {}
 def reset_launch_counts():
     global launches_hg, launches_ride, launches_v3
     launches_hg = launches_ride = launches_v3 = 0
-    for d in (launches_hg_by_width, launches_ride_by_width, launches_v3_by_width):
+    for d in (launches_hg_by_width, launches_hg_by_device, launches_ride_by_width, launches_v3_by_width):
         d.clear()
 
 
@@ -217,6 +220,7 @@ def _hg_cuda(x, x2, hws, hbs, hw5, hb5, gws, gbs, gw5, gb5, clamp, rev):
     dc._raise_on(err, "H/G pair", lib.selfc_hg_cuda_error_string)
     launches_hg += 1
     dc._count((C, c_out, gc, "reverse" if rev else "forward"), launches_hg_by_width)
+    dc._count(("forward", x.device.index, W), launches_hg_by_device)
     return y2, se
 
 
@@ -326,6 +330,8 @@ def hg_adjoint(x, x2, se, params, g_y2, g_se, clamp, rev, feats=None, plain=Fals
     if feats is None:
         feats = [dc.chain_feats(x, list(ws), list(bs)) for ws, bs, _, _ in chains]
     kernels = x.is_cuda and not plain
+    if kernels:
+        dc._count(("bwd", x.device.index, x.shape[3]), launches_hg_by_device)
     s, gy, gs, xa = se.to(acc), g_y2.to(acc), g_se.to(acc), x2.to(acc)
     dx2 = gy * s
     if rev:

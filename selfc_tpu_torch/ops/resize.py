@@ -4,7 +4,8 @@ Integer-factor 'area' down/up, the torch-exact adaptive average pool
 (GlobalAgg), the DUF-style Gaussian (BD) downsampling that makes the
 ``distortion: sr_bd`` LR target, and the MATLAB bicubic resize of
 ``distortion: matlab`` and the image datasets. Each resampling is a product
-with a fixed matrix built in numpy.
+with a fixed matrix built in numpy (the MATLAB resize: its taps, one
+elementwise pass each).
 """
 
 from __future__ import annotations
@@ -172,12 +173,48 @@ def _matlab_weights(in_size: int, out_size: int, scale: float) -> np.ndarray:
     return m
 
 
+@lru_cache(maxsize=None)
+def matlab_taps(in_size: int, out_size: int, scale: float) -> tuple[np.ndarray, np.ndarray]:
+    """``_matlab_weights`` as taps: ``(idx, wts)``, each ``(out, P)``: row
+    o's non-zero columns in increasing order and their weights; a row with
+    fewer repeats its last column at weight 0."""
+    m = _matlab_weights(in_size, out_size, scale)
+    cols = [np.flatnonzero(row) for row in m]
+    P = max(len(c) for c in cols)
+    idx = np.empty((out_size, P), np.int64)
+    wts = np.zeros((out_size, P), np.float32)
+    for o, c in enumerate(cols):
+        idx[o, :len(c)], idx[o, len(c):] = c, c[-1]
+        wts[o, :len(c)] = m[o, c]
+    return idx, wts
+
+
+def matlab_reach(idx: np.ndarray, k: int) -> int:
+    """The columns beyond its own k x k cell that an output of a 1/k
+    downscale reads (``matlab_taps``' idx), on either side."""
+    o = np.arange(idx.shape[0])
+    return int(max((o * k - idx.min(axis=1)).max(), (idx.max(axis=1) - (o * k + k - 1)).max(), 0))
+
+
+def resize_taps(x, axis: int, idx, wts):
+    """``sum_j wts[o, j] * x[..., idx[o, j], ...]`` along ``axis``, the taps
+    added one after another in j's order: elementwise, so every output
+    element is the same sum of the same products wherever it is computed
+    (a shard's columns the whole image's bits)."""
+    index = torch.as_tensor(idx, device=x.device)
+    w = torch.as_tensor(wts, dtype=x.dtype, device=x.device)
+    shape = [1] * x.dim()
+    shape[axis] = -1
+    y = None
+    for j in range(index.shape[1]):
+        term = x.index_select(axis, index[:, j]) * w[:, j].reshape(shape)
+        y = term if y is None else y + term
+    return y
+
+
 def imresize_matlab(x, scale: float):
-    """MATLAB-compatible bicubic resize of (..., H, W, C) by ``scale``: two
-    products with ``_matlab_weights``."""
+    """MATLAB-compatible bicubic resize of (..., H, W, C) by ``scale``: the
+    taps of ``_matlab_weights`` along H, then along W (``resize_taps``)."""
     *_, H, W, C = x.shape
-    oh, ow = int(H * scale), int(W * scale)
-    mh = torch.as_tensor(_matlab_weights(H, oh, scale), dtype=x.dtype, device=x.device)
-    mw = torch.as_tensor(_matlab_weights(W, ow, scale), dtype=x.dtype, device=x.device)
-    y = torch.einsum("oh,...hwc->...owc", mh, x)
-    return torch.einsum("pw,...owc->...opc", mw, y)
+    y = resize_taps(x, x.dim() - 3, *matlab_taps(H, int(H * scale), scale))
+    return resize_taps(y, x.dim() - 2, *matlab_taps(W, int(W * scale), scale))

@@ -50,6 +50,8 @@ launches_by_width: dict = {}
 launches_bwd = 0
 launches_bwd_by_width: dict = {}
 launches_by_path: dict = {}
+# every call by ("forward" | "bwd", device index, W)
+launches_by_device: dict = {}
 
 # the kernel's tiles (csrc/temporal_conv.cu): Co <= NARROW_MAX_CO takes the
 # narrow tile (256 rows, 8 or 16 columns), wider the wide one (128 rows, 48 or
@@ -67,6 +69,7 @@ def reset_launch_counts():
     launches_by_width.clear()
     launches_bwd_by_width.clear()
     launches_by_path.clear()
+    launches_by_device.clear()
 
 
 def plan(B, T, S, C, Co, itemsize, sm_count):
@@ -227,6 +230,7 @@ def _forward_cuda(x, w, b, negative_slope, want_mask, sm_count=None):
     res = _launch(x, w, b, negative_slope, want_mask, sm_count)
     launches += 1
     _count((x.shape[-1], w.shape[-1]), launches_by_width)
+    _count(("forward", x.device.index, x.shape[3]), launches_by_device)
     return res
 
 
@@ -238,6 +242,7 @@ def _data_grad_cuda(dy, w, sm_count=None):
     dx, _ = _launch(dy, _flipped(w), None, None, False, sm_count)
     launches_bwd += 1
     _count((w.shape[1], w.shape[-1]), launches_bwd_by_width)
+    _count(("bwd", dy.device.index, dy.shape[3]), launches_by_device)
     return dx
 
 

@@ -217,10 +217,13 @@ class Replicas:
     differentiable ``.to`` of the masters, so every device's gradient sums
     into them; on the masters' own device (and dtype) a copy is the master
     itself. A parameter is copied once a device, whichever module asks for
-    it; devices that repeat in a mesh share their copies."""
+    it; devices that repeat in a mesh share their copies. ``sources`` maps
+    a parameter (by ``id``) to the tensor copied in its place (a snapshot
+    of the parameters taken earlier: the gradients then sum into it)."""
 
-    def __init__(self, dtype=None):
+    def __init__(self, dtype=None, sources=None):
         self.dtype = dtype
+        self.sources = sources or {}
         self._copies: dict = {}
 
     def params(self, device, module) -> dict:
@@ -229,7 +232,8 @@ class Replicas:
         for n, p in module.named_parameters():
             key = (str(dev), id(p))
             if key not in self._copies:
-                self._copies[key] = p.to(dev, self.dtype if self.dtype is not None else p.dtype)
+                src = self.sources.get(id(p), p)
+                self._copies[key] = src.to(dev, self.dtype if self.dtype is not None else src.dtype)
             out[n] = self._copies[key]
         return out
 

@@ -3,24 +3,29 @@ derives from the JAX package's ``mesh_sp`` (the HR batch sharded over W,
 the convolutions' halo exchanges, the gradients' psums), written out for
 the port, for the nets the JAX wrappers train: SelfC_GMM
 (``WidthSplitGMM``), SelfC_GMM_Codec with its surrogate and de-artifact net
-(``WidthSplitCodec``) and the Haar SelfC net (``WidthSplitHaar``).
+(``WidthSplitCodec``) and the Haar SelfC net (``WidthSplitHaar``), with
+every subnet family of the ``subnet()`` table and every chain variant.
 
 Every function takes a row's shards, left to right, each on its card, and
 returns shards. What crosses a shard edge:
 
-* a block of convolutions (a D2DT chain, the surrogate's ``DenseBlock2D``
-  and ``FeatureCollapse``, ``STPNetSmall``'s blocks) reads ``block_reach``
+* a block of convolutions (a subnet, the surrogate's ``DenseBlock2D`` and
+  ``FeatureCollapse``, ``STPNetSmall``'s blocks) reads ``block_reach``
   columns of each neighbour, derived from its convs' kinds: a spatial
   ('s') or full ('f') conv reaches 1 column at the block's resolution, a
   temporal ('t') or pointwise ('p') one none. A D2DT chain reaches 4 (four
   3x3 layers, a temporal conv5), a ``DenseBlock2D`` 5, a
   ``FeatureCollapse`` at scale 4 five cells of 4, 20 columns, and its
-  shards must start on the 4-column grid. The block runs on the haloed
-  shard and is cropped; the image's true edges keep the block's own zero
-  padding, so the crop is the unsplit block's output. The halo is
-  exchanged before each block (H and G read the same input and share
-  one). A coupling epilogue's operands are zero-padded instead (those
-  columns are cropped);
+  shards must start on the 4-column grid; ``D2DTEnhance`` 4;
+  ``HighOrderTNet`` 80 on an 8-column grid (``_unet_reach``: its strided
+  convs keep their phase). The block runs on the haloed shard and is
+  cropped; the image's true edges keep the block's own zero padding, so
+  the crop is the unsplit block's output. The halo is exchanged before
+  each block (H and G read the same input and share one). A coupling
+  epilogue's operands are zero-padded instead (those columns are cropped),
+  and so is the H/G pair's combine operand x2 (``chain_variants: [hg]``:
+  B7 on the haloed shard). The plain coupling of the other families
+  combines on the unhaloed shards;
 * ``GlobalAgg``'s 32 x 32 adaptive pool: each shard sums its columns of
   every window, the sums are added on the master device and divided once,
   the ``(T x T)`` attention runs there on the whole pooled map, and each
@@ -29,7 +34,12 @@ returns shards. What crosses a shard edge:
   their offsets reach any column, so no halo is exact; the row's shards
   are gathered on the master, the module runs whole there (B5 forward and
   backward at the whole shape) and its output is sharded back. The
-  gather's adjoint is the split, so the gradient flows through;
+  gather's adjoint is the split, so the gradient flows through (the
+  adversarial branch gathers the fake HR for D and F the same way:
+  ``train/gan.py``);
+* the LR targets: ``gaussian_downsample`` and the MATLAB resize read
+  their kernels' reach (``degrade_shards``), the same bits as the whole
+  image's;
 * the surrogate's Pearson term is per element over B*T: pointwise in W;
 * the losses, the prior's NLL, the mimick terms and the log-jacobian: sums
   over shards, divided by the whole batch's count.
@@ -43,7 +53,7 @@ images within a haloed shard, chain by chain (``DenseChain``'s own
 packing): the same function.
 
 ``width_rule`` gives the widths a net splits into; ``check_supported``
-raises for what the split does not compute (ROADMAP Queue A item 1).
+raises for a net the split does not compute (IRN: no wrapper trains it).
 """
 
 from __future__ import annotations
@@ -55,14 +65,16 @@ from torch.utils.checkpoint import checkpoint
 
 from ..codec.surrogate import H265Surrogate, pearson_map
 from ..models.agg import DeformConvAgg, GlobalAgg, GroupedGlobalDeformAgg
-from ..models.blocks import D2DT, DenseChain, FeatureCollapse, _Chain
+from ..models.blocks import D2DT, D2DTEnhance, DenseChain, FeatureCollapse, HighOrderTNet, _Chain
 from ..models.inv_nets import SelfCNetCodec, SelfCNetGMM, SelfCNetHaar
 from ..models.stp import STPNet, STPNetSmall
+from ..ops import chain_variants as _cv
 from ..ops.freq import freq_forward, freq_inverse
 from ..ops.gmm import gmm_log_prob, split_params
 from ..ops.haar import haar_forward, haar_inverse
 from ..ops.quantize import quantize_ste
-from ..ops.resize import GAUSS_REACH, adaptive_pool_w_sums, adaptive_w_counts, gaussian_downsample_w
+from ..ops.resize import (GAUSS_REACH, adaptive_pool_w_sums, adaptive_w_counts, gaussian_downsample_w, matlab_reach,
+                          matlab_taps, resize_taps)
 from .mesh import W_AXIS, halo_sides, halo_w, unhalo_w
 
 _CONV_REACH = {"s": 1, "f": 1, "t": 0, "p": 0}   # columns a conv of each kind reads on each side
@@ -70,8 +82,10 @@ _CONV_REACH = {"s": 1, "f": 1, "t": 0, "p": 0}   # columns a conv of each kind r
 
 def block_reach(mod) -> tuple[int, int]:
     """``(reach, grid)``: the columns of its input ``mod`` reads on each
-    side of an output column, and the grid a shard's edges must lie on
-    (1: any column). Derived from the convs' kinds (``blocks._ConvP.kind``)."""
+    side of an output column, and the grid a shard's edges (and so its
+    halo) must lie on (1: any column). Derived from the convs' kinds
+    (``blocks._ConvP.kind``); for ``HighOrderTNet`` from its U-Net
+    (``_unet_reach``)."""
     if isinstance(mod, DenseChain):
         convs = [*mod._convs(), mod.conv5] + ([mod.early_3d_layer] if mod.early_3d else [])
         return sum(_CONV_REACH[c.kind] for c in convs), 1
@@ -80,25 +94,67 @@ def block_reach(mod) -> tuple[int, int]:
     if isinstance(mod, FeatureCollapse):
         reach, _ = block_reach(mod.chain)
         return reach * mod.scale, mod.scale
+    if isinstance(mod, D2DTEnhance):
+        # four spatial convs, then the three dilated temporal convs side by side, then conv6
+        return (sum(_CONV_REACH[getattr(mod, f"conv{i}").kind] for i in (1, 2, 3, 4))
+                + max(_CONV_REACH[getattr(mod, f"conv5{d}").kind] for d in (1, 2, 3))
+                + _CONV_REACH[mod.conv6.kind]), 1
+    if isinstance(mod, HighOrderTNet):
+        return _unet_reach(mod)
     raise NotImplementedError(f"the width split has no halo for {type(mod).__name__}")
 
 
+def _unet_reach(net) -> tuple[int, int]:
+    """``HighOrderTNet``'s reach, rounded up to its grid of ``2**LEVELS``
+    input columns (so a haloed shard keeps the strided convs' phase), and
+    that grid. The columns an output column reads, followed down the
+    U-Net: a stride-2 3x3 'SAME' conv at an even size pads 0 before and 1
+    after, so its output column j reads 2j .. 2j + 2; the nearest 2x
+    upsample's column c reads c // 2; each D2DT block reads its reach at its
+    level's resolution; the skips join the two branches' columns."""
+    L = net.LEVELS
+
+    def enc(i, lo, hi):       # input columns that the encoder's level-i columns lo..hi read
+        if i == 0:
+            r = _CONV_REACH[net.head.kind]
+            return lo - r, hi + r
+        r = block_reach(getattr(net, f"inner{i}_block"))[0]
+        return enc(i - 1, 2 * (lo - r), 2 * (hi + r) + 2)
+
+    def dec(i, lo, hi):       # ... that the decoder's level-i columns read
+        if i == L:
+            return enc(L, lo, hi)
+        r = _CONV_REACH[getattr(net, f"up{2 - i}").kind]   # level i + 1 -> i: up{3 - (i + 1)}
+        a, b = dec(i + 1, (lo - r) // 2, (hi + r) // 2), enc(i, lo, hi)
+        return min(a[0], b[0]), max(a[1], b[1])
+
+    grid, t = 2 ** L, _CONV_REACH[net.tail.kind]
+    reach = max(max(x - lo, hi - x) for x in range(grid) for lo, hi in [dec(0, x - t, x + t)])
+    return -(-reach // grid) * grid, grid
+
+
 HALO = 4   # a D2DT chain's reach: four 3x3 layers, a temporal conv5 (``block_reach``)
+_BLOCKS = (DenseChain, D2DT, _Chain, FeatureCollapse, D2DTEnhance, HighOrderTNet)
+
+
+def net_blocks(module, prefix=""):
+    """``(name, block)`` of every outermost block under ``module`` that the
+    split halos (a block inside another, as ``HighOrderTNet``'s D2DT
+    blocks, runs within its haloed shard)."""
+    for name, child in module.named_children():
+        if isinstance(child, _BLOCKS):
+            yield prefix + name, child
+        else:
+            yield from net_blocks(child, f"{prefix}{name}.")
 
 
 def check_supported(net) -> None:
     """Raise unless the width split computes ``net``'s function: a
-    SelfC_GMM, SelfC_GMM_Codec or Haar SelfC net of D2DT coupling chains (B1
-    with its fused epilogues), without the H/G pair ("hg")."""
+    SelfC_GMM, SelfC_GMM_Codec or Haar SelfC net (any subnet family of the
+    ``subnet()`` table, any chain variants)."""
     if type(net) not in (SelfCNetGMM, SelfCNetCodec, SelfCNetHaar):
         raise NotImplementedError(f"mesh_sp > 1 splits SelfC_GMM, SelfC_GMM_Codec and SelfC, "
                                   f"not {type(net).__name__}")
-    if net.subnet_type != "D2DTNet":
-        raise NotImplementedError(f"mesh_sp > 1 needs subnet_type D2DTNet, not {net.subnet_type!r} "
-                                  "(ROADMAP Queue A item 1e)")
-    if "hg" in net.chain_variants:
-        raise NotImplementedError("mesh_sp > 1 with chain_variants 'hg': the H/G pair (B7) has no "
-                                  "haloed route (ROADMAP Queue A item 1b)")
 
 
 def width_rule(net, surrogate=None) -> tuple[int, int, str, str]:
@@ -107,11 +163,11 @@ def width_rule(net, surrogate=None) -> tuple[int, int, str, str]:
     ``multiple`` (the scale, times the coarsest grid a block's shard edges
     must lie on) and at least ``least`` HR columns (no shard narrower than
     a block's halo at the block's resolution); the two names say which
-    block sets each. The blocks: the net's D2DT chains and FeatureCollapse
-    blocks (a column of a Haar level l's input spans 2^(l+1) HR columns,
-    of any other's the scale) and the surrogate's."""
+    block sets each. The blocks: the net's (``net_blocks``: a column of a
+    Haar level l's input spans 2^(l+1) HR columns, of any other's the
+    scale) and the surrogate's."""
     blocks = [(name, mod, 2 ** (int(name.split("_")[2]) + 1) if name.startswith("level_blocks_") else net.scale)
-              for name, mod in net.named_modules() if isinstance(mod, (D2DT, FeatureCollapse))]
+              for name, mod in net_blocks(net)]
     if surrogate is not None:
         blocks += [(f"surrogate.{n}", m, net.scale) for n, m in surrogate.suggrogate_net.named_children()]
     multiple, least, by_grid, by_halo = net.scale, 0, "the scale", "none"
@@ -187,9 +243,15 @@ class _WidthSplit:
         return self.run(mod, halo_w(xs, h), h, mode, clamp, a, m)
 
     def coupling(self, blk, x1, x2, rev: bool):
-        """One ``InvBlockExp`` on the shards of the pair (its fused
-        epilogues): ``(y1, y2, log-jacobian sum)``, the sum not yet divided."""
+        """One ``InvBlockExp`` on the shards of the pair: ``(y1, y2,
+        log-jacobian sum)``, the sum not yet divided. As the block chooses:
+        the fused epilogues (D2DT subnets), with "hg" H and G as one pair
+        (B7), or the plain coupling (every other family)."""
+        if not blk.use_ep:
+            return self._plain_coupling(blk, x1, x2, rev)
         h = block_reach(blk.H)[0]
+        if "hg" in blk.variants:
+            return self._hg_coupling(blk, x1, x2, rev, h)
         if not rev:
             y1 = self.block(blk.F, x2, "add", 1.0, a=x1)
             p = halo_w(y1, h)
@@ -201,6 +263,42 @@ class _WidthSplit:
             y2 = self.run(blk.G, p, h, "sub_mul", 1.0, a=x2, m=s)
             y1 = self.block(blk.F, y2, "sub_from", 1.0, a=x1)
         return y1, y2, sum_to([torch.log(t.float()) for t in s], self.master)
+
+    def _hg_coupling(self, blk, x1, x2, rev, h):
+        """The block with "hg": F with its epilogue, haloed; H and G as one
+        pair (``fused_hg_pair``, B7) on their shared haloed input, the
+        combine's operand x2 zero-padded in the halo columns, y2 and exp(+-s)
+        cropped."""
+        def pair(m, x, x2p):
+            return _cv.fused_hg_pair(x, x2p, *m.H.weights(), *m.G.weights(), m.clamp, rev)
+
+        y1 = None if rev else self.block(blk.F, x2, "add", 1.0, a=x1)
+        p, n = halo_w(x1 if rev else y1, h), len(x1)
+        outs = [self.reps.apply(t.device, blk, pair, t, zero_pad_w(x2[i], *halo_sides(i, n, h)))
+                for i, t in enumerate(p)]
+        y2, s = unhalo_w([o[0] for o in outs], h), unhalo_w([o[1] for o in outs], h)
+        if rev:
+            y1 = self.block(blk.F, y2, "sub_from", 1.0, a=x1)
+        return y1, y2, sum_to([torch.log(t.float()) for t in s], self.master)
+
+    def _plain_coupling(self, blk, x1, x2, rev):
+        """The coupling for subnets without the fused epilogues
+        (``InvBlockExp._plain``): F haloed on its input, H and G on one
+        shared halo; s and the combine on each unhaloed shard."""
+        h = block_reach(blk.H)[0]
+        if not rev:
+            y1 = [a + f for a, f in zip(x1, self.block(blk.F, x2))]
+            p = halo_w(y1, h)
+        else:
+            p = halo_w(x1, h)
+        s = [blk.clamp * (2.0 * torch.sigmoid(t) - 1.0) for t in self.run(blk.H, p, h)]
+        g = self.run(blk.G, p, h)
+        if not rev:
+            y2 = [a * torch.exp(e) + b for a, e, b in zip(x2, s, g)]
+            return y1, y2, sum_to([e.float() for e in s], self.master)
+        y2 = [(a - b) * torch.exp(-e) for a, e, b in zip(x2, s, g)]
+        y1 = [a - f for a, f in zip(x1, self.block(blk.F, y2))]
+        return y1, y2, -sum_to([e.float() for e in s], self.master)
 
     # -- temporal aggregation --------------------------------------------
     def global_agg(self, mod, xs):
@@ -422,3 +520,36 @@ def gaussian_downsample_shards(xs, scale: int):
     ``GAUSS_REACH`` columns of its neighbours."""
     padded, n = halo_w(xs, GAUSS_REACH), len(xs)
     return [gaussian_downsample_w(p, scale, *halo_sides(i, n, GAUSS_REACH)) for i, p in enumerate(padded)]
+
+
+def imresize_matlab_shards(xs, scale: int):
+    """``imresize_matlab(x, 1 / scale)`` of the whole image, by shards, the
+    same bits: the H pass on each shard (it reads no other column), then
+    each shard's LR columns are the rows of the whole image's taps
+    (``matlab_taps``) read from its shard haloed by their reach. The
+    symmetric reflection is the whole image's, so it happens at the true
+    edges only."""
+    widths = [x.shape[W_AXIS] for x in xs]
+    W, n, f = sum(widths), len(xs), 1.0 / scale
+    ys = [resize_taps(x, x.dim() - 3, *matlab_taps(x.shape[-3], int(x.shape[-3] * f), f)) for x in xs]
+    idx, wts = matlab_taps(W, int(W * f), f)
+    h = matlab_reach(idx, scale)
+    out, w0 = [], 0
+    for i, p in enumerate(halo_w(ys, h)):
+        left, _ = halo_sides(i, n, h)
+        rows = slice(w0 // scale, (w0 + widths[i]) // scale)
+        local = idx[rows] - (w0 - left)
+        assert local.min() >= 0 and local.max() < p.shape[W_AXIS], "a tap outside the haloed shard"
+        out.append(resize_taps(p, p.dim() - 2, local, wts[rows]))
+        w0 += widths[i]
+    return out
+
+
+def degrade_shards(distortion: str, xs, scale: int, degrade):
+    """The LR target of the whole image (``make_degrade``), by shards:
+    'sr_bd' and 'matlab' read a halo, 'pytorch_bicubic' (k x k cells) none."""
+    if distortion == "sr_bd":
+        return gaussian_downsample_shards(xs, scale)
+    if distortion == "matlab":
+        return imresize_matlab_shards(xs, scale)
+    return [degrade(x) for x in xs]

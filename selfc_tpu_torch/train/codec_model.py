@@ -52,7 +52,7 @@ from ..models import define_G
 from ..ops.quantize import quantize_ste
 from ..parallel.dist import all_reduce_grads, finite_everywhere, frames_to_device
 from ..parallel.mesh import Replicas, dp_gather, dp_split, gather_w, model_mesh, shard_w
-from ..parallel.spatial import (WidthSplitCodec, check_supported, check_width, gaussian_downsample_shards,
+from ..parallel.spatial import (WidthSplitCodec, check_supported, check_width, degrade_shards,
                                 mimick_and_swap_shards, mimick_plain_shards, split_like, sum_to)
 from ..utils.jax_import import export_jax_params, load_jax_params
 from . import checkpoint as ckpt
@@ -153,13 +153,6 @@ class CodecModel:
         """Raise where the width split (``mesh_sp`` > 1) does not compute
         this model's step; log the split."""
         check_supported(self.net)
-        if self._pipeline:
-            raise NotImplementedError("mesh_sp > 1 with train.codec_pipeline: the pipelined codec step is "
-                                      "not split (ROADMAP Queue A item 1a)")
-        if (self.opt.get("distortion") or "sr_bd") not in ("sr_bd", "pytorch_bicubic"):
-            raise NotImplementedError(f"mesh_sp > 1 with distortion {self.opt['distortion']!r}: the width "
-                                      "split makes the sr_bd and pytorch_bicubic targets (ROADMAP Queue A "
-                                      "item 1d)")
         logger.info("mesh_sp %d: SelfCNetCodec's width split over %s (parallel/spatial.py)", self.mesh.sp,
                     [str(d) for d in self.mesh.devices[0]])
 
@@ -478,8 +471,7 @@ class CodecModel:
         divided by the whole batch's count."""
         to = self.train_opt
         with torch.no_grad():
-            refs = (gaussian_downsample_shards(xs, self.scale) if (self.opt.get("distortion") or "sr_bd") == "sr_bd"
-                    else [self.degrade(x) for x in xs])
+            refs = degrade_shards(self.opt.get("distortion") or "sr_bd", xs, self.scale, self.degrade)
         lr_qs = [quantize_ste(lf) for lf in lfs]
         lr_dist, mimick = self._distort_lr_split(split_net, lr_qs, codec_outs, q_value)
         eps = None
@@ -578,41 +570,66 @@ class CodecModel:
         place, which autograd refuses and detaching would get wrong); under
         ``reencode`` the encode runs again at the live parameters in the
         retire. ``codec_out`` (optional) stands in for the host codec's
-        output, as in the serial step."""
+        output, as in the serial step.
+
+        With ``mesh_sp`` > 1 the encode runs on the row's shards (under
+        'residual' through the copies: ``Replicas(sources=...)``), the
+        quantised LR is gathered whole on the host for the codec thread, and
+        the batch keeps its shards and their graph until ``_retire``."""
         hr = self._hr
+        shards = shard_w(hr, self.mesh.devices[0]) if self.mesh.sp > 1 else None
         snapshot = None
         if split == "residual":
             names, params = zip(*self.net.named_parameters())
             with torch.no_grad():   # x * 1 copies every value's bits, in one multi-tensor launch
                 copies = torch._foreach_mul(list(params), 1.0)
             snapshot = {k: c.requires_grad_() for k, c in zip(names, copies)}
-            lf = torch.func.functional_call(
-                self._encoder, {f"net.{k}": v for k, v in snapshot.items()}, (hr,))
+            if shards is not None:
+                live = dict(self.net.named_parameters())
+                reps = Replicas(sources={id(live[k]): v for k, v in snapshot.items()})
+                lf = self._encode_lf_split(WidthSplitCodec(self.net, reps, self.device), shards)
+            else:
+                lf = torch.func.functional_call(
+                    self._encoder, {f"net.{k}": v for k, v in snapshot.items()}, (hr,))
         else:
             with torch.no_grad():
-                lf = self._encode_lf(hr)
+                lf = (self._encode_lf(hr) if shards is None
+                      else self._encode_lf_split(WidthSplitCodec(self.net, Replicas(), self.device), shards))
         if codec_out is None:
-            fut = self._codec_pool.submit(self._host_codec, self._lr_q(lf).cpu().numpy(), q)
+            lr_q = self._lr_q(lf) if shards is None else gather_w([self._lr_q(t) for t in lf], "cpu")
+            fut = self._codec_pool.submit(self._host_codec, lr_q.cpu().numpy(), q)
         else:
             fut = self._codec_pool.submit(lambda c=torch.as_tensor(codec_out, dtype=torch.float32): (c, 0.0, 0.0))
         prev = self._pending
-        self._pending = dict(step=step, lr_value=lr_value, q=q, hr=hr, split=split,
+        self._pending = dict(step=step, lr_value=lr_value, q=q, hr=hr, shards=shards, split=split,
                              lf=lf if split == "residual" else None, snapshot=snapshot, fut=fut)
         if prev is not None:
             self._retire(prev)
 
     def _retire(self, p):
+        """Queue the update of the pending batch ``p`` once its host codec
+        output is in. With ``mesh_sp`` > 1 its loss is the split's: the
+        batch's shards (and, under 'residual', its encode's graph on them)
+        were kept since its call; the decode side runs on them at the live
+        parameters."""
         t0 = time.perf_counter()
         codec_host, img_bpp, codec_wall = p["fut"].result()
         # the wait this step paid against the codec's whole wall time: the
         # difference is the overlap
         self.last_codec_host_seconds = time.perf_counter() - t0
         self.last_codec_total_seconds = codec_wall
-        codec_out = codec_host.to(self.device, non_blocking=True)
-        lf = p["lf"] if p["split"] == "residual" else self._encode_lf(p["hr"])
-        hr = p["hr"]
-        self._update(p["step"], p["lr_value"], img_bpp,
-                     lambda: self._loss(lf, hr, self._ref(hr), codec_out, p["q"]), p["snapshot"])
+        xs = p["shards"]
+        if xs is not None:
+            split_net = WidthSplitCodec(self.net, Replicas(), self.device)
+            lfs = p["lf"] if p["split"] == "residual" else self._encode_lf_split(split_net, xs)
+            codec_outs = split_like(codec_host, lfs)
+            loss_fn = lambda: self._split_loss(split_net, xs, lfs, codec_outs, p["q"])  # noqa: E731
+        else:
+            codec_out = codec_host.to(self.device, non_blocking=True)
+            lf = p["lf"] if p["split"] == "residual" else self._encode_lf(p["hr"])
+            hr = p["hr"]
+            loss_fn = lambda: self._loss(lf, hr, self._ref(hr), codec_out, p["q"])  # noqa: E731
+        self._update(p["step"], p["lr_value"], img_bpp, loss_fn, p["snapshot"])
 
     def flush_pipeline(self):
         """Retire the batch in flight, if any, so that what follows (a save,

@@ -25,7 +25,10 @@ perceptual loss (``path.pretrain_model_F``: a torchvision-layout state dict,
   model's generator or fed. D's update and its new statistics are kept when
   D's loss is finite.
 
-Frames enter D and F flattened, ``(B*T, H, W, 3)``. With more than one
+Frames enter D and F flattened, ``(B*T, H, W, 3)``. With ``mesh_sp`` > 1
+G's forward is the width split's and its fake shards are gathered whole on
+the master card: D and F always see whole frames, so D's batch-norm moments
+are the whole batch's, as the JAX package's are. With more than one
 process the step refuses to run: the JAX package's batch norm takes its
 moments over the global batch, which this branch does not all-reduce.
 """
@@ -39,6 +42,7 @@ import torch
 
 from ..models.discriminator import define_D, define_F
 from ..parallel.dist import all_reduce_grads, finite_everywhere, world_size
+from ..parallel.mesh import gather_w
 from ..utils.jax_import import export_jax_params, load_jax_params
 from ..utils.torch_import import import_vgg19_features
 from .losses import gan_loss, gradient_penalty, reconstruction_loss
@@ -135,11 +139,21 @@ class AdversarialBranch:
 
     # ------------------------------------------------------------------
     def g_loss(self, model, hr, ref_l, eps):
-        """G's loss and logs, and the fake frames: ``(loss, logs, fake)``."""
-        loss_pix, logs, out = model._pixel_losses(hr, ref_l, eps)
+        """G's loss and logs, and the fake frames: ``(loss, logs, fake)``.
+        With ``mesh_sp`` > 1 the pixel losses come from the width split
+        (``ref_l`` unused: the split makes the target by shards) and the
+        fake HR shards are gathered whole on the master card, where F and D
+        run; the gather's adjoint takes the fake's gradient back to the
+        shards."""
+        if model.mesh.sp > 1:
+            loss_pix, logs, out = model._width_split_losses(hr, eps)
+            fake_hr = gather_w(out["hr"], model.device)
+        else:
+            loss_pix, logs, out = model._pixel_losses(hr, ref_l, eps)
+            fake_hr = out["hr"]
         logs = dict(logs)
         real = flat_frames(hr.float())
-        fake = flat_frames(out["hr"].float())
+        fake = flat_frames(fake_hr.float())
         total = loss_pix
         if self.netF is not None:
             with torch.no_grad():
@@ -178,8 +192,10 @@ class AdversarialBranch:
         from .rescale_model import clip_by_global_norm_
 
         hr = model.real_H
-        with torch.no_grad():
-            ref_l = model.degrade(hr)
+        ref_l = None
+        if model.mesh.sp == 1:
+            with torch.no_grad():
+                ref_l = model.degrade(hr)
         clip = model.train_opt.get("gradient_clipping")
 
         # ---- G ----------------------------------------------------------

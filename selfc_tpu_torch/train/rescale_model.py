@@ -16,11 +16,13 @@ the process's cards, ``mesh_sp`` of them to a row). ``test()`` splits its
 calls' GOP groups over the dp rows, and the single-group path's width over
 a row's sp cards. The training step runs on the mesh's first row (dp
 across processes is ``parallel/dist.py``'s gradient all-reduce): on its
-one card, or with ``mesh_sp`` > 1 (SelfC_GMM and the Haar SelfC net) the
-width split over its cards (``parallel/spatial.py``), the losses means
-over the whole width and the gradients summed into the master parameters on the first
-card, where the clip and Adam run once. The adversarial step runs on that
-first card alone.
+one card, or with ``mesh_sp`` > 1 (SelfC_GMM and the Haar SelfC net, with
+every option) the width split over its cards (``parallel/spatial.py``), the
+losses means over the whole width and the gradients summed into the master
+parameters on the first card, where the clip and Adam run once. The
+adversarial step's G side
+takes its pixel losses from the same split; D and F run on the master card
+on the whole frames (the fake's shards gathered there), as D's step does.
 
 All host I/O is channels-last numpy ``(B, T, H, W, 3)``.
 """
@@ -41,7 +43,7 @@ from ..ops.quantize import quantize_ste
 from ..ops.resize import area_down, gaussian_downsample, imresize_matlab
 from ..parallel.dist import all_reduce_grads, finite_everywhere, frames_to_device
 from ..parallel.mesh import Replicas, dp_gather, dp_split, gather_w, model_mesh, shard_w
-from ..parallel.spatial import check_supported, check_width, gaussian_downsample_shards, splitter, sum_to
+from ..parallel.spatial import check_supported, check_width, degrade_shards, splitter, sum_to
 from ..utils.jax_import import export_jax_params, load_jax_params, stack_scan_chain
 from . import checkpoint as ckpt
 from .losses import reconstruction_error, reconstruction_loss
@@ -140,10 +142,6 @@ class RescaleModel:
         self.net = define_G(opt, device=self.device, generator=init_gen)
         if self.mesh.sp > 1:
             check_supported(self.net)
-            if self.distortion not in ("sr_bd", "pytorch_bicubic"):
-                raise NotImplementedError(f"mesh_sp > 1 with distortion {self.distortion!r}: the width "
-                                          "split makes the sr_bd and pytorch_bicubic targets (ROADMAP "
-                                          "Queue A item 1d)")
             logger.info("mesh_sp %d: %s's width split over %s (parallel/spatial.py)", self.mesh.sp,
                         type(self.net).__name__, [str(d) for d in self.mesh.devices[0]])
         self.net.eval()
@@ -160,9 +158,6 @@ class RescaleModel:
         if self.is_train:
             self._build_optimizer()
             if self.train_opt.get("gan_weight"):
-                if self.mesh.sp > 1:
-                    raise NotImplementedError("mesh_sp > 1 with the adversarial branch: D and F see "
-                                              "whole images (ROADMAP Queue A item 1c)")
                 if self.train_opt.get("fused_optimizer"):
                     raise ValueError("train.fused_optimizer is not supported with the GAN branch (as in the "
                                      "JAX package); unset one of the two")
@@ -301,9 +296,10 @@ class RescaleModel:
         ``mesh_sp`` > 1, W must split into sp shards of whole LR columns no
         narrower than a block's halo (``spatial.width_rule``: 4 LR columns
         for D2DT chains at every level; 20, on a 4-column grid, for the Haar
-        prior's FeatureCollapse blocks): the JAX package's test keeps W a
-        multiple of sp * scale * 4, which implies the first; 144 at sp 2 (18
-        LR columns a shard) passes too."""
+        prior's FeatureCollapse blocks; 80, on an 8-column grid, for
+        HighOrderTNet subnets): the JAX package's test keeps W a multiple of
+        sp * scale * 4, which implies the first; 144 at sp 2 (18 LR columns a
+        shard) passes too."""
         gt = np.asarray(data["GT"])
         clip_length = gt.shape[1]
         check_width(gt.shape[3], self.mesh.sp, self.net)
@@ -385,7 +381,7 @@ class RescaleModel:
                 ref_l = self.degrade(hr)
             loss, logs, _ = self._pixel_losses(hr, ref_l, eps)
         else:
-            loss, logs = self._width_split_losses(hr, eps)
+            loss, logs, _ = self._width_split_losses(hr, eps)
         ok = finite_everywhere(loss)
         if ok:
             loss.backward()
@@ -403,13 +399,13 @@ class RescaleModel:
 
     def _width_split_losses(self, hr, eps):
         """``_pixel_losses`` with the width split over the mesh's first row:
-        each term a sum over the shards divided by the whole batch's count."""
+        each term a sum over the shards divided by the whole batch's count;
+        ``out`` holds the roundtrip's shards."""
         crit_f, crit_b = self._criteria()
         row = self.mesh.devices[0]
         xs, es = shard_w(hr, row), shard_w(eps, row, axis=3)
         with torch.no_grad():
-            refs = (gaussian_downsample_shards(xs, self.scale) if self.distortion == "sr_bd"
-                    else [self.degrade(x) for x in xs])
+            refs = degrade_shards(self.distortion, xs, self.scale, self.degrade)
         x_in = [x.to(torch.bfloat16) for x in xs] if self.train_opt.get("mixed_precision") else xs
         out = splitter(self.net, Replicas(), self.device).roundtrip(x_in, es)
         n_hr = hr.numel()
@@ -420,7 +416,7 @@ class RescaleModel:
                       self.device) / n_hr
         nll = (out["loss_c"].float() / (n_lr // 3 * self.net.hf_dim) if out["loss_c"] is not None
                else torch.zeros((), device=self.device))
-        return self._weighted_losses(forw, back, nll)
+        return (*self._weighted_losses(forw, back, nll), out)
 
     def get_current_log(self):
         """The last step's losses as floats (one read from the device, made

@@ -235,6 +235,28 @@ def hg_bound_ms(B, T, H, W, C, c_out, dtype=torch.float32, gc=32, peak=None):
     return bound_ms(*hg_cost(B, T, H, W, C, c_out, _itemsize(dtype), gc), dtype, peak)
 
 
+def hg_bwd_cost(B, T, H, W, C, c_out, itemsize, gc=32):
+    """(operations, bytes) of the pair's gradient (``hg_adjoint``) from x,
+    x2, exp(+-s) and the two output gradients: each chain's features (not
+    an input: recomputed), its conv5 adjoint (the products of dfeats and
+    dW5, each conv5's forward count) and its spatial adjoint
+    (``chain_bwd_cost``); the combine's adjoint elementwise is left out.
+    Bytes: x, x2, se and both gradients read once, both chains' parameters
+    read once, dx, dx2 and both chains' parameter gradients written once."""
+    px = B * T * H * W
+    conv5 = px * 3 * (C + 4 * gc) * c_out * (3 * T - 2) / (3 * T)
+    ops = 2.0 * (chain_feats_cost(B, T, H, W, C, itemsize, gc)[0] + 4.0 * conv5
+                 + chain_bwd_cost(B, T, H, W, C, itemsize, gc)[0])
+    nbytes = itemsize * (px * (2 * C + 4 * c_out) + 4 * _chain_params(C, c_out, gc))
+    return ops, float(nbytes)
+
+
+def hg_bwd_bound_ms(B, T, H, W, C, c_out, dtype=torch.float32, gc=32, peak=None):
+    """``peak``: as ``bound_ms`` (the route's B3, B2 and products run at
+    ``tc_peak(dtype)``)."""
+    return bound_ms(*hg_bwd_cost(B, T, H, W, C, c_out, _itemsize(dtype), gc), dtype, peak)
+
+
 def _spatial_macs(B, T, H, W, C, gc=32):
     """Multiply-adds of the four spatial convs whose tap falls inside the
     image."""

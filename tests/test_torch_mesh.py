@@ -413,22 +413,27 @@ def test_create_model_takes_sp_for_selfc_gmm_and_checks_the_width():
 
 @pytest.mark.parametrize("what", ["hg", "pipeline", "gan", "matlab"])
 def test_split_refuses_what_crosses_shards_otherwise(what):
-    """What the width split does not compute raises, naming its ROADMAP
-    Queue A item: the H/G pair, the pipelined codec step, the adversarial
-    branch (D and F see whole images), the MATLAB resize's target."""
+    """The options the width split once refused (the H/G pair, the
+    pipelined codec step, the adversarial branch, the MATLAB resize's
+    target: ROADMAP Queue A items 1a-1d) build at sp 2; what the split
+    still refuses is a shard narrower than a block's halo, which the halo
+    would cross: ``feed_data`` raises, naming the width rule.
+    ``tests/test_torch_mesh_opts.py`` holds each option's split step."""
     opt = _opt(2, network={"chain_variants": ["hg"]} if what == "hg" else None)
     if what == "gan":
         opt["train"]["gan_weight"] = 5e-3
     if what == "matlab":
         opt["distortion"] = "matlab"
-    item = {"pipeline": "1a", "hg": "1b", "gan": "1c", "matlab": "1d"}[what]
-    with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
-        if what == "pipeline":
-            opt["model"], opt["scale"], opt["network_G"] = "SelfC_GMM_Codec", 2, dict_to_nonedict(CODEC_NET)
-            opt["train"].update(noise_type="h265", codec_pipeline=True)
-            CodecModel(opt, device="cpu")
-        else:
-            RescaleModel(opt, device="cpu")
+    if what == "pipeline":
+        opt["model"], opt["scale"], opt["network_G"] = "SelfC_GMM_Codec", 2, dict_to_nonedict(CODEC_NET)
+        opt["train"].update(noise_type="h265", codec_pipeline=True)
+        model, (bad, good) = CodecModel(opt, device="cpu"), (12, 16)   # LR shards of 3 and 4 columns
+    else:
+        model, (bad, good) = RescaleModel(opt, device="cpu"), (24, 40)
+    assert model.mesh.shape == {"dp": 1, "sp": 2}
+    with pytest.raises(ValueError, match="at least 8 wide" if what == "pipeline" else "at least 16 wide"):
+        model.feed_data({"GT": _rand(0, (1, 3, 16, bad, 3))})
+    assert model.feed_data({"GT": _rand(0, (1, 3, 16, good, 3))}) == 3
 
 
 def test_every_kernel_launch_runs_on_its_tensors_card():
