@@ -53,11 +53,15 @@ first card twice): ``test()`` over dp rows, and the image width split
 (``mesh_sp``) of the 4x net's step and GOP, of the codec's training step
 (with its surrogate, with the de-artifact net, through the host codec) and
 of the Haar net's step and GOP, each against one position.
+The ``procs`` phase trains across processes: two ranks (NCCL on two cards,
+else gloo with both on the first card), each on half of the batch, take the
+4x packed step, the codec's serial step and the GAN step, held against one
+process's step on the whole batch.
 It times the kernels beside their roofline bound.
 Prints one JSON line per phase; any failure exits non-zero. There is no CPU
 fallback: without a CUDA device the script fails at once.
 
-``--phases serve,quality,train,codec,codec_train,deart,subnets,haar,variants,gan,mesh,cli,profile`` (the default) picks
+``--phases serve,quality,train,codec,codec_train,deart,subnets,haar,variants,gan,mesh,procs,cli,profile`` (the default) picks
 the paths; ``--phases kernels`` only builds the kernels and checks them
 against their plain versions. ``--parent DIR`` (a checkout of another commit
 whose kernels have the same C interfaces, or its ``selfc_tpu_torch/csrc``
@@ -376,7 +380,7 @@ MESH_OPT_TIMED_STEPS = 2         # ... of the options' steps (mesh_opts)
 MESH_FAMILIES = {"D2DLTInput": (8, 7, 144, 144, 3), "FeatureCalapseBlock_Fast": (8, 7, 144, 160, 3),
                  "D2DTEnhanceInput": (8, 7, 144, 144, 3), "HighOrderTNet": (2, 7, 128, 640, 3)}
 ALL_PHASES = ("serve", "quality", "train", "codec", "codec_train", "deart", "subnets", "haar", "variants", "gan",
-              "mesh", "cli", "profile")
+              "mesh", "procs", "cli", "profile")
 
 
 # {library name: path} built from --parent's sources; empty: no comparison
@@ -4085,8 +4089,6 @@ def d_grad_fp64_errors(device, trees, batch, eps, grads):
     loss, and its gradient is clipped by global norm as the step clips.
     Returns ``({path: relative l2}, the fake frames' relative l2 between the
     paths)``."""
-    import copy
-
     _, d, _, stats = trees
     model = new_gan_trainer(device, trees, batch)
     eps_t = torch.as_tensor(eps, device=device)
@@ -4096,22 +4098,31 @@ def d_grad_fp64_errors(device, trees, batch, eps, grads):
         fakes["kernel"] = flat_frames(model._pixel_losses(model.real_H, ref_l, eps_t)[2]["hr"])
         with plain_chain_on_card():
             fakes["plain"] = flat_frames(model._pixel_losses(model.real_H, ref_l, eps_t)[2]["hr"])
-    gan64 = copy.copy(model.gan)
-    gan64.netD = copy.deepcopy(model.gan.netD).double()
-    load_jax_params(gan64.netD, d)
-    gan64.d_stats = {k: {n: torch.as_tensor(v, dtype=torch.float64, device=device) for n, v in s.items()}
-                     for k, s in stats.items()}
-    real = flat_frames(model.real_H).double()
+    real = flat_frames(model.real_H)
+    out = {path: grads_rel_l2({k: v.double() for k, v in grads[path].items()},
+                              d_grad_fp64(model.gan, d, stats, real, fake))
+           for path, fake in fakes.items()}
     del model
-    out = {}
-    for path, fake in fakes.items():
-        loss, _, _ = gan64.d_loss(real, fake.double())
-        g64 = torch.autograd.grad(loss, list(gan64.netD.parameters()))
-        scale = min(1.0, 10.0 / torch.linalg.vector_norm(torch.stack([t.norm() for t in g64])).item())
-        ref = {f"gradD.{k}": t * scale for (k, _), t in zip(gan64.netD.named_parameters(), g64)}
-        out[path] = grads_rel_l2({k: v.double() for k, v in grads[path].items()}, ref)
     fake_l2 = ((fakes["kernel"] - fakes["plain"]).norm() / fakes["plain"].norm()).item()
     return out, fake_l2
+
+
+def d_grad_fp64(gan, d, stats, real, fake):
+    """D's gradient of ``gan``'s D loss in float64, from D's parameters
+    ``d`` and running statistics ``stats`` on the frames ``real`` and
+    ``fake``, clipped by global norm as the step clips (10):
+    ``{"gradD.<name>": tensor}``."""
+    import copy
+
+    gan64 = copy.copy(gan)
+    gan64.netD = copy.deepcopy(gan.netD).double()
+    load_jax_params(gan64.netD, d)
+    gan64.d_stats = {k: {n: torch.as_tensor(v, dtype=torch.float64, device=real.device) for n, v in s.items()}
+                     for k, s in stats.items()}
+    loss, _, _ = gan64.d_loss(real.double(), fake.double())
+    g64 = torch.autograd.grad(loss, list(gan64.netD.parameters()))
+    scale = min(1.0, 10.0 / torch.linalg.vector_norm(torch.stack([t.norm() for t in g64])).item())
+    return {f"gradD.{k}": t * scale for (k, _), t in zip(gan64.netD.named_parameters(), g64)}
 
 
 def part_of(state, prefix):
@@ -4773,9 +4784,13 @@ def mesh_hg(c0, meshes, worst_var):
     b7_halo = sum(n for c in steps["sp2"]["b6_b7_by_card"].values() for e, n in c.items()
                   if e == f"B7_forward@W{w}")
     b7_bwd = sum(n for c in steps["sp2"]["b6_b7_by_card"].values() for e, n in c.items() if e == f"B7_bwd@W{w}")
-    check(r["within_limits"] and b7["sp2"] == 2 * b7["sp1"] > 0 and b7_halo == b7["sp2"] and b7_bwd == b7_halo,
+    # the unsplit step's calls, for B7's rows at the whole latent
+    b7_bwd_sp1 = sum(n for c in steps["sp1"]["b6_b7_by_card"].values() for e, n in c.items()
+                     if e == f"B7_bwd@W{TRAIN_SHAPE[3]}")
+    check(r["within_limits"] and b7["sp2"] == 2 * b7["sp1"] > 0 and b7_halo == b7["sp2"] and b7_bwd == b7_halo
+          and b7_bwd_sp1 == b7["sp1"],
           f"the hg step with the width over sp 2 against sp 1: {r}; B7 calls {b7}, at the haloed width {w}: "
-          f"{b7_halo} forward, {b7_bwd} backward")
+          f"{b7_halo} forward, {b7_bwd} backward; unsplit backward {b7_bwd_sp1}")
     part = {"hg_train_sp": {**r, "batch": list(batch.shape), "haloed_w": w, "b7_calls": b7,
                             "step_ms": {k: st["ms"] for k, st in steps.items()},
                             "b6_b7_by_card": {k: st["b6_b7_by_card"] for k, st in steps.items()},
@@ -4812,8 +4827,10 @@ def mesh_hg(c0, meshes, worst_var):
                                      for k, m in served.items()}}
     del served, a, b
 
-    # B7 at the haloed shard of the sp 2 step: forward and backward
+    # B7 at the haloed shard of the sp 2 step and at the unsplit step's
+    # latent: forward and backward
     rows = hg_rows(c0, "train_sp2", (*TRAIN_SHAPE[:3], w), b7_halo, b7_bwd, worst_var)
+    rows += hg_rows(c0, "train_sp1", TRAIN_SHAPE, b7["sp1"], b7_bwd_sp1, worst_var)
     return part, rows
 
 
@@ -5247,6 +5264,297 @@ def phase_mesh(device, worst_stripe, worst_gc_bwd, worst_haar, worst_var, worst_
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# procs: the training steps over two processes
+# ---------------------------------------------------------------------------
+
+PROCS_RANKS = 2
+PROCS_CASES = ("train", "codec", "gan")
+PROCS_TIMED_STEPS = 3            # CUDA-event steps after the checked one, each rank and one process (median)
+PROCS_GRAD_LIMIT = 1e-5          # the two-process step's averaged gradient against one process's, relative l2
+PROCS_STATS_LIMIT = 1e-6         # D's running statistics against one process's, relative l2 (the worst leaf)
+PROCS_LOG_LIMIT = 1e-6           # the losses and logs (the ranks' mean) against one process's, relative
+PROCS_JOIN_S = 900
+
+
+def procs_case(name, device):
+    """A ``procs`` case on ``device``: the model with its seeded weights, the
+    whole batch, the step and the per-clip step inputs (``eps``), and D's
+    start (parameters and statistics) for the GAN. (a) ``train``: the packed
+    SelfC_GMM 4x step of ``train_rescaling_selfc_large.yml``; (b) ``codec``:
+    the serial codec step of ``train_compression.yml`` with its surrogate,
+    through the host codec (the zlib stand-in); (c) ``gan``: the 'ragan' step
+    of ``train_rescaling_gan.yml`` with the feature loss (D nf 64, VGG-19 F).
+    """
+    if name == "codec":
+        model = CodecModel(codec_train_options(), device=device, rng_seed=0)
+        model.load_jax_params(codec_tree(model, 202))
+        return model, codec_train_batch(203), 0, {}, None
+    eps = np.random.default_rng(201).normal(0, 1, TRAIN_SHAPE + (48, 5)).astype(np.float32)
+    if name == "train":
+        model = RescaleModel(train_options(), device=device, rng_seed=0)
+        model.load_jax_params(seeded_tree(model.net, 204))
+        return model, train_batch(205), 0, {"eps": eps}, None
+    trees, _ = gan_trees(device)
+    batch = train_batch(206)
+    return new_gan_trainer(device, trees, batch), batch, 1, {"eps": eps}, trees
+
+
+def procs_nets(model):
+    """``[(tag, net, optimizer)]`` of a ``procs`` model: G (the codec's
+    ``params``: its net and surrogate), and D with the adversarial branch."""
+    if isinstance(model, CodecModel):
+        return [("G", model.params, model.optimizer)]
+    nets = [("G", model.net, model.optimizer)]
+    if model.gan is not None:
+        nets.append(("D", model.gan.netD, model.gan.optimizer))
+    return nets
+
+
+def procs_counts():
+    """The chain kernels' calls since the last reset, by width (B1, B2, B3,
+    B4 and its adjoint, B6) and by stripe."""
+    counts = {**codec_counts(), **stripe_counts(), "b6": dict(tc.launches_by_width),
+              "b6_bwd": dict(tc.launches_bwd_by_width)}
+    return {k: {str(w): n for w, n in v.items()} for k, v in counts.items()}
+
+
+def procs_step(model, batch, step, kw, part):
+    """Feed ``part`` of the batch (a slice of clips; None: all of it), then
+    one step with every count set to 0 just before and read just after:
+    ``(counts, logs, peak GiB above what was live)``."""
+    sl = slice(None) if part is None else part
+    model.feed_data({"GT": batch[sl]})
+    kw = {k: v[sl] for k, v in kw.items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    model.optimize_parameters(step, **kw)
+    torch.cuda.synchronize()
+    counts = procs_counts()
+    logs = {k: v for k, v in model.get_current_log().items() if not isinstance(v, str)}
+    return counts, logs, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def procs_timed(model, step, kw, sl):
+    """PROCS_TIMED_STEPS more steps (``step + 1``, ...) on the fed batch,
+    each between CUDA events: their median, min and mean ms."""
+    kw = {k: v[sl] for k, v in kw.items()}
+    steps = iter(range(step + 1, step + 1 + PROCS_TIMED_STEPS))
+    return time_cuda(lambda: model.optimize_parameters(next(steps), **kw), iters=PROCS_TIMED_STEPS, warmup=0)
+
+
+def procs_grads(model):
+    """Every gradient on the host, ``{"G.<name>" | "D.<name>": tensor}``."""
+    return {f"{tag}.{k}": p.grad.detach().cpu() for tag, net, _ in procs_nets(model)
+            for k, p in net.named_parameters() if p.grad is not None}
+
+
+def procs_stats(model):
+    return {f"{k}.{n}": t.detach().cpu() for k, v in model.gan.d_stats.items() for n, t in v.items()}
+
+
+def procs_digests(model):
+    """sha256 of the bytes of the parameters, the gradients, the Adam
+    moments and counts, and D's running statistics: ``{part: hex}``."""
+    import hashlib
+
+    parts = {"params": hashlib.sha256(), "grads": hashlib.sha256(), "moments": hashlib.sha256()}
+    for _, net, opt in procs_nets(model):
+        for _, p in net.named_parameters():
+            parts["params"].update(p.detach().cpu().numpy().tobytes())
+            if p.grad is not None:
+                parts["grads"].update(p.grad.detach().cpu().numpy().tobytes())
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                if key in opt.state.get(p, {}):
+                    parts["moments"].update(opt.state[p][key].detach().cpu().numpy().tobytes())
+    if getattr(model, "gan", None) is not None:
+        parts["d_stats"] = hashlib.sha256()
+        for t in procs_stats(model).values():
+            parts["d_stats"].update(t.numpy().tobytes())
+    return {k: h.hexdigest() for k, h in parts.items()}
+
+
+def procs_rank(rank, port, out, go, nccl, device_type="cuda"):
+    """One of the two ranks. With two cards or more it joins through
+    ``init_distributed`` (NCCL, the rank's own card); with one card it first
+    joins a gloo group itself (NCCL refuses two ranks on one device) and
+    ``init_distributed`` keeps it, both ranks on ``cuda:0``. It builds no
+    kernel (the parent built them); after ``go`` it runs each case on its
+    half of the batch: the checked step, then the timed ones. It writes
+    ``rank{r}.json`` (counts, logs, digests, ms, peak), and rank 0 the
+    gradients and D's statistics (``rank0.pt``)."""
+    import torch.distributed as dist
+
+    from selfc_tpu_torch.parallel.dist import init_distributed
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(PROCS_RANKS),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), SELFC_TPU_DISABLE_X265="1")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not nccl:
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=PROCS_RANKS, rank=rank)
+    check(init_distributed(device_type) == (rank, PROCS_RANKS), f"rank {rank}: init_distributed")
+    device = torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda" else torch.device(device_type)
+    for name in build.kernel_names():
+        check(build.library_path(name).exists(), f"rank {rank}: the parent built {name}")
+    check(go.wait(PROCS_JOIN_S), f"rank {rank}: the parent's go")
+    result, tensors = {"backend": dist.get_backend(), "device": str(device)}, {}
+    for name in PROCS_CASES:
+        model, batch, step, kw, _ = procs_case(name, device)
+        n = batch.shape[0] // PROCS_RANKS
+        part = slice(rank * n, (rank + 1) * n)
+        counts, logs, peak = procs_step(model, batch, step, kw, part)
+        result[name] = {"counts": counts, "logs": logs, "peak_gib": peak, "digests": procs_digests(model),
+                        "clips": n}
+        if rank == 0:
+            tensors[name] = {"grads": procs_grads(model), "stats": procs_stats(model) if name == "gan" else {}}
+        result[name]["ms"] = procs_timed(model, step, kw, part)
+        del model
+        torch.cuda.empty_cache()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    if rank == 0:
+        torch.save(tensors, os.path.join(out, "rank0.pt"))
+    dist.destroy_process_group()
+
+
+def procs_reference(name, device):
+    """The one-process run of a case on the whole batch: the checked step
+    (counts, logs, gradients, D's statistics, peak; for the GAN D's
+    gradient in float64 from the same start and fake), the timed steps,
+    then one step on a rank's half for its counts."""
+    model, batch, step, kw, trees = procs_case(name, device)
+    ref = {}
+    if trees is not None:
+        eps = torch.as_tensor(kw["eps"], device=device)
+        model.feed_data({"GT": batch})
+        with torch.no_grad(), step_algorithms():
+            hr = model.real_H
+            fake = flat_frames(model._pixel_losses(hr, model.degrade(hr), eps)[2]["hr"])
+        ref["d_grads_fp64"] = {k: v.cpu() for k, v in d_grad_fp64(model.gan, trees[1], trees[3], flat_frames(hr),
+                                                                    fake).items()}
+        del fake
+    _, ref["logs"], ref["peak_gib"] = procs_step(model, batch, step, kw, None)
+    ref["grads"] = procs_grads(model)
+    ref["stats"] = procs_stats(model) if trees is not None else {}
+    ref["ms"] = procs_timed(model, step, kw, slice(None))
+    n = batch.shape[0] // PROCS_RANKS
+    ref["counts"] = procs_step(model, batch, step + 1 + PROCS_TIMED_STEPS, kw, slice(0, n))[0]
+    del model
+    torch.cuda.empty_cache()
+    return ref
+
+
+def procs_grad_errors(grads, ref):
+    """Each net's whole gradient (relative l2) and its worst leaf, over the
+    leaves that are not zero (as ``mesh_split_errors``)."""
+    out = {}
+    for tag in ("G", "D"):
+        want = {k: g.double() for k, g in ref.items() if k.startswith(tag + ".")}
+        if not want:
+            continue
+        top = max(g.abs().max().item() for g in want.values())
+        live = [k for k, g in want.items() if g.abs().max().item() >= TRAIN_GRAD_ZERO * top
+                and not k.endswith("proj3_b")]
+        leaf = {k: rel_l2(grads[k], want[k]) for k in live}
+        worst = max(leaf, key=leaf.get)
+        out[tag] = {"grad_rel_l2": grads_rel_l2({k: grads[k].double() for k in live}, {k: want[k] for k in live}),
+                    "worst_leaf": worst, "worst_leaf_rel_l2": leaf[worst], "leaves_held": len(live)}
+    return out
+
+
+def phase_procs(device):
+    """Every trained step over two processes, each rank on half of the
+    batch, against the one-process step on the whole batch from the same
+    weights: the SelfC_GMM 4x packed step, the serial codec step and the
+    'ragan' GAN step, at full width. Two ranks are spawned once (NCCL on two
+    cards when the machine has them, else gloo with both ranks on
+    ``cuda:0``); the one-process references run first, in this process,
+    while the ranks start. Checks: the ranks hold the same bits (parameters,
+    gradients, Adam moments, D's statistics); the averaged gradient within
+    PROCS_GRAD_LIMIT of one process's (D's: that, or no further from its
+    float64 value than twice one process's fp32 distance, D's real and fake
+    terms nearly cancelling); D's statistics PROCS_STATS_LIMIT; the losses
+    and logs PROCS_LOG_LIMIT; each rank's chain calls those of one process
+    on a rank's half of the batch. Times: each step's median of
+    PROCS_TIMED_STEPS (CUDA events; rank 0's) beside one process's."""
+    import multiprocessing as mp
+    import socket
+
+    t_phase = time.time()
+    cards = torch.cuda.device_count()
+    nccl = cards >= PROCS_RANKS
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    work = Path(tempfile.mkdtemp(prefix="selfc_procs_"))
+    ctx = mp.get_context("spawn")
+    go = ctx.Event()
+    procs = [ctx.Process(target=procs_rank, args=(r, port, str(work), go, nccl, device.type))
+             for r in range(PROCS_RANKS)]
+    saved = os.environ.get("SELFC_TPU_DISABLE_X265")
+    os.environ["SELFC_TPU_DISABLE_X265"] = "1"   # the zlib stand-in, here and in the ranks
+    try:
+        for p in procs:
+            p.start()
+        refs = {name: procs_reference(name, device) for name in PROCS_CASES}
+        ref_s = time.time() - t_phase
+        go.set()
+        t0 = time.time()
+        for p in procs:
+            p.join(PROCS_JOIN_S)
+        ranks_s = time.time() - t0
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if saved is None:
+            os.environ.pop("SELFC_TPU_DISABLE_X265")
+        else:
+            os.environ["SELFC_TPU_DISABLE_X265"] = saved
+    try:
+        check(all(p.exitcode == 0 for p in procs), f"the ranks' exit codes: {[p.exitcode for p in procs]}")
+        ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(PROCS_RANKS)]
+        tensors = torch.load(work / "rank0.pt")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"backend": ranks[0]["backend"], "cards": cards, "rank_devices": [r["device"] for r in ranks]}
+    for name in PROCS_CASES:
+        a, b, ref = ranks[0][name], ranks[1][name], refs[name]
+        same = {k: a["digests"][k] == b["digests"][k] for k in a["digests"]}
+        errs = procs_grad_errors(tensors[name]["grads"], ref["grads"])
+        logs = {k: (a["logs"][k] + b["logs"][k]) / 2 for k in ref["logs"]}
+        scale = {k: max(abs(v), 1.0) if k in ("D_real", "D_fake") else abs(v) for k, v in ref["logs"].items()}
+        log_err = {k: abs(logs[k] - v) / scale[k] for k, v in ref["logs"].items()
+                   if k not in ("lr", "skipped_nonfinite") and scale[k] > 0}
+        r = {"same_bits": same, "grads": errs, "logs_rel_diff": log_err,
+             "two_process_ms": a["ms"], "rank1_ms": b["ms"]["median"], "one_process_ms": ref["ms"],
+             "peak_gib": {"rank0": a["peak_gib"], "rank1": b["peak_gib"], "one_process": ref["peak_gib"]},
+             "clips_a_rank": a["clips"], "counts": a["counts"]}
+        ok = (all(same.values()) and errs["G"]["grad_rel_l2"] <= PROCS_GRAD_LIMIT
+              and max(log_err.values()) <= PROCS_LOG_LIMIT
+              and a["logs"]["skipped_nonfinite"] == b["logs"]["skipped_nonfinite"] == 0.0
+              and a["counts"] == b["counts"] == ref["counts"]
+              and a["counts"]["forward"] and a["counts"]["backward"])
+        if name == "gan":
+            fp64 = ref["d_grads_fp64"]
+            d_two = {k[len("D."):]: v for k, v in tensors[name]["grads"].items() if k.startswith("D.")}
+            d_one = {k[len("D."):]: v for k, v in ref["grads"].items() if k.startswith("D.")}
+            r["d_grad_fp64_rel_l2"] = {who: grads_rel_l2({f"gradD.{k}": v.double() for k, v in g.items()}, fp64)
+                                       for who, g in (("two_process", d_two), ("one_process", d_one))}
+            r["d_stats_rel_l2"] = max(rel_l2(tensors[name]["stats"][k], v) for k, v in ref["stats"].items())
+            ok = ok and r["d_stats_rel_l2"] <= PROCS_STATS_LIMIT and (
+                errs["D"]["grad_rel_l2"] <= PROCS_GRAD_LIMIT
+                or r["d_grad_fp64_rel_l2"]["two_process"] <= 2 * r["d_grad_fp64_rel_l2"]["one_process"])
+        check(ok, f"the {name} step over {PROCS_RANKS} processes ({out['backend']}, {cards} card(s)) against one "
+                  f"process: {r}; one process's counts at the half batch {ref['counts']}")
+        out[name] = r
+    emit("procs", **out, reference_s=ref_s, ranks_s=ranks_s, phase_s=time.time() - t_phase)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -5350,6 +5658,8 @@ def main():
         phase_aux(device)
     if "mesh" in want:
         kernels += phase_mesh(device, worst_stripe, worst_gc_bwd, worst_haar, worst_var, worst_tc, smi)
+    if "procs" in want:
+        phase_procs(device)
 
     if want & {"cli", "profile"}:
         work = Path(tempfile.mkdtemp(prefix="selfc_cli_"))

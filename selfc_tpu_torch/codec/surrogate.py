@@ -29,6 +29,7 @@ import torch
 import torch.nn as nn
 
 from ..models.blocks import DenseBlock2D, FeatureCollapse
+from ..parallel.dist import all_reduce_sum, global_mean, world_size
 from .h265 import encode_decode_clip, ffmpeg_available
 
 
@@ -140,10 +141,20 @@ def mimick_plain(sug, codec_out):
 
 def pearson_map(x, y):
     """The Pearson correlation of x and y at each element over the
-    flattened B*T axis: ``(1, *x.shape[2:])``."""
+    flattened B*T axis: ``(1, *x.shape[2:])``. With more than one process
+    the axis is the global batch's, as the JAX package's (its step runs over
+    the global batch): the means and the three sums are taken over every
+    process's share, each in one differentiable all-reduce."""
     B, T = x.shape[:2]
     xf = x.reshape(B * T, *x.shape[2:])
     yf = y.reshape(B * T, *y.shape[2:])
+    if world_size() > 1:
+        means = global_mean(torch.stack([xf, yf]), 1)
+        vx, vy = xf - means[0:1], yf - means[1:2]
+        sums = all_reduce_sum(torch.stack([torch.sum(vx * vy, dim=0, keepdim=True),
+                                           torch.sum(vx ** 2, dim=0, keepdim=True),
+                                           torch.sum(vy ** 2, dim=0, keepdim=True)]))
+        return sums[0] / (torch.sqrt(sums[1]) * torch.sqrt(sums[2]) + 1e-8)
     vx = xf - xf.mean(dim=0, keepdim=True)
     vy = yf - yf.mean(dim=0, keepdim=True)
     return torch.sum(vx * vy, dim=0, keepdim=True) / (

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..ops.conv import lecun_normal
+from ..parallel.dist import global_mean, world_size
 
 BN_MOMENTUM, BN_EPS = 0.9, 1e-5
 
@@ -68,10 +69,19 @@ class _BatchNorm(nn.Module):
 
     def forward(self, x, stats, train):
         """``(y, new_stats)`` on NCHW ``x``: ``stats`` is ``{mean, var}``;
-        eval mode normalises by it and returns it unchanged."""
+        eval mode normalises by it and returns it unchanged. In train mode
+        the moments are the global batch's: with more than one process they
+        are summed over every process's share (``global_mean``; gradients
+        flow back through the sum), so the statistics are the same bits on
+        every rank, as the JAX package's BatchNorm takes them over its
+        global batch."""
         if train:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            if world_size() > 1:
+                # the whole batch's moments: [sum x, sum x^2, n] in one all-reduce
+                mean, mean_sq = global_mean(torch.stack([x, x * x]), (1, 3, 4))
+            else:
+                mean, mean_sq = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
+            var = torch.clamp_min(mean_sq - mean * mean, 0.0)
             new = {"mean": BN_MOMENTUM * stats["mean"] + (1 - BN_MOMENTUM) * mean.detach(),
                    "var": BN_MOMENTUM * stats["var"] + (1 - BN_MOMENTUM) * var.detach()}
         else:

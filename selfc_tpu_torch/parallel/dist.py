@@ -11,12 +11,20 @@ device mesh within a process).
   shares, so the step is one process's step on the concatenated batch. A
   step is skipped on every rank when any rank's loss is not finite
   (``finite_everywhere``).
+* What is a statistic of the whole batch inside a loss (the discriminator's
+  train-mode batch norm, 'ragan''s means, the codec surrogate's Pearson
+  term) takes it over every process with
+  ``global_mean``, on a differentiable sum (``all_reduce_sum``: the sum
+  forward, the sum of the incoming gradients backward). Every rank must make
+  the same calls in the same order, forward and backward.
 * ``frames_to_device`` does the uint8 -> [0, 1] float32 cast on the device
   (the JAX package's ``put_frames``) for both model wrappers.
 
 Each process runs its own ``(1, mesh_sp)`` row of cards
 (``mesh.process_cards``): dp across processes is the gradient all-reduce
-here.
+here. Only ``all_reduce`` is used: gloo reduces CUDA tensors with it, so two
+processes may share one card over gloo (NCCL refuses two ranks on one
+device).
 """
 
 from __future__ import annotations
@@ -72,6 +80,45 @@ def all_reduce_grads(params) -> None:
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
         offset += g.numel()
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the processes; its adjoint is the sum over the
+    processes of the incoming gradients."""
+
+    @staticmethod
+    def forward(ctx, x):
+        import torch.distributed as dist
+
+        out = x.clone()
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        out = grad.contiguous().clone()
+        dist.all_reduce(out)
+        return out
+
+
+def all_reduce_sum(x):
+    """``x`` summed over the processes, differentiably; with one process
+    ``x`` itself (no collective)."""
+    return x if world_size() == 1 else _AllReduceSum.apply(x)
+
+
+def global_mean(x, dims=None):
+    """The mean of ``x`` over ``dims`` (all of them by default) and over
+    every process's share, each share counted by its elements: the sums and
+    the count in one all-reduce. With one process ``torch.mean`` itself."""
+    if world_size() == 1:
+        return torch.mean(x) if dims is None else torch.mean(x, dims)
+    s = x.sum() if dims is None else x.sum(dims)
+    n = x.new_full((1,), x.numel() // s.numel())
+    total = all_reduce_sum(torch.cat([s.reshape(-1), n]))
+    return (total[:-1] / total[-1]).reshape(s.shape)
 
 
 def finite_everywhere(loss) -> bool:

@@ -28,9 +28,17 @@ perceptual loss (``path.pretrain_model_F``: a torchvision-layout state dict,
 Frames enter D and F flattened, ``(B*T, H, W, 3)``. With ``mesh_sp`` > 1
 G's forward is the width split's and its fake shards are gathered whole on
 the master card: D and F always see whole frames, so D's batch-norm moments
-are the whole batch's, as the JAX package's are. With more than one
-process the step refuses to run: the JAX package's batch norm takes its
-moments over the global batch, which this branch does not all-reduce.
+are the whole batch's, as the JAX package's are.
+
+With more than one process each rank steps on its share of the batch, and
+what the JAX package takes over its global batch is taken over every rank:
+D's train-mode batch-norm moments (``models/discriminator.py``), 'ragan''s
+means of D's logits and the ``D_real`` / ``D_fake`` logs (``global_mean``).
+Each rank's losses stay means over its share, and ``all_reduce_grads``
+averages the gradients, so the step is the one-process step on the
+concatenated batch; the gates (``D_update_ratio``, ``D_init_iters``, the
+non-finite guard) read only the step and ``finite_everywhere``, the same on
+every rank, so every rank makes the same collectives in the same order.
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ import numpy as np
 import torch
 
 from ..models.discriminator import define_D, define_F
-from ..parallel.dist import all_reduce_grads, finite_everywhere, world_size
+from ..parallel.dist import all_reduce_grads, finite_everywhere, global_mean
 from ..parallel.mesh import gather_w
 from ..utils.jax_import import export_jax_params, load_jax_params
 from ..utils.torch_import import import_vgg19_features
@@ -74,11 +82,6 @@ class AdversarialBranch:
     ``train_step`` is the combined G + D step."""
 
     def __init__(self, model, generator=None):
-        if world_size() > 1:
-            raise NotImplementedError(
-                "train.gan_weight with more than one process: D's batch norm would take its moments "
-                "over each process's share of the batch, where the JAX package takes them over the "
-                "global batch; run the adversarial branch in one process")
         opt, to = model.opt, model.train_opt
         self.gan_type = to.get("gan_type") or "gan"
         self.gan_w = float(to["gan_weight"])
@@ -125,11 +128,11 @@ class AdversarialBranch:
     # ------------------------------------------------------------------
     def adv_loss(self, pred_fake, pred_real, for_g: bool):
         """G's or D's adversarial loss; 'ragan' is the relativistic average
-        form, each side against the other's mean."""
+        form, each side against the other's mean over the global batch."""
         gt = self.gan_type
         if gt == "ragan":
-            rf = pred_real - torch.mean(pred_fake)
-            fr = pred_fake - torch.mean(pred_real)
+            rf = pred_real - global_mean(pred_fake)
+            fr = pred_fake - global_mean(pred_real)
             if for_g:
                 return 0.5 * (gan_loss(rf, False, "gan") + gan_loss(fr, True, "gan"))
             return 0.5 * (gan_loss(rf, True, "gan") + gan_loss(fr, False, "gan"))
@@ -176,7 +179,7 @@ class AdversarialBranch:
         pred_real, stats1 = self.netD(real, self.d_stats, True)
         pred_fake, stats2 = self.netD(fake, stats1, True)
         l_d = self.adv_loss(pred_fake, pred_real, False)
-        logs = {"D_real": torch.mean(pred_real.detach()), "D_fake": torch.mean(pred_fake.detach())}
+        logs = {"D_real": global_mean(pred_real.detach()), "D_fake": global_mean(pred_fake.detach())}
         if self.gan_type == "wgan-gp":
             if gp_eps is None:
                 gp_eps = torch.rand((real.shape[0], 1, 1, 1), generator=generator, device=real.device)

@@ -67,9 +67,20 @@ def clip_by_global_norm_(params, max_norm: float):
     """Scale the gradients in place so that their global l2 norm is at most
     ``max_norm`` (exactly ``g * max_norm / norm`` when it is larger, else
     untouched; no epsilon in the divisor). Stays on the device: no
-    synchronisation. Returns the norm before clipping."""
+    synchronisation. Returns the norm before clipping.
+
+    On the CPU each leaf's norm is accumulated in float64: torch sums an
+    fp32 norm there in fp32, element after element, and the codec's
+    gradient norm (its surrogate's leaves reach 9.3 M elements) came out
+    8.6e-5 low, every clipped leaf as far off the JAX package's
+    (``tests/codec_step_precision.py``). On the card torch reduces in a
+    tree, in the gradients' type."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if grads and grads[0].device.type == "cpu":
+        norms = [n.to(grads[0].dtype) for n in torch._foreach_norm(grads, 2, dtype=torch.float64)]
+    else:
+        norms = torch._foreach_norm(grads)
+    norm = torch.linalg.vector_norm(torch.stack(norms))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm

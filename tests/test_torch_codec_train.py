@@ -10,7 +10,15 @@ is one ``jax.jit`` of ``jax.value_and_grad``, never a flax ``init``.
 
 Tolerances: the step's logs 1e-5 relative; each
 gradient leaf 1e-4 relative l2 (a leaf that is zero by construction holds
-rounding noise: compared on the scale of the largest leaf); the parameters
+rounding noise: compared on the scale of the largest leaf), the clip's
+global norm 1e-6 relative. Measured (``tests/codec_step_precision.py``, on
+the ``(2,3,16,80,3)`` clip of ``tests/test_torch_mesh_nets.py``, which holds
+that step too): the raw gradients' worst leaf, the prior's second
+``GlobalAgg``'s ``fc_w``, 9.3e-6 from JAX's in fp32 and 7.2e-7 in float64 on
+both sides (the rest is the fp32 casts both stacks keep: the attention's
+logits, the loss terms); the clipped step the same, since the port's clip
+sums its norm in float64 on the CPU (summed in fp32 it was 8.6e-5 low, and
+every clipped leaf 1e-4 off); the parameters
 after one Adam step 1e-5 abs (an element moves by at most lr = 1e-4); the
 pipelined step's second update (its encode side one update stale) 1e-4
 relative l2 against the JAX package's (measured 1.8e-5), 1e-6 against a
@@ -143,7 +151,7 @@ def _assert_gradient_tree_matches(jax_step, port_step):
     want, got = flatten_tree(jax_step["grads"]), flatten_tree(port_step["grads"])
     assert set(got) == set(want) and any(k.startswith("surrogate.") for k in want)
     norm = np.sqrt(sum((v.astype(np.float64) ** 2).sum() for v in want.values()))
-    np.testing.assert_allclose(port_step["grad_norm"], norm, rtol=1e-4)
+    np.testing.assert_allclose(port_step["grad_norm"], norm, rtol=1e-6)
     assert norm > TRAIN["gradient_clipping"]  # the clip is active in this test
     top = max(np.abs(v).max() for v in want.values())
     for k, v in want.items():

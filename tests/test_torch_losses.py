@@ -137,3 +137,20 @@ def test_clip_decay_adam_matches_optax_chain(clip, wd):
         opt.step()
         for k in shapes:
             np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]), rtol=1e-5, atol=1e-6)
+
+
+def test_clip_norm_of_a_large_leaf_is_the_float64_norm():
+    """``clip_by_global_norm_`` on the CPU: the global norm of a 9.3 M-element
+    leaf (the size of the codec surrogate's largest) beside a small one
+    within 1e-7 of the float64 norm (torch's fp32 norm sums in fp32 on the
+    CPU); the clipped gradient's norm is ``max_norm``."""
+    g = torch.Generator().manual_seed(8)
+    leaves = [torch.rand(9_289_728, generator=g), torch.randn(3, 5, generator=g)]
+    params = [torch.nn.Parameter(torch.zeros_like(v)) for v in leaves]
+    for p, v in zip(params, leaves):
+        p.grad = v.clone()
+    exact = float(np.sqrt(sum((v.double() ** 2).sum().item() for v in leaves)))
+    norm = clip_by_global_norm_(params, 1.0)
+    assert abs(norm.item() - exact) <= 1e-7 * exact
+    clipped = float(np.sqrt(sum((p.grad.double() ** 2).sum().item() for p in params)))
+    assert abs(clipped - 1.0) <= 1e-6

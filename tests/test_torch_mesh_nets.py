@@ -25,13 +25,15 @@ Tolerances:
   pool is summed by shards); ``proj3_b``'s gradient is zero by construction
   (the softmax over the keys cancels a bias added to every key) and holds
   rounding noise: left out (the tolerances of ``tests/test_torch_mesh.py``);
-- a split step against the JAX package's unsplit step: as
-  ``tests/test_torch_codec_train.py`` and ``tests/test_torch_haar.py`` hold the
-  unsplit one: logs 1e-5 relative, each gradient leaf 1e-4 relative l2
-  (the Haar step: its whole gradient 1e-4 relative l2); a codec leaf that
-  the port's own unsplit step holds no closer to JAX's at this width (the
-  prior's second ``GlobalAgg``'s attention leaves, 1.02-1.08e-4 on the CPU)
-  within the unsplit step's distance plus 1e-6 of the leaf;
+- a split step, and the codec's unsplit step, against the JAX package's
+  unsplit step: as ``tests/test_torch_codec_train.py`` and
+  ``tests/test_torch_haar.py`` hold the unsplit one: logs 1e-5 relative,
+  each gradient leaf 1e-4 relative l2 (the Haar step: its whole gradient
+  1e-4 relative l2); the codec step's clip norm 1e-6 relative (the
+  unsplit step's worst leaf at this width, the prior's second
+  ``GlobalAgg``'s ``fc_w``, sits 9.3e-6 from JAX's; before the clip's norm
+  was summed in float64 on the CPU it sat 1.08e-4, every leaf scaled by
+  the norm's ~1e-4 error, 8.6e-5 in ``tests/codec_step_precision.py``);
 - the surrogates' loss terms on shards: within 1e-6 relative, the swapped
   values the same bits, the gradient within 1e-6 of max |ref|;
 - the host codec's input and output and the bpp: the same bits, split and
@@ -299,19 +301,30 @@ def test_codec_split_step_matches_jax(deart):
     """The sp 2 step against the JAX package's unsplit step: its logs, and
     leaf by leaf its gradient (the port's clipped leaves scaled back by
     norm / clip) within 1e-4 relative l2; a leaf zero by construction on
-    the scale of the largest. Where the port's own unsplit step is further
-    from JAX's than that at this width (the attention leaves of the prior's
-    second ``GlobalAgg``: 1.02-1.08e-4 on the CPU), the split step may be
-    no further from it than the unsplit step plus 1e-6 of the leaf."""
+    the scale of the largest."""
     _, _, _, jax_step, _, models = _codec_case(deart)
-    logs = models[2].get_current_log()
+    _assert_codec_step_matches_jax(models[2], jax_step, deart)
+
+
+def test_codec_unsplit_step_matches_jax():
+    """The port's unsplit step at this width against the JAX package's, as
+    the split step is held: its clip norm within 1e-6 of JAX's (summed in
+    float64), the attention leaves of the prior's second ``GlobalAgg``
+    inside 1e-4 (9.3e-6 measured). The de-artifact step's unsplit leaves
+    are held in ``tests/test_torch_codec_train.py``."""
+    _, _, _, jax_step, _, models = _codec_case(False)
+    _assert_codec_step_matches_jax(models[1], jax_step, False)
+
+
+def _assert_codec_step_matches_jax(model, jax_step, deart):
+    logs = model.get_current_log()
     for k, want in jax_step["logs"].items():
         np.testing.assert_allclose(logs[k], want, rtol=1e-5, atol=1e-12, err_msg=k)
     want = flatten_tree(jax_step["grads"])
-    got, unsplit = (flatten_tree(export_jax_grads(models[sp].params)) for sp in (2, 1))
+    got = flatten_tree(export_jax_grads(model.params))
     assert set(got) == set(want) and (deart or any(k.startswith("surrogate.") for k in want))
     norm = np.sqrt(sum((v.astype(np.float64) ** 2).sum() for v in want.values()))
-    np.testing.assert_allclose(float(models[2].grad_norm), norm, rtol=1e-4)
+    np.testing.assert_allclose(float(model.grad_norm), norm, rtol=1e-6)
     clip = CODEC_TRAIN["gradient_clipping"]
     assert norm > clip   # the clip is active in this test
     top = max(np.abs(v).max() for v in want.values())
@@ -320,9 +333,7 @@ def test_codec_split_step_matches_jax(deart):
         if np.abs(v).max() < 1e-6 * top:
             assert np.abs(g - v).max() <= 1e-6 * top, k
             continue
-        own = np.linalg.norm(unsplit[k] * (norm / clip) - v)
-        limit = max(1e-4 * np.linalg.norm(v), own + 1e-6 * np.linalg.norm(v))
-        assert np.linalg.norm(g - v) <= limit, (k, np.linalg.norm(g - v) / np.linalg.norm(v))
+        assert np.linalg.norm(g - v) <= 1e-4 * np.linalg.norm(v), (k, np.linalg.norm(g - v) / np.linalg.norm(v))
 
 
 def test_codec_split_host_codec_sees_whole_frames(monkeypatch):
